@@ -1,0 +1,181 @@
+"""Port parity, kernels: the plain version of the Hopper block-sparse
+forward (`repro_torch.kernels.block_sparse_attn.fused_forward_reference`,
+what the wrapper runs on CPU tensors) against the JAX package's Pallas
+kernel in interpret mode and against its three-step oracle; the head-grouping
+wrapper against the JAX wrapper; the wrapper's input checks; and the rule
+that the port imports nothing of JAX."""
+import ast
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.core.sparse_attention import bcsr_from_blockmask as j_bcsr
+from repro.kernels import ref as jref
+from repro.kernels.block_sparse_attn import _fused_forward
+from repro.kernels.ops import spion_attention_kernel as j_kernel
+from repro_torch import resolve_device
+from repro_torch.configs import get_config as tget_config
+from repro_torch.core.sparse_attention import BCSR
+from repro_torch.kernels.block_sparse_attn import (block_sparse_fwd,
+                                                   fused_forward_reference)
+from repro_torch.kernels.ops import spion_attention_kernel as t_kernel
+from torch_parity import (FWD_TOL, assert_close, normal, random_blockmask,
+                          to_np, to_torch)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+# the same cases as chip_smoke.py's sweep, at S <= 256:
+# (dtype, causal, sliding_window, G, offsets (row0, col0) or None)
+SWEEP = [
+    ("float32", True, None, 1, None),
+    ("float32", False, None, 4, None),
+    ("float32", True, 48, 7, None),
+    ("float32", True, None, 4, (2, 1)),
+    ("float32", False, None, 1, (1, 0)),
+    ("bfloat16", True, None, 7, None),
+    ("bfloat16", False, None, 1, None),
+    ("bfloat16", True, 48, 4, (2, 1)),
+]
+
+
+def _case(dtype, G, offsets, seed=0):
+    """Inputs of one sweep case: N=2, S=128, hd=32, block=32, a random
+    block mask with an empty row (nvalid 0) and tables padded two entries
+    past the widest row, clamped (the kernels' convention)."""
+    rng = np.random.default_rng(seed)
+    N, S, hd, block = 2, 128, 32, 32
+    extra = 0 if offsets is None else 32          # a halo block on the left
+    nrb, ncb = S // block, (S + extra) // block
+    mask = rng.random((nrb, ncb)) < 0.5
+    mask[np.arange(nrb), np.arange(nrb) + extra // block] = True
+    mask[1] = False
+    b = j_bcsr(mask, block, max_k=int(mask.sum(1).max()) + 2)
+    col = np.maximum(np.asarray(b.col_idx), 0).astype(np.int32)
+    nvalid = np.asarray(b.nvalid)
+    q = normal(rng, (N, G, S, hd), dtype)
+    k = normal(rng, (N, S + extra, hd), dtype)
+    v = normal(rng, (N, S + extra, hd), dtype)
+    seq_len = None if offsets is None else 4 * S
+    return q, k, v, col, nvalid, np.asarray(b.col_idx), block, seq_len
+
+
+@pytest.mark.parametrize("dtype,causal,sw,G,offsets", SWEEP)
+def test_plain_forward_matches_pallas_kernel(dtype, causal, sw, G, offsets):
+    q, k, v, col, nvalid, _, block, seq_len = _case(dtype, G, offsets)
+    want_o, want_lse = _fused_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(col),
+        jnp.asarray(nvalid), block=block, causal=causal, sliding_window=sw,
+        interpret=True, seq_len=seq_len,
+        offsets=None if offsets is None else jnp.asarray(offsets, jnp.int32))
+    got_o, got_lse = fused_forward_reference(
+        to_torch(q), to_torch(k), to_torch(v), to_torch(col),
+        to_torch(nvalid), block=block, causal=causal, sliding_window=sw,
+        offsets=offsets, seq_len=seq_len)
+    assert got_o.dtype == getattr(torch, dtype)
+    assert_close(got_o, want_o, FWD_TOL[dtype], "o")
+    want_lse = np.asarray(want_lse)
+    inf = np.isinf(want_lse)
+    assert inf[:, :, 32:64].all()                  # the empty row-block
+    np.testing.assert_array_equal(np.isinf(to_np(got_lse)), inf)
+    np.testing.assert_allclose(to_np(got_lse)[~inf], want_lse[~inf],
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,causal,sw,G,offsets",
+                         [c for c in SWEEP if c[4] is None])
+def test_plain_forward_matches_three_step_oracle(dtype, causal, sw, G,
+                                                 offsets):
+    """The JAX oracle marks padding with -1 (col_idx), the kernels with
+    nvalid: both describe the same pattern."""
+    q, k, v, col, nvalid, col_raw, block, _ = _case(dtype, G, offsets)
+    got, _ = fused_forward_reference(
+        to_torch(q), to_torch(k), to_torch(v), to_torch(col),
+        to_torch(nvalid), block=block, causal=causal, sliding_window=sw)
+    for g in range(G):
+        want = jref.fused_ref(jnp.asarray(q[:, g]), jnp.asarray(k),
+                              jnp.asarray(v), jnp.asarray(col_raw),
+                              block=block, causal=causal, sliding_window=sw)
+        assert_close(got[:, g], want, FWD_TOL[dtype], f"g={g}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_wrapper_matches_reference_wrapper(dtype):
+    """ops.spion_attention_kernel (head grouping h = kv*G + g, table
+    clamping) on CPU tensors against the JAX wrapper, GQA G=2."""
+    jc = jget_config("qwen2-7b").reduced()
+    tc = tget_config("qwen2-7b").reduced()
+    rng = np.random.default_rng(1)
+    B, S, H, KV, hd, blk = 2, 128, 4, 2, 32, 32
+    q = normal(rng, (B, S, H, hd), dtype)
+    k = normal(rng, (B, S, KV, hd), dtype)
+    v = normal(rng, (B, S, KV, hd), dtype)
+    mask = random_blockmask(rng, S // blk, causal=True)
+    jb = j_bcsr(mask, blk)
+    want = j_kernel(jc, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jb,
+                    interpret=True)
+    tb = BCSR(to_torch(jb.col_idx), to_torch(jb.nvalid), blk, S)
+    got = t_kernel(tc, to_torch(q), to_torch(k), to_torch(v), tb)
+    assert_close(got, want, FWD_TOL[dtype])
+
+
+def test_wrapper_runs_plain_version_on_cpu_and_counts_only_launches():
+    q, k, v, col, nvalid, _, block, _ = _case("float32", 2, None)
+    before = block_sparse_fwd.launches
+    qt = to_torch(q).requires_grad_()
+    o, lse = block_sparse_fwd(qt, to_torch(k), to_torch(v), to_torch(col),
+                              to_torch(nvalid), block=block, causal=True)
+    want_o, want_lse = fused_forward_reference(
+        to_torch(q), to_torch(k), to_torch(v), to_torch(col),
+        to_torch(nvalid), block=block, causal=True)
+    assert torch.equal(o.detach(), want_o) and torch.equal(lse, want_lse)
+    assert block_sparse_fwd.launches == before
+    o.sum().backward()                 # the plain version is differentiable
+    assert torch.isfinite(qt.grad).all()
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v, col, nvalid, _, block, _ = _case("float32", 2, None)
+    qt, kt, vt = to_torch(q), to_torch(k), to_torch(v)
+    ct, nt = to_torch(col), to_torch(nvalid)
+    with pytest.raises(TypeError, match="dtype"):
+        block_sparse_fwd(qt, kt.double(), vt, ct, nt, block=block)
+    with pytest.raises(ValueError, match="block"):
+        block_sparse_fwd(qt, kt, vt, ct, nt, block=24)
+    with pytest.raises(ValueError, match="contiguous"):
+        block_sparse_fwd(qt.transpose(2, 3).contiguous().transpose(2, 3),
+                         kt, vt, ct, nt, block=block)
+    with pytest.raises(TypeError, match="int32"):
+        block_sparse_fwd(qt, kt, vt, ct.long(), nt, block=block)
+    with pytest.raises(ValueError, match="head_dim"):
+        block_sparse_fwd(qt[..., :24].contiguous(), kt[..., :24].contiguous(),
+                         vt[..., :24].contiguous(), ct, nt, block=block)
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+
+
+def test_port_imports_nothing_of_jax():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    bad = [(f.relative_to(ROOT), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
