@@ -9,13 +9,16 @@ Phases (each one fails the run; nothing falls back to the CPU):
   3. hold the block-sparse attention kernel against its plain PyTorch
      version on the card: a sweep over fp32/bf16, causal / non-causal /
      causal + sliding window, G in {1, 4, 7}, empty rows, clamped padded
-     tables and global offsets, then the serving path's own shape;
+     tables and global offsets, then the serving path's own shape in fp32
+     and in bf16 (each bf16 element of o within 2 bf16 ulps of itself);
   4. serve qwen2-7b at full width and depth in bf16 with random weights
      from a seed: ServeEngine(slots=4, max_len=2048) over a SPION plan of
      random causal block masks, six requests of 16 new tokens; the kernel's
      launch count must rise by 28 (one per layer) for every fused prefill;
      then one 1024-token prompt prefilled through a fully covering plan
-     (the kernel) and densely must give the same logits;
+     (the kernel) and densely must give the same logits in fp32, and in
+     bf16 the kernel's prefill must be no farther from the fp32 logits
+     than the dense bf16 prefill is;
   5. time the kernel, its plain version and PyTorch's
      scaled_dot_product_attention at the path's shape beside the kernel's
      bound, and the serving prefill and decode.
@@ -37,8 +40,13 @@ DEVICE = "cuda"
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
 TOL_O = {"float32": 3e-5, "bfloat16": 6e-2}
+BF16_ULPS = 2     # bf16 o: each element within 2 units in its last place
 TOL_LSE = 1e-4
 TOL_LOGITS = 6e-2
+# bf16 prefill through the kernel vs through dense attention, each against
+# the fp32 dense logits: the kernel's max and mean distance may exceed the
+# dense path's by 10% (on the card they read 0.986 and 0.964 of it)
+BF16_LOGITS_SLACK = 1.1
 PATH = dict(N=4, G=7, S=2048, hd=128, block=128)   # qwen2-7b prefill, B=1
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/block_sparse_fwd.cuh"
 KERNEL_REPLACES = "src/repro/kernels/block_sparse_attn.py:138"
@@ -98,8 +106,26 @@ def random_tables(rng, nrb, ncb, *, causal, empty_rows=(), pad=2,
     return col, nvalid
 
 
+def o_limit(dtype, o, ref):
+    """Limit on |o - plain|, element by element. Kernel and plain version
+    both compute in fp32 and round once to o's dtype, so in bf16 an element
+    may differ by one rounding step of its own magnitude: the limit is
+    BF16_ULPS bf16 ulps of it, plus 1e-6 for fp32 summation order (capped at
+    TOL_O). Long causal rows average many values to a typical |o| near
+    0.05, while the first rows keep |o| near 3; a limit taken from the
+    largest |o| would be as large as the typical value."""
+    if dtype == "float32":
+        return TOL_O[dtype]
+    import torch
+    top = torch.maximum(o.float().abs(), ref.float().abs())
+    _, e = torch.frexp(top)                   # top = m * 2**e, m in [0.5, 1)
+    ulp = torch.where(top > 0, torch.ldexp(torch.ones_like(top), e - 8), 0.0)
+    return (BF16_ULPS * ulp + 1e-6).clamp(max=TOL_O[dtype])
+
+
 def compare_kernel(case, gen, rng):
-    """Kernel vs plain version on one case; returns (max |do|, inputs)."""
+    """Kernel vs plain version on one case; returns (max |do|, the limit of
+    that element, the largest |do| / limit, mean |plain o|, inputs)."""
     import torch
     from repro_torch.kernels.block_sparse_attn import (
         block_sparse_fwd, fused_forward_reference)
@@ -124,15 +150,22 @@ def compare_kernel(case, gen, rng):
     o, lse = block_sparse_fwd(q, k, v, colt, nvt, **kw)
     torch.cuda.synchronize()
     ro, rlse = fused_forward_reference(q, k, v, colt, nvt, **kw)
-    err = (o.float() - ro.float()).abs().max().item()
-    check(math.isfinite(err) and err <= TOL_O[case["dtype"]],
-          f"kernel o differs by {err} on {case}")
+    diff = (o.float() - ro.float()).abs()
+    limit = o_limit(case["dtype"], o, ro)
+    share = (diff / limit).max().item()       # 1 is the limit
+    err = diff.max().item()
+    tol = limit if isinstance(limit, float) else \
+        limit.flatten()[diff.argmax()].item()
+    typical = ro.float().abs().mean().item()
+    check(math.isfinite(share) and share <= 1.0,
+          f"kernel o differs by up to {err} (up to {share:.3g} of the "
+          f"limit; mean |o| {typical}) on {case}")
     inf, rinf = torch.isinf(lse), torch.isinf(rlse)
     check(torch.equal(inf, rinf), f"lse +inf pattern differs on {case}")
     lerr = (lse[~inf] - rlse[~rinf]).abs().max().item() if (~inf).any() \
         else 0.0
     check(lerr <= TOL_LSE, f"kernel lse differs by {lerr} on {case}")
-    return err, (q, k, v, colt, nvt, kw)
+    return err, tol, share, typical, (q, k, v, colt, nvt, kw)
 
 
 def phase_kernel_sweep(gen, rng):
@@ -152,17 +185,26 @@ def phase_kernel_sweep(gen, rng):
     sweep.append(dict(dtype="bfloat16", causal=False, G=7, N=2, S=256,
                       hd=128, block=64, offsets=(2, 1), pad=4))
     worst = {"float32": 0.0, "bfloat16": 0.0}
+    most = 0.0         # the largest |do| / limit of a bf16 element
     for case in sweep:
-        err, _ = compare_kernel(case, gen, rng)
+        err, _, share, _, _ = compare_kernel(case, gen, rng)
         worst[case["dtype"]] = max(worst[case["dtype"]], err)
+        if case["dtype"] == "bfloat16":
+            most = max(most, share)
     log(f"kernel sweep: {len(sweep)} cases pass; worst |o - plain| "
         f"fp32 {worst['float32']:.3e} (tol {TOL_O['float32']}), bf16 "
-        f"{worst['bfloat16']:.3e} (tol {TOL_O['bfloat16']})")
-    path = dict(dtype="bfloat16", causal=True, pad=0, **PATH)
-    err, inputs = compare_kernel(path, gen, rng)
-    log(f"kernel at the path's shape {PATH} bf16 causal: |o - plain| = "
-        f"{err:.3e} (tol {TOL_O['bfloat16']})")
-    return err, inputs
+        f"{worst['bfloat16']:.3e} (no bf16 element past {most:.3f} of its "
+        f"limit of {BF16_ULPS} bf16 ulps of itself)")
+    # the path's shape in fp32 (the same kernel template, held at 3e-5),
+    # then in bf16 as the serving prefill runs it
+    for dtype in ("float32", "bfloat16"):
+        path = dict(dtype=dtype, causal=True, pad=0, **PATH)
+        err, tol, share, typical, inputs = compare_kernel(path, gen, rng)
+        log(f"kernel at the path's shape {PATH} {dtype} causal: "
+            f"|o - plain| = {err:.3e} (that element's limit {tol:.3e}; "
+            f"no element past {share:.3f} of its limit; mean |o| "
+            f"{typical:.3e})")
+    return err, tol, inputs
 
 
 def kernel_timing(inputs):
@@ -224,29 +266,36 @@ def profile_serving(eng, cfg, rng):
         "decode tick": lambda: decode(eng.params, eng.pool.cache(eng._pt_dev),
                                       tok1, pos, eng.exec),
     }
+    calls = 3
+
+    def window(fn):
+        """ms a call of fn() on the host clock over `calls` calls."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / calls * 1e3
+
     for label, fn in steps.items():
         with torch.inference_mode():
             fn()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) / 3 * 1e3               # ms
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
+            plain_wall = window(fn)
+            # busy time and wall time from the same profiled calls
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                wall = window(fn)
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
                 and e.self_device_time_total > 0]
-        busy = sum(e.self_device_time_total for e in rows) / 1e3     # ms
-        log(f"profile {label}: {wall:.2f} ms a call (host clock, "
-            f"unprofiled); device busy {busy:.2f} ms; idle share "
-            f"{max(0.0, 1 - busy / wall):.3f}")
+        check(rows, f"the profiler saw no device time in {label}")
+        busy = sum(e.self_device_time_total for e in rows) / 1e3 / calls
+        log(f"profile {label}, {calls} calls: {wall:.2f} ms a call on the "
+            f"host clock under the profiler ({plain_wall:.2f} ms without "
+            f"it); device busy {busy:.2f} ms a call; idle share of the "
+            f"profiled window {max(0.0, 1 - busy / wall):.3f}")
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
-                f"{e.count:5d}x {e.key[:90]}")
+            log(f"  {e.self_device_time_total / 1e3 / calls:9.3f} ms "
+                f"{e.count // calls:5d}x {e.key[:90]}")
 
 
 def cast_params(tree, dtype):
@@ -259,9 +308,9 @@ def cast_params(tree, dtype):
     return ParamTree(conv(tree))
 
 
-def covering_vs_dense(cfg, params, toks):
-    """max |logits| between a prefill through a fully covering plan (the
-    kernel in every layer) and a dense one."""
+def covering_and_dense(cfg, params, toks):
+    """fp32 logits of a prefill through a fully covering plan (the kernel
+    in every layer) and of a dense one."""
     import torch
     from repro_torch.kernels.block_sparse_attn import block_sparse_fwd
     from repro_torch.launch.steps import causal_band_tables, make_prefill_step
@@ -275,7 +324,7 @@ def covering_vs_dense(cfg, params, toks):
         check(block_sparse_fwd.launches - before == cfg.num_layers,
               "the covering prefill did not run the kernel in every layer")
         ld, _, _ = prefill(params, {"tokens": toks}, None)
-        return (ls.float() - ld.float()).abs().max().item()
+        return ls.float(), ld.float()
 
 
 def phase_serve(gen, rng):
@@ -356,35 +405,60 @@ def phase_serve(gen, rng):
           f"{cfg.num_layers} layers")
     prefill_ms = 1e3 * float(np.median(prefill_s))
     decode_ms = 1e3 * float(np.median(decode_s))
+    # window totals beside the medians: a stall inside the window moves
+    # these and not the medians
+    prefill_mean = 1e3 * sum(prefill_s) / len(prefill_s)
+    decode_mean = 1e3 * sum(decode_s) / len(decode_s)
     log(f"serve: prompts {lens.tolist()}, 6 x 16 tokens in {wall:.2f} s; "
-        f"kernel launches {launches} over {prefills} fused "
-        f"prefills; prefill {prefill_ms:.2f} ms median "
-        f"({', '.join(f'{1e3 * t:.1f}' for t in prefill_s)}); decode "
-        f"{decode_ms:.2f} ms per tick (median) over {len(decode_s)} ticks")
+        f"kernel launches {launches} over {prefills} fused prefills; "
+        f"prefill {prefill_ms:.2f} ms median, all {len(prefill_s)} "
+        f"prefills {1e3 * sum(prefill_s):.2f} ms ({prefill_mean:.2f} ms "
+        f"each) ({', '.join(f'{1e3 * t:.1f}' for t in prefill_s)}); decode "
+        f"{decode_ms:.2f} ms per tick median, all {len(decode_s)} ticks "
+        f"{1e3 * sum(decode_s):.2f} ms ({decode_mean:.2f} ms each)")
     profile_serving(eng, cfg, rng)
 
-    # sparse (fully covering plan, so the kernel) vs dense prefill: checked
-    # in fp32 (the same weights, cast), where the two are the same function
-    # up to summation order; in bf16 the dense path rounds scores and
-    # probabilities to bf16 (the JAX package's semantics) and the kernel
-    # keeps them in fp32, so the bf16 difference is reported, not checked
+    # sparse (fully covering plan, so the kernel) vs dense prefill of one
+    # prompt, in bf16 and with the same weights cast to fp32. In fp32 the two
+    # are the same function up to summation order: gated at TOL_LOGITS. In
+    # bf16 the dense path rounds scores and probabilities to bf16 (the JAX
+    # package's semantics) where the kernel keeps them in fp32, so both bf16
+    # prefills are held against the fp32 dense logits: the kernel's path
+    # may be no farther from them than BF16_LOGITS_SLACK x the dense path.
     del eng
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 1024)),
                            device=DEVICE)
-    err = {}
-    for dt in ("bfloat16", "float32"):
-        c = cfg.replace(dtype=dt)
-        p = params if dt == cfg.dtype else cast_params(params, torch.float32)
-        err[dt] = covering_vs_dense(c, p, toks)
-        del p
-    check(math.isfinite(err["float32"]) and err["float32"] <= TOL_LOGITS,
-          f"covering sparse prefill logits differ from dense by "
-          f"{err['float32']} in fp32")
-    log(f"covering sparse prefill vs dense, 1024 tokens: max |logits| "
-        f"difference fp32 {err['float32']:.4e} (tol {TOL_LOGITS}); bf16 "
-        f"{err['bfloat16']:.4e} (reported only)")
+    s16, d16 = covering_and_dense(cfg, params, toks)
+    p32 = cast_params(params, torch.float32)
+    s32, d32 = covering_and_dense(cfg.replace(dtype="float32"), p32, toks)
+    del p32
+
+    def diff(a, b):
+        d = (a - b).abs()
+        return d.max().item(), d.mean().item()
+    e32, e32_mean = diff(s32, d32)
+    es16, es16_mean = diff(s16, d32)
+    ed16, ed16_mean = diff(d16, d32)
+    gap16, _ = diff(s16, d16)
+    log(f"covering sparse prefill vs dense, 1024 tokens (mean |logit| "
+        f"{d32.abs().mean().item():.4e}, max {d32.abs().max().item():.4e}): "
+        f"fp32 sparse - fp32 dense max {e32:.4e} mean {e32_mean:.4e} (tol "
+        f"{TOL_LOGITS}); against fp32 dense, bf16 sparse max {es16:.4e} "
+        f"mean {es16_mean:.4e}, bf16 dense max {ed16:.4e} mean "
+        f"{ed16_mean:.4e} (the sparse at most {BF16_LOGITS_SLACK} x the "
+        f"dense); bf16 "
+        f"sparse - bf16 dense max {gap16:.4e}")
+    check(math.isfinite(e32) and e32 <= TOL_LOGITS,
+          f"covering sparse prefill logits differ from dense by {e32} in "
+          f"fp32")
+    check(math.isfinite(es16) and es16 <= BF16_LOGITS_SLACK * ed16 and
+          es16_mean <= BF16_LOGITS_SLACK * ed16_mean,
+          f"the bf16 sparse prefill is farther from the fp32 logits "
+          f"({es16}, mean {es16_mean}) than {BF16_LOGITS_SLACK} x the bf16 "
+          f"dense one ({ed16}, mean {ed16_mean})")
     return dict(launches=launches, prefill_ms=prefill_ms,
-                decode_ms=decode_ms)
+                decode_ms=decode_ms, prefill_mean=prefill_mean,
+                decode_mean=decode_mean)
 
 
 def main():
@@ -417,7 +491,7 @@ def main():
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
-    err, inputs = phase_kernel_sweep(gen, rng)
+    err, tol, inputs = phase_kernel_sweep(gen, rng)
     serve = phase_serve(gen, rng)
     timing = kernel_timing(inputs)
 
@@ -425,11 +499,12 @@ def main():
         "name": "block_sparse_fwd", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": serve["launches"], "max_abs_err": err,
-        "tol": TOL_O["bfloat16"], "ms": timing["ms"],
+        "tol": tol, "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}]}
-    log(f"serve prefill_ms {serve['prefill_ms']:.3f} decode_ms_per_tick "
-        f"{serve['decode_ms']:.3f}")
+    log(f"serve prefill_ms median {serve['prefill_ms']:.3f} mean "
+        f"{serve['prefill_mean']:.3f}; decode_ms_per_tick median "
+        f"{serve['decode_ms']:.3f} mean {serve['decode_mean']:.3f}")
     log(card_line())
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -70,10 +70,10 @@ class SpionConfig:
     # kernel-side: max active column-blocks per row-block (padded BCSR width).
     # None -> derived from the generated pattern at transition time.
     max_blocks_per_row: Optional[int] = None
-    # sparse-phase attention implementation: "auto" picks the Hopper
-    # block-sparse kernel for CUDA tensors and the BCSR gather for CPU
-    # tensors; "fused" / "jnp" force one ("fused" on CPU tensors runs the
-    # kernel's plain PyTorch version).
+    # sparse-phase attention implementation: CUDA tensors always take the
+    # Hopper block-sparse kernel ("jnp" raises there); on CPU tensors "auto"
+    # and "jnp" take the BCSR gather and "fused" the kernel's plain PyTorch
+    # version.
     kernel: str = "auto"
 
 

@@ -26,14 +26,24 @@ _PHASES = ("train", "prefill", "decode")
 def resolve_kernel(cfg, q) -> str:
     """What the sparse forward of `q` dispatches to ("fused" / "jnp").
 
-    cfg.spion.kernel "fused" or "jnp" forces one path; "auto" takes the Hopper kernel ("fused") for CUDA tensors and the plain
-    gather ("jnp", the JAX package's name for it) for CPU tensors. The JAX
-    package resolves meshless "auto" to its gather everywhere but on a TPU,
-    because its GPU lowering was never ported; here the kernel exists."""
+    The tensor's device picks the path. On CUDA tensors it is always the
+    Hopper kernel ("fused"), and cfg.spion.kernel="jnp" raises. On CPU
+    tensors "auto" takes the plain gather ("jnp", the JAX package's name for
+    it) and "fused" the kernel's plain version. The JAX package resolves
+    meshless "auto" to its gather everywhere but on a TPU, because its GPU
+    lowering was never ported; here the kernel exists."""
     impl = cfg.spion.kernel
-    if impl != "auto":
-        return impl
-    return "fused" if q.is_cuda else "jnp"
+    if impl not in ("auto", "fused", "jnp"):
+        raise ValueError(f"cfg.spion.kernel must be auto/fused/jnp, got "
+                         f"{impl!r}")
+    if q.is_cuda:
+        if impl == "jnp":
+            raise ValueError(
+                'cfg.spion.kernel="jnp" asks for the gather, which runs on '
+                "CPU tensors only; on the card the sparse forward is the "
+                'Hopper kernel (use "auto" or "fused")')
+        return "fused"
+    return "jnp" if impl == "auto" else impl
 
 
 class SparseAttentionExec:

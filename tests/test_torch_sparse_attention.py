@@ -209,3 +209,24 @@ def test_clamped_padding_counts_again_in_the_gather_path_only():
     assert np.abs(to_np(gather) - to_np(dense)).max() > 0.1
     kernel = t_kernel(tc, to_torch(q), to_torch(k), to_torch(v), band)
     assert_close(kernel, dense, 3e-5)
+
+
+@pytest.mark.parametrize("kernel,on_card,want", [
+    ("auto", False, "jnp"), ("jnp", False, "jnp"), ("fused", False, "fused"),
+    ("auto", True, "fused"), ("fused", True, "fused"), ("jnp", True, None)])
+def test_the_tensor_device_picks_the_sparse_path(kernel, on_card, want):
+    """CUDA tensors always take the kernel and refuse "jnp"; the setting
+    picks between gather and plain kernel only for CPU tensors. A stand-in
+    with `is_cuda` plays the card's tensor."""
+    import dataclasses
+    import types
+
+    from repro_torch.core.attention_exec import resolve_kernel
+    _, tc = configs()
+    cfg = tc.replace(spion=dataclasses.replace(tc.spion, kernel=kernel))
+    q = types.SimpleNamespace(is_cuda=on_card)
+    if want is None:
+        with pytest.raises(ValueError, match="CPU tensors only"):
+            resolve_kernel(cfg, q)
+    else:
+        assert resolve_kernel(cfg, q) == want
