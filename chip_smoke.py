@@ -11,6 +11,8 @@ Phases (each one fails the run; nothing falls back to the CPU):
      causal + sliding window, G in {1, 4, 7}, empty rows, clamped padded
      tables and global offsets, then the serving path's own shape in fp32
      and in bf16 (each bf16 element of o within 2 bf16 ulps of itself);
+     then the dQ and dK/dV kernels likewise, with empty columns, the plan's
+     and the fallback transposed tables, and the serving path's shape;
   4. serve qwen2-7b at full width and depth in bf16 with random weights
      from a seed: ServeEngine(slots=4, max_len=2048) over a SPION plan of
      random causal block masks, six requests of 16 new tokens; the kernel's
@@ -19,9 +21,18 @@ Phases (each one fails the run; nothing falls back to the CPU):
      (the kernel) and densely must give the same logits in fp32, and in
      bf16 the kernel's prefill must be no farther from the fp32 logits
      than the dense bf16 prefill is;
-  5. time the kernel, its plain version and PyTorch's
-     scaled_dot_product_attention at the path's shape beside the kernel's
-     bound, and the serving prefill and decode.
+  5. train spion-lra at its published width under the LRA ListOps preset
+     (batch 128 x 2048 tokens) through Trainer for 20 steps: dense steps,
+     the flood-fill transition, then sparse steps that must each launch 8
+     forward, 4 dQ and 4 dK/dV kernels; profile one sparse step;
+  6. hold the three kernels against their plain versions at the training
+     path's shape on the trained plan's tables, in fp32 and bf16;
+  7. one train step through a fully covering plan against the dense step:
+     equal in fp32, and in bf16 no farther from the fp32 gradients than
+     1.1 x the dense step, leaf by leaf on each layer's attention leaves;
+  8. time every kernel, its plain version and PyTorch's
+     scaled_dot_product_attention (forward, or its backward for dQ and
+     dK/dV) beside the kernel's bound.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -48,8 +59,22 @@ TOL_LOGITS = 6e-2
 # dense path's by 10% (on the card they read 0.986 and 0.964 of it)
 BF16_LOGITS_SLACK = 1.1
 PATH = dict(N=4, G=7, S=2048, hd=128, block=128)   # qwen2-7b prefill, B=1
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/block_sparse_fwd.cuh"
-KERNEL_REPLACES = "src/repro/kernels/block_sparse_attn.py:138"
+# spion-lra under the LRA ListOps preset: N = B * KV = 128 * 4
+TRAIN_PATH = dict(N=512, G=1, S=2048, hd=16, block=64)
+# dq, dk, dv (fp32 outputs) against their plain versions: fp32 inputs
+# within TOL_GRAD and at most GRAD_SHARE of the mean |grad|; bf16 inputs
+# within BF16_ULPS bf16 ulps of the element plus BF16_GRAD_FLOOR
+TOL_GRAD = 1e-3
+GRAD_SHARE = 0.01
+BF16_GRAD_FLOOR = 2e-6   # over 3x the most an element needed on the card
+TOL_PLAN = 1e-6     # dK/dV through the plan's tables vs bcsr_transpose's
+SOURCES = "src/repro_torch/kernels/csrc/"
+REPLACES = "src/repro/kernels/block_sparse_attn.py:"
+KERNELS = {         # wrapper: (source, the TPU kernel it replaces)
+    "block_sparse_fwd": (SOURCES + "block_sparse_fwd.cuh", REPLACES + "138"),
+    "block_sparse_dq": (SOURCES + "block_sparse_dq.cuh", REPLACES + "281"),
+    "block_sparse_dkv": (SOURCES + "block_sparse_dkv.cuh", REPLACES + "377"),
+}
 
 
 def check(ok, msg):
@@ -85,8 +110,8 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def random_tables(rng, nrb, ncb, *, causal, empty_rows=(), pad=2,
-                  diag_offset=0):
+def random_tables(rng, nrb, ncb, *, causal, empty_rows=(), empty_cols=(),
+                  pad=2, diag_offset=0):
     """Seeded block mask (diagonal set) as clamped, padded BCSR tables."""
     import numpy as np
     mask = rng.random((nrb, ncb)) < 0.5
@@ -96,6 +121,8 @@ def random_tables(rng, nrb, ncb, *, causal, empty_rows=(), pad=2,
             diag_offset
     for r in empty_rows:
         mask[r] = False
+    for c in empty_cols:
+        mask[:, c] = False
     K = int(mask.sum(1).max()) + pad
     col = np.zeros((nrb, K), np.int32)
     nvalid = mask.sum(1).astype(np.int32)
@@ -123,9 +150,10 @@ def o_limit(dtype, o, ref):
     return (BF16_ULPS * ulp + 1e-6).clamp(max=TOL_O[dtype])
 
 
-def compare_kernel(case, gen, rng):
+def compare_kernel(case, gen, rng, tables=None):
     """Kernel vs plain version on one case; returns (max |do|, the limit of
-    that element, the largest |do| / limit, mean |plain o|, inputs)."""
+    that element, the largest |do| / limit, mean |plain o|, max |dlse|,
+    inputs). `tables` = (col_idx, nvalid) numpy replaces the random ones."""
     import torch
     from repro_torch.kernels.block_sparse_attn import (
         block_sparse_fwd, fused_forward_reference)
@@ -134,7 +162,7 @@ def compare_kernel(case, gen, rng):
     offsets = case.get("offsets")
     extra = 0 if offsets is None else block
     nrb = S // block
-    col, nvalid = random_tables(
+    col, nvalid = tables if tables is not None else random_tables(
         rng, nrb, (S + extra) // block, causal=case["causal"],
         empty_rows=case.get("empty_rows", ()), pad=case.get("pad", 2),
         diag_offset=extra // block)
@@ -165,7 +193,7 @@ def compare_kernel(case, gen, rng):
     lerr = (lse[~inf] - rlse[~rinf]).abs().max().item() if (~inf).any() \
         else 0.0
     check(lerr <= TOL_LSE, f"kernel lse differs by {lerr} on {case}")
-    return err, tol, share, typical, (q, k, v, colt, nvt, kw)
+    return err, tol, share, typical, lerr, (q, k, v, colt, nvt, kw)
 
 
 def phase_kernel_sweep(gen, rng):
@@ -187,7 +215,7 @@ def phase_kernel_sweep(gen, rng):
     worst = {"float32": 0.0, "bfloat16": 0.0}
     most = 0.0         # the largest |do| / limit of a bf16 element
     for case in sweep:
-        err, _, share, _, _ = compare_kernel(case, gen, rng)
+        err, _, share, _, _, _ = compare_kernel(case, gen, rng)
         worst[case["dtype"]] = max(worst[case["dtype"]], err)
         if case["dtype"] == "bfloat16":
             most = max(most, share)
@@ -199,7 +227,8 @@ def phase_kernel_sweep(gen, rng):
     # then in bf16 as the serving prefill runs it
     for dtype in ("float32", "bfloat16"):
         path = dict(dtype=dtype, causal=True, pad=0, **PATH)
-        err, tol, share, typical, inputs = compare_kernel(path, gen, rng)
+        err, tol, share, typical, _, inputs = compare_kernel(path, gen,
+                                                             rng)
         log(f"kernel at the path's shape {PATH} {dtype} causal: "
             f"|o - plain| = {err:.3e} (that element's limit {tol:.3e}; "
             f"no element past {share:.3f} of its limit; mean |o| "
@@ -207,10 +236,281 @@ def phase_kernel_sweep(gen, rng):
     return err, tol, inputs
 
 
-def kernel_timing(inputs):
-    """ms of the kernel, its plain version and SDPA at the path's shape,
-    and the kernel's bound from this run's tables."""
+# -- the backward kernels ----------------------------------------------------
+
+def grad_limit(dtype, got, ref):
+    """Limit on |grad - plain|, element by element. Kernel and plain version
+    both compute in fp32 from the same inputs and return fp32, so they
+    differ by summation order only. fp32 inputs: TOL_GRAD, or GRAD_SHARE of
+    the mean |plain grad| where that is smaller. bf16 inputs: BF16_ULPS
+    bf16 ulps of the element plus BF16_GRAD_FLOOR, a floor for elements
+    that cancel to near zero (set from the readings, PERF.md)."""
     import torch
+    if dtype == "float32":
+        return min(TOL_GRAD, GRAD_SHARE * ref.abs().mean().item())
+    top = torch.maximum(got.abs(), ref.abs())
+    _, e = torch.frexp(top)
+    ulp = torch.where(top > 0, torch.ldexp(torch.ones_like(top), e - 8), 0.0)
+    return BF16_ULPS * ulp + BF16_GRAD_FLOOR
+
+
+def hold_grad(name, dtype, got, ref, case):
+    """Check one gradient against its plain version; returns (max |diff|,
+    the largest |diff| / limit, mean |plain|, the floor this element
+    needed: |diff| less its ulp part, bf16 only)."""
+    import torch
+    diff = (got - ref).abs()
+    limit = grad_limit(dtype, got, ref)
+    share = (diff / limit).max().item() if diff.numel() else 0.0
+    err = diff.max().item() if diff.numel() else 0.0
+    typical = ref.abs().mean().item()
+    need = 0.0
+    if dtype != "float32":
+        need = (diff - (limit - BF16_GRAD_FLOOR)).max().clamp(min=0).item()
+    check(math.isfinite(share) and share <= 1.0 and
+          torch.isfinite(got).all().item(),
+          f"kernel {name} differs from its plain version by up to {err} "
+          f"({share:.3g} of the limit; mean |{name}| {typical}) on {case}")
+    return err, share, typical, need
+
+
+def backward_inputs(case, gen, rng, tables=None):
+    """q, k, v, dO; the forward kernel's o and lse; delta = rowsum(dO * O)
+    in fp32 (as the op's backward computes it); the forward tables and both
+    transposed tables: the plan's (width KT*) and bcsr_transpose's (width
+    nrb). `tables` = (col_idx, nvalid) numpy replaces the random ones."""
+    import torch
+    from repro_torch.core.sparse_attention import (bcsr_transpose,
+                                                   host_transpose_tables)
+    from repro_torch.kernels.block_sparse_attn import block_sparse_fwd
+    dt = getattr(torch, case["dtype"])
+    N, G, S, hd, block = (case[k] for k in ("N", "G", "S", "hd", "block"))
+    offsets = case.get("offsets")
+    extra = 0 if offsets is None else block
+    nrb, ncb = S // block, (S + extra) // block
+    if tables is None:
+        tables = random_tables(
+            rng, nrb, ncb, causal=case["causal"],
+            empty_rows=case.get("empty_rows", ()),
+            empty_cols=case.get("empty_cols", ()), pad=case.get("pad", 2),
+            diag_offset=extra // block)
+    col, nvalid = tables
+    row_idx, nvalid_t, kt = host_transpose_tables(col, nvalid, ncb=ncb)
+    dev = DEVICE
+    colt = torch.as_tensor(col, device=dev)
+    nvt = torch.as_tensor(nvalid, device=dev)
+    fb_row, fb_nvt = bcsr_transpose(colt, nvt, ncb=ncb)
+    q = torch.randn((N, G, S, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((N, S + extra, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((N, S + extra, hd), generator=gen, device=dev).to(dt)
+    do = torch.randn((N, G, S, hd), generator=gen, device=dev).to(dt)
+    fkw = dict(block=block, causal=case["causal"],
+               sliding_window=case.get("sw"), offsets=offsets,
+               seq_len=None if offsets is None else 2 * (S + extra))
+    o, lse = block_sparse_fwd(q, k, v, colt, nvt, **fkw)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    kw = dict(fkw)
+    kw.pop("seq_len")
+    return dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, col=colt,
+                nvalid=nvt, row=torch.as_tensor(row_idx, device=dev),
+                nvalid_t=torch.as_tensor(nvalid_t, device=dev), kt=kt,
+                fb_row=fb_row, fb_nvalid_t=fb_nvt, kw=kw)
+
+
+def compare_backward(case, gen, rng, tables=None):
+    """dQ and dK/dV kernels against their plain versions on one case, with
+    the plan's transposed tables (or bcsr_transpose's when case["tables"]
+    is "fallback"); with the plan's, dK/dV through the fallback tables too,
+    held to TOL_PLAN. Returns {grad: (err, share, mean |plain|, floor
+    needed)} and the inputs."""
+    import torch
+    from repro_torch.kernels.block_sparse_attn import (
+        block_sparse_dkv, block_sparse_dq, fused_dkv_reference,
+        fused_dq_reference)
+    x = backward_inputs(case, gen, rng, tables)
+    args = (x["q"], x["k"], x["v"], x["do"], x["lse"], x["delta"])
+    plan = case.get("tables", "plan") == "plan"
+    row, nvt = (x["row"], x["nvalid_t"]) if plan else \
+        (x["fb_row"], x["fb_nvalid_t"])
+    check(not plan or row.shape[1] == x["kt"], "plan table width is not KT*")
+    dq = block_sparse_dq(*args, x["col"], x["nvalid"], **x["kw"])
+    dk, dv = block_sparse_dkv(*args, row, nvt, **x["kw"])
+    torch.cuda.synchronize()
+    rdq = fused_dq_reference(*args, x["col"], x["nvalid"], **x["kw"])
+    rdk, rdv = fused_dkv_reference(*args, row, nvt, **x["kw"])
+    out = {}
+    for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        check(got.dtype == torch.float32 and got.shape == ref.shape,
+              f"{name} is {got.dtype} {tuple(got.shape)}")
+        out[name] = hold_grad(name, case["dtype"], got, ref, case)
+    block = case["block"]
+    for r in case.get("empty_rows", ()):
+        check(not dq[:, :, r * block:(r + 1) * block].any().item(),
+              f"dq of the empty row block {r} is not 0 on {case}")
+    for c in case.get("empty_cols", ()):
+        check(not dk[:, c * block:(c + 1) * block].any().item() and
+              not dv[:, c * block:(c + 1) * block].any().item(),
+              f"dk/dv of the empty column block {c} are not 0 on {case}")
+    if plan:
+        fdk, fdv = block_sparse_dkv(*args, x["fb_row"], x["fb_nvalid_t"],
+                                    **x["kw"])
+        gap = max((fdk - dk).abs().max().item(),
+                  (fdv - dv).abs().max().item())
+        check(gap <= TOL_PLAN, f"dK/dV through the plan tables differ from "
+              f"the fallback tables by {gap} on {case}")
+        out["plan_vs_fallback"] = gap
+    return out, x
+
+
+def phase_backward_sweep(gen, rng):
+    """The dQ and dK/dV kernels against their plain versions: a sweep like
+    the forward's, then the serving path's shape (the training path's shape
+    is held after training, with the trained plan's tables)."""
+    shapes = [(16, 16), (32, 32), (64, 64), (128, 128), (64, 32), (128, 64),
+              (16, 128), (80, 16)]
+    sweep, i = [], 0
+    for dtype in ("float32", "bfloat16"):
+        for causal, sw in ((True, None), (False, None), (True, 48)):
+            for G in (1, 4, 7):
+                hd, block = shapes[i % len(shapes)]
+                i += 1
+                sweep.append(dict(dtype=dtype, causal=causal, sw=sw, G=G,
+                                  N=2, S=256, hd=hd, block=block,
+                                  empty_rows=(1,), empty_cols=(1,),
+                                  tables="plan" if i % 2 else "fallback"))
+    sweep.append(dict(dtype="float32", causal=True, G=4, N=2, S=256, hd=64,
+                      block=32, offsets=(3, 2), empty_rows=(0,)))
+    sweep.append(dict(dtype="bfloat16", causal=False, G=7, N=2, S=256,
+                      hd=128, block=64, offsets=(2, 1), pad=4,
+                      tables="fallback"))
+    sweep.append(dict(dtype="float32", causal=False, G=1, N=3, S=512, hd=96,
+                      block=128, empty_cols=(1,)))
+    # blocks above 64 that are not 128: the backward programs take half a
+    # block each
+    sweep.append(dict(dtype="float32", causal=True, G=2, N=2, S=480, hd=48,
+                      block=96, empty_rows=(2,)))
+    sweep.append(dict(dtype="bfloat16", causal=False, G=3, N=2, S=400,
+                      hd=112, block=80, empty_cols=(0,), tables="fallback"))
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    share_most = {"float32": 0.0, "bfloat16": 0.0}
+    need, gap, lowest_mean = 0.0, 0.0, math.inf
+    for case in sweep:
+        res, _ = compare_backward(case, gen, rng)
+        gap = max(gap, res.pop("plan_vs_fallback", 0.0))
+        for err, share, typical, floor in res.values():
+            worst[case["dtype"]] = max(worst[case["dtype"]], err)
+            share_most[case["dtype"]] = max(share_most[case["dtype"]], share)
+            need = max(need, floor)
+            if case["dtype"] == "float32":
+                lowest_mean = min(lowest_mean, typical)
+    log(f"backward sweep: {len(sweep)} cases pass (dq, dk, dv; plan and "
+        f"fallback tables; empty rows and columns; offsets); worst |grad - "
+        f"plain| fp32 {worst['float32']:.3e} (limit min({TOL_GRAD}, "
+        f"{GRAD_SHARE} x mean |grad|), smallest mean |grad| "
+        f"{lowest_mean:.3e}; no element past {share_most['float32']:.3g} of "
+        f"its limit), bf16 {worst['bfloat16']:.3e} (no element past "
+        f"{share_most['bfloat16']:.3g} of its limit of {BF16_ULPS} bf16 ulps "
+        f"+ {BF16_GRAD_FLOOR}; the largest floor needed {need:.3e}); plan "
+        f"vs fallback dK/dV {gap:.3e} (tol {TOL_PLAN})")
+    for dtype in ("float32", "bfloat16"):
+        res, _ = compare_backward(dict(dtype=dtype, causal=True, pad=0,
+                                       **PATH), gen, rng)
+        log_backward_path("serving", PATH, dtype, res)
+
+
+def log_backward_path(label, shape, dtype, res):
+    gap = res.pop("plan_vs_fallback", None)
+    parts = [f"{name} |diff| {err:.3e} ({share:.3g} of its limit; mean "
+             f"|{name}| {typical:.3e}"
+             + (f"; floor needed {need:.3e})" if dtype != "float32" else ")")
+             for name, (err, share, typical, need) in res.items()]
+    log(f"backward at the {label} path's shape {shape} {dtype}: "
+        + "; ".join(parts)
+        + ("" if gap is None else f"; plan vs fallback {gap:.3e}"))
+
+
+def bwd_bytes_flops(x):
+    """(dq flops, dq bytes, dkv flops, dkv bytes) that these inputs need:
+    each input read once, each output written once; the listed tiles
+    only."""
+    N, G, S, hd = x["q"].shape
+    block = x["kw"]["block"]
+    es = x["q"].element_size()
+    nv, cols = x["nvalid"].cpu().numpy(), x["col"].cpu().numpy()
+    nvt, rows = x["nvalid_t"].cpu().numpy(), x["row"].cpu().numpy()
+    listed, listed_t = int(nv.sum()), int(nvt.sum())
+    kcols = {int(c) for r in range(len(nv)) for c in cols[r, :nv[r]]}
+    qrows = {int(r) for c in range(len(nvt)) for r in rows[c, :nvt[c]]}
+    rowvec = N * G * block * 4                    # one row block's lse, delta
+    dq_flops = 6.0 * N * G * listed * block * block * hd
+    dq_bytes = (2 * x["q"].numel() * es           # q, dO
+                + 2 * N * G * S * 4               # lse, delta
+                + x["q"].numel() * 4              # dq (fp32)
+                + 2 * N * len(kcols) * block * hd * es   # listed K, V
+                + 4 * (x["col"].numel() + x["nvalid"].numel()))
+    dkv_flops = 8.0 * N * G * listed_t * block * block * hd
+    dkv_bytes = (2 * x["k"].numel() * es          # k, v
+                 + 2 * x["k"].numel() * 4         # dk, dv (fp32)
+                 + 2 * N * G * len(qrows) * block * hd * es   # listed Q, dO
+                 + 2 * len(qrows) * rowvec        # their lse, delta
+                 + 4 * (x["row"].numel() + x["nvalid_t"].numel()))
+    return dq_flops, dq_bytes, dkv_flops, dkv_bytes
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def backward_timing(x):
+    """ms of the dQ and dK/dV kernels and their plain versions on the
+    inputs `x`, their bounds, and the autograd backward of PyTorch's dense
+    scaled_dot_product_attention at the same shape (dq, dk and dv
+    together, over every row) as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.block_sparse_attn import (
+        block_sparse_dkv, block_sparse_dq, fused_dkv_reference,
+        fused_dq_reference)
+    args = (x["q"], x["k"], x["v"], x["do"], x["lse"], x["delta"])
+    dq_args = args + (x["col"], x["nvalid"])
+    dkv_args = args + (x["row"], x["nvalid_t"])
+    kw = x["kw"]
+    out = {
+        "block_sparse_dq": dict(
+            ms=cuda_ms(lambda: block_sparse_dq(*dq_args, **kw), 20),
+            plain_ms=cuda_ms(lambda: fused_dq_reference(*dq_args, **kw), 3)),
+        "block_sparse_dkv": dict(
+            ms=cuda_ms(lambda: block_sparse_dkv(*dkv_args, **kw), 20),
+            plain_ms=cuda_ms(lambda: fused_dkv_reference(*dkv_args, **kw),
+                             3)),
+    }
+    q, k, v = (x[n].detach().requires_grad_() for n in "qkv")
+    N, G, S, hd = q.shape
+    kx = k[:, None].expand(N, G, k.shape[1], hd)
+    vx = v[:, None].expand(N, G, k.shape[1], hd)
+    o = F.scaled_dot_product_attention(q, kx, vx, is_causal=kw["causal"])
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        o, (q, k, v), x["do"], retain_graph=True), 10)
+    dq_f, dq_b, dkv_f, dkv_b = bwd_bytes_flops(x)
+    for name, flops, nbytes in (("block_sparse_dq", dq_f, dq_b),
+                                ("block_sparse_dkv", dkv_f, dkv_b)):
+        b_ms, by = bound(flops, nbytes)
+        out[name].update(bound_ms=b_ms, bound_by=by, library_ms=library_ms,
+                         flops=flops, bytes=nbytes)
+        t = out[name]
+        log(f"{name} at N={N} G={G} S={S} hd={hd} block={kw['block']} "
+            f"{q.dtype}: {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
+            f"sdpa backward (dense, dq+dk+dv) {library_ms:.4f} ms; bound "
+            f"{b_ms:.5f} ms by {by} ({flops:.4g} flop, {nbytes} bytes); "
+            f"{b_ms / t['ms']:.4f} of the bound")
+    return out
+
+
+def kernel_timing(inputs, label):
+    """ms of the forward kernel, its plain version and SDPA on `inputs`,
+    and the kernel's bound from these tables."""
     import torch.nn.functional as F
     from repro_torch.kernels.block_sparse_attn import (
         block_sparse_fwd, fused_forward_reference)
@@ -221,11 +521,11 @@ def kernel_timing(inputs):
     plain_ms = cuda_ms(
         lambda: fused_forward_reference(q, k, v, col, nvalid, **kw), 5)
     # yardstick only: PyTorch's fused attention over the same rows, dense
-    # causal (what the kernel computes when the plan covers everything)
+    # (what the kernel computes when the plan covers everything)
     kx = k[:, None].expand(N, G, S, hd).contiguous()
     vx = v[:, None].expand(N, G, S, hd).contiguous()
-    library_ms = cuda_ms(
-        lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True), 20)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, kx, vx, is_causal=kw["causal"]), 20)
     nv = nvalid.cpu().numpy()
     cols = col.cpu().numpy()
     listed = int(nv.sum())
@@ -235,11 +535,10 @@ def kernel_timing(inputs):
     nbytes = (2 * q.numel() * esize + N * G * S * 4          # q, o, lse
               + 2 * N * distinct * block * hd * esize         # listed K, V
               + col.numel() * 4 + nvalid.numel() * 4)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
-    bound_ms = 1e3 * max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"block_sparse_fwd at N={N} G={G} S={S} hd={hd} block={block} bf16: "
-        f"{ms:.4f} ms; plain {plain_ms:.4f} ms; sdpa (dense causal) "
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"block_sparse_fwd at {label} N={N} G={G} S={S} hd={hd} "
+        f"block={block} {q.dtype}: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
+        f"sdpa (dense{', causal' if kw['causal'] else ''}) "
         f"{library_ms:.4f} ms; bound {bound_ms:.5f} ms by {bound_by} "
         f"({flops:.4g} flop over {listed} listed tiles, {nbytes} bytes); "
         f"{bound_ms / ms:.4f} of the bound")
@@ -461,6 +760,325 @@ def phase_serve(gen, rng):
                 decode_mean=decode_mean)
 
 
+# -- training ------------------------------------------------------------------
+
+TRAIN_STEPS = 20
+STEPS_PER_EPOCH = 4
+
+
+def launch_counts():
+    from repro_torch.kernels import block_sparse_attn as bsa
+    return {name: getattr(bsa, name).launches for name in KERNELS}
+
+
+def reset_launch_counts():
+    from repro_torch.kernels import block_sparse_attn as bsa
+    for name in KERNELS:
+        getattr(bsa, name).launches = 0
+
+
+def listops_data_fn(batch, seq_len):
+    """data_fn(step): a ListOps batch of `batch` sequences of seq_len + 1
+    tokens from the grammar, seeded by (SEED, step); next-token targets."""
+    import numpy as np
+    from repro_torch.data.listops import make_listops_batch
+
+    def data_fn(step):
+        rng = np.random.default_rng([SEED, step])
+        xs, _ = make_listops_batch(rng, batch, seq_len + 1)
+        return {"tokens": xs[:, :-1], "labels": xs[:, 1:]}
+    return data_fn
+
+
+def phase_train():
+    """Three-phase SPION training of spion-lra at its published width under
+    the LRA ListOps preset, through launch/train.Trainer on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.spion_lra import LRA_TASKS
+    from repro_torch.launch.train import Trainer
+
+    task = LRA_TASKS["listops"]
+    cfg = get_config("spion-lra")
+    check(cfg.num_layers == 4 and cfg.d_model == 64 and cfg.num_heads == 4
+          and cfg.spion.block_size == task["block_size"] and cfg.remat,
+          "spion-lra config changed")
+    cfg = cfg.replace(spion=dataclasses.replace(
+        cfg.spion, min_dense_epochs=1, max_dense_epochs=3))
+    S, B, L = task["seq_len"], task["batch"], cfg.num_layers
+    data_fn = listops_data_fn(B, S)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, seq_len=S, batch=B, steps_per_epoch=STEPS_PER_EPOCH,
+                 data_fn=data_fn, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in tr.params.parameters())
+    log(f"spion-lra: {L} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, remat {cfg.remat}, "
+        f"{cfg.dtype} over fp32 masters: {nparams} parameters; ListOps "
+        f"seq_len {S}, batch {B}; trainer ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    init = {n: p.detach().clone() for n, p in tr.params.named_parameters()}
+
+    steps, captures, fills = [], [], []
+    inner_step, inner_capture = tr._one_step, tr.capture
+    inner_generate = tr.spion_ctl.generate
+
+    def one_step(batch):
+        phase = tr.spion_state.phase
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = inner_step(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = launch_counts()
+        steps.append(dict(phase=phase, s=dt, loss=float(metrics["loss"]),
+                          launches={k: after[k] - before[k] for k in after}))
+        return metrics
+
+    def capture(batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_capture(batch)
+        torch.cuda.synchronize()
+        captures.append(time.perf_counter() - t)
+        return out
+
+    def generate(state, pooled):
+        t = time.perf_counter()
+        out = inner_generate(state, pooled)
+        fills.append(time.perf_counter() - t)
+        return out
+
+    tr._one_step, tr.capture, tr.spion_ctl.generate = \
+        one_step, capture, generate
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = tr.train(TRAIN_STEPS, log_every=STEPS_PER_EPOCH,
+                      log=lambda m: log(f"  train: {m}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = launch_counts()
+    tr._one_step, tr.capture, tr.spion_ctl.generate = \
+        inner_step, inner_capture, inner_generate
+
+    st = tr.spion_state
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"a training loss is not finite: {losses}")
+    check(st.phase == "sparse", f"training ended in phase {st.phase}")
+    check(st.density is not None and 0 < st.density < 1,
+          f"plan density {st.density}")
+    dense = [r for r in steps if r["phase"] == "dense"]
+    sparse = [r for r in steps if r["phase"] == "sparse"]
+    check(len(dense) <= 3 * STEPS_PER_EPOCH and
+          len(sparse) >= TRAIN_STEPS - 3 * STEPS_PER_EPOCH,
+          f"{len(dense)} dense and {len(sparse)} sparse steps")
+    # per sparse step: the forward kernel runs once per layer in the forward
+    # and once more per layer when remat recomputes the layer in the
+    # backward; dQ and dK/dV run once per layer
+    want = {"block_sparse_fwd": (2 if cfg.remat else 1) * L,
+            "block_sparse_dq": L, "block_sparse_dkv": L}
+    for r in dense:
+        check(not any(r["launches"].values()),
+              f"a dense step launched a sparse kernel: {r['launches']}")
+    for r in sparse:
+        check(r["launches"] == want, f"a sparse step launched "
+              f"{r['launches']}, not {want}")
+    check(launches == {k: n * len(sparse) for k, n in want.items()},
+          f"launches over the run {launches}")
+    moved = max((p.detach() - init[n]).abs().max().item()
+                for n, p in tr.params.named_parameters())
+    check(moved > 0, "training did not change the parameters")
+
+    def ms(rs):
+        xs = [1e3 * r["s"] for r in rs]
+        return float(np.median(xs)), float(sum(xs)), len(xs)
+    d_med, d_tot, d_n = ms(dense[1:])      # the first step pays for warm-up
+    s_med, s_tot, s_n = ms(sparse[1:])
+    stats = st.plan_stats
+    log(f"train: {TRAIN_STEPS} steps in {wall:.2f} s; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; phase {st.phase} after "
+        f"{len(dense)} dense steps; plan density {st.density:.4f} "
+        f"(per layer {stats['per_layer_density']}), K {stats['K']}, KT* "
+        f"{stats['kt_star']}; launches {launches} ({want} per sparse step); "
+        f"peak device memory {peak_gb:.2f} GB")
+    log(f"train steps: dense {d_med:.2f} ms median, {d_n} steps after the "
+        f"first {d_tot:.2f} ms ({d_tot / d_n:.2f} ms each), first "
+        f"{1e3 * dense[0]['s']:.2f} ms; sparse {s_med:.2f} ms median, "
+        f"{s_n} steps after the first {s_tot:.2f} ms ({s_tot / s_n:.2f} ms "
+        f"each), first {1e3 * sparse[0]['s']:.2f} ms; capture "
+        f"{', '.join(f'{1e3 * c:.2f}' for c in captures)} ms; host flood "
+        f"fill and plan {', '.join(f'{1e3 * f:.2f}' for f in fills)} ms")
+    profile_sparse_step(tr, inner_step)
+    return dict(trainer=tr, cfg=cfg, launches=launches, dense_ms=d_med,
+                sparse_ms=s_med, data_fn=data_fn)
+
+
+def profile_sparse_step(tr, step_fn):
+    """torch.profiler device time of one sparse train step, and the share
+    of the three kernels in it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batch = tr._next_batch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step_fn(batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    check(rows, "the profiler saw no device time in the sparse step")
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    share = {}
+    for name in KERNELS:
+        share[name] = sum(e.self_device_time_total for e in rows
+                          if f"{name}_kernel" in e.key) / 1e3
+    log(f"profile sparse train step: {wall:.2f} ms on the host clock under "
+        f"the profiler; device busy {busy:.2f} ms (idle share "
+        f"{max(0.0, 1 - busy / wall):.3f}); "
+        + ", ".join(f"{n} {ms_:.3f} ms ({ms_ / busy:.3f})"
+                    for n, ms_ in share.items()))
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+            f"{e.key[:90]}")
+
+
+def phase_train_path_kernels(train, gen):
+    """The three kernels at the training path's shape, on layer 0's tables
+    of the trained plan: the forward (o and lse, where the Alg. 6
+    correction for the unstored positions dominates the denominator at
+    this density), dQ and dK/dV against their plain versions in fp32 and
+    bf16, then timed (bf16, as the path runs them) beside their bounds."""
+    st = train["trainer"].spion_state
+    tables = (st.tables["col_idx"][0].cpu().numpy(),
+              st.tables["nvalid"][0].cpu().numpy())
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        case = dict(dtype=dtype, causal=False, **TRAIN_PATH)
+        err, tol, share, typical, lerr, _ = compare_kernel(
+            case, gen, None, tables=tables)
+        log(f"kernel at the training path's shape {TRAIN_PATH} {dtype} "
+            f"non-causal, trained layer-0 tables ({int(tables[1].sum())} "
+            f"listed tiles): |o - plain| = {err:.3e} (that element's limit "
+            f"{tol:.3e}; no element past {share:.3f} of its limit; mean |o| "
+            f"{typical:.3e}); |lse - plain| {lerr:.3e} (tol {TOL_LSE})")
+        res, x = compare_backward(case, gen, None, tables=tables)
+        log_backward_path("training", TRAIN_PATH, dtype, res)
+        out[dtype] = {n: res[n][0] for n in ("dq", "dk", "dv")}
+        out[dtype]["o"] = err
+    timing = backward_timing(x)
+    timing["block_sparse_fwd"] = kernel_timing(
+        (x["q"], x["k"], x["v"], x["col"], x["nvalid"], x["kw"]),
+        "the training path's shape")
+    return out, timing
+
+
+COVER_BATCH = 32     # sequences in the covering-plan step check
+TOL_LOSS_REL = 1e-5
+TOL_STEP_GRAD = 1e-3
+
+
+def phase_covering_step(train):
+    """One train step's loss and gradients through a fully covering
+    non-causal plan (the three kernels in every layer) against the dense
+    step, from the trained masters and one ListOps batch: equal in fp32
+    (every gradient element within TOL_STEP_GRAD); in bf16 both held
+    against the fp32 dense gradients leaf by leaf, each layer's leaves
+    split apart. On each layer's attention leaves (the projections, which
+    take dq, dk, dv and o straight from the kernels, and the attention
+    norm) the kernels' path may be at most BF16_LOGITS_SLACK x as far as
+    the dense path, by max and by mean; the other leaves are printed."""
+    import numpy as np
+    import torch
+    from repro_torch.core.attention_exec import SparseAttentionExec
+    from repro_torch.core.sparse_attention import build_sparsity_plan
+    from repro_torch.launch.steps import make_loss_and_grads
+    tr, cfg = train["trainer"], train["cfg"]
+    S, L, block = tr.seq_len, cfg.num_layers, cfg.spion.block_size
+    nrb = S // block
+    col = np.tile(np.arange(nrb, dtype=np.int32), (L, nrb, 1))
+    plan = build_sparsity_plan(col, np.full((L, nrb), nrb, np.int32), block)
+    cover = SparseAttentionExec.from_plan(plan).to(DEVICE)
+    host = listops_data_fn(COVER_BATCH, S)(10_000)
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in host.items()}
+    want = {"block_sparse_fwd": (2 if cfg.remat else 1) * L,
+            "block_sparse_dq": L, "block_sparse_dkv": L}
+
+    def run(dtype, tables):
+        """The step's loss and {leaf: fp32 gradient}, a stacked per-layer
+        tensor split into one leaf per layer ("layers.attn.wq[2]")."""
+        fn = make_loss_and_grads(cfg.replace(dtype=dtype))
+        before = launch_counts()
+        loss, grads = fn(tr.params, batch, tables)
+        torch.cuda.synchronize()
+        got = {k: launch_counts()[k] - before[k] for k in before}
+        check(got == (want if tables is not None else
+                      dict.fromkeys(want, 0)),
+              f"the {dtype} step launched {got}")
+        leaves = {}
+        for name, g in grads.items():
+            g = g.float()
+            if name == "pos_embed.w":
+                g = g[:S]     # the positions past seq_len get no gradient
+            if name.startswith("layers."):
+                leaves.update({f"{name}[{i}]": g[i] for i in range(L)})
+            else:
+                leaves[name] = g
+        return loss.item(), leaves
+
+    ls32, gs32 = run("float32", cover)
+    ld32, gd32 = run("float32", None)
+    ls16, gs16 = run("bfloat16", cover)
+    ld16, gd16 = run("bfloat16", None)
+    rel = abs(ls32 - ld32) / abs(ld32)
+    g32, worst = 0.0, {"gated": 0.0, "other": 0.0}
+    for name, ref in gd32.items():
+        d32 = (gs32[name] - ref).abs().max().item()
+        g32 = max(g32, d32)
+        es, ed = (gs16[name] - ref).abs(), (gd16[name] - ref).abs()
+        es_max, es_mean = es.max().item(), es.mean().item()
+        ed_max, ed_mean = ed.max().item(), ed.mean().item()
+        ratio = max(es_max / ed_max if ed_max else
+                    (0.0 if es_max == 0 else math.inf),
+                    es_mean / ed_mean if ed_mean else
+                    (0.0 if es_mean == 0 else math.inf))
+        gated = name.startswith("layers.attn")
+        worst["gated" if gated else "other"] = max(
+            worst["gated" if gated else "other"], ratio)
+        log(f"  {name:24s} mean |grad| {ref.abs().mean().item():.4e}; fp32 "
+            f"|sparse - dense| {d32:.4e}; bf16 from fp32 dense: sparse max "
+            f"{es_max:.4e} mean {es_mean:.4e}, dense max {ed_max:.4e} mean "
+            f"{ed_mean:.4e} (ratio {ratio:.4f}{', gated' if gated else ''})")
+        check(math.isfinite(d32) and d32 <= TOL_STEP_GRAD,
+              f"covering-plan fp32 gradient of {name} differs from dense by "
+              f"{d32}")
+        check(not gated or (math.isfinite(es_max) and
+                            es_max <= BF16_LOGITS_SLACK * ed_max and
+                            es_mean <= BF16_LOGITS_SLACK * ed_mean),
+              f"the bf16 covering-plan gradient of {name} is farther from the "
+              f"fp32 one ({es_max}, mean {es_mean}) than {BF16_LOGITS_SLACK} "
+              f"x the bf16 dense one ({ed_max}, mean {ed_mean})")
+    allg = torch.cat([g.flatten() for g in gd32.values()])
+    log(f"covering-plan step vs dense step, spion-lra, {COVER_BATCH} x {S} "
+        f"ListOps tokens, {len(gd32)} leaves, {allg.numel()} gradient "
+        f"elements (mean |grad| {allg.abs().mean().item():.4e}, max "
+        f"{allg.abs().max().item():.4e}): fp32 loss {ls32:.8f} vs {ld32:.8f} "
+        f"(rel {rel:.3e}, tol {TOL_LOSS_REL}); fp32 grads max |diff| "
+        f"{g32:.4e} (tol {TOL_STEP_GRAD}); bf16 sparse / dense distance from "
+        f"the fp32 dense grads, the larger of the max and mean ratios: at "
+        f"most {worst['gated']:.4f} on the attention leaves (limit "
+        f"{BF16_LOGITS_SLACK}), {worst['other']:.4f} on the others; bf16 "
+        f"losses {ls16:.6f} / {ld16:.6f}")
+    check(math.isfinite(rel) and rel <= TOL_LOSS_REL,
+          f"covering-plan fp32 loss differs from dense by {rel} (relative)")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -477,34 +1095,57 @@ def main():
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     load_library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     report = library_path().parent / "build.log"
     if report.exists():
         name = "?"
         for line in report.read_text().splitlines():
-            if "block_sparse_fwd_kernel" in line and "Compiling" in line:
+            if "_kernel" in line and "Compiling" in line:
                 name = line.split("'")[1] if "'" in line else line
             elif "registers" in line or "spill" in line:
-                log(f"ptxas {name[:60]}: {line.split(':', 1)[-1].strip()}")
+                log(f"ptxas {name[:70]}: {line.split(':', 1)[-1].strip()}")
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     err, tol, inputs = phase_kernel_sweep(gen, rng)
+    phase_backward_sweep(gen, rng)
+    reset_launch_counts()
     serve = phase_serve(gen, rng)
-    timing = kernel_timing(inputs)
+    served = launch_counts()
+    check(served["block_sparse_dq"] == 0 and served["block_sparse_dkv"] == 0,
+          f"serving launched a backward kernel: {served}")
+    train = phase_train()
+    train_err, train_timing = phase_train_path_kernels(train, gen)
+    phase_covering_step(train)
+    timing = kernel_timing(inputs, "the serving path's shape")
 
-    record = {"kernels": [{
-        "name": "block_sparse_fwd", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": serve["launches"], "max_abs_err": err,
-        "tol": tol, "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}]}
+    fwd = {"launches": serve["launches"] + train["launches"]["block_sparse_fwd"],
+           "launches_serve": serve["launches"],
+           "launches_train": train["launches"]["block_sparse_fwd"],
+           "max_abs_err": err, "tol": tol,
+           "train_shape": dict(train_timing.pop("block_sparse_fwd"),
+                               max_abs_err=train_err["bfloat16"]["o"]),
+           **timing}
+    rows = {"block_sparse_fwd": fwd}
+    for name, grads in (("block_sparse_dq", ("dq",)),
+                        ("block_sparse_dkv", ("dk", "dv"))):
+        t = train_timing[name]
+        rows[name] = {"launches": train["launches"][name],
+                      "max_abs_err": max(train_err["bfloat16"][g]
+                                         for g in grads),
+                      **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}}
+    record = {"kernels": [
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1], **row} for name, row in rows.items()]}
     log(f"serve prefill_ms median {serve['prefill_ms']:.3f} mean "
         f"{serve['prefill_mean']:.3f}; decode_ms_per_tick median "
-        f"{serve['decode_ms']:.3f} mean {serve['decode_mean']:.3f}")
+        f"{serve['decode_ms']:.3f} mean {serve['decode_mean']:.3f}; train "
+        f"dense_step_ms median {train['dense_ms']:.3f}, sparse_step_ms median "
+        f"{train['sparse_ms']:.3f}")
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s")
     log(card_line())
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Architecture registry. Importing this package registers the configs the
-port serves so far; the other architectures arrive with their families."""
+port runs so far (qwen2-7b for serving, spion-lra for training); the other
+architectures arrive with their families."""
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     ModelConfig,
@@ -12,4 +13,4 @@ from repro_torch.configs.base import (  # noqa: F401
     register,
 )
 
-from repro_torch.configs import qwen2_7b  # noqa: F401,E402
+from repro_torch.configs import qwen2_7b, spion_lra  # noqa: F401,E402

@@ -6,10 +6,10 @@ execution.
   - `block` and `phase` — the static metadata.
 
 `phase` is "train" | "prefill" | "decode". Train and prefill share
-`attend()` (full-sequence block-sparse attention: the Hopper kernel or the
-plain gather per `resolve_kernel`); decode uses `decode()` /
-`decode_paged()` — the pattern-bounded KV-cache gather, which reads only the
-cache blocks the query position's row-block lists.
+`attend()` (full-sequence block-sparse attention: the Hopper kernels or
+the plain gather per `resolve_kernel`, both differentiable); decode uses
+`decode()` / `decode_paged()` — the pattern-bounded KV-cache gather, which
+reads only the cache blocks the query position's row-block lists.
 """
 from __future__ import annotations
 
@@ -104,13 +104,17 @@ class SparseAttentionExec:
 
     def attend(self, cfg, q, k, v, layer_tables):
         """Sparse train/prefill attention for ONE layer; layer_tables holds
-        this layer's col_idx (nrb, K) and nvalid (nrb,)."""
-        bcsr = BCSR(layer_tables["col_idx"].to(q.device),
-                    layer_tables["nvalid"].to(q.device), self.block,
-                    q.shape[1])
+        this layer's col_idx (nrb, K) and nvalid (nrb,) and, from a
+        SparsityPlan, the transposed row_idx (ncb, KT*) and nvalid_t (ncb,)
+        that the kernel's dK/dV backward streams. Both paths are
+        differentiable."""
+        tabs = {k_: t.to(q.device) for k_, t in layer_tables.items()}
+        bcsr = BCSR(tabs["col_idx"], tabs["nvalid"], self.block, q.shape[1])
         if resolve_kernel(cfg, q) == "fused":
             from repro_torch.kernels.ops import spion_attention_kernel
-            return spion_attention_kernel(cfg, q, k, v, bcsr)
+            return spion_attention_kernel(cfg, q, k, v, bcsr,
+                                          row_idx=tabs.get("row_idx"),
+                                          nvalid_t=tabs.get("nvalid_t"))
         return bcsr_attention(cfg, q, k, v, bcsr)
 
     def decode(self, cfg, q, k_cache, v_cache, pos, layer_tables):

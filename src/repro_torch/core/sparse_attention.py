@@ -11,9 +11,10 @@ line 15: sum += exp(-max) * (L - b_cnt)). Causal archs count only pruned
 *causal* positions.
 
 Host-side planning is numpy, as in the JAX package, and its tables become
-int32 torch tensors. Two executions of the sparse forward:
+int32 torch tensors. Two executions of the sparse attention, both
+differentiable:
   - `bcsr_attention` — the plain PyTorch gather path (CPU tensors);
-  - kernels/ops.py   — the Hopper kernel (CUDA tensors), same signature.
+  - kernels/ops.py   — the Hopper kernels (CUDA tensors), same signature.
 Sparse decode is a gather here too: the query position's row-block selects
 its listed cache blocks.
 """
@@ -46,6 +47,37 @@ def bcsr_from_blockmask(mask: np.ndarray, block: int, max_k: int | None = None) 
     return BCSR(torch.from_numpy(col),
                 torch.from_numpy(np.minimum(counts, K).astype(np.int32)),
                 block, nrb * block)
+
+
+def bcsr_transpose(col_idx, nvalid, ncb: int | None = None,
+                   max_k: int | None = None):
+    """Transpose a padded-BCSR table on its device: (col_idx (nrb, K),
+    nvalid (nrb,)) -> (row_idx (ncb, KT), nvalid_t (ncb,)) int32.
+
+    `row_idx[c]` lists, ascending, the row-blocks whose active set contains
+    column-block `c`; the entries past `nvalid_t[c]` are the other row ids,
+    ascending (in range, never read by the kernels). The default KT = nrb is
+    the only always-safe width: a vertical stripe appears in every
+    row-block. This is the backward's fallback when no SparsityPlan supplies
+    the transposed tables at their true width KT*."""
+    col_idx = torch.as_tensor(col_idx).to(torch.int64)
+    nvalid = torch.as_tensor(nvalid, device=col_idx.device).to(torch.int64)
+    nrb, K = col_idx.shape
+    ncb = int(ncb) if ncb is not None else nrb
+    dev = col_idx.device
+    valid = torch.arange(K, device=dev)[None, :] < nvalid[:, None]
+    # scatter into a dense block mask; invalid entries land in a spill column
+    colc = torch.where(valid, col_idx.clamp(0, ncb - 1), ncb)
+    mask = torch.zeros((nrb, ncb + 1), dtype=torch.bool, device=dev)
+    mask[torch.arange(nrb, device=dev)[:, None], colc] = True
+    mask_t = mask[:, :ncb].T                                   # (ncb, nrb)
+    KT = int(max_k) if max_k is not None else nrb
+    # active rows first (ascending), inactive ones after them
+    keys = torch.where(mask_t, torch.arange(nrb, device=dev)[None, :], nrb)
+    row_idx = torch.argsort(keys, dim=1, stable=True)[:, :KT]
+    nvalid_t = mask_t.sum(dim=1).clamp(max=KT)
+    return (row_idx.to(torch.int32).contiguous(),
+            nvalid_t.to(torch.int32).contiguous())
 
 
 # the SparsityPlan's array payload (the executor filters on these keys)
@@ -145,8 +177,9 @@ def build_sparsity_plan(col_idx, nvalid, block: int, *, ncb: int | None = None,
     """Build the SparsityPlan from (stacked or single-layer) forward BCSR
     tables, host-side in numpy. Always returns stacked tables (single-layer
     inputs get Ly=1)."""
-    col = np.asarray(col_idx, np.int32)
-    nv = np.asarray(nvalid, np.int32)
+    # copies: the tables become tensors that share these arrays' memory
+    col = np.array(col_idx, np.int32)
+    nv = np.array(nvalid, np.int32)
     if col.ndim == 2:
         col, nv = col[None], nv[None]
     Ly, nrb, K = col.shape

@@ -1,0 +1,4 @@
+// bf16 entry point of the block-sparse dK/dV backward (see block_sparse_dkv.cuh).
+#include "block_sparse_dkv.cuh"
+
+SPION_DEFINE_BWD_ENTRY(spion_block_sparse_dkv_bf16, __nv_bfloat16, spion::launch_dkv)

@@ -29,16 +29,11 @@
 // bounds.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "block_sparse_common.cuh"
 
 namespace spion {
 
-constexpr int kThreads = 256;   // a 16 x 16 grid of threads over the tile
 constexpr int kMaxRows = 8;     // rows (and keys) a thread owns: block / 16
-constexpr float kNeg = -1e30f;  // the reference's NEG
 
 struct FwdParams {
   const void* q;        // (N, G, S, HD)
@@ -55,28 +50,6 @@ struct FwdParams {
   int row0, col0;       // global block index of local row-block 0 / K block 0
   float scale;
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ bool tile_ok(int qpos, int kpos, int causal,
-                                        int sliding_window) {
-  bool ok = true;
-  if (causal) ok = qpos >= kpos;
-  if (sliding_window >= 0) ok = ok && (qpos - kpos < sliding_window);
-  return ok;
-}
 
 inline size_t fwd_smem_bytes(int block, int hd) {
   // Q tile and K/V tile (block x (hd + 1)), score tile (block x (block + 1)),
@@ -289,17 +262,7 @@ int launch_fwd(const FwdParams& p, int hd, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   if (p.nrb == 0 || p.G == 0 || p.N == 0) return (int)cudaSuccess;
   (void)cudaGetLastError();  // report only what this launch raises
-  switch (hd) {
-    case 16: return launch_hd<T, 16>(p, stream);
-    case 32: return launch_hd<T, 32>(p, stream);
-    case 48: return launch_hd<T, 48>(p, stream);
-    case 64: return launch_hd<T, 64>(p, stream);
-    case 80: return launch_hd<T, 80>(p, stream);
-    case 96: return launch_hd<T, 96>(p, stream);
-    case 112: return launch_hd<T, 112>(p, stream);
-    case 128: return launch_hd<T, 128>(p, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  SPION_HD_SWITCH(launch_hd, T, hd, p, stream)
 }
 
 }  // namespace spion

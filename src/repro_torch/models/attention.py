@@ -1,14 +1,18 @@
-"""Attention: dense GQA (prefill) and KV-cache decode with scalar or
+"""Attention: dense GQA (train/prefill), KV-cache decode with scalar or
 PER-ROW positions — the continuous-batching engine decodes every cache slot
-at its own offset.
+at its own offset — and the SPION pattern capture, which streams pooled
+diagonal-conv scores without ever holding the L x L attention matrix.
 
 Sparse-phase execution is owned by core.attention_exec.SparseAttentionExec.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import he_init, rope
 
@@ -84,13 +88,18 @@ def dense_attention(cfg, q, k, v, q_pos, k_pos):
     """softmax(q k^T / sqrt(hd) + mask) v with GQA head grouping.
 
     q (B,Sq,H,hd); k,v (B,Sk,KV,hd) -> (B,Sq,H,hd). Chunked over query rows
-    so the S x S score matrix is never resident."""
+    so the S x S score matrix is never resident; under autograd each chunk
+    is recomputed in the backward (the JAX package's per-chunk
+    jax.checkpoint), so only one chunk's scores are held at a time."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, hd)
     c = attn_q_chunk(Sq, k.shape[1])
-    outs = [_attn_chunk(cfg, qg[:, i:i + c], k, v, q_pos[i:i + c], k_pos)
+    chunk = functools.partial(_attn_chunk, cfg)
+    if c < Sq and torch.is_grad_enabled():
+        chunk = functools.partial(checkpoint, chunk, use_reentrant=False)
+    outs = [chunk(qg[:, i:i + c], k, v, q_pos[i:i + c], k_pos)
             for i in range(0, Sq, c)]
     return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
 
@@ -185,3 +194,51 @@ def update_cache(k_cache, v_cache, k_new, v_new, slot):
     k_cache.index_put_((rows, slot), k_new[:, 0].to(k_cache.dtype))
     v_cache.index_put_((rows, slot), v_new[:, 0].to(v_cache.dtype))
     return k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# SPION pattern capture: pooled diagonal-conv of A^s, streamed (exact Eq. 3+4)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def capture_pooled_scores(cfg, q, k, q_pos, k_pos, filt, block: int):
+    """Return (pooled, frob_sq):
+      pooled  = avgpool_BxB( diagconv_F(A^s) ) of the *head-and-batch-averaged*
+                attention probabilities, shape (L/B, L/B), streamed one block
+                row at a time so peak memory is O(block x L), not O(L^2);
+      frob_sq = sum(A^s ** 2) of the averaged scores (Eq. 2 transition term).
+
+    Matches paper Eq. 3 (conv_out(i,j) = sum_f A(i+f, j+f) filter(f)) with
+    zero padding, then Eq. 4 average pooling. Statistics only: no gradient.
+    """
+    B_, Sq, H, hd = q.shape
+    L = k.shape[1]
+    nf = int(filt.shape[0])
+    filt = filt.to(device=q.device, dtype=torch.float32)
+    nb, nbk = Sq // block, L // block
+    KV = k.shape[2]
+    G = H // KV
+    panel = block  # one block row of conv output per step; needs nf halo rows
+    # q rows padded by nf so every panel is in bounds; padded rows are
+    # zeroed after the softmax (Eq. 3 zero padding)
+    qp_ = F.pad(q, (0, 0, 0, 0, 0, nf))
+    qpos_ = torch.cat([q_pos, q_pos[-1] + 1 +
+                       torch.arange(nf, device=q_pos.device)])
+    rows = panel + nf
+    outs, frob = [], torch.zeros((), dtype=torch.float32, device=q.device)
+    for i in range(nb):
+        r0 = i * block
+        qg = qp_[:, r0:r0 + rows].reshape(B_, rows, KV, G, hd)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() / math.sqrt(hd)
+        s = s + _mask_bias(cfg, qpos_[r0:r0 + rows], k_pos)
+        a = torch.softmax(s, dim=-1).mean(dim=(0, 1, 2))        # (rows, L)
+        valid = (r0 + torch.arange(rows, device=q.device)) < Sq
+        a = torch.where(valid[:, None], a, 0.0)
+        frob = frob + (a[:panel] ** 2).sum()
+        # conv rows r0..r0+block: sum_f w_f * A[r + f, columns shifted by f]
+        padded = F.pad(a, (0, nf))
+        conv = torch.zeros((panel, L), dtype=torch.float32, device=q.device)
+        for f in range(nf):
+            conv = conv + filt[f] * padded[f:f + panel, f:f + L]
+        outs.append(conv.reshape(block, nbk, block).mean(dim=(0, 2)))
+    return torch.stack(outs), frob      # (Sq/B, L/B), scalar

@@ -18,17 +18,21 @@ class ParamTree(nn.Module):
     `"bq" in tree` read like the JAX package's dict pytree, and
     `state_dict()` keys are its tree paths joined by dots
     ("layers.attn.wq"). Serving needs no gradients, so parameters are
-    created with requires_grad=False."""
+    created with requires_grad=False; `trainable=True` makes every
+    floating-point leaf require grad (the trainer's fp32 masters)."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, *, trainable: bool = False):
         super().__init__()
         for key, val in tree.items():
-            if isinstance(val, (dict, ParamTree)):
-                self.add_module(key, val if isinstance(val, ParamTree)
-                                else ParamTree(val))
+            if isinstance(val, ParamTree) and not trainable:
+                self.add_module(key, val)
+            elif isinstance(val, (dict, ParamTree)):
+                self.add_module(key, ParamTree(dict(val.items()),
+                                               trainable=trainable))
             else:
+                grad = trainable and val.is_floating_point()
                 self.register_parameter(
-                    key, nn.Parameter(val, requires_grad=False))
+                    key, nn.Parameter(val.detach(), requires_grad=grad))
 
     def __getitem__(self, key):
         if key in self._parameters:
@@ -43,6 +47,13 @@ class ParamTree(nn.Module):
 
     def items(self):
         return [(k, self[k]) for k in self.keys()]
+
+
+def tree_map(fn, tree) -> dict:
+    """`fn` applied to every tensor of a ParamTree or nested dict; returns
+    nested dicts of the same keys."""
+    return {k: tree_map(fn, v) if isinstance(v, (dict, ParamTree)) else fn(v)
+            for k, v in tree.items()}
 
 
 def layer_view(tree, i: int) -> dict:
@@ -75,6 +86,31 @@ def rmsnorm(p, x, eps=1e-5):
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"].to(x.dtype)
 
 
+def layernorm(p, x, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)   # jnp.var
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
+
+
+def norm_init(cfg, device, layers=None):
+    """LayerNorm (scale 1, bias 0) for the encoder and audio families with
+    relu/gelu MLPs, RMSNorm (scale 1) otherwise; fp32, stacked over
+    `layers` when given."""
+    shape = (cfg.d_model,) if layers is None else (layers, cfg.d_model)
+    p = {"scale": torch.ones(shape, dtype=torch.float32, device=device)}
+    if cfg.act in ("gelu", "relu") and cfg.family in ("encoder", "audio"):
+        p["bias"] = torch.zeros(shape, dtype=torch.float32, device=device)
+    return p
+
+
+def norm(cfg, p, x):
+    if "bias" in p:
+        return layernorm(p, x, cfg.norm_eps)
+    return rmsnorm(p, x, cfg.norm_eps)
+
+
 # -- linear / embedding ------------------------------------------------------
 
 def linear(p, x):
@@ -85,7 +121,10 @@ def linear(p, x):
 
 
 def embed(p, tokens, dtype):
-    return p["w"][tokens].to(dtype)
+    # F.embedding, not p["w"][tokens]: the indexed read's backward on CUDA
+    # walks each run of equal tokens serially, and ListOps puts most of a
+    # batch on the PAD row; embedding's backward splits long runs
+    return F.embedding(tokens, p["w"]).to(dtype)
 
 
 def unembed(p, x):

@@ -1,16 +1,27 @@
-"""Decoder transformer LM (the dense family) with a loop over stacked layers.
+"""Transformer with a loop over stacked layers: the decoder LM (the dense
+family) and the encoder (spion-lra: LayerNorm, relu MLP, learned positions,
+non-causal).
 
-SPION hook: `spion` (per-layer BCSR tables or a SparseAttentionExec)
-switches self-attention to the block-sparse path.
+SPION hooks: `spion` (per-layer BCSR tables or a SparseAttentionExec)
+switches self-attention to the block-sparse path; `capture` streams pooled
+conv scores for pattern generation during the dense phase. With cfg.remat
+each layer is recomputed in the backward (torch.utils.checkpoint), as the
+JAX package's jax.checkpoint of the scanned layer.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.kv_pool import PagedKVCache, scatter_token, write_target
 from repro_torch.models import attention as A
 from repro_torch.models import layers as Lyr
+
+
+MAX_POS = 65_536  # learned-position table bound (largest non-RoPE shape)
 
 
 def _dtype(cfg):
@@ -23,11 +34,10 @@ def init(cfg, generator, device):
     on a leading layer axis."""
     dtype = _dtype(cfg)
     L, d = cfg.num_layers, cfg.d_model
-    ones = torch.ones((L, d), dtype=torch.float32, device=device)
     layers = {
-        "attn_norm": {"scale": ones.clone()},
+        "attn_norm": Lyr.norm_init(cfg, device, layers=L),
         "attn": A.attn_init(generator, cfg, dtype, device, layers=L),
-        "mlp_norm": {"scale": ones},
+        "mlp_norm": Lyr.norm_init(cfg, device, layers=L),
         "mlp": Lyr.mlp_init(generator, cfg, dtype, device, layers=L),
     }
 
@@ -38,11 +48,13 @@ def init(cfg, generator, device):
     params = {
         "tok_embed": embed_init(),
         "layers": layers,
-        "final_norm": {"scale": torch.ones((d,), dtype=torch.float32,
-                                           device=device)},
+        "final_norm": Lyr.norm_init(cfg, device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init()
+    if not cfg.rope_theta:
+        w = torch.randn((MAX_POS, d), generator=generator, device=device)
+        params["pos_embed"] = {"w": (w * 0.02).to(dtype)}
     return Lyr.ParamTree(params)
 
 
@@ -50,44 +62,77 @@ def _head(params):
     return params["lm_head" if "lm_head" in params else "tok_embed"]
 
 
-def _block(cfg, lp, h, positions, ex, sp):
-    """One layer; returns (h, (k, v)) with the layer's RoPE'd k/v."""
-    x = Lyr.rmsnorm(lp["attn_norm"], h, cfg.norm_eps)
+def _block(cfg, lp, h, positions, ex, sp, capture=None):
+    """One layer; returns (h, (k, v), captured) with the layer's RoPE'd k/v
+    and, with `capture`, its (pooled, frob_sq) scores (else None)."""
+    x = Lyr.norm(cfg, lp["attn_norm"], h)
     q, k, v = A.qkv(cfg, lp["attn"], x, positions)
+    cap = None
+    if capture is not None:
+        cap = A.capture_pooled_scores(cfg, q, k, positions, positions,
+                                      capture["filt"], capture["block"])
     if sp is not None:
         ctx = ex.attend(cfg, q, k, v, sp)
     else:
         ctx = A.dense_attention(cfg, q, k, v, positions, positions)
     h = h + A.attn_out(cfg, lp["attn"], ctx)
-    x = Lyr.rmsnorm(lp["mlp_norm"], h, cfg.norm_eps)
-    return h + Lyr.mlp(cfg, lp["mlp"], x), (k, v)
+    x = Lyr.norm(cfg, lp["mlp_norm"], h)
+    return h + Lyr.mlp(cfg, lp["mlp"], x), (k, v), cap
 
 
-def forward(params, cfg, batch, *, spion=None, collect_kv=False):
+def _block_h(cfg, lp, positions, ex, sp, h):
+    return _block(cfg, lp, h, positions, ex, sp)[0]
+
+
+def _embed_inputs(cfg, params, batch, dtype):
+    h = Lyr.embed(params["tok_embed"], batch["tokens"], dtype)
+    S = h.shape[1]
+    positions = torch.arange(S, device=h.device)
+    if not cfg.rope_theta and "pos_embed" in params:
+        h = h + params["pos_embed"]["w"][:S].to(dtype)
+    return h, positions
+
+
+def forward(params, cfg, batch, *, spion=None, capture=None,
+            collect_kv=False):
     """batch: {'tokens': (B,S)} -> (logits (B,S,V), aux).
 
     spion: None | SparseAttentionExec | tables dict payload.
+    capture: None | {'filt': (F,), 'block': int} -> aux["captured"] is
+             ((Ly, S/B, S/B) pooled conv scores, (Ly,) Frobenius terms) for
+             pattern generation.
     collect_kv: also return the per-layer RoPE'd K/V, stacked
              (L,B,S,KV,hd) — the fused serving prefill writes them into
              cache pages. Return becomes (logits, aux, (ks, vs))."""
     dtype = _dtype(cfg)
     ex = SparseAttentionExec.coerce(spion)
-    tokens = batch["tokens"]
-    h = Lyr.embed(params["tok_embed"], tokens, dtype)
-    positions = torch.arange(h.shape[1], device=h.device)
+    h, positions = _embed_inputs(cfg, params, batch, dtype)
     tabs = None if ex is None else ex.scan_tables()
-    ks, vs = [], []
+    remat = cfg.remat and torch.is_grad_enabled() and capture is None \
+        and not collect_kv
+    ks, vs, caps = [], [], []
     for li in range(cfg.num_layers):
         lp = Lyr.layer_view(params["layers"], li)
         sp = None if tabs is None else {k: t[li] for k, t in tabs.items()}
-        h, (k, v) = _block(cfg, lp, h, positions, ex, sp)
+        if remat:
+            # the layer is run again in the backward: bind this layer's
+            # arguments now, not the loop variables
+            h = checkpoint(functools.partial(_block_h, cfg, lp, positions,
+                                             ex, sp), h, use_reentrant=False)
+            continue
+        h, (k, v), cap = _block(cfg, lp, h, positions, ex, sp, capture)
         if collect_kv:
             ks.append(k)
             vs.append(v)
-    h = Lyr.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        if capture is not None:
+            caps.append(cap)
+    h = Lyr.norm(cfg, params["final_norm"], h)
     logits = Lyr.unembed(_head(params), h)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     aux = {"lb_loss": zero, "z_loss": zero}
+    if capture is not None:
+        aux["captured"] = (torch.stack([c[0] for c in caps]),
+                           torch.stack([c[1] for c in caps]))
     if collect_kv:
         return logits, aux, (torch.stack(ks), torch.stack(vs))
     return logits, aux
@@ -116,13 +161,13 @@ def _decode_layers(params, cfg, tokens, pos, attend):
     positions = posb[:, None]
     for li in range(cfg.num_layers):
         lp = Lyr.layer_view(params["layers"], li)
-        x = Lyr.rmsnorm(lp["attn_norm"], h, cfg.norm_eps)
+        x = Lyr.norm(cfg, lp["attn_norm"], h)
         q, k_new, v_new = A.qkv(cfg, lp["attn"], x, positions)
         ctx = attend(li, q, k_new, v_new, posb)
         h = h + A.attn_out(cfg, lp["attn"], ctx)
-        x = Lyr.rmsnorm(lp["mlp_norm"], h, cfg.norm_eps)
+        x = Lyr.norm(cfg, lp["mlp_norm"], h)
         h = h + Lyr.mlp(cfg, lp["mlp"], x)
-    h = Lyr.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    h = Lyr.norm(cfg, params["final_norm"], h)
     return Lyr.unembed(_head(params), h)[:, 0]
 
 

@@ -156,10 +156,41 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    """Without a card, every entry point that picks a device raises unless
+    the caller asks for the CPU; the train step takes its device from its
+    tensors, and on a CUDA tensor it never takes the gather."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import Trainer, masters_of
+    from repro_torch.models.registry import build
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
+    cfg = tget_config("spion-lra").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(cfg).init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, seq_len=64, batch=2)
+    tree = {"w": np.zeros((2, 3), np.float32)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy(tree, cfg)
+    tr = Trainer(cfg, seq_len=64, batch=2, device="cpu")
+    assert tr.device == torch.device("cpu")
+    assert all(p.device.type == "cpu" for p in tr.params.parameters())
+    # a sparse train step whose tensors claim to be on the card: "jnp" (the
+    # gather) raises there instead of running on the CPU
+    params = masters_of(build(cfg).init(torch.Generator().manual_seed(0),
+                                        device="cpu"))
+    step = make_train_step(cfg, spion=True, sparse_kernel="jnp")
+    assert cfg.spion.block_size == 64         # one block of 64 tokens
+    tables = {"col_idx": np.zeros((cfg.num_layers, 1, 1), np.int32),
+              "nvalid": np.ones((cfg.num_layers, 1), np.int32), "block": 64}
+    batch = {"tokens": torch.zeros((2, 64), dtype=torch.long),
+             "labels": torch.zeros((2, 64), dtype=torch.long)}
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        step(params, None, batch, 0, tables)
 
 
 def _imported_modules(path):
@@ -174,7 +205,14 @@ def _imported_modules(path):
 def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 15
+    names = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files
+             if "repro_torch" in str(f)}
+    # the training slice's modules are among the files checked
+    assert {"launch/train.py", "launch/steps.py", "optim/adamw.py",
+            "optim/grad.py", "optim/schedule.py", "core/pattern.py",
+            "core/spion.py", "data/listops.py", "data/synthetic.py",
+            "configs/spion_lra.py"} <= names
+    assert len(files) > 25
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]

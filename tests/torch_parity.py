@@ -37,6 +37,23 @@ def configs(dtype="float32", **kw):
     return jc, tc
 
 
+BLOCK = 32    # the training tests' SPION block: S = 128 has 4 row blocks
+
+
+def lra_configs(dtype="float32", **kw):
+    """(JAX cfg, port cfg) of reduced spion-lra (2 layers, d_model 64, 4
+    heads of 16, relu MLP, LayerNorm, learned positions, non-causal) with
+    SPION block BLOCK. The two must be equal as dataclass dicts."""
+    out = []
+    for mod in (jcfgs, tcfgs):
+        c = mod.get_config("spion-lra").reduced()
+        out.append(c.replace(dtype=dtype, spion=dataclasses.replace(
+            c.spion, block_size=BLOCK), **kw))
+    assert dataclasses.asdict(out[0]) == dataclasses.asdict(out[1])
+    assert out[0].family == "encoder" and not out[0].causal
+    return out
+
+
 def params(jc, tc, seed=0):
     """Parameters from the JAX init, as (JAX tree, port ParamTree)."""
     jp = jbuild(jc).init(jax.random.key(seed))
