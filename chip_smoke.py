@@ -9,8 +9,10 @@ Phases (each one fails the run; nothing falls back to the CPU):
   3. hold the block-sparse attention kernel against its plain PyTorch
      version on the card: a sweep over fp32/bf16, causal / non-causal /
      causal + sliding window, G in {1, 4, 7}, empty rows, clamped padded
-     tables and global offsets, then the serving path's own shape in fp32
-     and in bf16 (each bf16 element of o within 2 bf16 ulps of itself);
+     tables and global offsets; then the bf16 (tensor-core) kernel at every
+     head dim and block it takes, with column ids outside the K range mixed
+     into the tables; then the serving path's own shape in fp32 and in bf16
+     (each bf16 element of o within 2 bf16 ulps of itself);
      then the dQ and dK/dV kernels likewise, with empty columns, the plan's
      and the fallback transposed tables, and the serving path's shape;
   4. serve qwen2-7b at full width and depth in bf16 with random weights
@@ -71,7 +73,8 @@ TOL_PLAN = 1e-6     # dK/dV through the plan's tables vs bcsr_transpose's
 SOURCES = "src/repro_torch/kernels/csrc/"
 REPLACES = "src/repro/kernels/block_sparse_attn.py:"
 KERNELS = {         # wrapper: (source, the TPU kernel it replaces)
-    "block_sparse_fwd": (SOURCES + "block_sparse_fwd.cuh", REPLACES + "138"),
+    "block_sparse_fwd": (SOURCES + "block_sparse_fwd_sm90.cuh",
+                         REPLACES + "138"),
     "block_sparse_dq": (SOURCES + "block_sparse_dq.cuh", REPLACES + "281"),
     "block_sparse_dkv": (SOURCES + "block_sparse_dkv.cuh", REPLACES + "377"),
 }
@@ -133,6 +136,27 @@ def random_tables(rng, nrb, ncb, *, causal, empty_rows=(), empty_cols=(),
     return col, nvalid
 
 
+def with_bad_ids(rng, col, nvalid, ncb):
+    """Kernel tables listing the same tiles as (col, nvalid), with column
+    ids outside [0, ncb) mixed in among the listed entries (the kernel
+    skips them) and in the padding past nvalid (never read); the plain
+    version takes (col, nvalid) itself."""
+    import numpy as np
+    rows = []
+    for r in range(len(nvalid)):
+        ids = [int(c) for c in col[r, :nvalid[r]]]
+        for bad in (-3, ncb, ncb + 5):
+            if rng.random() < 0.5:
+                ids.insert(int(rng.integers(0, len(ids) + 1)), bad)
+        rows.append(ids)
+    width = max(len(ids) for ids in rows) + 2
+    out = np.where(rng.random((len(rows), width)) < 0.5, -1,
+                   ncb + 9).astype(np.int32)
+    for r, ids in enumerate(rows):
+        out[r, :len(ids)] = ids
+    return out, np.array([len(ids) for ids in rows], np.int32)
+
+
 def o_limit(dtype, o, ref):
     """Limit on |o - plain|, element by element. Kernel and plain version
     both compute in fp32 and round once to o's dtype, so in bf16 an element
@@ -172,10 +196,15 @@ def compare_kernel(case, gen, rng, tables=None):
     v = torch.randn((N, S + extra, hd), generator=gen, device=dev).to(dt)
     colt = torch.as_tensor(col, device=dev)
     nvt = torch.as_tensor(nvalid, device=dev)
+    kcol, knvt = colt, nvt
+    if case.get("bad_ids"):
+        bad_col, bad_nv = with_bad_ids(rng, col, nvalid, (S + extra) // block)
+        kcol = torch.as_tensor(bad_col, device=dev)
+        knvt = torch.as_tensor(bad_nv, device=dev)
     kw = dict(block=block, causal=case["causal"],
               sliding_window=case.get("sw"), offsets=offsets,
               seq_len=None if offsets is None else 2 * (S + extra))
-    o, lse = block_sparse_fwd(q, k, v, colt, nvt, **kw)
+    o, lse = block_sparse_fwd(q, k, v, kcol, knvt, **kw)
     torch.cuda.synchronize()
     ro, rlse = fused_forward_reference(q, k, v, colt, nvt, **kw)
     diff = (o.float() - ro.float()).abs()
@@ -223,6 +252,7 @@ def phase_kernel_sweep(gen, rng):
         f"fp32 {worst['float32']:.3e} (tol {TOL_O['float32']}), bf16 "
         f"{worst['bfloat16']:.3e} (no bf16 element past {most:.3f} of its "
         f"limit of {BF16_ULPS} bf16 ulps of itself)")
+    phase_bf16_shapes()
     # the path's shape in fp32 (the same kernel template, held at 3e-5),
     # then in bf16 as the serving prefill runs it
     for dtype in ("float32", "bfloat16"):
@@ -234,6 +264,48 @@ def phase_kernel_sweep(gen, rng):
             f"no element past {share:.3f} of its limit; mean |o| "
             f"{typical:.3e})")
     return err, tol, inputs
+
+
+def bf16_shape_cases():
+    """Every head dim and block the bf16 (tensor-core) forward takes, each
+    pair once, cycling through causal / non-causal / sliding window 48, G 1,
+    4 and 7, global offsets and out-of-range column ids, then K/V of fewer
+    rows (N x Sk = 32) than one key tile reads; every case has an empty row
+    and clamped padding."""
+    from repro_torch.kernels.block_sparse_attn import _HEAD_DIMS
+    cases = []
+    modes = ((True, None), (False, None), (True, 48))
+    for i, (hd, block) in enumerate(
+            (hd, block) for hd in _HEAD_DIMS
+            for block in (16, 32, 64, 80, 96, 128)):
+        causal, sw = modes[i % 3]
+        cases.append(dict(dtype="bfloat16", causal=causal, sw=sw,
+                          G=(1, 4, 7)[(i // 3) % 3], N=2,
+                          S=480 if block in (80, 96) else 256, hd=hd,
+                          block=block, empty_rows=(1,), bad_ids=i % 2 == 0,
+                          offsets=(2, 1) if i % 4 == 1 else None))
+    cases.append(dict(dtype="bfloat16", causal=True, sw=None, G=4, N=1, S=32,
+                      hd=16, block=16, empty_rows=(1,), bad_ids=False,
+                      offsets=None))
+    return cases
+
+
+def phase_bf16_shapes():
+    """The cases of bf16_shape_cases, from random streams of their own (the
+    later phases draw what they drew before these cases existed)."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    rng = np.random.default_rng(SEED + 1)
+    cases = bf16_shape_cases()
+    most, worst = 0.0, 0.0
+    for case in cases:
+        err, _, share, _, _, _ = compare_kernel(case, gen, rng)
+        most, worst = max(most, share), max(worst, err)
+    log(f"bf16 kernel at every head dim x block: {len(cases)} cases pass "
+        f"(causal, non-causal, window 48; G 1/4/7; offsets; out-of-range "
+        f"column ids; empty rows); worst |o - plain| {worst:.3e}, no element "
+        f"past {most:.3f} of its limit of {BF16_ULPS} bf16 ulps of itself")
 
 
 # -- the backward kernels ----------------------------------------------------

@@ -9,7 +9,10 @@ called through ctypes:
     head g, row-block r) the K/V tiles listed in `col_idx[r, :nvalid[r]]`
     with an online softmax in fp32 and the paper's Alg. 6 zero-correction
     in the final denominator; returns the context and the per-row
-    log-sum-exp;
+    log-sum-exp. bf16 inputs run the tensor-core kernel
+    (`block_sparse_fwd_sm90.cuh`: wgmma fed by TMA through a ring of K/V
+    tiles, the G heads of a kv head over the same tiles); fp32 inputs, which
+    exist for parity checks, the scalar one (`block_sparse_fwd.cuh`);
   - `block_sparse_dq` (`_dq_kernel`): dq over the same listed tiles;
   - `block_sparse_dkv` (`_dkv_kernel`): dk and dv over the transposed
     tables `row_idx[c, :nvalid_t[c]]`, the G query heads of a kv head
@@ -315,6 +318,22 @@ def _same_device_contiguous(q, **tensors):
         raise ValueError("q must be contiguous")
 
 
+def _aligned(**tensors):
+    """The bf16 forward reads k and v by TMA and q by 16-byte loads: each
+    must start on a 16-byte boundary."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for "
+                             f"the bf16 kernel (data_ptr {t.data_ptr()})")
+
+
+def entry_point(kind, dtype):
+    """Name of the C entry point of kernel `kind` ("fwd", "dq", "dkv") for
+    inputs of `dtype`: spion_block_sparse_fwd_bf16 is the tensor-core
+    forward, spion_block_sparse_fwd_f32 the scalar one."""
+    return f"spion_block_sparse_{kind}_{_DTYPES[dtype]}"
+
+
 def _launch(kind, q, *args):
     """Call the C entry point `kind` for q's dtype on the current stream of
     q's device; raise RuntimeError with CUDA's message if the launch
@@ -323,7 +342,7 @@ def _launch(kind, q, *args):
         raise ValueError(f"the block-sparse kernels run on cuda or cpu "
                          f"tensors, not {q.device}")
     lib = load_library()
-    fn = getattr(lib, f"spion_block_sparse_{kind}_{_DTYPES[q.dtype]}")
+    fn = getattr(lib, entry_point(kind, q.dtype))
     with torch.cuda.device(q.device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc:
@@ -335,7 +354,8 @@ def block_sparse_fwd(q, k, v, col_idx, nvalid, *, block, causal=False,
                      sliding_window=None, offsets=None, seq_len=None):
     """(o, lse) of block-sparse attention; see `fused_forward_reference` for
     the arguments. CPU tensors take the plain version; CUDA tensors launch
-    the Hopper kernel (counted in `block_sparse_fwd.launches`). Not
+    the Hopper kernel (counted in `block_sparse_fwd.launches`): in bf16 the
+    tensor-core one, which needs q, k and v on 16-byte boundaries. Not
     differentiable itself: `fused_block_sparse_attention` is."""
     _check(q, k, v, block)
     N, G, S, hd = q.shape
@@ -345,6 +365,8 @@ def block_sparse_fwd(q, k, v, col_idx, nvalid, *, block, causal=False,
         return fused_forward_reference(
             q, k, v, col_idx, nvalid, block=block, causal=causal,
             sliding_window=sliding_window, offsets=offsets, seq_len=seq_len)
+    if q.dtype == torch.bfloat16:
+        _aligned(q=q, k=k, v=v)
     nrb, K = col_idx.shape
     row0, col0 = _offsets(offsets)
     o = torch.empty_like(q)

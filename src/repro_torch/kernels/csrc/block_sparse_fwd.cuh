@@ -1,7 +1,9 @@
-// Block-sparse flash-attention forward for Hopper (sm_90a).
+// Block-sparse flash-attention forward for Hopper (sm_90a), the fp32 path.
 //
 // Replaces the TPU kernel `_fwd_kernel` of the JAX package
-// (src/repro/kernels/block_sparse_attn.py). For one (kv-head n, query head g,
+// (src/repro/kernels/block_sparse_attn.py) for fp32 inputs, which exist for
+// parity checks (run with TF32 off); bf16 inputs take the tensor-core kernel
+// of block_sparse_fwd_sm90.cuh. For one (kv-head n, query head g,
 // row-block r) a thread block streams the K/V tiles listed in
 // col_idx[r, :nvalid[r]] through shared memory and keeps the flash carries
 // (running max m, sum l, context acc) in fp32. The Alg. 6 zero-correction
@@ -11,12 +13,12 @@
 // Bound on the H100: at the serving shape (block 128, hd 128) each listed
 // tile costs 4 * block^2 * hd flops against 2 * block * hd * 2 bytes of K/V,
 // about 128 flops a byte, so a tensor-core kernel would be bound by the
-// operations and a scalar one all the more. This first version is the
+// operations and a scalar one all the more. This version is the
 // simple one: every product is a scalar fp32 FMA from shared memory (so the
 // fp32 path keeps 3e-5 parity, no TF32), one thread block per (n, g, r),
 // tiles staged in fp32 with padded rows so that no shared-memory read has a
 // bank conflict, K and V sharing one buffer so that block 128 / hd 128 fits
-// in 196 KB. wgmma, TMA and a ring of tiles are later work.
+// in 196 KB.
 //
 // Semantics kept from the reference:
 //   - entries i >= nvalid[r] are skipped (exact no-ops there);

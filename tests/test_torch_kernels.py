@@ -1,11 +1,13 @@
 """Port parity, kernels: the plain version of the Hopper block-sparse
 forward (`repro_torch.kernels.block_sparse_attn.fused_forward_reference`,
 what the wrapper runs on CPU tensors) against the JAX package's Pallas
-kernel in interpret mode and against its three-step oracle; the head-grouping
-wrapper against the JAX wrapper; the wrapper's input checks; and the rule
-that the port imports nothing of JAX."""
+kernel in interpret mode, at every block the bf16 kernel takes, and against
+its three-step oracle; the head-grouping wrapper against the JAX wrapper;
+the wrapper's input checks and its choice of entry point; the card check's
+bf16 sweep; and the rule that the port imports nothing of JAX."""
 import ast
 import pathlib
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,13 +22,16 @@ from repro.kernels.ops import spion_attention_kernel as j_kernel
 from repro_torch import resolve_device
 from repro_torch.configs import get_config as tget_config
 from repro_torch.core.sparse_attention import BCSR
-from repro_torch.kernels.block_sparse_attn import (block_sparse_fwd,
+from repro_torch.kernels.block_sparse_attn import (_HEAD_DIMS, _aligned,
+                                                   block_sparse_fwd,
+                                                   entry_point,
                                                    fused_forward_reference)
 from repro_torch.kernels.ops import spion_attention_kernel as t_kernel
 from torch_parity import (FWD_TOL, assert_close, normal, random_blockmask,
                           to_np, to_torch)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 
 # the same cases as chip_smoke.py's sweep, at S <= 256:
 # (dtype, causal, sliding_window, G, offsets (row0, col0) or None)
@@ -80,6 +85,49 @@ def test_plain_forward_matches_pallas_kernel(dtype, causal, sw, G, offsets):
     want_lse = np.asarray(want_lse)
     inf = np.isinf(want_lse)
     assert inf[:, :, 32:64].all()                  # the empty row-block
+    np.testing.assert_array_equal(np.isinf(to_np(got_lse)), inf)
+    np.testing.assert_allclose(to_np(got_lse)[~inf], want_lse[~inf],
+                               atol=1e-4, rtol=0)
+
+
+# every block the bf16 (tensor-core) kernel takes, each with a head dim of
+# its own: (block, hd, causal, sliding_window, G)
+BLOCKS = [(16, 16, True, None, 4), (32, 48, False, None, 1),
+          (64, 80, True, 48, 2), (80, 112, True, None, 1),
+          (96, 96, False, None, 2), (128, 128, True, None, 1)]
+
+
+@pytest.mark.parametrize("block,hd,causal,sw,G", BLOCKS)
+def test_plain_forward_matches_pallas_kernel_at_every_block(block, hd, causal,
+                                                           sw, G):
+    """The plain version, which the card holds the bf16 kernel to, at each
+    block from 16 to 128 (S = 480 for 80 and 96): an empty row block and
+    clamped padding, fp32 at the reference's 3e-5."""
+    rng = np.random.default_rng(block)
+    S = 480 if block in (80, 96) else 256
+    nrb = S // block
+    mask = rng.random((nrb, nrb)) < 0.5
+    mask[np.arange(nrb), np.arange(nrb)] = True
+    if causal:
+        mask &= np.tril(np.ones((nrb, nrb), bool))
+    mask[1] = False
+    b = j_bcsr(mask, block, max_k=int(mask.sum(1).max()) + 1)
+    col = np.maximum(np.asarray(b.col_idx), 0).astype(np.int32)
+    nvalid = np.asarray(b.nvalid)
+    q = normal(rng, (1, G, S, hd), "float32")
+    k = normal(rng, (1, S, hd), "float32")
+    v = normal(rng, (1, S, hd), "float32")
+    want_o, want_lse = _fused_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(col),
+        jnp.asarray(nvalid), block=block, causal=causal, sliding_window=sw,
+        interpret=True)
+    got_o, got_lse = fused_forward_reference(
+        to_torch(q), to_torch(k), to_torch(v), to_torch(col),
+        to_torch(nvalid), block=block, causal=causal, sliding_window=sw)
+    assert_close(got_o, want_o, FWD_TOL["float32"], "o")
+    want_lse = np.asarray(want_lse)
+    inf = np.isinf(want_lse)
+    assert inf[:, :, block:2 * block].all()        # the empty row block
     np.testing.assert_array_equal(np.isinf(to_np(got_lse)), inf)
     np.testing.assert_allclose(to_np(got_lse)[~inf], want_lse[~inf],
                                atol=1e-4, rtol=0)
@@ -153,6 +201,78 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="head_dim"):
         block_sparse_fwd(qt[..., :24].contiguous(), kt[..., :24].contiguous(),
                          vt[..., :24].contiguous(), ct, nt, block=block)
+
+
+def test_entry_point_follows_the_dtype():
+    """bf16 inputs reach the tensor-core forward (wgmma fed by TMA), fp32
+    inputs the scalar one; the backward kernels keep one entry per dtype."""
+    assert entry_point("fwd", torch.bfloat16) == "spion_block_sparse_fwd_bf16"
+    assert entry_point("fwd", torch.float32) == "spion_block_sparse_fwd_f32"
+    assert entry_point("dq", torch.bfloat16) == "spion_block_sparse_dq_bf16"
+    assert entry_point("dkv", torch.float32) == "spion_block_sparse_dkv_f32"
+    with pytest.raises(KeyError):
+        entry_point("fwd", torch.float16)
+    bf16 = (CSRC / "block_sparse_fwd_bf16.cu").read_text()
+    f32 = (CSRC / "block_sparse_fwd_f32.cu").read_text()
+    sm90 = (CSRC / "block_sparse_fwd_sm90.cuh").read_text()
+    parts = (CSRC / "block_sparse_sm90.cuh").read_text()
+    assert "spion_block_sparse_fwd_bf16" in bf16
+    assert '#include "block_sparse_fwd_sm90.cuh"' in bf16
+    assert '#include "block_sparse_fwd.cuh"' in f32 and "sm90" not in f32
+    assert "block_sparse_fwd_kernel_sm90" in sm90     # profiled by this name
+    assert "wgmma.mma_async" in parts and "cp.async.bulk.tensor" in parts
+    assert "mbarrier.try_wait" in parts
+
+
+def test_bf16_kernel_refuses_unaligned_inputs():
+    """TMA and 16-byte loads need q, k and v on 16-byte boundaries."""
+    t = torch.zeros(256, dtype=torch.bfloat16)
+    _aligned(q=t[:128], k=t[8:136])
+    with pytest.raises(ValueError, match="k must start on a 16-byte"):
+        _aligned(q=t[:128], k=t[1:129])
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
+def test_card_sweep_covers_every_shape_of_the_bf16_kernel():
+    cases = _chip_smoke().bf16_shape_cases()
+    assert {(c["hd"], c["block"]) for c in cases} == {
+        (hd, b) for hd in _HEAD_DIMS for b in (16, 32, 64, 80, 96, 128)}
+    assert {(c["causal"], c["sw"]) for c in cases} == {
+        (True, None), (False, None), (True, 48)}
+    assert {c["G"] for c in cases} == {1, 4, 7}
+    assert any(c["offsets"] for c in cases)
+    assert any(c["bad_ids"] for c in cases)
+    assert not all(c["bad_ids"] for c in cases)
+    assert all(c["empty_rows"] and c["S"] % c["block"] == 0 for c in cases)
+    # K/V of fewer rows than one 64-key tile: the TMA box reads past the end
+    assert any(c["N"] * c["S"] < 64 for c in cases)
+
+
+def test_bad_id_tables_list_the_same_tiles():
+    """The card check's tables with out-of-range column ids list the same
+    in-range tiles, in order, as the tables the plain version gets."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(3)
+    nrb, ncb = 12, 13
+    col, nvalid = cs.random_tables(rng, nrb, ncb, causal=True,
+                                   empty_rows=(1,), diag_offset=1)
+    bad, bad_nv = cs.with_bad_ids(rng, col, nvalid, ncb)
+    assert bad.dtype == np.int32 and bad_nv.dtype == np.int32
+    listed = [bad[r, :bad_nv[r]] for r in range(nrb)]
+    assert any(((x < 0) | (x >= ncb)).any() for x in listed)
+    assert any(((bad[r, bad_nv[r]:] < 0) | (bad[r, bad_nv[r]:] >= ncb)).any()
+               for r in range(nrb))
+    for r in range(nrb):
+        kept = [c for c in listed[r] if 0 <= c < ncb]
+        assert kept == list(col[r, :nvalid[r]])
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
