@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--before DIR]
 
 Phases (each one fails the run; nothing falls back to the CPU):
   1. print the card's name and power limit; turn TF32 off;
@@ -14,7 +14,9 @@ Phases (each one fails the run; nothing falls back to the CPU):
      into the tables; then the serving path's own shape in fp32 and in bf16
      (each bf16 element of o within 2 bf16 ulps of itself);
      then the dQ and dK/dV kernels likewise, with empty columns, the plan's
-     and the fallback transposed tables, and the serving path's shape;
+     and the fallback transposed tables; then the bf16 (tensor-core) dQ and
+     dK/dV at every head dim and block they take, with row and column ids
+     outside the range mixed into the tables; and the serving path's shape;
   4. serve qwen2-7b at full width and depth in bf16 with random weights
      from a seed: ServeEngine(slots=4, max_len=2048) over a SPION plan of
      random causal block masks, six requests of 16 new tokens; the kernel's
@@ -34,7 +36,9 @@ Phases (each one fails the run; nothing falls back to the CPU):
      1.1 x the dense step, leaf by leaf on each layer's attention leaves;
   8. time every kernel, its plain version and PyTorch's
      scaled_dot_product_attention (forward, or its backward for dQ and
-     dK/dV) beside the kernel's bound.
+     dK/dV) beside the kernel's bound; with --before DIR (another checkout,
+     e.g. the parent commit unpacked by git archive), that checkout's dQ
+     and dK/dV kernels too, in turns with these, as before_ms.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -75,8 +79,10 @@ REPLACES = "src/repro/kernels/block_sparse_attn.py:"
 KERNELS = {         # wrapper: (source, the TPU kernel it replaces)
     "block_sparse_fwd": (SOURCES + "block_sparse_fwd_sm90.cuh",
                          REPLACES + "138"),
-    "block_sparse_dq": (SOURCES + "block_sparse_dq.cuh", REPLACES + "281"),
-    "block_sparse_dkv": (SOURCES + "block_sparse_dkv.cuh", REPLACES + "377"),
+    "block_sparse_dq": (SOURCES + "block_sparse_dq_sm90.cuh",
+                        REPLACES + "281"),
+    "block_sparse_dkv": (SOURCES + "block_sparse_dkv_sm90.cuh",
+                         REPLACES + "377"),
 }
 
 
@@ -392,8 +398,9 @@ def backward_inputs(case, gen, rng, tables=None):
 def compare_backward(case, gen, rng, tables=None):
     """dQ and dK/dV kernels against their plain versions on one case, with
     the plan's transposed tables (or bcsr_transpose's when case["tables"]
-    is "fallback"); with the plan's, dK/dV through the fallback tables too,
-    held to TOL_PLAN. Returns {grad: (err, share, mean |plain|, floor
+    is "fallback"), and out-of-range ids mixed into the kernels' tables
+    when case["bad_ids"]; with the plan's, dK/dV through the fallback
+    tables too, held to TOL_PLAN. Returns {grad: (err, share, mean |plain|, floor
     needed)} and the inputs."""
     import torch
     from repro_torch.kernels.block_sparse_attn import (
@@ -405,8 +412,19 @@ def compare_backward(case, gen, rng, tables=None):
     row, nvt = (x["row"], x["nvalid_t"]) if plan else \
         (x["fb_row"], x["fb_nvalid_t"])
     check(not plan or row.shape[1] == x["kt"], "plan table width is not KT*")
-    dq = block_sparse_dq(*args, x["col"], x["nvalid"], **x["kw"])
-    dk, dv = block_sparse_dkv(*args, row, nvt, **x["kw"])
+    kcol, knv, krow, knvt = x["col"], x["nvalid"], row, nvt
+    if case.get("bad_ids"):
+        # the kernels' tables list the same in-range tiles with ids outside
+        # the range mixed in; the plain versions take the clean ones
+        nrb, ncb = x["q"].shape[2] // case["block"], \
+            x["k"].shape[1] // case["block"]
+        kcol, knv, krow, knvt = (
+            torch.as_tensor(t, device=DEVICE) for t in
+            with_bad_ids(rng, kcol.cpu().numpy(), knv.cpu().numpy(), ncb)
+            + with_bad_ids(rng, krow.cpu().numpy(), knvt.cpu().numpy(),
+                           nrb))
+    dq = block_sparse_dq(*args, kcol, knv, **x["kw"])
+    dk, dv = block_sparse_dkv(*args, krow, knvt, **x["kw"])
     torch.cuda.synchronize()
     rdq = fused_dq_reference(*args, x["col"], x["nvalid"], **x["kw"])
     rdk, rdv = fused_dkv_reference(*args, row, nvt, **x["kw"])
@@ -484,10 +502,62 @@ def phase_backward_sweep(gen, rng):
         f"{share_most['bfloat16']:.3g} of its limit of {BF16_ULPS} bf16 ulps "
         f"+ {BF16_GRAD_FLOOR}; the largest floor needed {need:.3e}); plan "
         f"vs fallback dK/dV {gap:.3e} (tol {TOL_PLAN})")
+    phase_bf16_backward_shapes()
     for dtype in ("float32", "bfloat16"):
         res, _ = compare_backward(dict(dtype=dtype, causal=True, pad=0,
                                        **PATH), gen, rng)
         log_backward_path("serving", PATH, dtype, res)
+
+
+def bf16_backward_shape_cases():
+    """Every head dim and block the bf16 (tensor-core) dQ and dK/dV kernels
+    take, each pair once, cycling through causal / non-causal / sliding
+    window 48, G 1, 4 and 7, global offsets, out-of-range row and column
+    ids, and the plan's and the fallback transposed tables; then Q/dO and
+    K/V of fewer rows (N G S = N Sk = 32) than one 64-row box reads. Every
+    case has an empty row block and an empty column block."""
+    from repro_torch.kernels.block_sparse_attn import _HEAD_DIMS
+    cases = []
+    modes = ((True, None), (False, None), (True, 48))
+    for i, (hd, block) in enumerate(
+            (hd, block) for hd in _HEAD_DIMS
+            for block in (16, 32, 64, 80, 96, 128)):
+        causal, sw = modes[i % 3]
+        cases.append(dict(dtype="bfloat16", causal=causal, sw=sw,
+                          G=(1, 4, 7)[(i // 3) % 3], N=2,
+                          S=480 if block in (80, 96) else 256, hd=hd,
+                          block=block, empty_rows=(1,), empty_cols=(0,),
+                          bad_ids=i % 2 == 0,
+                          offsets=(2, 1) if i % 4 == 1 else None,
+                          tables="fallback" if i % 5 == 2 else "plan"))
+    cases.append(dict(dtype="bfloat16", causal=True, sw=None, G=1, N=1, S=32,
+                      hd=16, block=16, empty_rows=(1,), empty_cols=(1,),
+                      bad_ids=True, offsets=None, tables="plan"))
+    return cases
+
+
+def phase_bf16_backward_shapes():
+    """The cases of bf16_backward_shape_cases, from random streams of their
+    own, each held by compare_backward at grad_limit and TOL_PLAN."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    rng = np.random.default_rng(SEED + 2)
+    cases = bf16_backward_shape_cases()
+    most, worst, need, gap = 0.0, 0.0, 0.0, 0.0
+    for case in cases:
+        res, _ = compare_backward(case, gen, rng)
+        gap = max(gap, res.pop("plan_vs_fallback", 0.0))
+        for err, share, _, floor in res.values():
+            most, worst = max(most, share), max(worst, err)
+            need = max(need, floor)
+    log(f"bf16 backward at every head dim x block: {len(cases)} cases pass "
+        f"(causal, non-causal, window 48; G 1/4/7; offsets; out-of-range row "
+        f"and column ids; empty rows and columns; plan and fallback tables); "
+        f"worst |grad - plain| {worst:.3e}, no element past {most:.3f} of "
+        f"its limit of {BF16_ULPS} bf16 ulps + {BF16_GRAD_FLOOR} (the "
+        f"largest floor needed {need:.3e}); plan vs fallback dK/dV {gap:.3e} "
+        f"(tol {TOL_PLAN})")
 
 
 def log_backward_path(label, shape, dtype, res):
@@ -535,29 +605,62 @@ def bound(flops, nbytes):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
-def backward_timing(x):
+def parent_kernels(path):
+    """The kernel module of another checkout of this repository at `path`
+    (its src/repro_torch/kernels/block_sparse_attn.py, which builds that
+    checkout's csrc into that checkout's build/), so that its backward
+    kernels are timed beside these on the same inputs."""
+    import importlib.util
+    src = os.path.join(os.path.abspath(path), "src", "repro_torch",
+                       "kernels", "block_sparse_attn.py")
+    check(os.path.exists(src), f"--before {path}: no {src}")
+    spec = importlib.util.spec_from_file_location("before_block_sparse_attn",
+                                                  src)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def backward_timing(x, before=None):
     """ms of the dQ and dK/dV kernels and their plain versions on the
     inputs `x`, their bounds, and the autograd backward of PyTorch's dense
     scaled_dot_product_attention at the same shape (dq, dk and dv
-    together, over every row) as the library yardstick."""
+    together, over every row) as the library yardstick; with `before` (a
+    parent_kernels module), that tree's kernels too, timed in turns with
+    these (before, these, these, before), as before_ms."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.block_sparse_attn import (
         block_sparse_dkv, block_sparse_dq, fused_dkv_reference,
         fused_dq_reference)
     args = (x["q"], x["k"], x["v"], x["do"], x["lse"], x["delta"])
-    dq_args = args + (x["col"], x["nvalid"])
-    dkv_args = args + (x["row"], x["nvalid_t"])
     kw = x["kw"]
-    out = {
-        "block_sparse_dq": dict(
-            ms=cuda_ms(lambda: block_sparse_dq(*dq_args, **kw), 20),
-            plain_ms=cuda_ms(lambda: fused_dq_reference(*dq_args, **kw), 3)),
-        "block_sparse_dkv": dict(
-            ms=cuda_ms(lambda: block_sparse_dkv(*dkv_args, **kw), 20),
-            plain_ms=cuda_ms(lambda: fused_dkv_reference(*dkv_args, **kw),
-                             3)),
-    }
+    calls = {"block_sparse_dq": args + (x["col"], x["nvalid"]),
+             "block_sparse_dkv": args + (x["row"], x["nvalid_t"])}
+    plain = {"block_sparse_dq": fused_dq_reference,
+             "block_sparse_dkv": fused_dkv_reference}
+    wrapper = {"block_sparse_dq": block_sparse_dq,
+               "block_sparse_dkv": block_sparse_dkv}
+    out = {}
+    for name, a in calls.items():
+        def now():
+            return wrapper[name](*a, **kw)
+        if before is None:
+            out[name] = dict(ms=cuda_ms(now, 20))
+        else:
+            def old():
+                return getattr(before, name)(*a, **kw)
+            b1 = cuda_ms(old, 20)
+            m1, m2 = cuda_ms(now, 20), cuda_ms(now, 20)
+            b2 = cuda_ms(old, 20)
+            out[name] = dict(ms=(m1 + m2) / 2, before_ms=(b1 + b2) / 2,
+                             runs=(b1, m1, m2, b2))
+        out[name]["plain_ms"] = cuda_ms(lambda: plain[name](*a, **kw), 3)
+        # the same launch with nothing listed: what a program costs
+        # before and after its tiles (the order, the stores of 0)
+        empty = a[:-1] + (torch.zeros_like(a[-1]),)
+        out[name]["empty_ms"] = cuda_ms(lambda: wrapper[name](*empty, **kw),
+                                        20)
     q, k, v = (x[n].detach().requires_grad_() for n in "qkv")
     N, G, S, hd = q.shape
     kx = k[:, None].expand(N, G, k.shape[1], hd)
@@ -572,8 +675,13 @@ def backward_timing(x):
         out[name].update(bound_ms=b_ms, bound_by=by, library_ms=library_ms,
                          flops=flops, bytes=nbytes)
         t = out[name]
+        was = "" if before is None else (
+            f"; before (the --before tree's kernel, timed in turns "
+            f"before/now/now/before: {', '.join(f'{r:.4f}' for r in t['runs'])}"
+            f" ms) {t['before_ms']:.4f} ms, {t['before_ms'] / t['ms']:.2f}x")
         log(f"{name} at N={N} G={G} S={S} hd={hd} block={kw['block']} "
-            f"{q.dtype}: {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
+            f"{q.dtype}: {t['ms']:.4f} ms{was}; with nothing listed "
+            f"{t['empty_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
             f"sdpa backward (dense, dq+dk+dv) {library_ms:.4f} ms; bound "
             f"{b_ms:.5f} ms by {by} ({flops:.4g} flop, {nbytes} bytes); "
             f"{b_ms / t['ms']:.4f} of the bound")
@@ -1021,7 +1129,7 @@ def profile_sparse_step(tr, step_fn):
             f"{e.key[:90]}")
 
 
-def phase_train_path_kernels(train, gen):
+def phase_train_path_kernels(train, gen, before=None):
     """The three kernels at the training path's shape, on layer 0's tables
     of the trained plan: the forward (o and lse, where the Alg. 6
     correction for the unstored positions dominates the denominator at
@@ -1044,7 +1152,7 @@ def phase_train_path_kernels(train, gen):
         log_backward_path("training", TRAIN_PATH, dtype, res)
         out[dtype] = {n: res[n][0] for n in ("dq", "dk", "dv")}
         out[dtype]["o"] = err
-    timing = backward_timing(x)
+    timing = backward_timing(x, before)
     timing["block_sparse_fwd"] = kernel_timing(
         (x["q"], x["k"], x["v"], x["col"], x["nvalid"], x["kw"]),
         "the training path's shape")
@@ -1151,7 +1259,14 @@ def phase_covering_step(train):
           f"covering-plan fp32 loss differs from dense by {rel} (relative)")
 
 
-def main():
+def main(argv):
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--before", metavar="DIR", help="another checkout "
+                        "of this repository (e.g. the parent commit from "
+                        "git archive): its dQ and dK/dV kernels are built "
+                        "and timed beside these at the training shape")
+    args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1168,8 +1283,19 @@ def main():
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     start = t0 = time.perf_counter()
+    before, builder = None, None
+    if args.before:
+        import threading
+        before = parent_kernels(args.before)
+        builder = threading.Thread(target=before.load_library)
+        builder.start()       # its nvcc processes run beside this tree's
     load_library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    if builder is not None:
+        builder.join()
+        before.load_library()         # raises here if that build failed
+        log(f"the --before tree's kernels built and loaded by "
+            f"{time.perf_counter() - t0:.1f} s")
     report = library_path().parent / "build.log"
     if report.exists():
         name = "?"
@@ -1189,7 +1315,7 @@ def main():
     check(served["block_sparse_dq"] == 0 and served["block_sparse_dkv"] == 0,
           f"serving launched a backward kernel: {served}")
     train = phase_train()
-    train_err, train_timing = phase_train_path_kernels(train, gen)
+    train_err, train_timing = phase_train_path_kernels(train, gen, before)
     phase_covering_step(train)
     timing = kernel_timing(inputs, "the serving path's shape")
 
@@ -1208,7 +1334,8 @@ def main():
                       "max_abs_err": max(train_err["bfloat16"][g]
                                          for g in grads),
                       **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")}}
+                                           "bound_by", "library_ms",
+                                           "before_ms") if k in t}}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], **row} for name, row in rows.items()]}
@@ -1227,4 +1354,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -13,10 +13,16 @@ called through ctypes:
     (`block_sparse_fwd_sm90.cuh`: wgmma fed by TMA through a ring of K/V
     tiles, the G heads of a kv head over the same tiles); fp32 inputs, which
     exist for parity checks, the scalar one (`block_sparse_fwd.cuh`);
-  - `block_sparse_dq` (`_dq_kernel`): dq over the same listed tiles;
+  - `block_sparse_dq` (`_dq_kernel`): dq over the same listed tiles; bf16
+    inputs run the tensor-core kernel (`block_sparse_dq_sm90.cuh`: the
+    forward's K/V ring, dS in three bf16 terms), fp32 inputs the scalar
+    one (`block_sparse_dq.cuh`);
   - `block_sparse_dkv` (`_dkv_kernel`): dk and dv over the transposed
     tables `row_idx[c, :nvalid_t[c]]`, the G query heads of a kv head
-    summed inside the program.
+    summed inside the program; bf16 inputs run the tensor-core kernel
+    (`block_sparse_dkv_sm90.cuh`: K/V of a column block once, Q/dO tiles,
+    lse and delta through a TMA ring), fp32 inputs the scalar one
+    (`block_sparse_dkv.cuh`).
 Each kernel's design and bound on the H100 are described at the top of its
 `.cuh` file.
 
@@ -319,12 +325,20 @@ def _same_device_contiguous(q, **tensors):
 
 
 def _aligned(**tensors):
-    """The bf16 forward reads k and v by TMA and q by 16-byte loads: each
-    must start on a 16-byte boundary."""
+    """The bf16 kernels read their tiles by TMA and 16-byte copies: each
+    tensor so read must start on a 16-byte boundary."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary for "
                              f"the bf16 kernel (data_ptr {t.data_ptr()})")
+
+
+def _aligned_backward(kind, q, k, v, do, lse, delta):
+    """The bf16 backward kernels read q, k, v and do by TMA or 16-byte
+    copies, and dK/dV reads lse and delta by bulk copies too."""
+    _aligned(q=q, k=k, v=v, do=do)
+    if kind == "dkv":
+        _aligned(lse=lse, delta=delta)
 
 
 def entry_point(kind, dtype):
@@ -400,7 +414,9 @@ def block_sparse_dq(q, k, v, do, lse, delta, col_idx, nvalid, *, block,
                     causal=False, sliding_window=None, offsets=None):
     """dq (N, G, S, hd) fp32 of block-sparse attention; see
     `fused_dq_reference`. CPU tensors take the plain version; CUDA tensors
-    launch the Hopper kernel (counted in `block_sparse_dq.launches`)."""
+    launch the Hopper kernel (counted in `block_sparse_dq.launches`): in
+    bf16 the tensor-core one, which needs q, k, v and do on 16-byte
+    boundaries."""
     _check(q, k, v, block)
     _check_grads(q, do, lse, delta)
     _check_tables(col_idx, nvalid, q.shape[2] // block, "col_idx / nvalid")
@@ -411,6 +427,8 @@ def block_sparse_dq(q, k, v, do, lse, delta, col_idx, nvalid, *, block,
     if q.device.type == "cpu":
         return fused_dq_reference(q, k, v, do, lse, delta, col_idx, nvalid,
                                   **kw)
+    if q.dtype == torch.bfloat16:
+        _aligned_backward("dq", q, k, v, do, lse, delta)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     _launch("dq", q, *_bwd_args(q, k, v, do, lse, delta, col_idx, nvalid,
                                 dq, None, **kw))
@@ -423,7 +441,9 @@ def block_sparse_dkv(q, k, v, do, lse, delta, row_idx, nvalid_t, *, block,
     """(dk, dv) (N, Sk, hd) fp32 of block-sparse attention over the
     transposed tables row_idx (ncb, KT) / nvalid_t (ncb,); see
     `fused_dkv_reference`. CPU tensors take the plain version; CUDA tensors
-    launch the Hopper kernel (counted in `block_sparse_dkv.launches`)."""
+    launch the Hopper kernel (counted in `block_sparse_dkv.launches`): in
+    bf16 the tensor-core one, which needs q, k, v, do, lse and delta on
+    16-byte boundaries."""
     _check(q, k, v, block)
     _check_grads(q, do, lse, delta)
     _check_tables(row_idx, nvalid_t, k.shape[1] // block,
@@ -435,6 +455,8 @@ def block_sparse_dkv(q, k, v, do, lse, delta, row_idx, nvalid_t, *, block,
     if q.device.type == "cpu":
         return fused_dkv_reference(q, k, v, do, lse, delta, row_idx,
                                    nvalid_t, **kw)
+    if q.dtype == torch.bfloat16:
+        _aligned_backward("dkv", q, k, v, do, lse, delta)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     _launch("dkv", q, *_bwd_args(q, k, v, do, lse, delta, row_idx, nvalid_t,

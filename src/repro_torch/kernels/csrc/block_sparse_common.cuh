@@ -1,7 +1,7 @@
 // Helpers shared by the block-sparse attention kernels for Hopper (sm_90a):
-// the thread count, the reference's NEG, fp32 <-> storage-type conversion,
-// the causal / sliding-window tile mask in global positions, and the
-// parameters and C entry point of the two backward kernels.
+// the thread count, the reference's NEG, the scalar (fp32) kernels'
+// conversions, the causal / sliding-window tile mask in global positions,
+// and the parameters and C entry point of the two backward kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,9 +15,6 @@ constexpr int kThreads = 256;   // a 16 x 16 grid of threads over the tile
 constexpr float kNeg = -1e30f;  // the reference's NEG
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);

@@ -1,4 +1,6 @@
-// Block-sparse flash-attention backward, dK/dV, for Hopper (sm_90a).
+// Block-sparse flash-attention backward, dK/dV, for Hopper (sm_90a): the
+// scalar kernel of fp32 inputs (a parity path, with TF32 off); bf16 inputs
+// run the tensor-core kernel of block_sparse_dkv_sm90.cuh.
 //
 // Replaces the TPU kernel `_dkv_kernel` of the JAX package
 // (src/repro/kernels/block_sparse_attn.py, host function `_fused_dkv`). For
@@ -29,8 +31,7 @@
 // Bound on the H100: 8 * block^2 * hd flops per listed (row block, head)
 // against one Q and one dO tile, so at the training shape (block 64, hd 16)
 // the bound is the bytes and at the serving shape (128, 128) the
-// operations. Scalar fp32 FMAs from shared memory, as in the forward; wgmma
-// and TMA are later work.
+// operations. Scalar fp32 FMAs from shared memory, far from either bound.
 //
 // Entries t >= nvalid_t[c] are never read; row ids outside [0, nrb) are
 // skipped.

@@ -1,4 +1,6 @@
-// Block-sparse flash-attention backward, dQ, for Hopper (sm_90a).
+// Block-sparse flash-attention backward, dQ, for Hopper (sm_90a): the
+// scalar kernel of fp32 inputs (a parity path, with TF32 off); bf16 inputs
+// run the tensor-core kernel of block_sparse_dq_sm90.cuh.
 //
 // Replaces the TPU kernel `_dq_kernel` of the JAX package
 // (src/repro/kernels/block_sparse_attn.py, host function `_fused_dq`). For
@@ -26,9 +28,8 @@
 // Bound on the H100: 6 * block^2 * hd flops per listed tile (three
 // products) against one K and one V tile, so at the training shape (block
 // 64, hd 16) the bound is the bytes and at the serving shape (128, 128) the
-// operations. This first version uses scalar fp32 FMAs from shared memory
-// (so the fp32 path keeps the reference's tolerance without TF32), far from
-// either bound; wgmma and TMA are later work.
+// operations. Scalar fp32 FMAs from shared memory (so the fp32 path keeps
+// the reference's tolerance without TF32), far from either bound.
 //
 // Entries i >= nvalid[r] are never read; column ids outside [0, ncb) are
 // skipped, as in the forward. No atomics: each program writes its own rows.

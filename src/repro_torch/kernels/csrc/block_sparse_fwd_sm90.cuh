@@ -70,8 +70,6 @@
 
 namespace spion {
 
-constexpr int kStages = 2;
-
 struct Sm90FwdParams {
   const __nv_bfloat16* q;   // (N, G, S, HD)
   const int* col_idx;       // (nrb, K)
@@ -88,16 +86,6 @@ struct Sm90FwdParams {
   float scale;
 };
 
-// keys a K/V tile holds: the plan block rounded up to a wgmma width
-inline int sm90_key_tile(int block) { return block <= 64 ? 64 : 128; }
-// bytes of a row of one swizzled panel (block_sparse_sm90.cuh) at head dim hd
-__host__ __device__ constexpr int sm90_panel_bytes(int hd) {
-  return hd % 64 == 0 ? 128 : hd % 32 == 0 ? 64 : 32;
-}
-inline int sm90_warpgroups(int G, int block) {
-  return G * block >= 128 ? 2 : 1;
-}
-
 template <int HD, int BN>
 inline size_t sm90_fwd_smem_bytes(int nwg, int K) {
   return 1024 +   // the swizzled tiles start on a 1024-byte boundary
@@ -106,90 +94,11 @@ inline size_t sm90_fwd_smem_bytes(int nwg, int K) {
          (size_t)(2 * K + 4 + kStages) * sizeof(int);
 }
 
-__device__ __forceinline__ int clamp_nvalid(int nv, int K) {
-  return min(max(nv, 0), K);
-}
-
-// The row block of rank `rank` in (nvalid descending, r ascending), by a
-// histogram of the clamped nvalid over K + 1 bins (`hist`) and two warp
-// scans; the result also lands in *sel. Every thread of the block calls it.
-__device__ __forceinline__ int row_block_by_rank(const int* nvalid, int nrb,
-                                                 int K, int rank, int* hist,
-                                                 int* sel) {
-  for (int b = threadIdx.x; b <= K; b += blockDim.x) hist[b] = 0;
-  __syncthreads();
-  for (int r = threadIdx.x; r < nrb; r += blockDim.x)
-    atomicAdd(&hist[clamp_nvalid(nvalid[r], K)], 1);
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const unsigned below = (1u << lane) - 1;
-    // the bin that holds `rank`, walking the bins from K down
-    int bin = -1, skip = 0, before = 0;
-    for (int base = 0; base <= K && bin < 0; base += 32) {
-      const int b = K - base - lane;
-      const int h = b >= 0 ? hist[b] : 0;
-      int incl = h;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int t = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += t;
-      }
-      const unsigned hit = __ballot_sync(0xffffffffu, before + incl > rank);
-      if (hit) {
-        const int first = __ffs(hit) - 1;
-        bin = K - base - first;
-        skip = rank - before - __shfl_sync(0xffffffffu, incl - h, first);
-      }
-      before += __shfl_sync(0xffffffffu, incl, 31);
-    }
-    // the skip-th row block (ascending r) in that bin
-    int found = 0;
-    for (int base = 0; base < nrb; base += 32) {
-      const int r = base + lane;
-      const bool match = r < nrb && clamp_nvalid(nvalid[r], K) == bin;
-      const unsigned m = __ballot_sync(0xffffffffu, match);
-      if (skip < __popc(m)) {
-        const unsigned who =
-            __ballot_sync(0xffffffffu, match && __popc(m & below) == skip);
-        found = base + __ffs(who) - 1;
-        break;
-      }
-      skip -= __popc(m);
-    }
-    if (lane == 0) *sel = found;
-  }
-  __syncthreads();
-  return *sel;
-}
-
-// One thread: the K and V tiles of rows [y, y + BN) into stage `s`, a box
-// of one panel at a time.
-template <int HD, int BN>
-__device__ __forceinline__ void issue_tile(unsigned char* ring, uint64_t* full,
-                                           const CUtensorMap* map_k,
-                                           const CUtensorMap* map_v, int s,
-                                           int y) {
-  constexpr int W = sm90_panel_bytes(HD);
-  unsigned char* kt = ring + (size_t)2 * s * BN * HD * 2;
-  unsigned char* vt = kt + BN * HD * 2;
-  sm90::mbar_expect_tx(&full[s], 2 * BN * HD * 2);
-#pragma unroll
-  for (int c = 0; c < HD * 2 / W; ++c) {
-    sm90::tma_load_2d(kt + c * BN * W, map_k, &full[s], c * W / 2, y);
-    sm90::tma_load_2d(vt + c * BN * W, map_v, &full[s], c * W / 2, y);
-  }
-}
-
-// Small head dims: P V in rounds of 16 keys and at most 80 registers a
-// thread, so that 6 programs of one warpgroup share an SM (a cap of 64
+// Small head dims: P V in rounds of 16 keys (round_keys) and at most 80
+// registers a thread, so that 6 programs of one warpgroup share an SM (a cap of 64
 // spilled more and ran slower at the training shape); else
 // rounds of 64 keys (the three terms of a round live in registers until its
 // products complete) and all the registers wgmma's accumulators want.
-template <int HD>
-__host__ __device__ constexpr int round_keys() {
-  return HD <= 32 ? 16 : 64;
-}
 template <int HD, int BN>
 __host__ __device__ constexpr int min_blocks() {
   return HD <= 32 && BN == 64 ? 3 : 1;

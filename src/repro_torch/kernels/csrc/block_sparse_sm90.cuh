@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks of the bf16 block-sparse forward: shared
-// memory addresses, wgmma matrix descriptors and instructions, mbarriers,
-// TMA tile loads, and the host-side encoding of a TMA tensor map.
+// Hopper (sm_90a) building blocks of the bf16 block-sparse kernels (the
+// forward, dQ and dK/dV): shared memory addresses, wgmma matrix descriptors
+// and instructions, mbarriers, TMA tile and bulk loads, the three-term bf16
+// split, the order of work by rank and the K/V ring's loads, and the
+// host-side encoding of a TMA tensor map.
 //
 // Shared-memory tiles use wgmma's swizzled layouts. A tile of R rows and D
 // bf16 columns is cut into panels of W bytes a row (W = 128, 64 or 32, the
@@ -387,7 +389,158 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+
+// 1D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) global -> shared, completing `bytes` of the barrier's
+// transaction count. No bounds: the caller clamps `bytes` to the tensor.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// x0, x1 as three bf16x2 terms t[0] + t[1] + t[2] (24 bits of each, as an
+// fp32 value): t[0] = bf16(x), t[1] = bf16(x - t[0]), t[2] = bf16(x - t[0]
+// - t[1]); each subtraction is exact in fp32.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& t0,
+                                       uint32_t& t1, uint32_t& t2) {
+  t0 = pack_bf16(x0, x1);
+  x0 -= bf16_lo(t0);
+  x1 -= bf16_hi(t0);
+  t1 = pack_bf16(x0, x1);
+  x0 -= bf16_lo(t1);
+  x1 -= bf16_hi(t1);
+  t2 = pack_bf16(x0, x1);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 }  // namespace sm90
+
+// -- pieces shared by the forward and the backward kernels -------------------
+
+constexpr int kStages = 2;
+
+// keys a K/V tile holds: the plan block rounded up to a wgmma width
+inline int sm90_key_tile(int block) { return block <= 64 ? 64 : 128; }
+// bytes of a row of one swizzled panel (block_sparse_sm90.cuh) at head dim hd
+__host__ __device__ constexpr int sm90_panel_bytes(int hd) {
+  return hd % 64 == 0 ? 128 : hd % 32 == 0 ? 64 : 32;
+}
+inline int sm90_warpgroups(int G, int block) {
+  return G * block >= 128 ? 2 : 1;
+}
+
+__device__ __forceinline__ int clamp_nvalid(int nv, int K) {
+  return min(max(nv, 0), K);
+}
+
+// The row block of rank `rank` in (nvalid descending, r ascending), by a
+// histogram of the clamped nvalid over K + 1 bins (`hist`) and two warp
+// scans; the result also lands in *sel. Every thread of the block calls it.
+__device__ __forceinline__ int row_block_by_rank(const int* nvalid, int nrb,
+                                                 int K, int rank, int* hist,
+                                                 int* sel) {
+  for (int b = threadIdx.x; b <= K; b += blockDim.x) hist[b] = 0;
+  __syncthreads();
+  for (int r = threadIdx.x; r < nrb; r += blockDim.x)
+    atomicAdd(&hist[clamp_nvalid(nvalid[r], K)], 1);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const unsigned below = (1u << lane) - 1;
+    // the bin that holds `rank`, walking the bins from K down
+    int bin = -1, skip = 0, before = 0;
+    for (int base = 0; base <= K && bin < 0; base += 32) {
+      const int b = K - base - lane;
+      const int h = b >= 0 ? hist[b] : 0;
+      int incl = h;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += t;
+      }
+      const unsigned hit = __ballot_sync(0xffffffffu, before + incl > rank);
+      if (hit) {
+        const int first = __ffs(hit) - 1;
+        bin = K - base - first;
+        skip = rank - before - __shfl_sync(0xffffffffu, incl - h, first);
+      }
+      before += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    // the skip-th row block (ascending r) in that bin
+    int found = 0;
+    for (int base = 0; base < nrb; base += 32) {
+      const int r = base + lane;
+      const bool match = r < nrb && clamp_nvalid(nvalid[r], K) == bin;
+      const unsigned m = __ballot_sync(0xffffffffu, match);
+      if (skip < __popc(m)) {
+        const unsigned who =
+            __ballot_sync(0xffffffffu, match && __popc(m & below) == skip);
+        found = base + __ffs(who) - 1;
+        break;
+      }
+      skip -= __popc(m);
+    }
+    if (lane == 0) *sel = found;
+  }
+  __syncthreads();
+  return *sel;
+}
+
+// One thread: the K and V tiles of rows [y, y + BN) into stage `s`, a box
+// of one panel at a time.
+template <int HD, int BN>
+__device__ __forceinline__ void issue_tile(unsigned char* ring, uint64_t* full,
+                                           const CUtensorMap* map_k,
+                                           const CUtensorMap* map_v, int s,
+                                           int y) {
+  constexpr int W = sm90_panel_bytes(HD);
+  unsigned char* kt = ring + (size_t)2 * s * BN * HD * 2;
+  unsigned char* vt = kt + BN * HD * 2;
+  sm90::mbar_expect_tx(&full[s], 2 * BN * HD * 2);
+#pragma unroll
+  for (int c = 0; c < HD * 2 / W; ++c) {
+    sm90::tma_load_2d(kt + c * BN * W, map_k, &full[s], c * W / 2, y);
+    sm90::tma_load_2d(vt + c * BN * W, map_v, &full[s], c * W / 2, y);
+  }
+}
+
+template <int HD>
+__host__ __device__ constexpr int round_keys() {
+  return HD <= 32 ? 16 : 64;
+}
+
 }  // namespace spion
 
 // Host side: cuTensorMapEncodeTiled, looked up through the runtime so that

@@ -112,6 +112,50 @@ def test_plain_backward_matches_pallas_kernels(S, hd, block, causal, sw, G,
     assert torch.equal(wdk, dk) and torch.equal(wdv, dv)
 
 
+# every block above and below the GRAD_SWEEP's that the bf16 kernels tile
+# across heads and warpgroups: (S, hd, block, causal, sw, G), S <= 256 and a
+# multiple of the block, three or more row blocks where S allows
+BLOCK_SWEEP = [
+    (64, 16, 16, True, None, 4),
+    (240, 32, 80, True, 48, 1),
+    (192, 48, 96, False, None, 4),
+    (256, 16, 128, False, None, 1),
+]
+
+
+@pytest.mark.parametrize("S,hd,block,causal,sw,G", BLOCK_SWEEP)
+def test_plain_backward_matches_pallas_kernels_at_every_block(S, hd, block,
+                                                             causal, sw, G):
+    """dq, dk, dv of the plain versions == the Pallas _dq_kernel and
+    _dkv_kernel (interpret mode) at blocks 16, 80, 96 and 128, fp32 at the
+    forward's 3e-5, with an empty row block and an empty column block: the
+    card holds the bf16 kernels, which tile these blocks across heads and
+    warpgroups, against these plain versions only."""
+    n = S // block
+    x = _inputs(S, hd, block, causal, sw, G, empty_rows=(n - 1,),
+                empty_cols=(0,))
+    assert x["nvalid"][n - 1] == 0 and x["nvalid"].sum() > 0
+    jx = {k: jnp.asarray(v) for k, v in x.items() if k != "mask"}
+    tx = {k: to_torch(v) for k, v in x.items() if k != "mask"}
+    row_j, nvt_j = j_transpose(jx["col"], jx["nvalid"], ncb=n)
+    kw = dict(block=block, causal=causal, sliding_window=sw)
+    args_j = (jx["q"], jx["k"], jx["v"], jx["do"], jx["lse"], jx["delta"])
+    want_dq = _fused_dq(*args_j, jx["col"], jx["nvalid"], interpret=True,
+                        **kw)
+    want_dk, want_dv = _fused_dkv(*args_j, row_j, nvt_j, interpret=True,
+                                  **kw)
+    args_t = (tx["q"], tx["k"], tx["v"], tx["do"], tx["lse"], tx["delta"])
+    dq = fused_dq_reference(*args_t, tx["col"], tx["nvalid"], **kw)
+    dk, dv = fused_dkv_reference(*args_t, to_torch(row_j), to_torch(nvt_j),
+                                 **kw)
+    for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        assert_close(got, want, FWD_TOL["float32"], f"{name} block {block}")
+    assert not dq[:, :, (n - 1) * block:].any()           # the empty row
+    assert not dk[:, :block].any() and not dv[:, :block].any()
+    assert dq.abs().sum() > 0 and dk.abs().sum() > 0
+
+
 def _grads_torch(x, block, causal, sw, plan=None):
     q, k, v = (to_torch(x[n]).requires_grad_() for n in "qkv")
     o = fused_block_sparse_attention(

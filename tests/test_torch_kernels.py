@@ -23,6 +23,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config as tget_config
 from repro_torch.core.sparse_attention import BCSR
 from repro_torch.kernels.block_sparse_attn import (_HEAD_DIMS, _aligned,
+                                                   _aligned_backward,
                                                    block_sparse_fwd,
                                                    entry_point,
                                                    fused_forward_reference)
@@ -204,8 +205,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_entry_point_follows_the_dtype():
-    """bf16 inputs reach the tensor-core forward (wgmma fed by TMA), fp32
-    inputs the scalar one; the backward kernels keep one entry per dtype."""
+    """bf16 inputs reach the tensor-core kernels (wgmma fed by TMA), fp32
+    inputs the scalar ones, for the forward, dQ and dK/dV alike."""
     assert entry_point("fwd", torch.bfloat16) == "spion_block_sparse_fwd_bf16"
     assert entry_point("fwd", torch.float32) == "spion_block_sparse_fwd_f32"
     assert entry_point("dq", torch.bfloat16) == "spion_block_sparse_dq_bf16"
@@ -222,6 +223,24 @@ def test_entry_point_follows_the_dtype():
     assert "block_sparse_fwd_kernel_sm90" in sm90     # profiled by this name
     assert "wgmma.mma_async" in parts and "cp.async.bulk.tensor" in parts
     assert "mbarrier.try_wait" in parts
+    for kind in ("dq", "dkv"):
+        assert entry_point(kind, torch.bfloat16) == \
+            f"spion_block_sparse_{kind}_bf16"
+        assert entry_point(kind, torch.float32) == \
+            f"spion_block_sparse_{kind}_f32"
+        bf16 = (CSRC / f"block_sparse_{kind}_bf16.cu").read_text()
+        f32 = (CSRC / f"block_sparse_{kind}_f32.cu").read_text()
+        sm90 = (CSRC / f"block_sparse_{kind}_sm90.cuh").read_text()
+        assert f"spion_block_sparse_{kind}_bf16" in bf16
+        assert f'#include "block_sparse_{kind}_sm90.cuh"' in bf16
+        assert f'#include "block_sparse_{kind}.cuh"' in f32
+        assert "sm90" not in f32
+        # profiled by this name; products by wgmma, tiles by TMA
+        assert f"block_sparse_{kind}_kernel_sm90" in sm90
+        assert '#include "block_sparse_sm90.cuh"' in sm90
+        assert "wgmma_ss<" in sm90 and "wgmma_rs<" in sm90
+        assert "tma_load_2d" in sm90 or "issue_tile<" in sm90
+        assert "mbar_wait" in sm90
 
 
 def test_bf16_kernel_refuses_unaligned_inputs():
@@ -230,6 +249,24 @@ def test_bf16_kernel_refuses_unaligned_inputs():
     _aligned(q=t[:128], k=t[8:136])
     with pytest.raises(ValueError, match="k must start on a 16-byte"):
         _aligned(q=t[:128], k=t[1:129])
+
+
+def test_bf16_backward_wrappers_refuse_an_unaligned_do():
+    """The bf16 dQ and dK/dV kernels read q, k, v and do by TMA or 16-byte
+    copies, and dK/dV reads lse and delta by bulk copies: each must start
+    on a 16-byte boundary."""
+    t = torch.zeros(512, dtype=torch.bfloat16)
+    f = torch.zeros(64, dtype=torch.float32)
+    ok = dict(q=t[:128], k=t[128:256], v=t[256:384], do=t[384:512],
+              lse=f[:32], delta=f[32:64])
+    for kind in ("dq", "dkv"):
+        _aligned_backward(kind, **ok)
+        with pytest.raises(ValueError, match="do must start on a 16-byte"):
+            _aligned_backward(kind, **dict(ok, do=t[383:511]))
+    # lse and delta reach dK/dV by 16-byte bulk copies, dQ by plain loads
+    _aligned_backward("dq", **dict(ok, lse=f[1:33]))
+    with pytest.raises(ValueError, match="lse must start on a 16-byte"):
+        _aligned_backward("dkv", **dict(ok, lse=f[1:33]))
 
 
 def _chip_smoke():
@@ -254,6 +291,25 @@ def test_card_sweep_covers_every_shape_of_the_bf16_kernel():
     assert all(c["empty_rows"] and c["S"] % c["block"] == 0 for c in cases)
     # K/V of fewer rows than one 64-key tile: the TMA box reads past the end
     assert any(c["N"] * c["S"] < 64 for c in cases)
+
+
+def test_card_backward_sweep_covers_every_shape_of_the_bf16_kernels():
+    cases = _chip_smoke().bf16_backward_shape_cases()
+    assert {(c["hd"], c["block"]) for c in cases} == {
+        (hd, b) for hd in _HEAD_DIMS for b in (16, 32, 64, 80, 96, 128)}
+    assert all(c["dtype"] == "bfloat16" for c in cases)
+    assert {(c["causal"], c["sw"]) for c in cases} == {
+        (True, None), (False, None), (True, 48)}
+    assert {c["G"] for c in cases} == {1, 4, 7}
+    assert any(c["offsets"] for c in cases)
+    assert any(c["bad_ids"] for c in cases)
+    assert not all(c["bad_ids"] for c in cases)
+    assert {c["tables"] for c in cases} == {"plan", "fallback"}
+    assert all(c["empty_rows"] and c["empty_cols"] and
+               c["S"] % c["block"] == 0 for c in cases)
+    # Q/dO and K/V of fewer rows than one 64-row TMA box
+    assert any(c["N"] * c["G"] * c["S"] < 64 and c["N"] * c["S"] < 64
+               for c in cases)
 
 
 def test_bad_id_tables_list_the_same_tiles():
