@@ -11,13 +11,14 @@ without a card and without that argument they raise.
 """
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: `device` when given, else the
-    first CUDA card. Raises when no card is present and no device was
-    asked for, so nothing falls back to the CPU unasked."""
+def resolve_device(device=None):
+    """The device an entry point runs on (a torch.device): `device` when
+    given, else the first CUDA card. Raises when no card is present and no
+    device was asked for, so nothing falls back to the CPU unasked. torch
+    is imported here, not with the package, so the fleet supervisor
+    (distributed/supervisor.py) runs without it."""
+    import torch
     if device is not None:
         dev = torch.device(device)
         if dev.type == "cuda" and dev.index is None:   # "cuda" -> "cuda:N"

@@ -157,6 +157,19 @@ class SpionController:
         from repro_torch.core.attention_exec import SparseAttentionExec
         return SparseAttentionExec(tables, block=tables["block"], phase=phase)
 
+    def verify_plan_sync(self, state: SpionState,
+                         tag: str = "spion_plan_restore"):
+        """Multi-process: assert every process holds the SAME plan after a
+        restore (the JAX package compares plan digests across processes).
+        A no-op in a single process, which is all the port runs until
+        ROADMAP.md item A12, and in the dense phase."""
+        from repro_torch.distributed import process_count
+        if process_count() <= 1 or state.tables is None:
+            return
+        raise NotImplementedError(
+            f"{tag}: checking the plan across processes waits in ROADMAP.md "
+            "item A12")
+
     # -- per-epoch update (paper Alg. 2 lines 7-12) ----------------------------
 
     def observe_epoch(self, state: SpionState, pooled: np.ndarray,

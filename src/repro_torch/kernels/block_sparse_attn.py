@@ -64,6 +64,12 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 
 
+class KernelError(RuntimeError):
+    """The kernels could not be built, loaded or launched. Never retried
+    (distributed/fault.StepSupervisor): no replay in the same process
+    heals it."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -72,9 +78,9 @@ def _nvcc() -> str:
                            "bin", "nvcc")
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the block-sparse attention kernels "
-                       "are built from src/repro_torch/kernels/csrc at first "
-                       "use and need the CUDA toolkit")
+    raise KernelError("nvcc not found: the block-sparse attention kernels "
+                      "are built from src/repro_torch/kernels/csrc at first "
+                      "use and need the CUDA toolkit")
 
 
 def library_path() -> pathlib.Path:
@@ -102,12 +108,12 @@ def library_path() -> pathlib.Path:
     (out / "build.log").write_text("\n".join(logs))
     for src, proc, log in zip(sources, procs, logs):
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{log[-4000:]}")
+            raise KernelError(f"nvcc failed on {src.name}:\n{log[-4000:]}")
     tmp = out / f"libspion_kernels.{tag}.so"
     link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                           capture_output=True, text=True)
     if link.returncode:
-        raise RuntimeError(f"nvcc link failed:\n{link.stderr[-4000:]}")
+        raise KernelError(f"nvcc link failed:\n{link.stderr[-4000:]}")
     os.replace(tmp, lib)   # atomic: a concurrent build sees all or nothing
     for obj in objs:
         obj.unlink()
@@ -118,7 +124,11 @@ def library_path() -> pathlib.Path:
 def load_library():
     """The loaded kernel library with its ctypes signatures declared."""
     import ctypes
-    lib = ctypes.CDLL(str(library_path()))
+    try:   # an OSError here (nvcc not executable, a bad .so) is no I/O hiccup
+        lib = ctypes.CDLL(str(library_path()))
+    except OSError as e:
+        raise KernelError(f"cannot build or load the kernel library: "
+                          f"{e}") from e
     ptr, cint = ctypes.c_void_p, ctypes.c_int
     for tag in _DTYPES.values():
         fn = getattr(lib, f"spion_block_sparse_fwd_{tag}")
@@ -350,7 +360,7 @@ def entry_point(kind, dtype):
 
 def _launch(kind, q, *args):
     """Call the C entry point `kind` for q's dtype on the current stream of
-    q's device; raise RuntimeError with CUDA's message if the launch
+    q's device; raise KernelError with CUDA's message if the launch
     fails."""
     if q.device.type != "cuda":
         raise ValueError(f"the block-sparse kernels run on cuda or cpu "
@@ -361,7 +371,7 @@ def _launch(kind, q, *args):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc:
         msg = lib.spion_cuda_error_string(rc).decode()
-        raise RuntimeError(f"block_sparse_{kind} launch failed: {msg} ({rc})")
+        raise KernelError(f"block_sparse_{kind} launch failed: {msg} ({rc})")
 
 
 def block_sparse_fwd(q, k, v, col_idx, nvalid, *, block, causal=False,

@@ -380,16 +380,24 @@ def _imported_modules(path):
 
 def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_repro.py",
+              ROOT / "examples" / "train_listops_spion_torch.py"]
     names = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files
              if "repro_torch" in str(f)}
-    # the training slice's modules are among the files checked
+    # the training slice's and the fault-tolerance slice's modules are
+    # among the files checked
     assert {"launch/train.py", "launch/steps.py", "optim/adamw.py",
             "optim/grad.py", "optim/schedule.py", "core/pattern.py",
             "core/spion.py", "data/listops.py", "data/synthetic.py",
-            "configs/spion_lra.py"} <= names
-    assert len(files) > 25
+            "configs/spion_lra.py", "checkpoint/__init__.py",
+            "checkpoint/manager.py", "checkpoint/msgpack_lite.py",
+            "distributed/__init__.py", "distributed/fault.py",
+            "distributed/chaos.py", "distributed/supervisor.py",
+            "launch/supervise.py"} <= names
+    assert len(files) > 35
+    # nor the packages the JAX package's checkpoints are written with
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
+                                  "flax", "orbax")]
     assert not bad, bad

@@ -268,15 +268,21 @@ def test_dense_train_steps_match_reference(dtype, n_micro):
             assert off <= share * moved, (off / moved, step)
 
 
-def test_trainer_refuses_what_is_not_ported():
-    """Checkpointing and meshes wait in ROADMAP.md: asking for them raises
-    and names the item."""
+def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Meshes and several processes wait in ROADMAP.md: asking for them
+    raises and names the item. Checkpointing (item A8) is ported: ckpt_dir=
+    gives the trainer its manager and heartbeat."""
     from repro_torch.launch.train import Trainer
     _jc, tc = lra_configs()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item A8"):
-        Trainer(tc, seq_len=S, batch=B, ckpt_dir="ckpt", device="cpu")
+    tr = Trainer(tc, seq_len=S, batch=B, ckpt_dir=str(tmp_path),
+                 device="cpu")
+    assert tr.ckpt.dir == str(tmp_path) and tr.ckpt.keep == 3
+    assert tr.heartbeat.path == str(tmp_path / "hb_0")
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item A12"):
         Trainer(tc, seq_len=S, batch=B, mesh=object(), device="cpu")
+    monkeypatch.setenv("SPION_NUM_PROCESSES", "2")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item A12"):
+        Trainer(tc, seq_len=S, batch=B, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
