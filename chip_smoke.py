@@ -25,6 +25,31 @@ Phases (each one fails the run; nothing falls back to the CPU):
      (the kernel) and densely must give the same logits in fp32, and in
      bf16 the kernel's prefill must be no farther from the fp32 logits
      than the dense bf16 prefill is;
+  4a. serve a shared prompt prefix with the same qwen2-7b and plan, prefix
+     sharing on at the engine's defaults: a 1024-token system prompt (8
+     pages) first, then four requests whose suffixes (two short, two long)
+     are prefilled fused with those pages shared and left alone, a repeat
+     (a full hit: cached first token, forked tail page) and an unrelated
+     prompt; every request's tokens equal those of an engine with
+     share_prefix=False and its time to first token is at most
+     TTFT_SLACK x that engine's + TTFT_FLOOR_S; fewer pages are used, 28
+     launches a fused prefill and none for a cached admission; then the
+     two short suffixes prefilled stepwise through the shared pages
+     (stepwise_suffix_max=STEPWISE_MAX, no launch): their first-token
+     logits within TOL_STEPWISE of the unshared fused prefill's, and the
+     same path at 2 layers in fp32, the stepwise prefill's last logits and
+     15 decode steps', within TOL_STEPWISE32 of a fused prefill of the
+     same sequence; then qwen2-7b's parameters are freed;
+  4b. serve mixtral-8x7b at full width, 8 of its 32 layers, bf16, through
+     the paged sliding-window ring (max_len 4096 = the window) over a
+     random causal plan of 5120 positions: one 4090-token prompt that
+     wraps the ring during decode and four of 4097-4992 that wrap it at
+     prefill; 16 tokens each, finite logits, 8 launches a fused prefill,
+     the tokens of a contiguous ring engine; the forward kernel against its
+     plain version and timed at this path's shape (G 4, hd 128, window
+     4096); then at 2 layers in fp32 with a dropless MoE, every decode
+     step's logits, across the wrap and after a ring insert, within
+     TOL_RING of a fused prefill of the same sequence;
   5. train spion-lra at its published width under the LRA ListOps preset
      (batch 128 x 2048 tokens) through Trainer for 20 steps: dense steps,
      the flood-fill transition, then sparse steps that must each launch 8
@@ -57,11 +82,15 @@ Phases (each one fails the run; nothing falls back to the CPU):
      finishes, the stitched losses equal phase 5's within TOL_RESUME, the
      heartbeat payload reads back. Save, restore, respawn and rollback
      seconds are printed beside the card's name and power limit.
-The line before the last is the kernels' JSON record (launches_resume,
+The line before the last is the kernels' JSON record (launches_serve,
+launches_serve_shared, launches_mixtral, launches_train, launches_resume,
 launches_rollback and launches_respawn count each kernel's launches in
-phases 9-11, each read from zero); the last line is
+phases 4, 4a, 4b, 5 and 9-11, each read from zero; the forward's
+mixtral_shape holds its check and timing at phase 4b's shape); the last
+line is
 {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import math
 import os
@@ -708,6 +737,35 @@ def backward_timing(x, before=None):
     return out
 
 
+def masked_pairs(col, nvalid, block, kw):
+    """The (q, k) pairs of the listed tiles that the causal / sliding-window
+    mask keeps (the work the forward's function needs), the listed tiles
+    holding any, and the distinct column blocks among those. A tile at
+    block distance d = row - col holds block - |t| pairs at position
+    distance d * block + t, t in (-block, block)."""
+    import numpy as np
+    nv = nvalid.cpu().numpy()
+    cols = col.cpu().numpy()
+    row0, col0 = kw.get("offsets") or (0, 0)
+    sw = kw.get("sliding_window")
+    t = np.arange(1 - block, block)
+    weight = block - np.abs(t)
+    pairs, tiles, needed = 0, 0, set()
+    for r in range(len(nv)):
+        for c in cols[r, :nv[r]]:
+            delta = (r + row0 - int(c) - col0) * block + t
+            ok = np.ones_like(delta, dtype=bool)
+            if kw["causal"]:
+                ok &= delta >= 0
+            if sw:
+                ok &= delta < sw
+            n = int(weight[ok].sum())
+            if n:
+                pairs, tiles = pairs + n, tiles + 1
+                needed.add(int(c))
+    return pairs, tiles, len(needed)
+
+
 def kernel_timing(inputs, label):
     """ms of the forward kernel, its plain version and SDPA on `inputs`,
     and the kernel's bound from these tables."""
@@ -726,12 +784,9 @@ def kernel_timing(inputs, label):
     vx = v[:, None].expand(N, G, S, hd).contiguous()
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, kx, vx, is_causal=kw["causal"]), 20)
-    nv = nvalid.cpu().numpy()
-    cols = col.cpu().numpy()
-    listed = int(nv.sum())
-    distinct = len({int(c) for r in range(len(nv)) for c in cols[r, :nv[r]]})
+    pairs, listed, distinct = masked_pairs(col, nvalid, block, kw)
     esize = q.element_size()
-    flops = 4.0 * N * G * listed * block * block * hd
+    flops = 4.0 * N * G * pairs * hd
     nbytes = (2 * q.numel() * esize + N * G * S * 4          # q, o, lse
               + 2 * N * distinct * block * hd * esize         # listed K, V
               + col.numel() * 4 + nvalid.numel() * 4)
@@ -740,7 +795,8 @@ def kernel_timing(inputs, label):
         f"block={block} {q.dtype}: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
         f"sdpa (dense{', causal' if kw['causal'] else ''}) "
         f"{library_ms:.4f} ms; bound {bound_ms:.5f} ms by {bound_by} "
-        f"({flops:.4g} flop over {listed} listed tiles, {nbytes} bytes); "
+        f"({flops:.4g} flop over the {pairs} (q, k) pairs the mask keeps "
+        f"in {listed} listed tiles, {nbytes} bytes); "
         f"{bound_ms / ms:.4f} of the bound")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
@@ -826,12 +882,43 @@ def covering_and_dense(cfg, params, toks):
         return ls.float(), ld.float()
 
 
+def timed(fn, times, bad):
+    """fn with its host-clock seconds (synchronized) appended to `times`,
+    and the call's index appended to `bad` when its first output (the
+    logits) is not all finite."""
+    import torch
+
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if not torch.isfinite(out[0]).all():
+            bad.append(len(times))
+        return out
+    return wrapped
+
+
+def random_plan(rng, layers, nrb, block):
+    """A SparsityPlan of seeded random causal block masks, one per layer,
+    with its stacked (col_idx, nvalid)."""
+    import numpy as np
+    from repro_torch.core.sparse_attention import build_sparsity_plan
+    tabs = [random_tables(rng, nrb, nrb, causal=True, pad=0)
+            for _ in range(layers)]
+    K = max(c.shape[1] for c, _ in tabs)
+    col = np.stack([np.pad(c, ((0, 0), (0, K - c.shape[1])), mode="edge")
+                    for c, _ in tabs])
+    nvalid = np.stack([n for _, n in tabs])
+    return col, nvalid, build_sparsity_plan(col, nvalid, block)
+
+
 def phase_serve(gen, rng):
     """qwen2-7b at full width and depth, bf16, through ServeEngine."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.sparse_attention import build_sparsity_plan
     from repro_torch.kernels.block_sparse_attn import block_sparse_fwd
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models.registry import build
@@ -850,13 +937,8 @@ def phase_serve(gen, rng):
 
     max_len, block = 2048, cfg.spion.block_size
     nrb = max_len // block
-    layers = [random_tables(rng, nrb, nrb, causal=True, pad=0)
-              for _ in range(cfg.num_layers)]
-    K = max(c.shape[1] for c, _ in layers)
-    col = np.stack([np.pad(c, ((0, 0), (0, K - c.shape[1])), mode="edge")
-                    for c, _ in layers])
-    nvalid = np.stack([n for _, n in layers])
-    plan = build_sparsity_plan(col, nvalid, block)
+    col, _, plan = random_plan(rng, cfg.num_layers, nrb, block)
+    K = col.shape[-1]
     log(f"plan: {nrb} row-blocks of {block}, K={K}, density "
         f"{np.mean(plan.stats['per_layer_density']):.3f}")
 
@@ -867,20 +949,8 @@ def phase_serve(gen, rng):
     eng.run([Request(rid=-1, prompt=np.arange(128, dtype=np.int32),
                      max_new=2)])
     prefill_s, decode_s, bad = [], [], []
-
-    def timed(fn, times):
-        def wrapped(*a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-            if not torch.isfinite(out[0]).all():
-                bad.append(len(times))
-            return out
-        return wrapped
-    eng._prefill = timed(eng._prefill, prefill_s)
-    eng._decode = timed(eng._decode, decode_s)
+    eng._prefill = timed(eng._prefill, prefill_s, bad)
+    eng._decode = timed(eng._decode, decode_s, bad)
     lens = rng.integers(200, 1501, size=6)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=int(n))
                     .astype(np.int32), max_new=16)
@@ -957,7 +1027,526 @@ def phase_serve(gen, rng):
           f"dense one ({ed16}, mean {ed16_mean})")
     return dict(launches=launches, prefill_ms=prefill_ms,
                 decode_ms=decode_ms, prefill_mean=prefill_mean,
-                decode_mean=decode_mean)
+                decode_mean=decode_mean, cfg=cfg, params=params, plan=plan)
+
+
+# -- serving with a shared prompt prefix -----------------------------------------
+
+SHARED_PROMPT = 1024        # tokens of the system prompt: 8 pages of 128
+# suffixes after it: two short ones (stepwise through the shared pages when
+# the engine is asked to, STEPWISE_MAX) and two longer ones; at the
+# engine's defaults all four take the fused prefill, which leaves the 8
+# shared pages alone
+SHARED_SUFFIX = {"short": (37, 201), "long": (300, 517)}
+UNRELATED_PROMPT = 700
+STEPWISE_MAX = 256          # the reference's default: 2 pages
+# each request's time to first token (submit to first token) with sharing
+# at the engine's defaults, against the unshared engine's, each the less of
+# two runs taken in turns: at most TTFT_SLACK x it + TTFT_FLOOR_S (one run
+# of a request read 20 ms apart on one card; PERF.md, Findings)
+TTFT_SLACK, TTFT_FLOOR_S = 1.5, 0.010
+# bf16 first-token logits of a stepwise suffix prefill (28 decode steps a
+# token: M = 1 matmuls, the decode gather with bf16 probabilities) against
+# the unshared engine's fused prefill (the kernel, fp32 probabilities) at
+# the last prompt position. On one H100 these read max 0.25, mean 0.042;
+# with the shared pages mapped rolled by one, max 6.45, mean 1.15 (PERF.md,
+# Findings)
+TOL_STEPWISE = {"max": 0.5, "mean": 0.2}
+# fp32, 2 layers: the stepwise prefill's last logits and each decode
+# step's against a fused prefill of the same full sequence (one H100: 2.5e-5;
+# the shared pages rolled by one: 6.5)
+TOL_STEPWISE32 = 1e-3
+
+
+def stepwise_correctness(cfg, block):
+    """qwen2-7b at full width, 2 layers, fp32: a 1024-token system prompt,
+    then a request whose 37-token suffix is prefilled stepwise through the
+    8 shared pages and which decodes 15 tokens more; the stepwise prefill's
+    last logits and each decode step's are compared with a fused prefill of
+    the same full sequence at those positions. Returns the max |gap| of
+    each of the 16 positions."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.registry import build
+
+    cfg = cfg.replace(num_layers=2, dtype="float32")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    rng = np.random.default_rng(SEED + 6)
+    params = build(cfg).init(gen, device=DEVICE)
+    _, _, plan = random_plan(rng, cfg.num_layers, 2048 // block, block)
+    system = rng.integers(0, cfg.vocab_size, size=SHARED_PROMPT)
+    prompt = np.concatenate([system, rng.integers(
+        0, cfg.vocab_size, size=SHARED_SUFFIX["short"][0])]).astype(
+        np.int32)
+    with torch.inference_mode():
+        eng = ServeEngine(cfg, params, slots=4, max_len=2048, spion=plan,
+                          share_prefix=True, stepwise_suffix_max=STEPWISE_MAX,
+                          device=DEVICE)
+        eng.run([Request(rid=-1, prompt=system.astype(np.int32), max_new=2)])
+        rows = []
+        step1, decode = eng._decode1_step(), eng._decode
+
+        def step1_kept(*a, **kw):
+            out = step1(*a, **kw)
+            rows[:] = [out[0][0].float()]
+            return out
+
+        def decode_kept(*a, **kw):
+            out = decode(*a, **kw)
+            rows.append(out[0][r.slot].float())
+            return out
+        eng._decode1, eng._decode = step1_kept, decode_kept
+        r = Request(rid=0, prompt=prompt.copy(), max_new=16)
+        eng.run([r])
+        check(eng.prefill_stepwise_tokens == len(prompt) - SHARED_PROMPT,
+              f"the fp32 check prefilled {eng.prefill_stepwise_tokens} "
+              f"tokens stepwise")
+        P = len(prompt)
+        seq = np.concatenate([prompt, np.asarray(r.out[:-1], np.int32)])
+        Sp = eng._prefill_len(len(seq))
+        toks = torch.zeros((1, Sp), dtype=torch.long, device=DEVICE)
+        toks[0, :len(seq)] = torch.as_tensor(seq, device=DEVICE)
+        prefill = make_prefill_step(cfg, spion=True, with_cache=True)
+        want, _, _ = prefill(params, {"tokens": toks},
+                             eng._sparse_prefill_exec(Sp))
+        want = want[0, P - 1:len(seq)].float()
+        got = torch.stack(rows)
+        check(got.shape == want.shape, f"{got.shape} stepwise and decode "
+              f"rows for {want.shape} prefill rows")
+        gaps = (got - want).abs().amax(dim=-1).cpu().numpy()
+    log(f"stepwise correctness (qwen2-7b, fp32, 2 layers, card "
+        f"{card_line()}): a {P - SHARED_PROMPT}-token suffix prefilled "
+        f"stepwise through {SHARED_PROMPT // block} shared pages, then 15 "
+        f"decode steps, vs a fused prefill of the same sequence: max |logit "
+        f"gap| {', '.join(f'{g:.3e}' for g in gaps)} (the first is the "
+        f"stepwise prefill's last step); limit {TOL_STEPWISE32}; mean "
+        f"|logit| {want.abs().mean().item():.4e}")
+    return gaps
+
+
+def phase_serve_shared(serve):
+    """qwen2-7b of phase_serve (same parameters and plan) with prefix
+    sharing on at the engine's defaults: a 1024-token system prompt served
+    first, then six requests — four suffixes after it (fused prefills with
+    its 8 pages shared), a repeat of one of them (a full hit: cached first
+    token, tail page forked) and an unrelated prompt — against the same
+    requests with share_prefix=False: tokens, pages, launches and each
+    request's time to first token. Then the two short suffixes prefilled
+    stepwise through the shared pages (stepwise_suffix_max=STEPWISE_MAX),
+    their first-token logits against the unshared fused prefill's, and the
+    same path in fp32 at 2 layers against a fused prefill."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.block_sparse_attn import block_sparse_fwd
+    from repro_torch.launch.serve import Request, ServeEngine
+
+    cfg, params, plan = serve["cfg"], serve["params"], serve["plan"]
+    rng = np.random.default_rng(SEED + 2)
+
+    def draw(n):
+        return rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+    system = draw(SHARED_PROMPT)
+    kinds = ["short", "long", "short", "long"]
+    suffixes = [SHARED_SUFFIX["short"][0], SHARED_SUFFIX["long"][0],
+                SHARED_SUFFIX["short"][1], SHARED_SUFFIX["long"][1]]
+    prompts = [np.concatenate([system, draw(n)]) for n in suffixes]
+    prompts.append(prompts[1].copy())
+    kinds.append("cached")
+    prompts.append(draw(UNRELATED_PROMPT))
+    kinds.append("unrelated")
+    short = [i for i, k in enumerate(kinds) if k == "short"]
+    check(all((n <= STEPWISE_MAX) == (k == "short")
+              for n, k in zip(suffixes, kinds)), "suffix lengths changed")
+
+    def engine(share, **kw):
+        eng = ServeEngine(cfg, params, slots=4, max_len=2048, spion=plan,
+                          share_prefix=share, device=DEVICE, **kw)
+        check(eng.share_prefix == share, "share_prefix default changed")
+        # the system prompt alone first: its 8 pages are prefilled once
+        # and stay registered after it finishes
+        eng.run([Request(rid=-1, prompt=system.copy(), max_new=2)])
+        return eng
+
+    def run(eng, which):
+        """Requests `which` through `eng`: the requests, this run's fused
+        prefills, kernel launches and pages allocated, the peak of live
+        pages before a decode tick, and the decode ticks' seconds."""
+        live, decode_s, bad = [], [], []
+        plain_decode = eng._decode
+        decode = timed(plain_decode, decode_s, bad)
+
+        def decode_live(*a, **kw):
+            live.append(eng.pool.live_pages())
+            return decode(*a, **kw)
+        eng._decode = decode_live
+        reqs = [Request(rid=i, prompt=prompts[i].copy(), max_new=16)
+                for i in which]
+        fused0, allocs0 = eng.prefill_fused, eng.pool.stats["allocs"]
+        launches0 = block_sparse_fwd.launches
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        eng._decode = plain_decode
+        check(all(r.done and len(r.out) == 16 for r in reqs),
+              "a shared-prefix request did not get its 16 tokens")
+        check(not bad, "a logit is not finite in the shared-prefix phase")
+        return dict(reqs=reqs, fused=eng.prefill_fused - fused0,
+                    launches=block_sparse_fwd.launches - launches0,
+                    allocs=eng.pool.stats["allocs"] - allocs0,
+                    peak=max(live), decode_s=decode_s,
+                    ttft=[r.t_first - r.t_submit for r in reqs])
+
+    everyone = range(len(prompts))
+    base = engine(False)
+    first_logits = []          # the unshared fused prefills' last rows
+    base_prefill = base._prefill
+
+    def base_prefill_kept(*a, **kw):
+        out = base_prefill(*a, **kw)
+        P = len(prompts[len(first_logits) % len(prompts)])
+        first_logits.append(out[0][0, P - 1].float())
+        return out
+    base._prefill = base_prefill_kept
+    # once untimed, so that no timed run pays for the first calls at these
+    # prompt lengths; then unshared, shared, shared, unshared, each shared
+    # run on a fresh engine (a second run on one engine would be full hits)
+    run(base, everyone)
+    first_logits.clear()
+    unshared = run(base, everyone)
+    eng = engine(True)
+    check(eng.stepwise_suffix_max == 0, "stepwise_suffix_max default "
+          "changed")
+    st0 = eng.prefix_stats
+    shared = run(eng, everyone)
+    st = eng.prefix_stats
+    hits, lookups = st["hits"] - st0["hits"], st["lookups"] - st0["lookups"]
+    del eng
+    again = engine(True)
+    shared2 = run(again, everyone)
+    del again
+    unshared2 = run(base, everyone)
+    del base
+    ttft = [min(a, b) for a, b in zip(shared["ttft"], shared2["ttft"])]
+    base_ttft = [min(a, b) for a, b in zip(unshared["ttft"],
+                                           unshared2["ttft"])]
+
+    step_eng = engine(True, stepwise_suffix_max=STEPWISE_MAX)
+    step_s, bad, now, last, launched = [], [], [], {}, []
+    step1 = timed(step_eng._decode1_step(), step_s, bad)
+
+    def step1_kept(*a, **kw):
+        out = step1(*a, **kw)
+        now[:] = [out[0][0].float()]
+        return out
+    step_eng._decode1 = step1_kept
+    stepwise = step_eng._stepwise_prefill_paged
+
+    def stepwise_counted(r, s, start):
+        before = block_sparse_fwd.launches
+        first = stepwise(r, s, start)
+        launched.append(block_sparse_fwd.launches - before)
+        last[r.rid] = now[0]
+        return first
+    step_eng._stepwise_prefill_paged = stepwise_counted
+    stepped = run(step_eng, short)
+    step_tokens = step_eng.prefill_stepwise_tokens
+    del step_eng
+    gaps = {}
+    for i in short:
+        d = (last[i] - first_logits[i]).abs()
+        gaps[i] = (d.max().item(), d.mean().item())
+    check(not bad, "a stepwise logit is not finite")
+    gaps32 = stepwise_correctness(cfg, cfg.spion.block_size)
+
+    same = [r.out == r2.out == b.out for r, r2, b in
+            zip(shared["reqs"], shared2["reqs"], unshared["reqs"])]
+    ttft_ok = [a <= TTFT_SLACK * b + TTFT_FLOOR_S
+               for a, b in zip(ttft, base_ttft)]
+    mean_logit = first_logits[0].abs().mean().item()
+    log(f"serve shared prefix (default engine, stepwise_suffix_max 0): "
+        f"system prompt {SHARED_PROMPT} tokens, requests "
+        f"{[f'{k} {len(p)}' for k, p in zip(kinds, prompts)]}; fused "
+        f"prefills {shared['fused']} (unshared {unshared['fused']}), "
+        f"{shared['launches']} kernel launches; prefix hit rate "
+        f"{hits}/{lookups} of this run's page lookups "
+        f"({st['prefix_hit_rate']:.3f} with the system prompt's), "
+        f"prefill_reused {st['prefill_reused']}, forks {st['forks']}; pages "
+        f"allocated {shared['allocs']} (unshared {unshared['allocs']}), "
+        f"peak live {shared['peak']} (unshared {unshared['peak']}); tokens "
+        f"equal to the unshared run's (both shared runs): "
+        f"{[f'{k} {x}' for k, x in zip(kinds, same)]}")
+    log(f"serve shared prefix: time to first token s, the less of two runs "
+        f"shared / unshared (limit {TTFT_SLACK} x unshared + "
+        f"{TTFT_FLOOR_S}): " + ", ".join(
+            f"{k} {a:.4f} / {b:.4f}" for k, a, b in
+            zip(kinds, ttft, base_ttft)) + "; the runs in turns (unshared, "
+        "shared, shared, unshared): " + "; ".join(
+            f"{k} " + " ".join(f"{r['ttft'][i]:.4f}" for r in
+                               (unshared, shared, shared2, unshared2))
+            for i, k in enumerate(kinds)))
+    for i, (mx, mean) in gaps.items():
+        log(f"  stepwise request {i} (suffix {len(prompts[i]) - SHARED_PROMPT}"
+            f", stepwise_suffix_max {STEPWISE_MAX}): first-token logits vs "
+            f"the unshared fused prefill's max {mx:.4e} mean {mean:.4e} "
+            f"(limit {TOL_STEPWISE}; mean |logit| {mean_logit:.4e}); "
+            f"tokens equal to the unshared run's: "
+            f"{stepped['reqs'][short.index(i)].out == unshared['reqs'][i].out}")
+    step_ms = 1e3 * sum(step_s) / len(step_s)
+    decode_ms = 1e3 * float(np.median(shared["decode_s"]))
+    log(f"serve shared prefix: stepwise suffix prefill {step_ms:.2f} ms a "
+        f"token ({len(step_s)} tokens, {1e3 * sum(step_s):.2f} ms, median "
+        f"{1e3 * float(np.median(step_s)):.2f}; stepwise windows launched "
+        f"{launched}); decode {decode_ms:.2f} ms per tick median, all "
+        f"{len(shared['decode_s'])} ticks "
+        f"{1e3 * sum(shared['decode_s']):.2f} ms")
+    for i, kind in enumerate(kinds):
+        check(same[i], f"the {kind} request {i} generated "
+              f"{shared['reqs'][i].out}, the unshared engine "
+              f"{unshared['reqs'][i].out}")
+        check(ttft_ok[i], f"the {kind} request {i}: time to first token "
+              f"{ttft[i]:.4f} s shared, {base_ttft[i]:.4f} s unshared")
+    for i, (mx, mean) in gaps.items():
+        check(mx <= TOL_STEPWISE["max"] and mean <= TOL_STEPWISE["mean"],
+              f"stepwise request {i}: first-token logits differ from the "
+              f"unshared fused prefill's by max {mx}, mean {mean}")
+    worst32 = float(gaps32.max())
+    check(math.isfinite(worst32) and worst32 <= TOL_STEPWISE32,
+          f"fp32 stepwise logits differ from the fused prefill by {worst32}")
+    check(shared["allocs"] < unshared["allocs"]
+          and shared["peak"] < unshared["peak"],
+          f"sharing used {shared['allocs']} pages (peak {shared['peak']}), "
+          f"the unshared run {unshared['allocs']} (peak {unshared['peak']})")
+    check(shared["fused"] == len(prompts) - 1,
+          f"{shared['fused']} fused prefills in the shared run")
+    check(shared["launches"] == cfg.num_layers * shared["fused"],
+          f"{shared['launches']} kernel launches for {shared['fused']} fused "
+          f"prefills")
+    check(stepped["fused"] == 0 and launched == [0, 0],
+          f"a stepwise prefill launched the kernel: {launched}, "
+          f"{stepped['fused']} fused prefills")
+    check(step_tokens == sum(SHARED_SUFFIX["short"]),
+          f"{step_tokens} tokens prefilled stepwise")
+    check(st["prefill_reused"] == 1 and st["forks"] == 1,
+          f"the repeated prompt was no full hit: {st}")
+    check(hits > 0, "no prefix hit")
+    return dict(launches=shared["launches"], step_ms=step_ms,
+                decode_ms=decode_ms, allocs=shared["allocs"],
+                base_allocs=unshared["allocs"], gaps=gaps,
+                gap32=worst32, ttft=ttft, base_ttft=base_ttft)
+
+
+# -- serving mixtral-8x7b through sliding-window ring caches ---------------------
+
+MIXTRAL_LAYERS = 8          # of 32 (all 32 are 93 GB in bf16)
+MIXTRAL_RING = 4096         # ServeEngine(max_len): the ring equals the window
+MIXTRAL_COVER = 5120        # positions the random plan covers (40 blocks)
+MIXTRAL_LONG = (4097, 4992)  # prompts that wrap the ring at prefill
+MIXTRAL_SHORT = 4090        # a prompt that wraps it during decode
+# fp32 decode logits against a fused prefill of the same sequence, both
+# dropless (the reasoning is in PERF.md, Findings)
+TOL_RING = 1e-3
+
+
+@contextlib.contextmanager
+def dropless_moe(cfg):
+    """The MoE's capacity raised so that no token is dropped: C = the group's
+    tokens x top_k. A fused prefill routes ~1000 tokens a group under
+    CAPACITY_FACTOR 1.25 and drops some (GShard), a 4-token decode tick
+    never does, so only a dropless pair computes the same function."""
+    from repro_torch.models import moe
+    old = moe.CAPACITY_FACTOR
+    moe.CAPACITY_FACTOR = cfg.moe.num_experts
+    try:
+        yield
+    finally:
+        moe.CAPACITY_FACTOR = old
+
+
+def ring_correctness(cfg8, col, nvalid, rng):
+    """mixtral at full width, 2 layers, fp32: a 4090-token prompt (the ring
+    wraps at decode position 4096) and a longer one (inserted in ring
+    layout) decode 15 steps through the paged ring; each step's logits are
+    held against a fused prefill of the same full sequence at that
+    position."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sparse_attention import build_sparsity_plan
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.registry import build
+
+    cfg = cfg8.replace(num_layers=2, dtype="float32")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    params = build(cfg).init(gen, device=DEVICE)
+    plan = build_sparsity_plan(col[:2], nvalid[:2], cfg.spion.block_size)
+    lens = (MIXTRAL_SHORT, int(rng.integers(*MIXTRAL_LONG)))
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens]
+    with dropless_moe(cfg), torch.inference_mode():
+        eng = ServeEngine(cfg, params, slots=4, max_len=MIXTRAL_RING,
+                          spion=plan, device=DEVICE)
+        rows = []
+        decode = eng._decode
+
+        def kept(*a, **kw):
+            out = decode(*a, **kw)
+            rows.append(out[0][:len(prompts)].float())
+            return out
+        eng._decode = kept
+        reqs = [Request(rid=i, prompt=p.copy(), max_new=16)
+                for i, p in enumerate(prompts)]
+        eng.run(reqs)
+        prefill = make_prefill_step(cfg, spion=True, with_cache=True)
+        gaps = []
+        for s, r in enumerate(reqs):
+            P = len(r.prompt)
+            seq = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
+            Sp = eng._prefill_len(len(seq))
+            toks = torch.zeros((1, Sp), dtype=torch.long, device=DEVICE)
+            toks[0, :len(seq)] = torch.as_tensor(seq, device=DEVICE)
+            want, _, _ = prefill(params, {"tokens": toks},
+                                 eng._sparse_prefill_exec(Sp))
+            want = want[0, P:len(seq)].float()
+            got = torch.stack([row[s] for row in rows])
+            check(got.shape == want.shape, f"{got.shape} decode rows for "
+                  f"{want.shape} prefill rows")
+            gaps.append((got - want).abs().amax(dim=-1).cpu().numpy())
+            mean_logit = want.abs().mean().item()
+    wrap = MIXTRAL_RING - MIXTRAL_SHORT          # the tick at position 4096
+    log(f"mixtral ring correctness (fp32, 2 layers, dropless MoE, card "
+        f"{card_line()}): decode vs fused prefill of the same sequence, "
+        f"max |logit gap| a step: prompt {lens[0]} (wraps at decode) "
+        f"{', '.join(f'{g:.3e}' for g in gaps[0])} — at position "
+        f"{MIXTRAL_RING}, the first after the wrap, {gaps[0][wrap]:.3e}; "
+        f"prompt {lens[1]} (ring insert) "
+        f"{', '.join(f'{g:.3e}' for g in gaps[1])}; limit {TOL_RING}; mean "
+        f"|logit| {mean_logit:.4e}")
+    worst = max(float(g.max()) for g in gaps)
+    check(math.isfinite(worst) and worst <= TOL_RING,
+          f"ring decode logits differ from the fused prefill by {worst}")
+    return worst
+
+
+def phase_mixtral_ring():
+    """mixtral-8x7b at full width, 8 of 32 layers, bf16, through the paged
+    ring engine over a random causal plan; then the same requests through
+    the contiguous ring engine, the forward kernel at this path's shape, and
+    the fp32 ring correctness check."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.block_sparse_attn import block_sparse_fwd
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models.registry import build
+
+    t_phase = time.perf_counter()
+    full = get_config("mixtral-8x7b")
+    check(full.num_layers == 32 and full.sliding_window == MIXTRAL_RING and
+          full.dtype == "bfloat16" and full.spion.block_size == 128,
+          "mixtral-8x7b config changed")
+    cfg = full.replace(num_layers=MIXTRAL_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    rng = np.random.default_rng(SEED + 3)
+    t0 = time.perf_counter()
+    params = build(cfg).init(gen, device=DEVICE)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in params.parameters())
+    log(f"mixtral-8x7b: {cfg.num_layers} of {full.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+        f"d_ff {cfg.d_ff}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k}, vocab {cfg.vocab_size}, window "
+        f"{cfg.sliding_window}: {nparams} parameters initialised on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    block = cfg.spion.block_size
+    col, nvalid, plan = random_plan(rng, cfg.num_layers,
+                                    MIXTRAL_COVER // block, block)
+    lens = [MIXTRAL_SHORT] + sorted(
+        int(n) for n in rng.integers(MIXTRAL_LONG[0], MIXTRAL_LONG[1] + 1,
+                                     size=4))
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens]
+    warm = rng.integers(0, cfg.vocab_size, size=256).astype(np.int32)
+
+    def engine(paged):
+        eng = ServeEngine(cfg, params, slots=4, max_len=MIXTRAL_RING,
+                          spion=plan, paged=paged, device=DEVICE)
+        check(not eng.share_prefix, "prefix sharing on a ring")
+        eng.run([Request(rid=-1, prompt=warm.copy(), max_new=2)])
+        return eng
+
+    runs = {}
+    for paged in (True, False):
+        eng = engine(paged)
+        prefill_s, decode_s, bad = [], [], []
+        eng._prefill = timed(eng._prefill, prefill_s, bad)
+        eng._decode = timed(eng._decode, decode_s, bad)
+        reqs = [Request(rid=i, prompt=p.copy(), max_new=16)
+                for i, p in enumerate(prompts)]
+        fused0 = eng.prefill_fused
+        block_sparse_fwd.launches = 0
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        runs[paged] = dict(
+            wall=time.perf_counter() - t0, launches=block_sparse_fwd.launches,
+            prefills=eng.prefill_fused - fused0, reqs=reqs, bad=bad,
+            prefill_s=prefill_s, decode_s=decode_s,
+            buckets=[eng._prefill_len(n) for n in lens])
+        del eng
+    run = runs[True]
+    for paged, r in runs.items():
+        what = "paged" if paged else "contiguous"
+        check(all(q.done and len(q.out) == 16 for q in r["reqs"]),
+              f"a {what} mixtral request did not get its 16 tokens")
+        check(not r["bad"], f"a {what} mixtral logit is not finite")
+        check(r["prefills"] == len(prompts) and
+              r["launches"] == cfg.num_layers * r["prefills"],
+              f"{what}: {r['launches']} kernel launches for "
+              f"{r['prefills']} fused prefills of {cfg.num_layers} layers")
+    same = [a.out == b.out for a, b in zip(runs[True]["reqs"],
+                                           runs[False]["reqs"])]
+    prefill_ms = 1e3 * float(np.median(run["prefill_s"]))
+    decode_ms = 1e3 * float(np.median(run["decode_s"]))
+    log(f"serve mixtral ring: prompts {lens} (buckets {run['buckets']}), "
+        f"5 x 16 tokens in {run['wall']:.2f} s; kernel launches "
+        f"{run['launches']} over {run['prefills']} fused prefills; prefill "
+        f"{prefill_ms:.2f} ms median, all {len(run['prefill_s'])} "
+        f"{1e3 * sum(run['prefill_s']):.2f} ms "
+        f"({', '.join(f'{1e3 * t:.1f}' for t in run['prefill_s'])}); decode "
+        f"{decode_ms:.2f} ms per tick median, all {len(run['decode_s'])} "
+        f"ticks {1e3 * sum(run['decode_s']):.2f} ms; contiguous ring engine: "
+        f"prefill {1e3 * float(np.median(runs[False]['prefill_s'])):.2f} ms, "
+        f"decode {1e3 * float(np.median(runs[False]['decode_s'])):.2f} ms "
+        f"median; paged tokens equal the contiguous engine's: {same}")
+    check(all(same), "the paged ring engine's tokens differ from the "
+          "contiguous ring engine's")
+
+    # the forward kernel at this path's shape: layer 0's tables over the
+    # longest bucket, G = 4 query heads a KV head, the window of 4096
+    S = max(run["buckets"])
+    nrb = S // block
+    case = dict(dtype="bfloat16", causal=True, sw=cfg.sliding_window,
+                G=cfg.num_heads // cfg.num_kv_heads, N=cfg.num_kv_heads, S=S,
+                hd=cfg.resolved_head_dim, block=block)
+    kgen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    err, tol, share, typical, lerr, inputs = compare_kernel(
+        case, kgen, np.random.default_rng(SEED + 4),
+        tables=(col[0, :nrb], nvalid[0, :nrb]))
+    log(f"kernel at mixtral's shape {case}: |o - plain| = {err:.3e} (that "
+        f"element's limit {tol:.3e}; no element past {share:.3f} of its "
+        f"limit; mean |o| {typical:.3e}); |lse - plain| {lerr:.3e}")
+    timing = kernel_timing(inputs, "mixtral's sparse ring prefill")
+    launches = run["launches"]
+    del inputs, params, runs, run
+    torch.cuda.empty_cache()
+    ring_gap = ring_correctness(cfg, col, nvalid, rng)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"serve mixtral ring: the phase took {seconds:.1f} s")
+    return dict(launches=launches, prefill_ms=prefill_ms,
+                decode_ms=decode_ms, seconds=seconds, ring_gap=ring_gap,
+                kernel=dict(timing, max_abs_err=err, tol=tol, shape=case))
 
 
 # -- training ------------------------------------------------------------------
@@ -1725,11 +2314,25 @@ def main(argv):
     rng = np.random.default_rng(SEED)
     err, tol, inputs = phase_kernel_sweep(gen, rng)
     phase_backward_sweep(gen, rng)
-    reset_launch_counts()
-    serve = phase_serve(gen, rng)
-    served = launch_counts()
-    check(served["block_sparse_dq"] == 0 and served["block_sparse_dkv"] == 0,
-          f"serving launched a backward kernel: {served}")
+    served = {}
+    for name, phase in (("serve", lambda: phase_serve(gen, rng)),
+                        ("serve_shared", lambda: phase_serve_shared(serve)),
+                        ("mixtral", phase_mixtral_ring)):
+        reset_launch_counts()
+        out = phase()
+        served[name] = launch_counts()
+        check(served[name]["block_sparse_dq"] == 0 and
+              served[name]["block_sparse_dkv"] == 0,
+              f"serving launched a backward kernel: {served[name]}")
+        if name == "serve":
+            serve = out
+        elif name == "serve_shared":
+            shared = out
+            # qwen2-7b's parameters (15 GB) make room for mixtral's
+            del serve["params"], serve["plan"]
+            torch.cuda.empty_cache()
+        else:
+            mixtral = out
     train = phase_train()
     train_err, train_timing = phase_train_path_kernels(train, gen, before)
     phase_covering_step(train)
@@ -1738,12 +2341,16 @@ def main(argv):
     rollback = phase_rollback(resume)
     respawn = phase_respawn(train, resume)
 
-    fwd = {"launches": serve["launches"] + train["launches"]["block_sparse_fwd"],
+    fwd = {"launches": serve["launches"] + shared["launches"]
+           + mixtral["launches"] + train["launches"]["block_sparse_fwd"],
            "launches_serve": serve["launches"],
+           "launches_serve_shared": shared["launches"],
+           "launches_mixtral": mixtral["launches"],
            "launches_train": train["launches"]["block_sparse_fwd"],
            "max_abs_err": err, "tol": tol,
            "train_shape": dict(train_timing.pop("block_sparse_fwd"),
                                max_abs_err=train_err["bfloat16"]["o"]),
+           "mixtral_shape": mixtral["kernel"],
            **timing}
     rows = {"block_sparse_fwd": fwd}
     for name, grads in (("block_sparse_dq", ("dq",)),
@@ -1764,7 +2371,15 @@ def main(argv):
          "replaces": KERNELS[name][1], **row} for name, row in rows.items()]}
     log(f"serve prefill_ms median {serve['prefill_ms']:.3f} mean "
         f"{serve['prefill_mean']:.3f}; decode_ms_per_tick median "
-        f"{serve['decode_ms']:.3f} mean {serve['decode_mean']:.3f}; train "
+        f"{serve['decode_ms']:.3f} mean {serve['decode_mean']:.3f}; shared "
+        f"prefix stepwise_ms_per_token {shared['step_ms']:.3f}, "
+        f"decode_ms_per_tick median {shared['decode_ms']:.3f}, pages "
+        f"{shared['allocs']} (unshared {shared['base_allocs']}), fp32 "
+        f"stepwise gap {shared['gap32']:.3e}; mixtral "
+        f"ring prefill_ms median {mixtral['prefill_ms']:.3f}, "
+        f"decode_ms_per_tick median {mixtral['decode_ms']:.3f}, fp32 ring "
+        f"gap {mixtral['ring_gap']:.3e}, phase {mixtral['seconds']:.1f} s; "
+        f"train "
         f"dense_step_ms median {train['dense_ms']:.3f}, sparse_step_ms median "
         f"{train['sparse_ms']:.3f}")
     card = card_line()

@@ -1,6 +1,7 @@
 """Architecture registry. Importing this package registers the configs the
-port runs so far (qwen2-7b for serving, spion-lra for training); the other
-architectures arrive with their families."""
+port runs so far (qwen2-7b, mixtral-8x7b and arctic-480b for serving,
+spion-lra for training); the other architectures arrive with their
+families."""
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     ModelConfig,
@@ -13,4 +14,9 @@ from repro_torch.configs.base import (  # noqa: F401
     register,
 )
 
-from repro_torch.configs import qwen2_7b, spion_lra  # noqa: F401,E402
+from repro_torch.configs import (  # noqa: F401,E402
+    arctic_480b,
+    mixtral_8x7b,
+    qwen2_7b,
+    spion_lra,
+)

@@ -117,18 +117,20 @@ class SparseAttentionExec:
                                           nvalid_t=tabs.get("nvalid_t"))
         return bcsr_attention(cfg, q, k, v, bcsr)
 
-    def decode(self, cfg, q, k_cache, v_cache, pos, layer_tables):
+    def decode(self, cfg, q, k_cache, v_cache, pos, layer_tables, *,
+               ring=False):
         """Sparse one-token decode for ONE layer over a contiguous cache:
         gather and attend over only the cache blocks this query position's
         pattern row lists (same Alg. 6 zero-corrected softmax as the sparse
-        prefill). `pos` may be per-batch-row (B,)."""
+        prefill). `pos` may be per-batch-row (B,). ring=True for
+        sliding-window ring-buffer caches."""
         return sparse_decode_attention(
             cfg, q, k_cache, v_cache, pos,
             layer_tables["col_idx"].to(q.device),
-            layer_tables["nvalid"].to(q.device), block=self.block)
+            layer_tables["nvalid"].to(q.device), block=self.block, ring=ring)
 
     def decode_paged(self, cfg, q, kp, vp, layer, pos, page_table,
-                     layer_tables):
+                     layer_tables, *, ring=False):
         """`decode` over a paged KV pool (core.kv_pool.PagedKVCache). The
         pool's page size must equal the plan block, so pattern block ids and
         page-table coordinates are the same thing."""
@@ -139,7 +141,7 @@ class SparseAttentionExec:
         return paged_sparse_decode_attention(
             cfg, q, kp, vp, layer, pos, page_table,
             layer_tables["col_idx"].to(q.device),
-            layer_tables["nvalid"].to(q.device), page=self.block)
+            layer_tables["nvalid"].to(q.device), page=self.block, ring=ring)
 
     # -- introspection --------------------------------------------------------
 

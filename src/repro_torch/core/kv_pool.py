@@ -18,19 +18,35 @@ entries (-1) clamp to it, and idle serve slots park their per-tick writes
 there. Reads through unmapped entries are position-masked, so scratch junk
 never reaches a logit.
 
+Prefix sharing (copy-on-write): full prompt pages are content-addressed by a
+chained digest (digest_i = H(digest_{i-1} || tokens of page i) — causal K/V
+at position p depends only on tokens <= p, so equal chains mean equal
+pages). A later request whose chain prefix matches maps the same physical
+pages (incref; never written — decode writes start past the prompt). A
+partial tail page is FORKED: the registry keeps (parent digest, token tuple)
+per registered page, a prefix match copies the page, and the request's first
+divergent token lands in its private copy. Refcounts hitting zero move
+registered pages to an evictable LRU (future prefix hits revive them) and
+return unregistered ones to the free list.
+
+Sliding-window rings reuse a slot's own pages: position p lives in table
+slot (p // page) % NB (`write_target(ring=True)`, `PagePool.insert_ring`).
+
 Where the JAX package donates the pool to a jitted update, the port writes
-the pool tensors in place (`index_put_`, `index_copy_`). Copy-on-write
-prefix sharing is not ported yet.
+the pool tensors in place (`index_put_`, `index_copy_`).
 """
 from __future__ import annotations
 
 import collections
-from typing import List
+import hashlib
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 SCRATCH_PAGE = 0
+_ROOT = b"spion-kv-pool-root"
+ROOT_DIGEST = _ROOT   # chain parent of a prompt's first page (engine-visible)
 
 
 class PagedKVCache:
@@ -49,16 +65,31 @@ class PagedKVCache:
                 f"pt={tuple(self.pt.shape)})")
 
 
-def write_target(pt, posb, page: int):
+def write_target(pt, posb, page: int, *, ring: bool):
     """Physical page + in-page offset each batch row writes its new token to.
 
-    pt (B, NB) page table; posb (B,) absolute positions; block pos // page.
-    Unmapped entries (idle slots, reclaimed rows) clamp to the scratch
-    page."""
+    pt (B, NB) page table; posb (B,) absolute positions. Append caches use
+    block pos // page; sliding-window rings reuse table slot
+    (pos // page) % NB — the page divides the ring length NB * page, so the
+    ring storage slot pos % S lands in table slot (pos // page) % NB at
+    offset pos % page, and rotated-out positions recycle the same physical
+    pages in place. Unmapped entries (idle slots, reclaimed rows) clamp to
+    the scratch page."""
     NB = pt.shape[1]
-    lb = (posb // page).clamp(0, NB - 1).long()
+    lb = (posb // page) % NB if ring else (posb // page).clamp(0, NB - 1)
+    lb = lb.long()
     praw = torch.gather(pt, 1, lb[:, None])[:, 0]
     return praw.clamp(min=SCRATCH_PAGE).long(), (posb % page).long()
+
+
+def ring_positions(ring_len: int, plen: int, device=None):
+    """The prompt position each ring slot s holds after a prompt of `plen`
+    tokens: the LATEST position p < plen with p = s (mod ring_len); negative
+    where the prompt never reached slot s. The layout
+    `write_target(ring=True)` produces at decode time."""
+    s = torch.arange(ring_len, device=device)
+    return s + torch.div(plen - 1 - s, ring_len, rounding_mode="floor") * \
+        ring_len
 
 
 def scatter_token(kp, vp, layer, k_new, v_new, phys, off):
@@ -70,8 +101,46 @@ def scatter_token(kp, vp, layer, k_new, v_new, phys, off):
     return kp, vp
 
 
+# ---------------------------------------------------------------------------
+# prefix hashing
+# ---------------------------------------------------------------------------
+
+def _digest(parent: bytes, toks) -> bytes:
+    body = np.ascontiguousarray(np.asarray(toks, np.int32)).tobytes()
+    return hashlib.blake2b(parent + body, digest_size=16).digest()
+
+
+def chain_digests(prompt: np.ndarray, page: int) -> Tuple[List[bytes], bytes]:
+    """(per-full-page chain digests, full-prompt digest). The chain makes a
+    page digest cover every token before it, which is exactly what causal
+    K/V content depends on."""
+    prompt = np.asarray(prompt, np.int32)
+    nfull = len(prompt) // page
+    digests, parent = [], _ROOT
+    for i in range(nfull):
+        parent = _digest(parent, prompt[i * page:(i + 1) * page])
+        digests.append(parent)
+    tail = prompt[nfull * page:]
+    full = _digest(parent, tail) if len(tail) else parent
+    return digests, full
+
+
+class PrefixMatch(NamedTuple):
+    shared: List[int]            # physical page per prompt block 0..n-1
+    digests: List[bytes]         # chain digest per FULL prompt page
+    full_digest: bytes           # digest over the entire prompt
+    tail_src: Optional[int]      # fork source for a partial tail page
+    first_tok: Optional[int]     # cached first generated token (full hit)
+
+
+# ---------------------------------------------------------------------------
+# the pool
+# ---------------------------------------------------------------------------
+
 class PagePool:
-    """Page tensors + host allocator. Pages are refcounted; page 0 is
+    """Page tensors + host allocator. Pages are refcounted; registered
+    (content-addressed) pages at refcount 0 sit in an eviction LRU instead of
+    the free list, so a hot system prompt survives its requests. Page 0 is
     reserved scratch and never allocated."""
 
     def __init__(self, *, layers: int, num_pages: int, page: int,
@@ -94,6 +163,15 @@ class PagePool:
         self.rc = np.zeros(self.num_pages, np.int64)
         self.free: collections.deque = collections.deque(
             range(1, self.num_pages))
+        self.lru: "collections.OrderedDict[int, None]" = \
+            collections.OrderedDict()
+        self.by_hash = {}     # chain digest -> physical page (full pages)
+        self.meta = {}        # page -> (digest, parent, token tuple, is_full)
+        self.by_parent = {}   # parent digest -> [pages] (fork candidates)
+        self.first_tok = {}   # full-prompt digest -> first generated token
+        self.stats = {"lookups": 0, "hits": 0, "forks": 0, "evictions": 0,
+                      "allocs": 0, "prefix_tokens_reused": 0,
+                      "prefill_reused": 0}
 
     # -- accounting -----------------------------------------------------------
 
@@ -107,8 +185,8 @@ class PagePool:
         return 2 * self.kp.numel() * self.kp.element_size()
 
     def available(self) -> int:
-        """Pages an alloc() can produce right now."""
-        return len(self.free)
+        """Pages an alloc() can produce right now: free + evictable LRU."""
+        return len(self.free) + len(self.lru)
 
     def live_pages(self) -> int:
         return int(np.sum(self.rc > 0))
@@ -116,22 +194,32 @@ class PagePool:
     # -- alloc / refcount -----------------------------------------------------
 
     def alloc(self, n: int) -> List[int]:
-        """Take n pages (refcount 1 each). Raises RuntimeError when the pool
-        cannot satisfy the request — callers gate on available()."""
+        """Take n pages (refcount 1 each), evicting LRU-cached registered
+        pages as needed. Raises RuntimeError when the pool cannot satisfy
+        the request — callers gate on available()."""
         if n > self.available():
             raise RuntimeError(
                 f"page pool exhausted: want {n}, available {self.available()} "
                 f"(capacity {self.capacity}, live {self.live_pages()})")
         out = []
         for _ in range(n):
-            pgid = self.free.popleft()
+            if self.free:
+                pgid = self.free.popleft()
+            else:
+                pgid, _ = self.lru.popitem(last=False)
+                self._unregister(pgid)
+                self.stats["evictions"] += 1
             if self.rc[pgid] != 0:
                 raise RuntimeError(f"free list held live page {pgid}")
             self.rc[pgid] = 1
             out.append(pgid)
+        self.stats["allocs"] += n
         return out
 
     def incref(self, pgid: int):
+        if self.rc[pgid] == 0:
+            # revived from the LRU (registered page between users)
+            self.lru.pop(pgid, None)
         self.rc[pgid] += 1
 
     def decref(self, pgid: int):
@@ -139,9 +227,84 @@ class PagePool:
             raise RuntimeError(f"decref of dead page {pgid}")
         self.rc[pgid] -= 1
         if self.rc[pgid] == 0:
-            self.free.append(pgid)
+            if pgid in self.meta:
+                self.lru[pgid] = None        # evictable, revivable
+            else:
+                self.free.append(pgid)
+
+    # -- prefix registry ------------------------------------------------------
+
+    def match_prefix(self, prompt: np.ndarray) -> PrefixMatch:
+        """Pure query (no refcount changes): which leading full pages of
+        `prompt` are already resident, the fork source for its partial tail
+        (a registered page whose token tuple extends the tail), and the
+        cached first token on a full-prompt hit."""
+        pg = self.page
+        prompt = np.asarray(prompt, np.int32)
+        digests, full = chain_digests(prompt, pg)
+        shared: List[int] = []
+        for d in digests:
+            pgid = self.by_hash.get(d)
+            if pgid is None:
+                break
+            shared.append(pgid)
+        self.stats["lookups"] += len(digests)
+        self.stats["hits"] += len(shared)
+        tail_src = None
+        first = None
+        if len(shared) == len(digests):
+            parent = digests[-1] if digests else _ROOT
+            tail = tuple(int(t) for t in prompt[len(digests) * pg:])
+            if tail:
+                for cand in self.by_parent.get(parent, []):
+                    ctoks = self.meta[cand][2]
+                    if len(ctoks) >= len(tail) and ctoks[:len(tail)] == tail:
+                        tail_src = cand
+                        break
+            first = self.first_tok.get(full)
+        return PrefixMatch(shared, digests, full, tail_src, first)
+
+    def register_full(self, pgid: int, digest: bytes, parent: bytes,
+                      tokens: Tuple[int, ...]):
+        """Content-address a full prompt page for future sharing."""
+        if digest in self.by_hash or pgid in self.meta:
+            return
+        self.meta[pgid] = (digest, parent, tuple(tokens), True)
+        self.by_hash[digest] = pgid
+        self.by_parent.setdefault(parent, []).append(pgid)
+
+    def register_tail(self, pgid: int, parent: bytes,
+                      tokens: Tuple[int, ...]):
+        """Register a PARTIAL tail page as a fork source only (never mapped
+        directly — positions past the prompt inside it belong to its owner's
+        generation and are read-masked in any fork)."""
+        if pgid in self.meta or not tokens:
+            return
+        digest = _digest(parent, np.asarray(tokens, np.int32))
+        self.meta[pgid] = (digest, parent, tuple(tokens), False)
+        self.by_parent.setdefault(parent, []).append(pgid)
+
+    def remember_first_token(self, full_digest: bytes, tok: int):
+        self.first_tok[full_digest] = int(tok)
+
+    def _unregister(self, pgid: int):
+        digest, parent, _toks, is_full = self.meta.pop(pgid)
+        if is_full:
+            self.by_hash.pop(digest, None)
+        sibs = self.by_parent.get(parent)
+        if sibs is not None:
+            if pgid in sibs:
+                sibs.remove(pgid)
+            if not sibs:
+                del self.by_parent[parent]
 
     # -- device-side ops ------------------------------------------------------
+
+    def copy_page(self, src: int, dst: int):
+        """COW fork: duplicate page `src` into already-allocated `dst`."""
+        self.kp[:, dst] = self.kp[:, src]
+        self.vp[:, dst] = self.vp[:, src]
+        self.stats["forks"] += 1
 
     def insert_blocks(self, ks, vs, phys, first_block: int):
         """Write prefill K/V stacks (L, 1, Sp, KV, hd) into pages: page-sized
@@ -156,6 +319,20 @@ class PagePool:
             blocks = new[:, 0].reshape(L, Sp // pg, pg, KV, hd)
             sel = blocks[:, first_block:first_block + nb].to(pool.dtype)
             pool.index_copy_(1, idx, sel)
+
+    def insert_ring(self, ks, vs, phys, plen: int):
+        """Ring-layout insert for a prompt that wraps (plen >= len(phys) *
+        page): ring table slot s holds, for each position in its page, the
+        LATEST prompt position congruent to it mod the ring length — the
+        same layout `write_target(ring=True)` produces at decode time."""
+        L, _, pg, KV, hd = self.kp.shape
+        NB = len(phys)
+        dev = self.kp.device
+        pc = ring_positions(NB * pg, plen, dev).clamp(0, ks.shape[2] - 1)
+        idx = torch.as_tensor(np.asarray(phys, np.int64), device=dev)
+        for pool, new in ((self.kp, ks), (self.vp, vs)):
+            sel = new[:, 0].index_select(1, pc).reshape(L, NB, pg, KV, hd)
+            pool.index_copy_(1, idx, sel.to(pool.dtype))
 
     def cache(self, pt) -> PagedKVCache:
         """The view for one decode step over page table `pt`."""

@@ -317,13 +317,15 @@ def _decode_pattern_cols(pos, col_idx, nvalid, batch: int, block: int):
     return posb, cols.clamp(min=0), valid
 
 
-def _decode_gathered(cfg, q, kg, vg, posb, colc, valid, *, block: int):
+def _decode_gathered(cfg, q, kg, vg, posb, colc, valid, *, block: int,
+                     ring_len=None):
     """Attend q over gathered pattern blocks kg/vg (B, K, block, KV, hd)
     with the Alg. 6 zero-corrected softmax. `colc`/`valid` are the logical
     column-block ids and validity from `_decode_pattern_cols` (possibly
-    further masked by the caller, e.g. unmapped page-table entries). Shared
-    by the contiguous and paged decode paths, which therefore agree bitwise
-    when they gather the same blocks."""
+    further masked by the caller, e.g. unmapped page-table entries);
+    `ring_len` is the ring-buffer length for sliding-window caches (None
+    for append caches). Shared by the contiguous and paged decode paths,
+    which therefore agree bitwise when they gather the same blocks."""
     B, _, H, hd = q.shape
     KV = kg.shape[3]
     G = H // KV
@@ -336,6 +338,10 @@ def _decode_gathered(cfg, q, kg, vg, posb, colc, valid, *, block: int):
     ok = valid[:, :, None] & (kpos >= 0) & (kpos <= posb[:, None, None])
     if cfg.sliding_window:
         ok = ok & (kpos > posb[:, None, None] - cfg.sliding_window)
+    if ring_len is not None:
+        # the ring holds only the last ring_len positions; older ones were
+        # overwritten
+        ok = ok & (kpos > posb[:, None, None] - ring_len)
     s = torch.where(ok[:, None, None], s, -math.inf)
     sflat = s.reshape(B, KV, G, Kp * block)
     mx = sflat.amax(dim=-1, keepdim=True).clamp(min=-1e30)
@@ -346,6 +352,10 @@ def _decode_gathered(cfg, q, kg, vg, posb, colc, valid, *, block: int):
     row_total = posb + 1
     if cfg.sliding_window:
         row_total = row_total.clamp(max=cfg.sliding_window)
+    if ring_len is not None:
+        # positions that rotated out of the ring are GONE, not pruned: the
+        # dense ring decode renormalises over what the cache holds
+        row_total = row_total.clamp(max=ring_len)
     zeros_cnt = (row_total - stored).clamp(min=0)[:, None, None, None].float()
     denom = denom + zeros_cnt * torch.exp(-mx)
     probs = (ex / denom).to(q.dtype).reshape(B, KV, G, Kp, block)
@@ -354,7 +364,7 @@ def _decode_gathered(cfg, q, kg, vg, posb, colc, valid, *, block: int):
 
 
 def sparse_decode_attention(cfg, q, k_cache, v_cache, pos, col_idx, nvalid,
-                            *, block: int):
+                            *, block: int, ring: bool = False):
     """One-token sparse decode: attend over ONLY the KV-cache blocks the
     pattern lists for the query position's row-block.
 
@@ -363,24 +373,35 @@ def sparse_decode_attention(cfg, q, k_cache, v_cache, pos, col_idx, nvalid,
     Semantics match the sparse prefill row (Alg. 6 line 15); where the listed
     blocks cover every visible position this equals dense decode. Decode is
     causal by construction, so the row total is pos + 1 (clipped by the
-    sliding window)."""
+    sliding window).
+
+    ring=True for sliding-window ring-buffer caches (cache slot of absolute
+    position p is p % S; S must be a multiple of `block`): listed column
+    blocks wrap into storage blocks mod S/block, and positions that have
+    rotated out of the ring are masked."""
     B, _, _H, hd = q.shape
     KV, S = k_cache.shape[2], k_cache.shape[1]
     nbc = S // block
     posb, colc, valid = _decode_pattern_cols(pos, col_idx, nvalid, B, block)
-    # append cache: blocks beyond the cache don't exist — mask, never alias
-    valid = valid & (colc < nbc)
-    sb = colc.clamp(max=nbc - 1).long()
+    if ring:
+        sb = (colc % nbc).long()
+    else:
+        # append cache: blocks beyond the cache don't exist — mask, never
+        # alias
+        valid = valid & (colc < nbc)
+        sb = colc.clamp(max=nbc - 1).long()
     kb = k_cache.reshape(B, nbc, block, KV, hd)
     vb = v_cache.reshape(B, nbc, block, KV, hd)
     rows = torch.arange(B, device=q.device)[:, None]
     kg = kb[rows, sb].to(q.dtype)                          # (B,K,blk,KV,hd)
     vg = vb[rows, sb].to(q.dtype)
-    return _decode_gathered(cfg, q, kg, vg, posb, colc, valid, block=block)
+    return _decode_gathered(cfg, q, kg, vg, posb, colc, valid, block=block,
+                            ring_len=S if ring else None)
 
 
 def paged_sparse_decode_attention(cfg, q, kp, vp, layer, pos, page_table,
-                                  col_idx, nvalid, *, page: int):
+                                  col_idx, nvalid, *, page: int,
+                                  ring: bool = False):
     """`sparse_decode_attention` over a paged KV pool (core.kv_pool): the
     pattern's column blocks resolve through the request's page-table row.
 
@@ -388,15 +409,20 @@ def paged_sparse_decode_attention(cfg, q, kp, vp, layer, pos, page_table,
     block; `layer` the pool layer index; page_table (B, NB) of physical page
     ids, -1 = unmapped (masked — reads clamp to the scratch page). Where
     every pattern-listed block is mapped the result is bitwise-identical to
-    the contiguous path."""
+    the contiguous path. ring=True recycles table slots mod NB exactly like
+    the contiguous ring recycles storage blocks."""
     B = q.shape[0]
     NB = page_table.shape[1]
     posb, colc, valid = _decode_pattern_cols(pos, col_idx, nvalid, B, page)
-    valid = valid & (colc < NB)
-    sb = colc.clamp(max=NB - 1).long()
+    if ring:
+        sb = (colc % NB).long()
+    else:
+        valid = valid & (colc < NB)
+        sb = colc.clamp(max=NB - 1).long()
     praw = torch.gather(page_table, 1, sb)                 # (B, K)
     valid = valid & (praw >= 0)
     phys = praw.clamp(min=0).long()
     kg = kp[layer][phys].to(q.dtype)                       # (B,K,page,KV,hd)
     vg = vp[layer][phys].to(q.dtype)
-    return _decode_gathered(cfg, q, kg, vg, posb, colc, valid, block=page)
+    return _decode_gathered(cfg, q, kg, vg, posb, colc, valid, block=page,
+                            ring_len=NB * page if ring else None)

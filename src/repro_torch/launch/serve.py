@@ -10,9 +10,28 @@ mid-decode.
 
 Paged serving (the default): K/V live in a shared core.kv_pool.PagePool of
 cross-layer pages and each slot owns a page-table row. A request enters a
-slot when its WORST-CASE page budget (ceil((prompt + max_new)/page)) fits the
-pool, so it can never run out of pages mid-decode; otherwise it queues
-(FIFO). Reclamation decrefs its pages back to the free list.
+slot when its WORST-CASE page budget (ceil((prompt + max_new)/page), clipped
+to the ring length for sliding-window archs) fits the pool, so it can never
+run out of pages mid-decode; otherwise it queues (FIFO). Reclamation decrefs
+its pages back to the free list (shared prefix pages survive in an eviction
+LRU).
+
+Prefix sharing (copy-on-write, `share_prefix`): full prompt pages are
+content-addressed by chained digests; a request whose prompt prefix matches
+maps the same physical pages (prefilled ONCE — the shared system prompt
+case), a partially-matching tail page is forked so the first divergent
+token lands in a private copy, and a full-prompt hit reuses the recorded
+first token with zero prefill compute. The uncovered suffix goes through
+the fused prefill, which leaves the shared pages untouched; a suffix of at
+most `stepwise_suffix_max` tokens can instead be prefilled stepwise through
+the shared pages (off by default: on the card a stepwise token costs about
+what a whole fused prefill does). Sharing is off for sliding-window rings
+(pages are overwritten in place).
+
+Sliding-window archs (mixtral-8x7b) keep each slot's cache as a ring of
+max_len positions: position p lives in slot p % max_len (paged: table slot
+(p // page) % NB), a prompt longer than the ring is inserted in ring layout,
+and decode masks what rotated out.
 
 Sparse serving: pass the training run's SparsityPlan (or its tables payload,
 or an exec) as `spion=` and both phases use it — the prefill runs the
@@ -21,8 +40,9 @@ blocks the query position's pattern row lists. With paging the page size
 equals the plan block, so that gather is pure page indirection. The plan
 must cover the positions the engine will ever decode.
 
-Not ported yet: copy-on-write prefix sharing, sliding-window ring caches and
-the stepwise prefill of the recurrent families (ROADMAP.md A9).
+Not ported yet: the stepwise prefill of the families without a fused one
+(ROADMAP.md A11). The JAX package hands the pool back from each donated
+step (`_absorb`); here steps write the pool and caches in place.
 """
 from __future__ import annotations
 
@@ -36,7 +56,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.attention_exec import SparseAttentionExec
-from repro_torch.core.kv_pool import PagePool
+from repro_torch.core.kv_pool import ROOT_DIGEST, PagePool, ring_positions
 from repro_torch.core.sparse_attention import SparsityPlan
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models.registry import build
@@ -62,29 +82,28 @@ class ServeEngine:
     spion: None | SparsityPlan | tables payload | SparseAttentionExec —
     enables sparse prefill AND pattern-bounded sparse decode from the same
     layer-wise plan. paged: page the KV cache through a shared PagePool
-    (default True); the page size is the plan block (sparse) or
+    (default True); page_size defaults to the plan block (sparse) or
     min(32, max_len) (dense); num_pages defaults to
     slots * (max_len/page) + 1 scratch — the contiguous footprint.
+    share_prefix: copy-on-write prompt sharing (default: on whenever paged
+    and not a sliding-window ring; True on a ring raises).
+    stepwise_suffix_max: a shared-prefix request whose uncovered suffix is
+    at most this many tokens prefills the suffix stepwise THROUGH the shared
+    pages (one B=1 decode step a token) instead of running the fused
+    prefill; default 0, so every suffix takes the fused prefill (the
+    reference's default is 2 pages, but a B=1 step costs the host about
+    what a whole fused prefill does).
     prefill_bucket: prompts pad up to a multiple of this before the fused
     prefill; causality makes the padding free and the junk K/V it writes is
     never read. Sparse plans prefill at the same bucketed length — the
     stacked row tables slice to the prompt's row-blocks
     (_sparse_prefill_exec), so admission stays O(prompt), not O(coverage).
-    share_prefix=True (copy-on-write prompt sharing) is not ported yet and
-    raises.
     """
 
     def __init__(self, cfg, params, *, slots=4, max_len=512, spion=None,
-                 prefill_bucket=32, paged=True, num_pages=None,
-                 share_prefix=False, device=None):
-        if share_prefix:
-            raise NotImplementedError(
-                "ServeEngine(share_prefix=True): copy-on-write prefix sharing "
-                "is not ported yet (ROADMAP.md A9)")
-        if cfg.sliding_window:
-            raise NotImplementedError(
-                f"ServeEngine: {cfg.name!r} has a sliding window; ring caches "
-                f"are not ported yet (ROADMAP.md A9)")
+                 prefill_bucket=32, paged=True, page_size=None,
+                 num_pages=None, share_prefix=None, stepwise_suffix_max=None,
+                 device=None):
         if not cfg.causal:
             raise ValueError("ServeEngine serves causal models only")
         self.device = resolve_device(device)
@@ -112,9 +131,13 @@ class ServeEngine:
 
         self.paged = bool(paged)
         if self.paged:
-            # sparse: page == plan block, so pattern column blocks and
-            # page-table coordinates coincide
-            self.page = self.exec.block if self.exec else min(32, max_len)
+            self.page = int(page_size or (self.exec.block if self.exec
+                                          else min(32, max_len)))
+            if self.exec is not None and self.page != self.exec.block:
+                raise ValueError(
+                    f"page_size ({self.page}) must equal the sparsity plan "
+                    f"block ({self.exec.block}) so pattern column blocks "
+                    f"and page-table coordinates coincide")
             if max_len % self.page:
                 raise ValueError(f"max_len ({max_len}) must be a multiple "
                                  f"of the page size ({self.page})")
@@ -130,8 +153,19 @@ class ServeEngine:
             # finished slots keep their pages mapped until the next
             # admission needs them (post-run inspection)
             self._held = [False] * slots
+            default_share = not cfg.sliding_window
+            self.share_prefix = (default_share if share_prefix is None
+                                 else bool(share_prefix))
+            if self.share_prefix and not default_share:
+                raise ValueError(
+                    "share_prefix=True needs a fused-prefill causal family "
+                    "without a sliding-window ring (ring pages are "
+                    "overwritten in place; recurrent prefill state depends "
+                    "on the full prefix)")
+            self.stepwise_suffix_max = int(stepwise_suffix_max or 0)
             self.cache = None
         else:
+            self.share_prefix = False
             self.cache = self.bundle.init_cache(slots, max_len,
                                                 device=self.device)
 
@@ -147,8 +181,10 @@ class ServeEngine:
         self.active: List[Optional[Request]] = [None] * slots
         self.waiting: Deque[Request] = collections.deque()
         self.prefill_fused = 0
+        self.prefill_stepwise_tokens = 0
 
         self._decode = make_serve_step(cfg, spion=True)
+        self._decode1 = None
         self._prefill = make_prefill_step(cfg, spion=True, with_cache=True)
 
     def _to_device(self, a):
@@ -171,7 +207,7 @@ class ServeEngine:
                              "position)")
         if req.max_new < 1:
             raise ValueError("max_new must be >= 1")
-        if P + req.max_new > self.max_len:
+        if not self.cfg.sliding_window and P + req.max_new > self.max_len:
             raise ValueError(
                 f"request {req.rid}: prompt ({P}) + max_new ({req.max_new}) "
                 f"exceeds the cache length ({self.max_len})")
@@ -211,6 +247,16 @@ class ServeEngine:
 
     # -- inspection -----------------------------------------------------------
 
+    @property
+    def prefix_stats(self) -> dict:
+        """Pool + prefill counters (prefix-hit-rate telemetry)."""
+        st = dict(self.pool.stats) if self.paged else {}
+        st["prefill_fused"] = self.prefill_fused
+        st["prefill_stepwise_tokens"] = self.prefill_stepwise_tokens
+        lk = st.get("lookups", 0)
+        st["prefix_hit_rate"] = (st.get("hits", 0) / lk) if lk else 0.0
+        return st
+
     def slot_kv(self, s: int, length: int):
         """Host (L, length, KV, hd) K/V of slot `s`'s cache — contiguous
         slice or gathered through the slot's page-table row. Tests and
@@ -223,7 +269,17 @@ class ServeEngine:
     # -- internals ------------------------------------------------------------
 
     def _page_budget(self, P: int, max_new: int) -> int:
-        return (P + max_new + self.page - 1) // self.page
+        worst = (P + max_new + self.page - 1) // self.page
+        if self.cfg.sliding_window:
+            worst = min(worst, self.nblocks)
+        return worst
+
+    def _decode1_step(self):
+        """The B=1 decode step of the stepwise suffix prefill (a step of
+        its own, so timing the batched decode does not count it)."""
+        if self._decode1 is None:
+            self._decode1 = make_serve_step(self.cfg, spion=True)
+        return self._decode1
 
     def _admit(self):
         for s in range(self.slots):
@@ -292,7 +348,7 @@ class ServeEngine:
             return self.cache
         return self.pool.cache(self._pt_dev)
 
-    # -- paged admission ------------------------------------------------------
+    # -- paged admission (free-page admission + COW prefix sharing) -----------
 
     def _admit_paged(self, r: Request, s: int) -> Optional[int]:
         """Map pages for request `r` into slot `s`'s page-table row and
@@ -300,15 +356,74 @@ class ServeEngine:
         pool cannot cover its worst-case budget yet (the request stays
         queued). All pages are mapped up front, so decode can never run
         out mid-request."""
-        total = self._page_budget(len(r.prompt), r.max_new)
-        if self.pool.available() < total:
+        P = len(r.prompt)
+        pg = self.page
+        total = self._page_budget(P, r.max_new)
+        prompt = np.asarray(r.prompt, np.int32)
+        m = self.pool.match_prefix(prompt) if self.share_prefix else None
+        nfull = P // pg
+        tail_len = P - nfull * pg
+        nshared = len(m.shared) if m else 0
+        # full-prompt hit: every page resident (tail via COW fork) AND the
+        # first token recorded — zero prefill compute
+        cached_first = (m is not None and nshared == nfull
+                        and m.first_tok is not None
+                        and (tail_len == 0 or m.tail_src is not None))
+        if not cached_first and tail_len == 0 and nshared == nfull:
+            # the would-be refeed case: the last prompt position lives in a
+            # SHARED page we must not write — recompute that page privately
+            nshared = max(nfull - 1, 0)
+
+        need = total - nshared
+        if m:
+            for p in m.shared[:nshared]:
+                self.pool.incref(p)
+        if self.pool.available() < need:
+            if m:
+                for p in m.shared[:nshared]:
+                    self.pool.decref(p)
             return None
+        fresh = self.pool.alloc(need)
         row = self.page_tables[s]
         row[:] = -1
-        row[:total] = self.pool.alloc(total)
+        if nshared:
+            row[:nshared] = m.shared[:nshared]
+        row[nshared:total] = fresh
         self._held[s] = True
+        if cached_first and tail_len:
+            self.pool.copy_page(m.tail_src, int(row[nfull]))
         self._pt_dev = self._to_device(self.page_tables)
-        return self._fused_prefill_paged(r, s)
+
+        covered = P if cached_first else nshared * pg
+        if cached_first:
+            first = int(m.first_tok)
+            self.pool.stats["prefill_reused"] += 1
+            self.pool.stats["prefix_tokens_reused"] += P
+        elif covered == 0 or P - covered > self.stepwise_suffix_max:
+            first = self._fused_prefill_paged(r, s, nshared)
+            if m:
+                self.pool.stats["prefix_tokens_reused"] += covered
+        else:
+            first = self._stepwise_prefill_paged(r, s, covered)
+            if m:
+                self.pool.stats["prefix_tokens_reused"] += covered
+        if m is not None and not cached_first:
+            self._register_prompt(prompt, m, row, nshared, first)
+        return first
+
+    def _register_prompt(self, prompt, m, row, nshared, first):
+        pg = self.page
+        nfull = len(m.digests)
+        for i in range(nshared, nfull):
+            parent = m.digests[i - 1] if i else ROOT_DIGEST
+            self.pool.register_full(int(row[i]), m.digests[i], parent,
+                                    tuple(int(t) for t in
+                                          prompt[i * pg:(i + 1) * pg]))
+        tail = tuple(int(t) for t in prompt[nfull * pg:])
+        if tail:
+            parent = m.digests[-1] if nfull else ROOT_DIGEST
+            self.pool.register_tail(int(row[nfull]), parent, tail)
+        self.pool.remember_first_token(m.full_digest, first)
 
     def _prefill_tokens(self, r: Request):
         """Run the fused prefill over `r`'s prompt padded to its bucket;
@@ -324,14 +439,38 @@ class ServeEngine:
         self.prefill_fused += 1
         return int(torch.argmax(logits[0, P - 1])), ks, vs
 
-    def _fused_prefill_paged(self, r: Request, s: int) -> int:
-        """Fused full-sequence prefill; page-sized blocks [0, ceil(P/page))
-        of the resulting K/V stacks are written into the slot's
-        freshly-allocated pages."""
+    def _fused_prefill_paged(self, r: Request, s: int, nshared: int) -> int:
+        """Fused full-sequence prefill; page-sized blocks [nshared,
+        ceil(P/page)) of the resulting K/V stacks are written into the
+        slot's freshly-allocated pages (shared prefix pages are left
+        untouched). Ring prompts that wrap insert in ring layout."""
         first, ks, vs = self._prefill_tokens(r)
-        nb_prompt = (len(r.prompt) + self.page - 1) // self.page
-        self.pool.insert_blocks(ks, vs, self.page_tables[s][:nb_prompt], 0)
+        P = len(r.prompt)
+        pg = self.page
+        row = self.page_tables[s]
+        if self.cfg.sliding_window and P >= self.nblocks * pg:
+            self.pool.insert_ring(ks, vs, row[:self.nblocks], P)
+        else:
+            nb_prompt = (P + pg - 1) // pg
+            if nb_prompt > nshared:
+                self.pool.insert_blocks(ks, vs, row[nshared:nb_prompt],
+                                        nshared)
         return first
+
+    def _stepwise_prefill_paged(self, r: Request, s: int, start: int) -> int:
+        """Teacher-force prompt positions [start, P) one at a time through
+        the slot's page-table row with a B=1 decode step — attending the
+        SHARED prefix pages below `start` without recomputing them (this is
+        what makes 'prefill once' literal for shared-prefix suffixes)."""
+        P = len(r.prompt)
+        step1 = self._decode1_step()
+        cache1 = self.pool.cache(self._to_device(self.page_tables[s:s + 1]))
+        logits = None
+        for t in range(start, P):
+            tok = self._to_device(np.asarray([[r.prompt[t]]], np.int64))
+            logits, _ = step1(self.params, cache1, tok, t, self.exec)
+        self.prefill_stepwise_tokens += P - start
+        return int(torch.argmax(logits[0]))
 
     # -- contiguous prefill (paged=False) -------------------------------------
 
@@ -367,13 +506,26 @@ class ServeEngine:
         its first generated token (argmax of the last prompt position's
         logits — which is when t_first is stamped, per request)."""
         first, ks, vs = self._prefill_tokens(r)
-        self._insert_fn(self.cache, ks, vs, s)
+        self._insert_fn(self.cache, ks, vs, s, len(r.prompt))
         return first
 
-    def _insert_fn(self, cache, ks, vs, slot):
+    def _insert_fn(self, cache, ks, vs, slot, plen):
         """Write a prefilled request's K/V stack (L, 1, Sp, KV, hd) into
-        cache slot `slot`, positions [0, min(Sp, S)), in place."""
-        take = min(ks.shape[2], cache["k"].shape[2])
-        cache["k"][:, slot, :take] = ks[:, 0, :take].to(cache["k"].dtype)
-        cache["v"][:, slot, :take] = vs[:, 0, :take].to(cache["v"].dtype)
+        cache slot `slot`, in place. Append caches take positions
+        [0, min(Sp, S)); sliding-window ring caches take, for each ring slot
+        s, the LATEST prompt position congruent to s (mod S) — the same
+        layout the decode-time ring writer produces."""
+        S = cache["k"].shape[2]
+        Sp = ks.shape[2]
+        if self.cfg.sliding_window:
+            p = ring_positions(S, plen, ks.device)
+            valid = ((p >= 0) & (p < Sp))[None, :, None, None]
+            p = p.clamp(0, Sp - 1)
+        for c, new in ((cache["k"], ks), (cache["v"], vs)):
+            if self.cfg.sliding_window:
+                sel = new[:, 0].index_select(1, p).to(c.dtype)
+                c[:, slot] = torch.where(valid, sel, c[:, slot])
+            else:
+                take = min(Sp, S)
+                c[:, slot, :take] = new[:, 0, :take].to(c.dtype)
         return cache

@@ -156,8 +156,12 @@ def paged_decode_attention(cfg, q, kp, vp, layer, pos, page_table, *,
     per-position kpos. kp/vp (L, num_pages, page, KV, hd); page_table
     (B, NB) of physical page ids, -1 = unmapped (those positions get
     kpos=-1 and are masked; the gather clamps them to the scratch page).
-    Where every block is mapped this is bitwise-identical to the contiguous
-    dense decode."""
+
+    Sliding-window rings store position p in table slot (p//page) % NB, so
+    kpos must be per-position ring arithmetic (`ring_kpos`), not
+    block-granular — within the active page, offsets past pos % page still
+    hold the PREVIOUS rotation's tokens. Where every block is mapped this
+    is bitwise-identical to the contiguous dense decode."""
     B = q.shape[0]
     NB = page_table.shape[1]
     KV, hd = kp.shape[3], kp.shape[4]
@@ -166,7 +170,10 @@ def paged_decode_attention(cfg, q, kp, vp, layer, pos, page_table, *,
     phys = page_table.clamp(min=0).long()
     kflat = kp[layer][phys].reshape(B, S, KV, hd)
     vflat = vp[layer][phys].reshape(B, S, KV, hd)
-    base = torch.arange(S, device=q.device).expand(B, S)
+    if cfg.sliding_window:
+        base = ring_kpos(posb, S)
+    else:
+        base = torch.arange(S, device=q.device).expand(B, S)
     mapped = (page_table >= 0).repeat_interleave(page, dim=1)
     kpos = torch.where(mapped, base, -1)
     out = decode_attention(cfg, q, kflat, vflat, posb, kpos=kpos)
@@ -177,6 +184,22 @@ def paged_decode_attention(cfg, q, kp, vp, layer, pos, page_table, *,
     # their already-computed value — bitwise-neutral).
     any_ok = (page_table >= 0).any(dim=1)
     return torch.where(any_ok[:, None, None, None], out, 0.0)
+
+
+def cache_slot(cfg, pos, cache_len):
+    """Ring-buffer slot for the token at absolute position `pos` (scalar or
+    per-row vector)."""
+    return pos % cache_len
+
+
+def ring_kpos(pos, cache_len):
+    """Absolute positions held by each ring-buffer slot at decode step `pos`
+    (after inserting token `pos`): slot s -> pos - ((pos - s) mod cache_len).
+    pos scalar -> (cache_len,); pos (B,) -> (B, cache_len)."""
+    pos = torch.as_tensor(pos)
+    s = torch.arange(cache_len, device=pos.device)
+    p = pos if pos.dim() == 0 else pos[:, None]
+    return p - torch.remainder(p - s, cache_len)
 
 
 def update_cache(k_cache, v_cache, k_new, v_new, slot):

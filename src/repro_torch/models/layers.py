@@ -150,8 +150,8 @@ def rope(x, positions, theta):
 
 # -- mlp ---------------------------------------------------------------------
 
-def mlp_init(gen, cfg, dtype, device, layers=None):
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_init(gen, cfg, dtype, device, layers=None, ff=None):
+    d, ff = cfg.d_model, ff or cfg.d_ff
     p = {"w_in": he_init(gen, (d, ff), d, dtype, device, layers)}
     if cfg.act == "silu":  # gated (swiglu)
         p["w_gate"] = he_init(gen, (d, ff), d, dtype, device, layers)

@@ -1,0 +1,116 @@
+"""GShard/Switch-style top-k MoE with einsum dispatch.
+
+Tokens are grouped (GROUP tokens a dispatch group); the dispatch/combine
+one-hots are (G, S_g, E, C) with a per-expert capacity C. Routing is the
+JAX package's: per-expert positions from a cumulative count, slot-major
+order across the top-k (every slot-0 assignment precedes every slot-1
+assignment of an expert), top-k gates renormalised, dispatch in the
+activation dtype and combine in fp32, cast to the activation dtype before
+the last einsum. Aux losses: load-balance (Switch) + router z-loss.
+
+The expert products are plain einsums (batched matmuls); the JAX package
+computes them outside any Pallas kernel too.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import he_init, mlp, mlp_init
+
+GROUP = 1024            # tokens per dispatch group
+CAPACITY_FACTOR = 1.25
+
+
+def moe_init(gen, cfg, dtype, device, layers=None):
+    """Router (fp32), stacked expert weights (E, d, ff) / (E, ff, d) and,
+    for arctic, the dense residual MLP; stacked over `layers` when given."""
+    d, ff = cfg.d_model, cfg.d_ff
+    E = cfg.moe.num_experts
+    p = {
+        "router": {"w": he_init(gen, (d, E), d, torch.float32, device,
+                                layers)},
+        "experts": {
+            "w_in": he_init(gen, (E, d, ff), d, dtype, device, layers),
+            "w_gate": he_init(gen, (E, d, ff), d, dtype, device, layers),
+            "w_out": he_init(gen, (E, ff, d), ff, dtype, device, layers),
+        },
+    }
+    if cfg.moe.dense_residual_ff:
+        p["dense_residual"] = mlp_init(gen, cfg, dtype, device, layers,
+                                       ff=cfg.moe.dense_residual_ff)
+    return p
+
+
+def dispatch_groups(T: int) -> int:
+    """Dispatch groups for T tokens: max(1, T // GROUP), which must divide
+    T. The JAX package reshapes (T, d) to (g, T // g, d) without a check and
+    fails there (T = 3200: g = 3); this raises instead of padding or
+    regrouping, so the port serves no length the reference refuses."""
+    g = max(1, T // GROUP)
+    if T % g:
+        raise ValueError(
+            f"moe_apply: {T} tokens do not split into g = max(1, {T} // "
+            f"GROUP) = {g} dispatch groups of GROUP = {GROUP} tokens or more "
+            f"({T} % {g} = {T % g}); the JAX package's grouping fails at "
+            f"this length too")
+    return g
+
+
+def moe_apply(cfg, p, x):
+    """x (B,S,d) -> (y (B,S,d), aux dict)."""
+    B, S, d = x.shape
+    E = cfg.moe.num_experts
+    k = cfg.moe.top_k
+    T = B * S
+    g = dispatch_groups(T)
+    sg = T // g
+    xt = x.reshape(g, sg, d)
+
+    logits = (xt.float() @ p["router"]["w"].float()).float()   # (g, sg, E)
+    probs = torch.softmax(logits, dim=-1)
+
+    # capacity per expert; floor keeps tiny (decode) batches dropless
+    C = max(int(sg * k * CAPACITY_FACTOR / E), min(sg * k, 8))
+
+    # top-k routing with per-expert capacity via cumulative position
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)          # (g, sg, k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+
+    dispatch = torch.zeros((g, sg, E, C), dtype=x.dtype, device=x.device)
+    combine = torch.zeros((g, sg, E, C), dtype=torch.float32,
+                          device=x.device)
+    for slot in range(k):
+        onehot = F.one_hot(gate_idx[..., slot], E).float()       # (g,sg,E)
+        pos = torch.cumsum(onehot, dim=1) - onehot   # position within expert
+        for prev in range(slot):
+            # slot-major ordering: all of slot `prev`'s assignments precede
+            # slot `slot`'s, so offset by the TOTAL per-expert count (GShard)
+            prev_oh = F.one_hot(gate_idx[..., prev], E).float()
+            pos = pos + prev_oh.sum(dim=1, keepdim=True)
+        keep = (pos < C).float() * onehot
+        # positions past capacity are dropped by `keep` (jax.nn.one_hot
+        # gives them a zero row; F.one_hot refuses them, hence the clamp)
+        posc = F.one_hot(pos.long().clamp(max=C - 1), C).float()
+        d_oh = keep[..., None] * posc                            # (g,sg,E,C)
+        dispatch = dispatch + d_oh.to(x.dtype)
+        combine = combine + d_oh * gate_vals[..., slot][..., None, None]
+
+    xe = torch.einsum("gsec,gsd->gecd", dispatch, xt)            # (g,E,C,d)
+    w = p["experts"]
+    h = torch.einsum("gecd,edf->gecf", xe, w["w_in"].to(x.dtype))
+    h = h * F.silu(torch.einsum("gecd,edf->gecf", xe,
+                                w["w_gate"].to(x.dtype)))
+    ye = torch.einsum("gecf,efd->gecd", h, w["w_out"].to(x.dtype))
+    y = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), ye)
+
+    # aux losses
+    me = probs.mean(dim=1)                                       # (g,E)
+    ce = F.one_hot(gate_idx[..., 0], E).float().mean(dim=1)
+    lb_loss = E * (me * ce).sum(dim=-1).mean()
+    z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+
+    y = y.reshape(B, S, d)
+    if "dense_residual" in p:
+        y = y + mlp(cfg, p["dense_residual"], x)
+    return y, {"lb_loss": lb_loss, "z_loss": z_loss}

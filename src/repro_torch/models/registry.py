@@ -1,4 +1,5 @@
-"""Uniform model API over the families ported so far (dense and encoder).
+"""Uniform model API over the families ported so far (dense, moe and
+encoder).
 
 build(cfg) -> ModelBundle with:
     init(generator=None, *, device=None) -> params (a ParamTree)
@@ -21,8 +22,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 
 # where each family waits in ROADMAP.md queue A
-_PENDING = {"moe": "A11", "vlm": "A11", "ssm": "A11", "hybrid": "A11",
-            "audio": "A11", "encdec": "A11"}
+_PENDING = {"vlm": "A11", "ssm": "A11", "hybrid": "A11", "audio": "A11",
+            "encdec": "A11"}
+
+MOE_LB_WEIGHT = 0.01
+MOE_Z_WEIGHT = 1e-3
 
 
 class ModelBundle(NamedTuple):
@@ -47,7 +51,7 @@ def cross_entropy(logits, labels, mask=None):
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
-    if cfg.family not in ("dense", "encoder"):
+    if cfg.family not in ("dense", "moe", "encoder"):
         item = _PENDING.get(cfg.family, "A11")
         raise NotImplementedError(
             f"family {cfg.family!r} (arch {cfg.name!r}) is not ported yet; "
@@ -65,8 +69,11 @@ def build(cfg: ModelConfig) -> ModelBundle:
 
     def loss(params, batch, *, spion=None, capture=None):
         logits, aux = forward(params, batch, spion=spion, capture=capture)
-        return cross_entropy(logits, batch["labels"],
-                             batch.get("loss_mask")), aux
+        l = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        if cfg.moe is not None and "lb_loss" in aux:
+            l = l + MOE_LB_WEIGHT * aux["lb_loss"] + \
+                MOE_Z_WEIGHT * aux["z_loss"]
+        return l, aux
 
     def init_cache(batch_size, max_len, *, device=None, **kw):
         return mod.init_cache(cfg, batch_size, max_len,

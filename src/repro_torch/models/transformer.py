@@ -1,6 +1,6 @@
 """Transformer with a loop over stacked layers: the decoder LM (the dense
-family) and the encoder (spion-lra: LayerNorm, relu MLP, learned positions,
-non-causal).
+and moe families: qwen2-7b, mixtral-8x7b, arctic-480b) and the encoder
+(spion-lra: LayerNorm, relu MLP, learned positions, non-causal).
 
 SPION hooks: `spion` (per-layer BCSR tables or a SparseAttentionExec)
 switches self-attention to the block-sparse path; `capture` streams pooled
@@ -19,6 +19,7 @@ from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.kv_pool import PagedKVCache, scatter_token, write_target
 from repro_torch.models import attention as A
 from repro_torch.models import layers as Lyr
+from repro_torch.models.moe import moe_apply, moe_init
 
 
 MAX_POS = 65_536  # learned-position table bound (largest non-RoPE shape)
@@ -38,8 +39,11 @@ def init(cfg, generator, device):
         "attn_norm": Lyr.norm_init(cfg, device, layers=L),
         "attn": A.attn_init(generator, cfg, dtype, device, layers=L),
         "mlp_norm": Lyr.norm_init(cfg, device, layers=L),
-        "mlp": Lyr.mlp_init(generator, cfg, dtype, device, layers=L),
     }
+    if cfg.moe is not None:
+        layers["moe"] = moe_init(generator, cfg, dtype, device, layers=L)
+    else:
+        layers["mlp"] = Lyr.mlp_init(generator, cfg, dtype, device, layers=L)
 
     def embed_init():
         w = torch.randn((cfg.vocab_size, d), generator=generator,
@@ -62,9 +66,19 @@ def _head(params):
     return params["lm_head" if "lm_head" in params else "tok_embed"]
 
 
+def _ffn(cfg, lp, x):
+    """The layer's feed-forward: (y, aux) — the MoE and its fp32 aux
+    losses, or the dense MLP and None."""
+    if cfg.moe is not None:
+        y, aux = moe_apply(cfg, lp["moe"], x)
+        return y, (aux["lb_loss"].float(), aux["z_loss"].float())
+    return Lyr.mlp(cfg, lp["mlp"], x), None
+
+
 def _block(cfg, lp, h, positions, ex, sp, capture=None):
-    """One layer; returns (h, (k, v), captured) with the layer's RoPE'd k/v
-    and, with `capture`, its (pooled, frob_sq) scores (else None)."""
+    """One layer; returns (h, (k, v), captured, aux) with the layer's
+    RoPE'd k/v, with `capture` its (pooled, frob_sq) scores (else None),
+    and its MoE's (lb_loss, z_loss) (None for a dense MLP)."""
     x = Lyr.norm(cfg, lp["attn_norm"], h)
     q, k, v = A.qkv(cfg, lp["attn"], x, positions)
     cap = None
@@ -77,11 +91,13 @@ def _block(cfg, lp, h, positions, ex, sp, capture=None):
         ctx = A.dense_attention(cfg, q, k, v, positions, positions)
     h = h + A.attn_out(cfg, lp["attn"], ctx)
     x = Lyr.norm(cfg, lp["mlp_norm"], h)
-    return h + Lyr.mlp(cfg, lp["mlp"], x), (k, v), cap
+    y, aux = _ffn(cfg, lp, x)
+    return h + y, (k, v), cap, aux
 
 
 def _block_h(cfg, lp, positions, ex, sp, h):
-    return _block(cfg, lp, h, positions, ex, sp)[0]
+    h, _, _, aux = _block(cfg, lp, h, positions, ex, sp)
+    return (h, *(aux or ()))
 
 
 def _embed_inputs(cfg, params, batch, dtype):
@@ -110,17 +126,21 @@ def forward(params, cfg, batch, *, spion=None, capture=None,
     tabs = None if ex is None else ex.scan_tables()
     remat = cfg.remat and torch.is_grad_enabled() and capture is None \
         and not collect_kv
-    ks, vs, caps = [], [], []
+    ks, vs, caps, auxs = [], [], [], []
     for li in range(cfg.num_layers):
         lp = Lyr.layer_view(params["layers"], li)
         sp = None if tabs is None else {k: t[li] for k, t in tabs.items()}
         if remat:
             # the layer is run again in the backward: bind this layer's
             # arguments now, not the loop variables
-            h = checkpoint(functools.partial(_block_h, cfg, lp, positions,
-                                             ex, sp), h, use_reentrant=False)
+            h, *la = checkpoint(functools.partial(
+                _block_h, cfg, lp, positions, ex, sp), h, use_reentrant=False)
+            if la:
+                auxs.append(la)
             continue
-        h, (k, v), cap = _block(cfg, lp, h, positions, ex, sp, capture)
+        h, (k, v), cap, la = _block(cfg, lp, h, positions, ex, sp, capture)
+        if la is not None:
+            auxs.append(la)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -128,8 +148,11 @@ def forward(params, cfg, batch, *, spion=None, capture=None,
             caps.append(cap)
     h = Lyr.norm(cfg, params["final_norm"], h)
     logits = Lyr.unembed(_head(params), h)
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
-    aux = {"lb_loss": zero, "z_loss": zero}
+    if auxs:     # the MoE's, averaged over layers
+        lb, z = (torch.stack(a).mean() for a in zip(*auxs))
+    else:
+        lb = z = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = {"lb_loss": lb, "z_loss": z}
     if capture is not None:
         aux["captured"] = (torch.stack([c[0] for c in caps]),
                            torch.stack([c[1] for c in caps]))
@@ -153,7 +176,8 @@ def init_cache(cfg, batch_size, max_len, dtype=None, device="cpu"):
 def _decode_layers(params, cfg, tokens, pos, attend):
     """The decode layer loop shared by the contiguous and paged caches:
     `attend(li, q, k_new, v_new, posb)` writes the new token into layer
-    li's cache and returns the attention context."""
+    li's cache and returns the attention context. The MoE of a decode step
+    routes its B tokens as one dispatch group."""
     dtype = _dtype(cfg)
     B = tokens.shape[0]
     posb = A.decode_positions(pos, B, tokens.device)
@@ -166,7 +190,7 @@ def _decode_layers(params, cfg, tokens, pos, attend):
         ctx = attend(li, q, k_new, v_new, posb)
         h = h + A.attn_out(cfg, lp["attn"], ctx)
         x = Lyr.norm(cfg, lp["mlp_norm"], h)
-        h = h + Lyr.mlp(cfg, lp["mlp"], x)
+        h = h + _ffn(cfg, lp, x)[0]
     h = Lyr.norm(cfg, params["final_norm"], h)
     return Lyr.unembed(_head(params), h)[:, 0]
 
@@ -183,23 +207,25 @@ def decode_step(params, cfg, cache, tokens, pos, *, spion=None):
 
     The cache is either the contiguous per-slot dict {"k","v"} from
     `init_cache` or a core.kv_pool.PagedKVCache, whose pool takes an O(B)
-    scatter per layer (kv_pool.scatter_token)."""
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            "sliding-window ring caches are not ported yet (ROADMAP A9)")
+    scatter per layer (kv_pool.scatter_token). Sliding-window archs use
+    the cache as a ring: position p lives in slot p % cache_len."""
     if isinstance(cache, PagedKVCache):
         return _paged_decode_step(params, cfg, cache, tokens, pos,
                                   spion=spion)
     ex = SparseAttentionExec.coerce(spion, phase="decode")
     tabs = None if ex is None else ex.scan_tables()
+    ring = bool(cfg.sliding_window)
+    cache_len = cache["k"].shape[2]
 
     def attend(li, q, k_new, v_new, posb):
+        slot = A.cache_slot(cfg, posb, cache_len) if ring else posb
         kc, vc = A.update_cache(cache["k"][li], cache["v"][li], k_new, v_new,
-                                posb)
+                                slot)
         if tabs is not None:
             return ex.decode(cfg, q, kc, vc, posb,
-                             {k: t[li] for k, t in tabs.items()})
-        return A.decode_attention(cfg, q, kc, vc, posb)
+                             {k: t[li] for k, t in tabs.items()}, ring=ring)
+        kpos = A.ring_kpos(posb, cache_len) if ring else None
+        return A.decode_attention(cfg, q, kc, vc, posb, kpos=kpos)
 
     return _decode_layers(params, cfg, tokens, pos, attend), cache
 
@@ -213,13 +239,15 @@ def _paged_decode_step(params, cfg, cache, tokens, pos, *, spion=None):
     tabs = None if ex is None else ex.scan_tables()
     pt = cache.pt
     posb = A.decode_positions(pos, tokens.shape[0], tokens.device)
-    phys_w, off_w = write_target(pt, posb, cache.page)
+    ring = bool(cfg.sliding_window)
+    phys_w, off_w = write_target(pt, posb, cache.page, ring=ring)
 
     def attend(li, q, k_new, v_new, posb):
         scatter_token(cache.kp, cache.vp, li, k_new, v_new, phys_w, off_w)
         if tabs is not None:
             return ex.decode_paged(cfg, q, cache.kp, cache.vp, li, posb, pt,
-                                   {k: t[li] for k, t in tabs.items()})
+                                   {k: t[li] for k, t in tabs.items()},
+                                   ring=ring)
         return A.paged_decode_attention(cfg, q, cache.kp, cache.vp, li, posb,
                                         pt, page=cache.page)
 

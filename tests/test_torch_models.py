@@ -56,9 +56,10 @@ def test_converted_params_are_the_reference_leaves(dtype):
 
 
 def test_other_families_are_refused():
-    cfg = tcfgs.get_config("qwen2-7b").replace(family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(cfg)
+    for family in ("ssm", "hybrid", "vlm", "encdec"):
+        cfg = tcfgs.get_config("qwen2-7b").replace(family=family)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tbuild(cfg)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

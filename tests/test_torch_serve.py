@@ -102,10 +102,16 @@ def test_engine_matches_reference_engine(dtype, paged, sparse, num_pages):
 def test_engine_refuses_what_is_not_ported_or_cannot_be_served(monkeypatch):
     _jc, tc = configs()
     _jp, tp = params(_jc, tc)
-    with pytest.raises(NotImplementedError, match="prefix sharing"):
-        ServeEngine(tc, tp, share_prefix=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        ServeEngine(tc.replace(sliding_window=32), tp, device="cpu")
+    # the reference's refusal: ring pages are overwritten in place
+    with pytest.raises(ValueError, match="sliding-window ring"):
+        ServeEngine(tc.replace(sliding_window=32), tp, share_prefix=True,
+                    device="cpu")
+    with pytest.raises(ValueError, match="sliding-window ring"):
+        JEngine(_jc.replace(sliding_window=32), _jp, share_prefix=True)
+    assert ServeEngine(tc, tp, device="cpu").share_prefix
+    assert not ServeEngine(tc.replace(sliding_window=32), tp,
+                           device="cpu").share_prefix
+    _refeed_when_every_prompt_page_is_shared(_jc, tc, _jp, tp)
     with pytest.raises(ValueError, match="params are on"):
         ServeEngine(tc, tp, device="meta")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -122,6 +128,39 @@ def test_engine_refuses_what_is_not_ported_or_cannot_be_served(monkeypatch):
         eng.submit(Request(rid=1, prompt=long, max_new=30))
     with pytest.raises(ValueError, match="pool capacity"):
         eng.submit(Request(rid=2, prompt=long, max_new=20))
+
+
+def _refeed_when_every_prompt_page_is_shared(jc, tc, jp, tp):
+    """A prompt of whole pages (tail_len == 0) whose pages are all shared
+    but whose first token is not cached: the last prompt position lives in
+    a shared page the request must not write, so the reference recomputes
+    that page privately (nshared = nfull - 1) — stepwise under the
+    reference's default, the suffix being one page; through the fused
+    prefill under the port's. Tokens as the reference's, and prefix_stats
+    too where both take the stepwise path."""
+    rng = np.random.default_rng(5)
+    long = rng.integers(1, tc.vocab_size, size=2 * 32 + 5).astype(np.int32)
+    stats = []
+    kw = dict(slots=1, max_len=MAX_LEN * 2)
+    for eng, req in ((JEngine(jc, jp, **kw), JRequest),
+                     (ServeEngine(tc, tp, stepwise_suffix_max=2 * 32,
+                                  device="cpu", **kw), Request),
+                     (ServeEngine(tc, tp, device="cpu", **kw), Request)):
+        a = req(rid=0, prompt=long, max_new=3)
+        b = req(rid=1, prompt=long[:64].copy(), max_new=3)
+        eng.run([a])
+        eng.run([b])
+        stats.append((a.out, b.out, eng.prefix_stats,
+                      eng.page_tables[0][:2].tolist()))
+    (ja, jb, jst, _), (ta, tb, tst, row), (fa, fb, fst, frow) = stats
+    assert (ta, tb) == (ja, jb) == (fa, fb) and tst == jst
+    assert tst["lookups"] == 4 and tst["hits"] == 2
+    assert tst["prefill_fused"] == 1
+    assert tst["prefill_stepwise_tokens"] == 32
+    assert row[0] != row[1]
+    assert fst["lookups"] == 4 and fst["hits"] == 2
+    assert fst["prefill_fused"] == 2 and fst["prefill_stepwise_tokens"] == 0
+    assert frow[0] != frow[1]
 
 
 def test_page_pool_allocator():
