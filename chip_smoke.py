@@ -62,8 +62,24 @@ Phases (each one fails the run; nothing falls back to the CPU):
   8. time every kernel, its plain version and PyTorch's
      scaled_dot_product_attention (forward, or its backward for dQ and
      dK/dV) beside the kernel's bound; with --before DIR (another checkout,
-     e.g. the parent commit unpacked by git archive), that checkout's dQ
-     and dK/dV kernels too, in turns with these, as before_ms;
+     e.g. the parent commit unpacked by git archive), that checkout's
+     kernels too (the forward at the serving, training and mixtral
+     shapes, dQ and dK/dV at the training shape), in turns with these, as
+     before_ms;
+ 8a. the kernel autotuner (cache under build/chip_smoke_autotune, which
+     every exec of the run reads): at the training, qwen2-7b serving and
+     mixtral shapes, the host's shared-memory formula equals the
+     launchers' for every config of the grid; tune (bf16) on the tables
+     each path launches with: every candidate's forward, dQ and dK/dV
+     times and shared memory, and its o, lse, dq, dk and dv bitwise equal
+     to the default config's (a mismatch fails the run); the configs
+     config_fits refuses are printed, and one raises ValueError in the
+     wrapper before any launch; a cold SparseAttentionExec finds each
+     winner; a sparse train step through the tuned exec against two with
+     SPION_AUTOTUNE=0 (loss and every gradient bitwise equal, but the
+     token embedding's, within TOL_RESUME), 8 + 4 + 4 launches each; a
+     qwen2-7b prefill of 2048 tokens through the tuned exec against the
+     default config (logits, K and V bitwise equal), 28 launches each;
   9. resume: train spion-lra as in 5 with checkpoints under
      build/chip_smoke_ckpt (steps 7 and 14), resume a fresh Trainer from
      the sparse-phase checkpoint: step, data offset, phase, plan digest,
@@ -86,8 +102,9 @@ The line before the last is the kernels' JSON record (launches_serve,
 launches_serve_shared, launches_mixtral, launches_train, launches_resume,
 launches_rollback and launches_respawn count each kernel's launches in
 phases 4, 4a, 4b, 5 and 9-11, each read from zero; the forward's
-mixtral_shape holds its check and timing at phase 4b's shape); the last
-line is
+mixtral_shape holds its check and timing at phase 4b's shape; `tuned`
+holds each kernel's phase 8a winner and its time beside the default's at
+each shape); the last line is
 {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -766,16 +783,36 @@ def masked_pairs(col, nvalid, block, kw):
     return pairs, tiles, len(needed)
 
 
-def kernel_timing(inputs, label):
+def kernel_timing(inputs, label, before=None):
     """ms of the forward kernel, its plain version and SDPA on `inputs`,
-    and the kernel's bound from these tables."""
+    and the kernel's bound from these tables; with `before` (a
+    parent_kernels module), that tree's forward too, timed in turns with
+    this one (before, these, these, before), as before_ms."""
     import torch.nn.functional as F
     from repro_torch.kernels.block_sparse_attn import (
         block_sparse_fwd, fused_forward_reference)
     q, k, v, col, nvalid, kw = inputs
     N, G, S, hd = q.shape
     block = kw["block"]
-    ms = cuda_ms(lambda: block_sparse_fwd(q, k, v, col, nvalid, **kw), 20)
+
+    def now():
+        return block_sparse_fwd(q, k, v, col, nvalid, **kw)
+    was, extra = "", {}
+    if before is None:
+        ms = cuda_ms(now, 20)
+    else:
+        def old():
+            return before.block_sparse_fwd(q, k, v, col, nvalid, **kw)
+        b1 = cuda_ms(old, 20)
+        m1, m2 = cuda_ms(now, 20), cuda_ms(now, 20)
+        b2 = cuda_ms(old, 20)
+        ms = (m1 + m2) / 2
+        extra = dict(before_ms=(b1 + b2) / 2, runs=(b1, m1, m2, b2))
+        was = (f"; before (the --before tree's kernel, timed in turns "
+               f"before/now/now/before: "
+               f"{', '.join(f'{r:.4f}' for r in extra['runs'])} ms) "
+               f"{extra['before_ms']:.4f} ms, "
+               f"{extra['before_ms'] / ms:.2f}x")
     plain_ms = cuda_ms(
         lambda: fused_forward_reference(q, k, v, col, nvalid, **kw), 5)
     # yardstick only: PyTorch's fused attention over the same rows, dense
@@ -792,14 +829,14 @@ def kernel_timing(inputs, label):
               + col.numel() * 4 + nvalid.numel() * 4)
     bound_ms, bound_by = bound(flops, nbytes)
     log(f"block_sparse_fwd at {label} N={N} G={G} S={S} hd={hd} "
-        f"block={block} {q.dtype}: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
+        f"block={block} {q.dtype}: {ms:.4f} ms{was}; plain {plain_ms:.4f} ms; "
         f"sdpa (dense{', causal' if kw['causal'] else ''}) "
         f"{library_ms:.4f} ms; bound {bound_ms:.5f} ms by {bound_by} "
         f"({flops:.4g} flop over the {pairs} (q, k) pairs the mask keeps "
         f"in {listed} listed tiles, {nbytes} bytes); "
         f"{bound_ms / ms:.4f} of the bound")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, **extra)
 
 
 def profile_serving(eng, cfg, rng):
@@ -1428,11 +1465,14 @@ def ring_correctness(cfg8, col, nvalid, rng):
     return worst
 
 
-def phase_mixtral_ring():
+def phase_mixtral_ring(before=None):
     """mixtral-8x7b at full width, 8 of 32 layers, bf16, through the paged
     ring engine over a random causal plan; then the same requests through
-    the contiguous ring engine, the forward kernel at this path's shape, and
-    the fp32 ring correctness check."""
+    the contiguous ring engine, the forward kernel at this path's shape
+    (and `before`'s, as in kernel_timing), and the fp32 ring correctness
+    check. Returns, besides the numbers, the plan's tables sliced as the
+    engine's exec for the longest prompt slices them (phase 8a tunes
+    them)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1536,8 +1576,9 @@ def phase_mixtral_ring():
     log(f"kernel at mixtral's shape {case}: |o - plain| = {err:.3e} (that "
         f"element's limit {tol:.3e}; no element past {share:.3f} of its "
         f"limit; mean |o| {typical:.3e}); |lse - plain| {lerr:.3e}")
-    timing = kernel_timing(inputs, "mixtral's sparse ring prefill")
+    timing = kernel_timing(inputs, "mixtral's sparse ring prefill", before)
     launches = run["launches"]
+    tables = {k: plan.tables[k][:, :nrb] for k in ("col_idx", "nvalid")}
     del inputs, params, runs, run
     torch.cuda.empty_cache()
     ring_gap = ring_correctness(cfg, col, nvalid, rng)
@@ -1546,7 +1587,8 @@ def phase_mixtral_ring():
     log(f"serve mixtral ring: the phase took {seconds:.1f} s")
     return dict(launches=launches, prefill_ms=prefill_ms,
                 decode_ms=decode_ms, seconds=seconds, ring_gap=ring_gap,
-                kernel=dict(timing, max_abs_err=err, tol=tol, shape=case))
+                kernel=dict(timing, max_abs_err=err, tol=tol, shape=case),
+                tables=tables)
 
 
 # -- training ------------------------------------------------------------------
@@ -1798,7 +1840,7 @@ def phase_train_path_kernels(train, gen, before=None):
     timing = backward_timing(x, before)
     timing["block_sparse_fwd"] = kernel_timing(
         (x["q"], x["k"], x["v"], x["col"], x["nvalid"], x["kw"]),
-        "the training path's shape")
+        "the training path's shape", before)
     return out, timing
 
 
@@ -1900,6 +1942,289 @@ def phase_covering_step(train):
         f"losses {ls16:.6f} / {ld16:.6f}")
     check(math.isfinite(rel) and rel <= TOL_LOSS_REL,
           f"covering-plan fp32 loss differs from dense by {rel} (relative)")
+
+
+# -- the kernel autotuner --------------------------------------------------------
+
+AUTOTUNE_DIR = os.path.join(ROOT, "build", "chip_smoke_autotune")
+SMEM_KINDS = {"fwd": 0, "dq": 1, "dkv": 2}   # spion_sm90_smem_bytes' kinds
+TUNE_REPS = 5
+EMBED_LEAF = "tok_embed.w"
+
+
+def tune_shapes(train, serve, mixtral):
+    """The three shapes the main path launches the kernels at, each with
+    the tables it launches with: {name: (tables, block, tune kwargs)}. The
+    serving plan is tuned under its full tables' digest (the exec the
+    engine is built with; a prefill of 2048 tokens runs it unsliced), the
+    mixtral plan under the digest of its slice to 39 row blocks (the
+    engine's exec for its longest prompts, phase 4b's kernel check)."""
+    st = train["trainer"].spion_state
+    tp = TRAIN_PATH
+    return {
+        "train": (st.tables, st.tables["block"],
+                  dict(heads=tp["N"], group=tp["G"], head_dim=tp["hd"],
+                       causal=False)),
+        "serve": (serve["plan"].tables, PATH["block"],
+                  dict(heads=PATH["N"], group=PATH["G"], head_dim=PATH["hd"],
+                       causal=True)),
+        "mixtral": (mixtral["tables"], mixtral["kernel"]["shape"]["block"],
+                    dict(heads=mixtral["kernel"]["shape"]["N"],
+                         group=mixtral["kernel"]["shape"]["G"],
+                         head_dim=mixtral["kernel"]["shape"]["hd"],
+                         causal=True,
+                         sliding_window=mixtral["kernel"]["shape"]["sw"])),
+    }
+
+
+def check_smem_formula(name, shape):
+    """The host's shared-memory formula (block_sparse_attn.smem_bytes)
+    equals the launchers' (spion_sm90_smem_bytes) for every config of the
+    grid at this shape; returns the configs config_fits refuses."""
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.block_sparse_attn import (config_fits,
+                                                       config_smem,
+                                                       launch_config,
+                                                       load_library)
+    lib = load_library()
+    refused = []
+    for c in autotune.candidate_grid("cuda", torch.bfloat16):
+        for kind, host in config_smem(c, **shape).items():
+            width = shape["KT"] if kind == "dkv" else shape["K"]
+            depth, nwg = launch_config(kind, c, width)
+            card = lib.spion_sm90_smem_bytes(SMEM_KINDS[kind], shape["hd"],
+                                             shape["block"], shape["G"],
+                                             depth, nwg, width)
+            check(card == host, f"{name}: {kind} under {c} needs {card} "
+                  f"bytes by the launcher's formula, {host} by the host's")
+        if not config_fits(c, **shape):
+            refused.append(c)
+    return refused
+
+
+def refusal_before_launch(config, shape, gen):
+    """Each kernel whose shared memory a config that config_fits refuses
+    overflows raises ValueError in its wrapper on CUDA tensors at this
+    shape, and nothing launches; returns those kernels."""
+    import torch
+    from repro_torch.kernels import block_sparse_attn as bsa
+    N, G, hd, block = PATH["N"], shape["G"], shape["hd"], shape["block"]
+    nrb = PATH["S"] // block
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=DEVICE).bfloat16()
+    q, do = randn(N, G, nrb * block, hd), randn(N, G, nrb * block, hd)
+    k, v = randn(N, nrb * block, hd), randn(N, nrb * block, hd)
+    lse = torch.zeros((N, G, nrb * block), device=DEVICE)
+    col = torch.zeros((nrb, shape["K"]), dtype=torch.int32, device=DEVICE)
+    nvalid = torch.ones(nrb, dtype=torch.int32, device=DEVICE)
+    row = torch.zeros((nrb, shape["KT"]), dtype=torch.int32, device=DEVICE)
+    calls = {"fwd": lambda: bsa.block_sparse_fwd(
+                 q, k, v, col, nvalid, block=block, config=config),
+             "dq": lambda: bsa.block_sparse_dq(
+                 q, k, v, do, lse, lse, col, nvalid, block=block,
+                 config=config),
+             "dkv": lambda: bsa.block_sparse_dkv(
+                 q, k, v, do, lse, lse, row, nvalid, block=block,
+                 config=config)}
+    smem = bsa.config_smem(config, **shape)
+    refused = [kind for kind, need in smem.items() if need > bsa.SMEM_LIMIT]
+    check(refused, f"{config} fits at {shape}: {smem}")
+    for kind in refused:
+        before = launch_counts()
+        try:
+            calls[kind]()
+            check(False, f"{kind} launched under {config} ({smem[kind]} "
+                  f"bytes of shared memory)")
+        except ValueError as e:
+            check("shared memory" in str(e), f"{kind}: {e}")
+        check(launch_counts() == before, f"{kind} launched under {config}")
+    return refused
+
+
+def tuned_train_step(train, best):
+    """One sparse step's loss and gradients through the tuned exec against
+    two through the default (SPION_AUTOTUNE=0), each at 8 + 4 + 4
+    launches: the loss and every gradient bitwise equal, but for the token
+    embedding's, whose backward (F.embedding) the card does not reproduce
+    bit for bit (see TOL_RESUME): that one within TOL_RESUME of its
+    largest element, beside the two default runs' own gap."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import make_loss_and_grads
+    tr, cfg = train["trainer"], train["cfg"]
+    st = tr.spion_state
+    tuned = tr.spion_ctl.attention_exec(st, dtype=cfg.dtype).to(DEVICE)
+    os.environ["SPION_AUTOTUNE"] = "0"
+    try:
+        plain = tr.spion_ctl.attention_exec(st, dtype=cfg.dtype).to(DEVICE)
+    finally:
+        del os.environ["SPION_AUTOTUNE"]
+    check(tuned.kernel_config == best and plain.kernel_config is None,
+          f"the train exec's configs: tuned {tuned.kernel_config}, with "
+          f"SPION_AUTOTUNE=0 {plain.kernel_config}")
+    lg = make_loss_and_grads(cfg)
+    batch = {k: torch.as_tensor(np.asarray(v), device=DEVICE)
+             for k, v in train["data_fn"](TRAIN_STEPS).items()}
+    want = sparse_launches(cfg)
+
+    def run(ex):
+        reset_launch_counts()
+        loss, grads = lg(tr.params, batch, ex)
+        torch.cuda.synchronize()
+        check(launch_counts() == want, f"a step under {ex.kernel_config} "
+              f"launched {launch_counts()}, not {want}")
+        return loss.detach(), {n: g.detach() for n, g in grads.items()}
+    a, t, b = run(plain), run(tuned), run(plain)
+    from repro_torch.kernels.autotune import _bitwise_equal
+    check(_bitwise_equal(t[0], a[0]), f"tuned loss {t[0].item()} != "
+          f"default {a[0].item()}")
+    differ = [n for n in a[1] if n != EMBED_LEAF and
+              not _bitwise_equal(t[1][n], a[1][n])]
+    check(not differ, f"tuned gradients differ from the default's: {differ}")
+    scale = a[1][EMBED_LEAF].abs().max().item()
+    gap = (t[1][EMBED_LEAF] - a[1][EMBED_LEAF]).abs().max().item()
+    gap_aa = (b[1][EMBED_LEAF] - a[1][EMBED_LEAF]).abs().max().item()
+    log(f"autotune: a sparse train step (spion-lra, ListOps size) through "
+        f"the tuned exec ({tuned.kernel_config}) against SPION_AUTOTUNE=0, "
+        f"{want} launches each: loss bitwise equal ({t[0].item():.6f}), "
+        f"{len(a[1]) - 1} gradient leaves bitwise equal; {EMBED_LEAF} "
+        f"|diff| {gap:.3e} (default against default {gap_aa:.3e}; max |g| "
+        f"{scale:.3e}, gate {TOL_RESUME} of it)")
+    check(gap <= TOL_RESUME * scale, f"{EMBED_LEAF} differs by {gap}")
+    return dict(embed_gap=gap, embed_gap_default=gap_aa)
+
+
+def tuned_prefill(serve_plan, best, gen):
+    """One qwen2-7b prefill of 2048 tokens (the plan's full coverage, so
+    the unsliced exec) through the tuned exec and through one with the
+    default config: logits and the K/V it returns bitwise equal, 28
+    launches each."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.attention_exec import SparseAttentionExec
+    from repro_torch.kernels.autotune import _bitwise_equal
+    from repro_torch.kernels.dispatch import DEFAULT_CONFIG
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.registry import build
+    cfg = get_config("qwen2-7b")
+    params = build(cfg).init(gen, device=DEVICE)
+    tuned = SparseAttentionExec.from_plan(serve_plan, phase="prefill",
+                                          dtype=cfg.dtype).to(DEVICE)
+    plain = SparseAttentionExec.from_plan(
+        serve_plan, phase="prefill", dtype=cfg.dtype,
+        kernel_config=DEFAULT_CONFIG).to(DEVICE)
+    check(tuned.kernel_config == best, f"the serving exec's config "
+          f"{tuned.kernel_config}, not the winner {best}")
+    prefill = make_prefill_step(cfg, spion=True, with_cache=True)
+    rng = np.random.default_rng(SEED + 5)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        size=(1, tuned.coverage)),
+                           device=DEVICE)
+    outs = []
+    for ex in (plain, tuned):
+        reset_launch_counts()
+        with torch.inference_mode():
+            outs.append(prefill(params, {"tokens": toks}, ex))
+        torch.cuda.synchronize()
+        check(launch_counts()["block_sparse_fwd"] == cfg.num_layers,
+              f"a prefill launched {launch_counts()}")
+    same = [_bitwise_equal(x, y) for x, y in zip(*outs)]
+    log(f"autotune: a qwen2-7b prefill of {tuned.coverage} tokens through "
+        f"the tuned exec ({best}) against the default config, "
+        f"{cfg.num_layers} launches each: logits, K and V bitwise equal "
+        f"{same}")
+    check(all(same), "the tuned prefill differs from the default's")
+    del params, outs
+    torch.cuda.empty_cache()
+
+
+def phase_autotune(train, serve, mixtral, gen):
+    """The autotuner on the card: at each of the three shapes, the host's
+    shared-memory formula against the launchers', then tune (every
+    candidate's forward, dQ and dK/dV timed, o, lse, dq, dk and dv held
+    bitwise against the default's: a mismatch fails the run), a refused
+    config raising before any launch, a cold exec hitting the cache; then
+    a tuned train step and a tuned qwen2-7b prefill against the
+    default's."""
+    import torch
+    from repro_torch.core.attention_exec import SparseAttentionExec
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.block_sparse_attn import config_smem
+    from repro_torch.kernels.dispatch import compiled_backend
+    t0 = time.perf_counter()
+    card = card_line()
+    out = {}
+    for name, (tables, block, kw) in tune_shapes(train, serve,
+                                                 mixtral).items():
+        shape = autotune.tune_shape(tables, block, group=kw["group"],
+                                    head_dim=kw["head_dim"])
+        refused = check_smem_formula(name, shape)
+        best, report = autotune.tune(tables, block, dtype=torch.bfloat16,
+                                     device=DEVICE, generator=gen,
+                                     reps=TUNE_REPS, **kw)
+        fits = autotune.candidates(compiled_backend(DEVICE) or "cpu",
+                                   torch.bfloat16, shape)
+        check([r["config"] for r in report[1:]] ==
+              [c for c in fits if c != report[0]["config"]],
+              f"{name}: the sweep ran {[r['config'] for r in report]}")
+        log(f"autotune at the {name} shape {shape} (N {kw['heads']}), "
+            f"{len(report)} candidates, us by CUDA events (min of "
+            f"{TUNE_REPS} means of 10), {card}:")
+        for r in report:
+            log(f"  {autotune.describe(r['config']):18s} fwd "
+                f"{r['us']:9.2f} dq {r['dq_us']:9.2f} dkv {r['dkv_us']:9.2f}"
+                f" us; smem {r['smem']}; bitwise {r['bitwise']}")
+        log(f"  refused by config_fits before any launch: "
+            + (", ".join(f"{autotune.describe(c)} "
+                         f"{config_smem(c, **shape)}"
+                         for c in refused) or "none"))
+        bad = [r["config"] for r in report if not r["bitwise"]]
+        check(not bad, f"{name}: candidates changed a kernel's output "
+              f"bitwise: {bad}")
+        if refused:
+            kinds = refusal_before_launch(refused[0], shape, gen) \
+                if name == "serve" else None
+            if kinds:
+                log(f"  {autotune.describe(refused[0])} raised in "
+                    f"{kinds} before launching")
+        cold = SparseAttentionExec(tables, block=block, dtype=torch.bfloat16)
+        check(cold.kernel_config == best, f"{name}: a cold exec found "
+              f"{cold.kernel_config}, the sweep's winner is {best}")
+        default = report[0]
+        win = next(r for r in report if r["config"] == best)
+        log(f"  winner {autotune.describe(best)}: fwd {win['us']:.2f} us "
+            f"(default {default['us']:.2f}), dq {win['dq_us']:.2f} "
+            f"({default['dq_us']:.2f}), dkv {win['dkv_us']:.2f} "
+            f"({default['dkv_us']:.2f}); a cold exec hits it")
+        out[name] = dict(best=best, report=report, refused=refused,
+                         shape=shape)
+    step = tuned_train_step(train, out["train"]["best"])
+    tuned_prefill(serve["plan"], out["serve"]["best"], gen)
+    log(f"autotune: the phase took {time.perf_counter() - t0:.1f} s")
+    return dict(shapes=out, **step)
+
+
+def tuned_record(autotuned):
+    """{kernel: {shape: winner, its ms and the default's}} for the JSON
+    line (the forward decides the winner; dQ's and dK/dV's times are under
+    it)."""
+    from repro_torch.kernels.autotune import describe
+    keys = {"block_sparse_fwd": "us", "block_sparse_dq": "dq_us",
+            "block_sparse_dkv": "dkv_us"}
+    rec = {}
+    for kernel, key in keys.items():
+        rec[kernel] = {}
+        for name, t in autotuned["shapes"].items():
+            rep = t["report"]
+            win = next(r for r in rep if r["config"] == t["best"])
+            rec[kernel][name] = dict(
+                config=describe(t["best"]), ms=win[key] / 1e3,
+                default_ms=rep[0][key] / 1e3, candidates=len(rep),
+                refused=[describe(c) for c in t["refused"]])
+    return rec
 
 
 # -- self-healing training -----------------------------------------------------
@@ -2264,8 +2589,10 @@ def main(argv):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--before", metavar="DIR", help="another checkout "
                         "of this repository (e.g. the parent commit from "
-                        "git archive): its dQ and dK/dV kernels are built "
-                        "and timed beside these at the training shape")
+                        "git archive): its kernels are built and timed "
+                        "beside these (the forward at the serving, training "
+                        "and mixtral shapes, dQ and dK/dV at the training "
+                        "shape)")
     parser.add_argument("--train-worker", metavar="DIR", help="run as the "
                         "respawn phase's training worker with checkpoints "
                         "in DIR (started by the phase's FleetSupervisor)")
@@ -2276,7 +2603,14 @@ def main(argv):
         return 2
     if args.train_worker:
         return train_worker(args.train_worker)
+    import shutil
     import numpy as np
+    # every exec of this run (and of the respawn phase's worker, which
+    # inherits the environment) looks its kernel config up here, and only
+    # phase 8a writes it
+    shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
+    os.environ["SPION_AUTOTUNE_DIR"] = AUTOTUNE_DIR
+    os.environ.pop("SPION_AUTOTUNE", None)
     from repro_torch.kernels.block_sparse_attn import (library_path,
                                                        load_library)
 
@@ -2317,7 +2651,7 @@ def main(argv):
     served = {}
     for name, phase in (("serve", lambda: phase_serve(gen, rng)),
                         ("serve_shared", lambda: phase_serve_shared(serve)),
-                        ("mixtral", phase_mixtral_ring)):
+                        ("mixtral", lambda: phase_mixtral_ring(before))):
         reset_launch_counts()
         out = phase()
         served[name] = launch_counts()
@@ -2329,14 +2663,16 @@ def main(argv):
         elif name == "serve_shared":
             shared = out
             # qwen2-7b's parameters (15 GB) make room for mixtral's
-            del serve["params"], serve["plan"]
+            del serve["params"]
             torch.cuda.empty_cache()
         else:
             mixtral = out
     train = phase_train()
     train_err, train_timing = phase_train_path_kernels(train, gen, before)
     phase_covering_step(train)
-    timing = kernel_timing(inputs, "the serving path's shape")
+    timing = kernel_timing(inputs, "the serving path's shape", before)
+    del inputs
+    autotuned = phase_autotune(train, serve, mixtral, gen)
     resume = phase_resume(train)
     rollback = phase_rollback(resume)
     respawn = phase_respawn(train, resume)
@@ -2353,6 +2689,7 @@ def main(argv):
            "mixtral_shape": mixtral["kernel"],
            **timing}
     rows = {"block_sparse_fwd": fwd}
+    tuned = tuned_record(autotuned)
     for name, grads in (("block_sparse_dq", ("dq",)),
                         ("block_sparse_dkv", ("dk", "dv"))):
         t = train_timing[name]
@@ -2363,6 +2700,7 @@ def main(argv):
                                            "bound_by", "library_ms",
                                            "before_ms") if k in t}}
     for name, row in rows.items():
+        row["tuned"] = tuned[name]
         for path, run in (("resume", resume), ("rollback", rollback),
                           ("respawn", respawn)):
             row[f"launches_{path}"] = run["launches"][name]

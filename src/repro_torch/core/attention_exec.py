@@ -3,7 +3,12 @@ execution.
 
   - `tables` — the SparsityPlan tensors (col_idx / nvalid and, when
     plan-built, row_idx / nvalid_t), stacked over layers;
-  - `block` and `phase` — the static metadata.
+  - `block` and `phase` — the static metadata;
+  - `kernel_config` — the autotuner's pick for this pattern
+    (kernels/autotune.py), looked up in the on-disk cache once, when the
+    exec is constructed (never a sweep), under the `dtype` the kernels
+    will run in; None is the default config. Training and serving reach
+    their tuned configs by building their exec.
 
 `phase` is "train" | "prefill" | "decode". Train and prefill share
 `attend()` (full-sequence block-sparse attention: the Hopper kernels or
@@ -12,6 +17,8 @@ the plain gather per `resolve_kernel`, both differentiable); decode uses
 reads only the cache blocks the query position's row-block lists.
 """
 from __future__ import annotations
+
+import copy
 
 import torch
 
@@ -54,42 +61,60 @@ class SparseAttentionExec:
     stacked tables (tensors or numpy arrays). `attend`/`decode` consume
     the PER-LAYER slices of `scan_tables()`."""
 
-    def __init__(self, tables, *, block, phase="train"):
+    def __init__(self, tables, *, block, phase="train", kernel_config=None,
+                 dtype=None):
         if phase not in _PHASES:
             raise ValueError(f"phase must be one of {_PHASES}, got {phase!r}")
+        from repro_torch.kernels.autotune import dtype_name, lookup
         self.tables = {k: torch.as_tensor(tables[k]) for k in PLAN_TABLE_KEYS
                        if tables is not None and tables.get(k) is not None}
         self.block = int(block)
         self.phase = phase
+        # the kernels' dtype keys the lookup (the reference always looks up
+        # float32, its default): fp32 runs the scalar kernels, which have no
+        # knob, so a bf16 run must find its bf16 entry
+        self.dtype = dtype_name(torch.float32 if dtype is None else dtype)
+        if kernel_config is None and self.tables:
+            kernel_config = lookup(self.tables, self.block, dtype=self.dtype)
+        self.kernel_config = kernel_config
 
     def __repr__(self):
         shapes = {k: tuple(v.shape) for k, v in self.tables.items()}
         return (f"SparseAttentionExec(phase={self.phase!r}, "
-                f"block={self.block}, tables={shapes})")
+                f"block={self.block}, kernel_config={self.kernel_config!r}, "
+                f"dtype={self.dtype!r}, tables={shapes})")
 
     # -- constructors ---------------------------------------------------------
 
     @classmethod
-    def coerce(cls, spion, *, phase=None):
-        """None | exec | tables-dict payload -> exec (or None)."""
+    def coerce(cls, spion, *, phase=None, kernel_config=None, dtype=None):
+        """None | exec | tables-dict payload -> exec (or None). An exec
+        keeps its config and dtype; a dict payload looks its config up
+        under `dtype` unless `kernel_config` is given."""
         if spion is None:
             return None
         if isinstance(spion, cls):
             if phase is not None and spion.phase != phase:
-                return cls(spion.tables, block=spion.block, phase=phase)
+                ex = copy.copy(spion)
+                ex.phase = phase
+                return ex
             return spion
-        return cls(spion, block=spion["block"], phase=phase or "train")
+        return cls(spion, block=spion["block"], phase=phase or "train",
+                   kernel_config=kernel_config, dtype=dtype)
 
     @classmethod
-    def from_plan(cls, plan, *, phase="train"):
+    def from_plan(cls, plan, *, phase="train", kernel_config=None,
+                  dtype=None):
         """From a core.sparse_attention.SparsityPlan."""
-        return cls(plan.tables, block=plan.tables["block"], phase=phase)
+        return cls(plan.tables, block=plan.tables["block"], phase=phase,
+                   kernel_config=kernel_config, dtype=dtype)
 
     def to(self, device):
-        """The same exec with its tables on `device`."""
-        return SparseAttentionExec(
-            {k: v.to(device) for k, v in self.tables.items()},
-            block=self.block, phase=self.phase)
+        """The same exec (config and dtype kept) with its tables on
+        `device`."""
+        ex = copy.copy(self)
+        ex.tables = {k: v.to(device) for k, v in self.tables.items()}
+        return ex
 
     # -- table views ----------------------------------------------------------
 
@@ -114,7 +139,8 @@ class SparseAttentionExec:
             from repro_torch.kernels.ops import spion_attention_kernel
             return spion_attention_kernel(cfg, q, k, v, bcsr,
                                           row_idx=tabs.get("row_idx"),
-                                          nvalid_t=tabs.get("nvalid_t"))
+                                          nvalid_t=tabs.get("nvalid_t"),
+                                          config=self.kernel_config)
         return bcsr_attention(cfg, q, k, v, bcsr)
 
     def decode(self, cfg, q, k_cache, v_cache, pos, layer_tables, *,

@@ -147,15 +147,19 @@ class SpionController:
             return state.tables
         return None
 
-    def attention_exec(self, state: SpionState, phase: str = "train"):
+    def attention_exec(self, state: SpionState, phase: str = "train",
+                       dtype=None):
         """The sparse phase's SparseAttentionExec (None in the dense phase
         or when SPION is disabled). `phase="decode"` gives the serving
-        engine's sparse-decode exec from the same training plan."""
+        engine's sparse-decode exec from the same training plan. `dtype` is
+        the model's compute dtype (cfg.dtype; default float32), under which
+        the exec looks its tuned kernel config up."""
         tables = self.spion_kwargs(state)
         if tables is None:
             return None
         from repro_torch.core.attention_exec import SparseAttentionExec
-        return SparseAttentionExec(tables, block=tables["block"], phase=phase)
+        return SparseAttentionExec(tables, block=tables["block"], phase=phase,
+                                   dtype=dtype)
 
     def verify_plan_sync(self, state: SpionState,
                          tag: str = "spion_plan_restore"):

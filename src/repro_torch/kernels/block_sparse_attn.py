@@ -37,6 +37,14 @@ pruned positions have score 0 and value 0, so they carry no gradient.
 On CPU tensors each wrapper runs its plain version (`fused_forward_reference`,
 `fused_dq_reference`, `fused_dkv_reference`); on CUDA tensors it launches
 its kernel, counted in `<wrapper>.launches`, or raises.
+
+Every wrapper takes `config=`, a dispatch.KernelConfig (None: the
+default): the bf16 kernels' ring depth and the forward's and dQ's
+warpgroups (the JAX package threads the same config through its three
+host functions). A config that needs more shared memory than a block may
+have is refused on the host (`config_fits`, `smem_bytes`: the launchers'
+formulas), and the fp32 kernels take only the default. The plain versions
+ignore it.
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ import subprocess
 import torch
 
 from repro_torch.core.sparse_attention import bcsr_transpose
+from repro_torch.kernels.dispatch import DEFAULT_CONFIG, KernelConfig
 
 NEG = -1e30
 
@@ -62,6 +71,8 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+SMEM_LIMIT = 232448    # dynamic shared memory a block may have on the H100
+_KINDS = ("fwd", "dq", "dkv")
 
 
 class KernelError(RuntimeError):
@@ -132,15 +143,100 @@ def load_library():
     ptr, cint = ctypes.c_void_p, ctypes.c_int
     for tag in _DTYPES.values():
         fn = getattr(lib, f"spion_block_sparse_fwd_{tag}")
-        fn.argtypes = [ptr] * 7 + [cint] * 13 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 7 + [cint] * 15 + [ctypes.c_float, ptr]
         fn.restype = cint
         for kind in ("dq", "dkv"):
             fn = getattr(lib, f"spion_block_sparse_{kind}_{tag}")
-            fn.argtypes = [ptr] * 10 + [cint] * 13 + [ctypes.c_float, ptr]
+            fn.argtypes = [ptr] * 10 + [cint] * 15 + [ctypes.c_float, ptr]
             fn.restype = cint
     lib.spion_cuda_error_string.argtypes = [cint]
     lib.spion_cuda_error_string.restype = ctypes.c_char_p
+    lib.spion_sm90_smem_bytes.argtypes = [cint] * 7
+    lib.spion_sm90_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+# -- kernel configs -------------------------------------------------------------
+
+def launch_config(kind, config, width):
+    """(depth, nwg) that a bf16 launch of kernel `kind` takes for `config`:
+    the depth clamped to the table width (the JAX package's `_depth`), and
+    the forward's and dQ's warpgroups, 0 for the kernels' rule (dK/dV's
+    always 0: its warpgroups follow the block)."""
+    depth = max(1, min(config.depth, max(int(width), 1)))
+    nwg = 0 if kind == "dkv" or config.num_warps is None \
+        else config.num_warps // 4
+    return depth, nwg
+
+
+def smem_bytes(kind, *, hd, block, G, depth, nwg, width):
+    """Dynamic shared memory of a bf16 launch of kernel `kind` ("fwd",
+    "dq", "dkv"), the formulas of csrc/block_sparse_sm90.cuh that the
+    launchers use (chip_smoke.py holds the two equal through
+    `spion_sm90_smem_bytes` on the card). `depth` as launched (clamped),
+    `nwg` 0 for the default rule."""
+    bn = 64 if block <= 64 else 128
+    wg = nwg or (2 if G * block >= 128 else 1)
+    if kind == "fwd":
+        return 1024 + depth * 2 * bn * hd * 2 + wg * 64 * hd * 2 + \
+            depth * 8 + (2 * width + 4 + depth) * 4
+    if kind == "dq":
+        return 1024 + depth * 2 * bn * hd * 2 + 2 * wg * 64 * hd * 2 + \
+            depth * 8 + (2 * width + 3 + depth) * 4
+    if kind == "dkv":
+        qn = 64 if hd <= 64 else 32
+        keys = 64 if block <= 64 else 128
+        return 1024 + 2 * keys * hd * 2 + depth * 2 * qn * hd * 2 + \
+            depth * 2 * qn * 4 + (depth + 1) * 8 + (2 * width + 3 + depth) * 4
+    raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
+
+
+def config_smem(config, *, hd, block, G, K, KT):
+    """{kind: bytes} of the three bf16 launches under `config` at head dim
+    hd, plan block `block`, G query heads a kv head, forward / dQ table
+    width K and dK/dV table width KT."""
+    out = {}
+    for kind in _KINDS:
+        width = KT if kind == "dkv" else K
+        depth, nwg = launch_config(kind, config, width)
+        out[kind] = smem_bytes(kind, hd=hd, block=block, G=G, depth=depth,
+                               nwg=nwg, width=width)
+    return out
+
+
+def config_fits(config, *, hd, block, G, K, KT):
+    """Whether all three bf16 kernels can launch under `config` at this
+    shape (`config_smem` within SMEM_LIMIT each)."""
+    return all(b <= SMEM_LIMIT for b in config_smem(
+        config, hd=hd, block=block, G=G, K=K, KT=KT).values())
+
+
+def _config(config):
+    if config is None:
+        return DEFAULT_CONFIG
+    if not isinstance(config, KernelConfig):
+        raise TypeError(f"config must be a dispatch.KernelConfig or None, "
+                        f"got {type(config).__name__}")
+    return config
+
+
+def _launch_config(kind, q, config, *, block, width):
+    """(depth, nwg) of a launch on CUDA tensors; raises before the launch
+    for a config that the fp32 kernels or the shared memory cannot take."""
+    if q.dtype == torch.float32:
+        if config != DEFAULT_CONFIG:
+            raise ValueError(f"the fp32 kernels have no ring and take only "
+                             f"the default config, not {config}")
+        return DEFAULT_CONFIG.depth, 0
+    depth, nwg = launch_config(kind, config, width)
+    need = smem_bytes(kind, hd=q.shape[3], block=block, G=q.shape[1],
+                      depth=depth, nwg=nwg, width=width)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"{config} needs {need} bytes of shared memory in "
+                         f"block_sparse_{kind} at hd {q.shape[3]}, block "
+                         f"{block}, G {q.shape[1]}, width {width}: more "
+                         f"than the {SMEM_LIMIT} a block may have")
+    return depth, nwg
 
 
 def _offsets(offsets):
@@ -375,12 +471,15 @@ def _launch(kind, q, *args):
 
 
 def block_sparse_fwd(q, k, v, col_idx, nvalid, *, block, causal=False,
-                     sliding_window=None, offsets=None, seq_len=None):
+                     sliding_window=None, offsets=None, seq_len=None,
+                     config=None):
     """(o, lse) of block-sparse attention; see `fused_forward_reference` for
     the arguments. CPU tensors take the plain version; CUDA tensors launch
     the Hopper kernel (counted in `block_sparse_fwd.launches`): in bf16 the
-    tensor-core one, which needs q, k and v on 16-byte boundaries. Not
-    differentiable itself: `fused_block_sparse_attention` is."""
+    tensor-core one, which needs q, k and v on 16-byte boundaries, with the
+    ring depth and warpgroups of `config`. Not differentiable itself:
+    `fused_block_sparse_attention` is."""
+    config = _config(config)
     _check(q, k, v, block)
     N, G, S, hd = q.shape
     _check_tables(col_idx, nvalid, S // block, "col_idx / nvalid")
@@ -392,6 +491,7 @@ def block_sparse_fwd(q, k, v, col_idx, nvalid, *, block, causal=False,
     if q.dtype == torch.bfloat16:
         _aligned(q=q, k=k, v=v)
     nrb, K = col_idx.shape
+    depth, nwg = _launch_config("fwd", q, config, block=block, width=K)
     row0, col0 = _offsets(offsets)
     o = torch.empty_like(q)
     lse = torch.empty((N, G, S), dtype=torch.float32, device=q.device)
@@ -400,16 +500,18 @@ def block_sparse_fwd(q, k, v, col_idx, nvalid, *, block, causal=False,
             lse.data_ptr(), N, G, S, k.shape[1], hd, nrb, K, block,
             int(bool(causal)),
             -1 if sliding_window is None else int(sliding_window),
-            S if seq_len is None else int(seq_len), row0, col0,
+            S if seq_len is None else int(seq_len), row0, col0, depth, nwg,
             1.0 / math.sqrt(hd))
     block_sparse_fwd.launches += 1
     return o, lse
 
 
-def _bwd_args(q, k, v, do, lse, delta, idx, nidx, out0, out1, *, block,
-              causal, sliding_window, offsets):
+def _bwd_args(kind, q, k, v, do, lse, delta, idx, nidx, out0, out1, *,
+              block, causal, sliding_window, offsets, config):
     N, G, S, hd = q.shape
     row0, col0 = _offsets(offsets)
+    depth, nwg = _launch_config(kind, q, config, block=block,
+                                width=idx.shape[1])
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), idx.data_ptr(),
             nidx.data_ptr(), out0.data_ptr(),
@@ -417,16 +519,18 @@ def _bwd_args(q, k, v, do, lse, delta, idx, nidx, out0, out1, *, block,
             hd, S // block, k.shape[1] // block, idx.shape[1], block,
             int(bool(causal)),
             -1 if sliding_window is None else int(sliding_window), row0,
-            col0, 1.0 / math.sqrt(hd))
+            col0, depth, nwg, 1.0 / math.sqrt(hd))
 
 
 def block_sparse_dq(q, k, v, do, lse, delta, col_idx, nvalid, *, block,
-                    causal=False, sliding_window=None, offsets=None):
+                    causal=False, sliding_window=None, offsets=None,
+                    config=None):
     """dq (N, G, S, hd) fp32 of block-sparse attention; see
     `fused_dq_reference`. CPU tensors take the plain version; CUDA tensors
     launch the Hopper kernel (counted in `block_sparse_dq.launches`): in
     bf16 the tensor-core one, which needs q, k, v and do on 16-byte
-    boundaries."""
+    boundaries, with the ring depth and warpgroups of `config`."""
+    config = _config(config)
     _check(q, k, v, block)
     _check_grads(q, do, lse, delta)
     _check_tables(col_idx, nvalid, q.shape[2] // block, "col_idx / nvalid")
@@ -440,20 +544,22 @@ def block_sparse_dq(q, k, v, do, lse, delta, col_idx, nvalid, *, block,
     if q.dtype == torch.bfloat16:
         _aligned_backward("dq", q, k, v, do, lse, delta)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch("dq", q, *_bwd_args(q, k, v, do, lse, delta, col_idx, nvalid,
-                                dq, None, **kw))
+    _launch("dq", q, *_bwd_args("dq", q, k, v, do, lse, delta, col_idx,
+                                nvalid, dq, None, config=config, **kw))
     block_sparse_dq.launches += 1
     return dq
 
 
 def block_sparse_dkv(q, k, v, do, lse, delta, row_idx, nvalid_t, *, block,
-                     causal=False, sliding_window=None, offsets=None):
+                     causal=False, sliding_window=None, offsets=None,
+                     config=None):
     """(dk, dv) (N, Sk, hd) fp32 of block-sparse attention over the
     transposed tables row_idx (ncb, KT) / nvalid_t (ncb,); see
     `fused_dkv_reference`. CPU tensors take the plain version; CUDA tensors
     launch the Hopper kernel (counted in `block_sparse_dkv.launches`): in
     bf16 the tensor-core one, which needs q, k, v, do, lse and delta on
-    16-byte boundaries."""
+    16-byte boundaries, with the ring depth of `config`."""
+    config = _config(config)
     _check(q, k, v, block)
     _check_grads(q, do, lse, delta)
     _check_tables(row_idx, nvalid_t, k.shape[1] // block,
@@ -469,8 +575,8 @@ def block_sparse_dkv(q, k, v, do, lse, delta, row_idx, nvalid_t, *, block,
         _aligned_backward("dkv", q, k, v, do, lse, delta)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    _launch("dkv", q, *_bwd_args(q, k, v, do, lse, delta, row_idx, nvalid_t,
-                                 dk, dv, **kw))
+    _launch("dkv", q, *_bwd_args("dkv", q, k, v, do, lse, delta, row_idx,
+                                 nvalid_t, dk, dv, config=config, **kw))
     block_sparse_dkv.launches += 1
     return dk, dv
 
@@ -482,8 +588,9 @@ block_sparse_dkv.launches = 0
 
 class _FusedAttention(torch.autograd.Function):
     """The differentiable op: forward kernel, then dQ and dK/dV kernels in
-    the backward. row_idx / nvalid_t None is the fallback that rebuilds the
-    transposed tables (width nrb) in every backward."""
+    the backward, all three under the config in `kw`. row_idx / nvalid_t
+    None is the fallback that rebuilds the transposed tables (width nrb) in
+    every backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, col_idx, nvalid, row_idx, nvalid_t, kw):
@@ -515,7 +622,7 @@ class _FusedAttention(torch.autograd.Function):
 def fused_block_sparse_attention(q, k, v, col_idx, nvalid, *, block,
                                  causal=False, sliding_window=None,
                                  row_idx=None, nvalid_t=None, offsets=None,
-                                 seq_len=None):
+                                 seq_len=None, config=None):
     """q (N, G, S, hd) — G query heads share each kv head; k, v (N, Sk, hd);
     col_idx (nrb, K) clamped, nvalid (nrb,), int32. Returns o (N, G, S, hd).
 
@@ -524,11 +631,14 @@ def fused_block_sparse_attention(q, k, v, col_idx, nvalid, *, block,
     tables `row_idx (ncb, KT*)` / `nvalid_t (ncb,)` set the dK/dV width to
     the true column population; without them every backward builds them
     with `bcsr_transpose` at width KT = ncb. `offsets` / `seq_len` as in
-    `fused_forward_reference`."""
+    `fused_forward_reference`. `config` is the dispatch.KernelConfig of all
+    three kernels (normally the one the autotuner resolved for this
+    pattern): it changes their speed, never their results."""
     kw = dict(block=int(block), causal=bool(causal),
               sliding_window=None if sliding_window is None
               else int(sliding_window), offsets=offsets,
-              seq_len=None if seq_len is None else int(seq_len))
+              seq_len=None if seq_len is None else int(seq_len),
+              config=_config(config))
     if row_idx is not None:
         row_idx = row_idx.to(torch.int32).contiguous()
         nvalid_t = nvalid_t.to(torch.int32).contiguous()

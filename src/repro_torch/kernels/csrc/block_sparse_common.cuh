@@ -62,21 +62,24 @@ struct BwdParams {
   int causal;
   int sliding_window;   // < 0: none
   int row0, col0;       // global block index of local row-block 0 / K block 0
+  int depth;            // bf16 kernels: stages of the ring (1..kMaxDepth)
+  int nwg;              // bf16 dQ: warpgroups a program, 0 for the default
   float scale;
 };
 
 }  // namespace spion
 
 // One C entry point per kernel and dtype, so each file builds in its own
-// nvcc. LAUNCH is spion::launch_dq<T> or spion::launch_dkv<T>.
+// nvcc. LAUNCH is spion::launch_dq<T> or spion::launch_dkv<T> (the scalar
+// fp32 kernels, which ignore depth and nwg) or the bf16 launchers.
 #define SPION_DEFINE_BWD_ENTRY(NAME, T, LAUNCH)                               \
   extern "C" int NAME(const void* q, const void* k, const void* v,            \
                       const void* dout, const void* lse, const void* delta,   \
                       const void* idx, const void* nidx, void* out0,          \
                       void* out1, int N, int G, int S, int Sk, int hd,        \
                       int nrb, int ncb, int width, int block, int causal,     \
-                      int sliding_window, int row0, int col0, float scale,    \
-                      void* stream) {                                         \
+                      int sliding_window, int row0, int col0, int depth,      \
+                      int nwg, float scale, void* stream) {                   \
     spion::BwdParams p;                                                       \
     p.q = q;                                                                  \
     p.k = k;                                                                  \
@@ -100,6 +103,8 @@ struct BwdParams {
     p.sliding_window = sliding_window;                                        \
     p.row0 = row0;                                                            \
     p.col0 = col0;                                                            \
+    p.depth = depth;                                                          \
+    p.nwg = nwg;                                                              \
     p.scale = scale;                                                          \
     return LAUNCH<T>(p, hd, static_cast<cudaStream_t>(stream));               \
   }

@@ -32,10 +32,10 @@
 //     row block r (entries past nvalid_t and ids outside [0, nrb) dropped
 //     before any load) in chunks of QN query rows: the Q and dO tiles (rows
 //     of the (N G S, hd) matrices) by TMA, and the rows' lse and delta by
-//     bulk copies, all completing one `full` mbarrier of a kStages = 2 ring;
-//     the last warp done with a stage refills it. Rows past the tensor read
-//     as zero (TMA) or are not copied (lse, delta); rows past the block are
-//     masked.
+//     bulk copies, all completing one `full` mbarrier of a ring of p.depth
+//     stages (2 by default); the last warp done with a stage refills it.
+//     Rows past the tensor read as zero (TMA) or are not copied (lse,
+//     delta); rows past the block are masked.
 //   - Products, fp32 accumulation throughout. S^T = K Q^T and dP^T = V dO^T
 //     by wgmma m64nQNk16, both operands K-major from shared memory (exact
 //     products of bf16 inputs); P^T and dS^T in registers (a key row lives
@@ -53,10 +53,12 @@
 //     and dv that only it owns in the accumulator layout (the same for
 //     every g), reading them back from the output from g = 1 on.
 //
-// Shared memory: K and V 2 * 64 NWG * HD * 2 bytes, the ring 2 * 2 * QN *
-// HD * 2, lse and delta 2 * 2 * QN * 4, 3 mbarriers, 2 width + 5 ints and
-// up to 1 KB to align: 14 KB at hd 16 / block 64 (many programs an SM),
-// 97 KB at hd 128 / block 128.
+// Shared memory (sm90_dkv_smem_bytes): K and V 2 * 64 NWG * HD * 2 bytes,
+// the ring depth * 2 * QN * HD * 2, lse and delta depth * 2 * QN * 4, depth
+// + 1 mbarriers, 2 width + 3 + depth ints and up to 1 KB to align; at depth
+// 2: 14 KB at hd 16 / block 64 (many programs an SM), 97 KB at hd 128 /
+// block 128. The depth moves loads only; NWG is no knob here, since it sets
+// the keys a program holds.
 //
 // Bound on the H100: 8 block^2 hd flop a listed (row block, head) against
 // one Q and one dO tile: at the training shape (block 64, hd 16, G 1, ~1.6
@@ -70,27 +72,11 @@
 
 namespace spion {
 
-// query rows a ring tile holds
-template <int HD>
-__host__ __device__ constexpr int dkv_query_rows() {
-  return HD <= 64 ? 64 : 32;
-}
-
 // programs an SM the register cap allows: four of one warpgroup at hd 16
 // (128 registers a thread), else one (255)
 template <int HD, int NWG>
 __host__ __device__ constexpr int dkv_min_blocks() {
   return NWG == 1 && HD <= 16 ? 4 : 1;
-}
-
-template <int HD, int NWG>
-inline size_t dkv_sm90_smem_bytes(int width) {
-  constexpr int QN = dkv_query_rows<HD>();
-  return 1024 +   // the swizzled tiles start on a 1024-byte boundary
-         (size_t)2 * 64 * NWG * HD * 2 + (size_t)kStages * 2 * QN * HD * 2 +
-         (size_t)kStages * 2 * QN * sizeof(float) +
-         (kStages + 1) * sizeof(uint64_t) +
-         (size_t)(2 * width + 3 + kStages) * sizeof(int);
 }
 
 // One thread: ring item `item` (head g, listed row block t, chunk ch) into
@@ -102,7 +88,7 @@ __device__ __forceinline__ void issue_rows(
     const CUtensorMap* map_do, const BwdParams& p, const int* tiles, int n,
     int nch, int per_g, int s, int item) {
   constexpr int W = sm90_panel_bytes(HD);
-  constexpr int QN = dkv_query_rows<HD>();
+  constexpr int QN = dkv_query_rows(HD);
   const int g = item / per_g;
   const int t = (item - g * per_g) / nch;
   const int ch = item - g * per_g - t * nch;
@@ -124,7 +110,7 @@ __device__ __forceinline__ void issue_rows(
   sm90::bulk_load_1d(lse_s + QN, p.delta + row, vbytes, &full[s]);
 }
 
-template <int HD, int NWG>
+template <int HD, int NWG, int kDepth>
 __global__ void __launch_bounds__(128 * NWG, (dkv_min_blocks<HD, NWG>()))
     block_sparse_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_k,
                                  const __grid_constant__ CUtensorMap map_v,
@@ -133,18 +119,19 @@ __global__ void __launch_bounds__(128 * NWG, (dkv_min_blocks<HD, NWG>()))
                                  const BwdParams p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   constexpr int W = sm90_panel_bytes(HD);
-  constexpr int QN = dkv_query_rows<HD>();
+  constexpr int QN = dkv_query_rows(HD);
   constexpr int R = 64 * NWG;                 // keys a program holds
+  const int depth = kDepth ? kDepth : p.depth;   // kDepth 0: any depth
   unsigned char* k_s =
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* v_s = k_s + R * HD * 2;
   unsigned char* ring = v_s + R * HD * 2;     // stage s: Q, then dO
-  float* rowv = reinterpret_cast<float*>(ring + (size_t)kStages * 2 * QN *
+  float* rowv = reinterpret_cast<float*>(ring + (size_t)depth * 2 * QN *
                                                     HD * 2);  // lse, delta
-  uint64_t* full = reinterpret_cast<uint64_t*>(rowv + kStages * 2 * QN);
-  uint64_t* kv_bar = full + kStages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(rowv + depth * 2 * QN);
+  uint64_t* kv_bar = full + depth;
   int* done = reinterpret_cast<int*>(kv_bar + 1);     // warps done a stage
-  int* tiles = done + kStages;                         // width
+  int* tiles = done + depth;                           // width
   int* hist = tiles + p.width;                         // width + 1
   int* shared_int = hist + p.width + 1;                // column block, tiles
 
@@ -158,7 +145,7 @@ __global__ void __launch_bounds__(128 * NWG, (dkv_min_blocks<HD, NWG>()))
   const int nch = (block + QN - 1) / QN;      // chunks of a row block
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < depth; ++s) {
       sm90::mbar_init(&full[s], 1);
       done[s] = 0;
     }
@@ -193,7 +180,7 @@ __global__ void __launch_bounds__(128 * NWG, (dkv_min_blocks<HD, NWG>()))
                           (int)key0);
       }
       const int total = p.G * count * nch;
-      for (int i = 0; i < min(total, kStages); ++i)
+      for (int i = 0; i < min(total, depth); ++i)
         issue_rows<HD>(ring, rowv, full, &map_q, &map_do, p, tiles, n, nch,
                        count * nch, i, i);
     }
@@ -225,8 +212,10 @@ __global__ void __launch_bounds__(128 * NWG, (dkv_min_blocks<HD, NWG>()))
   sm90::mbar_wait(kv_bar, 0);
 
   for (int i = 0; i < total; ++i) {
-    const int s = i % kStages;
-    const uint32_t parity = (i / kStages) & 1;
+    // the stage, and the use of it: the k-th use of a stage waits for the
+    // phase of parity k & 1
+    const int s = i % depth;
+    const uint32_t parity = (i / depth) & 1;
     const int g = i / per_g;
     const int t = (i - g * per_g) / nch;
     const int ch = i - g * per_g - t * nch;
@@ -312,16 +301,16 @@ __global__ void __launch_bounds__(128 * NWG, (dkv_min_blocks<HD, NWG>()))
     }
 
     // release the stage: the last warp done with it refills it with item
-    // i + kStages
+    // i + depth
     __syncwarp();
     if (lane == 0) {
       __threadfence_block();
       if (atomicAdd(&done[s], 1) == 4 * NWG - 1) {
         done[s] = 0;
         __threadfence_block();
-        if (i + kStages < total)
+        if (i + depth < total)
           issue_rows<HD>(ring, rowv, full, &map_q, &map_do, p, tiles, n, nch,
-                         per_g, s, i + kStages);
+                         per_g, s, i + depth);
       }
     }
     __syncwarp();
@@ -369,7 +358,7 @@ __global__ void __launch_bounds__(128 * NWG, (dkv_min_blocks<HD, NWG>()))
   }
 }
 
-template <int HD, int NWG>
+template <int HD, int NWG, int kDepth>
 int launch_dkv_sm90_hd(const BwdParams& p, cudaStream_t stream) {
   constexpr int W = sm90_panel_bytes(HD);
   CUtensorMap map_k, map_v, map_q, map_do;
@@ -378,13 +367,13 @@ int launch_dkv_sm90_hd(const BwdParams& p, cudaStream_t stream) {
   int rc = sm90::encode_rows(&map_k, p.k, keys, HD, 64 * NWG, W);
   if (!rc) rc = sm90::encode_rows(&map_v, p.v, keys, HD, 64 * NWG, W);
   if (!rc)
-    rc = sm90::encode_rows(&map_q, p.q, rows, HD, dkv_query_rows<HD>(), W);
+    rc = sm90::encode_rows(&map_q, p.q, rows, HD, dkv_query_rows(HD), W);
   if (!rc)
-    rc = sm90::encode_rows(&map_do, p.dout, rows, HD, dkv_query_rows<HD>(),
-                           W);
+    rc = sm90::encode_rows(&map_do, p.dout, rows, HD, dkv_query_rows(HD), W);
   if (rc) return rc;
-  const size_t smem = dkv_sm90_smem_bytes<HD, NWG>(p.width);
-  auto kernel = block_sparse_dkv_kernel_sm90<HD, NWG>;
+  const size_t smem = sm90_dkv_smem_bytes(HD, NWG, p.depth, p.width);
+  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  auto kernel = block_sparse_dkv_kernel_sm90<HD, NWG, kDepth>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -393,35 +382,45 @@ int launch_dkv_sm90_hd(const BwdParams& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// One launcher per warpgroup count, each in its own file so that the two
-// sets of head dims compile in parallel.
+// One launcher per warpgroup count and ring (the default depth fixed at
+// compile time, or any depth: _anydepth), each in its own file so that the
+// four sets of head dims compile in parallel.
 int launch_dkv_sm90_wg1(const BwdParams& p, int hd, cudaStream_t stream);
 int launch_dkv_sm90_wg2(const BwdParams& p, int hd, cudaStream_t stream);
+int launch_dkv_sm90_wg1_anydepth(const BwdParams& p, int hd,
+                                 cudaStream_t stream);
+int launch_dkv_sm90_wg2_anydepth(const BwdParams& p, int hd,
+                                 cudaStream_t stream);
 
 // The bf16 entry point's launcher (SPION_DEFINE_BWD_ENTRY): one warpgroup
 // of keys for block <= 64, two above.
 template <typename T>
 int launch_dkv_sm90(const BwdParams& p, int hd, cudaStream_t stream) {
-  if (p.block < 16 || p.block > 128 || p.block % 16 != 0 || p.width < 0)
+  if (p.block < 16 || p.block > 128 || p.block % 16 != 0 || p.width < 0 ||
+      p.depth < 1 || p.depth > kMaxDepth || p.nwg != 0)
     return (int)cudaErrorInvalidValue;
   if (p.ncb == 0 || p.N == 0) return (int)cudaSuccess;
   (void)cudaGetLastError();  // report only what this launch raises
-  return p.block <= 64 ? launch_dkv_sm90_wg1(p, hd, stream)
-                       : launch_dkv_sm90_wg2(p, hd, stream);
+  const bool fixed = p.depth == kDefaultDepth;
+  if (dkv_warpgroups(p.block) == 1)
+    return fixed ? launch_dkv_sm90_wg1(p, hd, stream)
+                 : launch_dkv_sm90_wg1_anydepth(p, hd, stream);
+  return fixed ? launch_dkv_sm90_wg2(p, hd, stream)
+               : launch_dkv_sm90_wg2_anydepth(p, hd, stream);
 }
 
 }  // namespace spion
 
-// Dispatch a runtime head dim to launch_dkv_sm90_hd<HD, NWG>.
-#define SPION_DKV_SM90_HD_SWITCH(NWG, hd, ...)                                \
+// Dispatch a runtime head dim to launch_dkv_sm90_hd<HD, NWG, DEPTH>.
+#define SPION_DKV_SM90_HD_SWITCH(NWG, DEPTH, hd, ...)                         \
   switch (hd) {                                                               \
-    case 16: return launch_dkv_sm90_hd<16, NWG>(__VA_ARGS__);                 \
-    case 32: return launch_dkv_sm90_hd<32, NWG>(__VA_ARGS__);                 \
-    case 48: return launch_dkv_sm90_hd<48, NWG>(__VA_ARGS__);                 \
-    case 64: return launch_dkv_sm90_hd<64, NWG>(__VA_ARGS__);                 \
-    case 80: return launch_dkv_sm90_hd<80, NWG>(__VA_ARGS__);                 \
-    case 96: return launch_dkv_sm90_hd<96, NWG>(__VA_ARGS__);                 \
-    case 112: return launch_dkv_sm90_hd<112, NWG>(__VA_ARGS__);               \
-    case 128: return launch_dkv_sm90_hd<128, NWG>(__VA_ARGS__);               \
+    case 16: return launch_dkv_sm90_hd<16, NWG, DEPTH>(__VA_ARGS__);          \
+    case 32: return launch_dkv_sm90_hd<32, NWG, DEPTH>(__VA_ARGS__);          \
+    case 48: return launch_dkv_sm90_hd<48, NWG, DEPTH>(__VA_ARGS__);          \
+    case 64: return launch_dkv_sm90_hd<64, NWG, DEPTH>(__VA_ARGS__);          \
+    case 80: return launch_dkv_sm90_hd<80, NWG, DEPTH>(__VA_ARGS__);          \
+    case 96: return launch_dkv_sm90_hd<96, NWG, DEPTH>(__VA_ARGS__);          \
+    case 112: return launch_dkv_sm90_hd<112, NWG, DEPTH>(__VA_ARGS__);        \
+    case 128: return launch_dkv_sm90_hd<128, NWG, DEPTH>(__VA_ARGS__);        \
     default: return (int)cudaErrorInvalidValue;                               \
   }

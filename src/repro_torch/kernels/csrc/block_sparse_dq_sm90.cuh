@@ -18,14 +18,15 @@
 //   - Work. One program per (n, row block r, chunk): the G * block query
 //     rows of (n, r), head-major (row i of head g at g * block + i), cut
 //     into 64-row warpgroup tiles, NWG = 2 a program when G * block >= 128,
-//     else one; below block 64 several heads share one K/V load. Rows past
-//     G * block are zero and never stored.
+//     else one, unless the launch asks for 1 or 2 (p.nwg); below block 64
+//     several heads share one K/V load. Rows past G * block are zero and
+//     never stored.
 //   - Order. Row blocks by rank in (nvalid descending, r ascending), from a
 //     histogram of nvalid in shared memory.
-//   - Loads. The K/V ring of the forward (kStages = 2 stages of BN keys,
-//     TMA into swizzled panels, a `full` mbarrier a stage, refilled by the
-//     last warp done with it); Q and dO once by 16-byte cp.async into the
-//     same layout; lse and delta of a thread's two rows in registers.
+//   - Loads. The K/V ring of the forward (p.depth stages of BN keys, 2 by
+//     default, TMA into swizzled panels, a `full` mbarrier a stage, refilled
+//     by the last warp done with it); Q and dO once by 16-byte cp.async into
+//     the same layout; lse and delta of a thread's two rows in registers.
 //     Entries i >= nvalid[r] and column ids outside [0, Sk / block) are
 //     dropped before any load.
 //   - Products, in rounds of 64 keys of a tile (two at BN 128): S = Q K^T
@@ -37,9 +38,12 @@
 //   - Store. dq in fp32 from the accumulator layout, the live rows only; a
 //     row block with nothing listed stores 0.
 //
-// Shared memory: the ring 2 * 2 * BN * HD * 2 bytes, Q and dO 2 * NWG * 64
-// * HD * 2, 2 mbarriers, 2 width + 5 ints and up to 1 KB to align: 13 KB at
-// hd 16 / block 64, 193 KB at hd 128 / block 128 / NWG 2.
+// Shared memory (sm90_dq_smem_bytes): the ring depth * 2 * BN * HD * 2
+// bytes, Q and dO 2 * NWG * 64 * HD * 2, depth mbarriers, 2 width + 3 +
+// depth ints and up to 1 KB to align; at depth 2: 13 KB at hd 16 / block
+// 64, 193 KB at hd 128 / block 128 / NWG 2 (depth 3 there would need 257
+// KB: the host refuses it). As in the forward, neither knob changes a
+// result.
 //
 // Bound on the H100: 6 block^2 hd flop a listed tile (three products)
 // against one K and one V tile, so at the training shape (block 64, hd 16,
@@ -52,14 +56,6 @@
 
 namespace spion {
 
-template <int HD, int BN>
-inline size_t dq_sm90_smem_bytes(int nwg, int width) {
-  return 1024 +   // the swizzled tiles start on a 1024-byte boundary
-         (size_t)kStages * 2 * BN * HD * 2 + (size_t)2 * nwg * 64 * HD * 2 +
-         kStages * sizeof(uint64_t) +
-         (size_t)(2 * width + 3 + kStages) * sizeof(int);
-}
-
 // four programs of one warpgroup an SM at hd <= 32 (128 registers a
 // thread), else one
 template <int HD, int BN>
@@ -67,7 +63,7 @@ __host__ __device__ constexpr int dq_min_blocks() {
   return HD <= 32 && BN == 64 ? 2 : 1;
 }
 
-template <int HD, int BN>
+template <int HD, int BN, int kDepth>
 __global__ void __launch_bounds__(256, (dq_min_blocks<HD, BN>()))
     block_sparse_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_k,
                                 const __grid_constant__ CUtensorMap map_v,
@@ -76,14 +72,15 @@ __global__ void __launch_bounds__(256, (dq_min_blocks<HD, BN>()))
   constexpr int W = sm90_panel_bytes(HD);
   constexpr int kTile = 64 * HD * 2;          // bytes of a 64-row tile
   const int nwg = blockDim.x >> 7;
+  const int depth = kDepth ? kDepth : p.depth;   // kDepth 0: any depth
   unsigned char* ring =
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* q_s = ring + (size_t)kStages * 2 * BN * HD * 2;
+  unsigned char* q_s = ring + (size_t)depth * 2 * BN * HD * 2;
   unsigned char* do_s = q_s + (size_t)nwg * kTile;
   uint64_t* full =
       reinterpret_cast<uint64_t*>(do_s + (size_t)nwg * kTile);
-  int* done = reinterpret_cast<int*>(full + kStages);     // warps done a stage
-  int* tiles = done + kStages;                             // width
+  int* done = reinterpret_cast<int*>(full + depth);       // warps done a stage
+  int* tiles = done + depth;                               // width
   int* hist = tiles + p.width;                             // width + 1
   int* shared_int = hist + p.width + 1;                    // row block, tiles
 
@@ -99,7 +96,7 @@ __global__ void __launch_bounds__(256, (dq_min_blocks<HD, BN>()))
   const int rank = blockIdx.x / chunks / p.N;
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < depth; ++s) {
       sm90::mbar_init(&full[s], 1);
       done[s] = 0;
     }
@@ -143,7 +140,7 @@ __global__ void __launch_bounds__(256, (dq_min_blocks<HD, BN>()))
     __syncwarp();
     if (lane == 0) {
       shared_int[1] = count;
-      for (int i = 0; i < min(count, kStages); ++i)
+      for (int i = 0; i < min(count, depth); ++i)
         issue_tile<HD, BN>(ring, full, &map_k, &map_v, i,
                            n * p.Sk + tiles[i] * block);
     }
@@ -179,8 +176,10 @@ __global__ void __launch_bounds__(256, (dq_min_blocks<HD, BN>()))
   constexpr int kSteps = kRoundKeys / 16;
 
   for (int i = 0; i < nt; ++i) {
-    const int s = i % kStages;
-    const uint32_t parity = (i / kStages) & 1;
+    // the stage, and the use of it: the k-th use of a stage waits for the
+    // phase of parity k & 1
+    const int s = i % depth;
+    const uint32_t parity = (i / depth) & 1;
     const int kcol0 = (tiles[i] + p.col0) * block;
     const uint32_t k_addr = sm90::smem_u32(ring + (size_t)2 * s * BN * HD * 2);
     const uint32_t v_addr = k_addr + BN * HD * 2;
@@ -258,16 +257,16 @@ __global__ void __launch_bounds__(256, (dq_min_blocks<HD, BN>()))
     }
 
     // release the stage: the last warp done with it refills it with tile
-    // i + kStages, so that no warp waits for another
+    // i + depth, so that no warp waits for another
     __syncwarp();
     if (lane == 0) {
       __threadfence_block();
       if (atomicAdd(&done[s], 1) == 4 * nwg - 1) {
         done[s] = 0;
         __threadfence_block();
-        if (i + kStages < nt)
+        if (i + depth < nt)
           issue_tile<HD, BN>(ring, full, &map_k, &map_v, s,
-                             n * p.Sk + tiles[i + kStages] * block);
+                             n * p.Sk + tiles[i + depth] * block);
       }
     }
     __syncwarp();
@@ -284,7 +283,7 @@ __global__ void __launch_bounds__(256, (dq_min_blocks<HD, BN>()))
   }
 }
 
-template <int HD, int BN>
+template <int HD, int BN, int kDepth>
 int launch_dq_sm90_hd(const BwdParams& p, cudaStream_t stream) {
   constexpr int W = sm90_panel_bytes(HD);
   CUtensorMap map_k, map_v;
@@ -292,10 +291,11 @@ int launch_dq_sm90_hd(const BwdParams& p, cudaStream_t stream) {
   int rc = sm90::encode_rows(&map_k, p.k, keys, HD, BN, W);
   if (!rc) rc = sm90::encode_rows(&map_v, p.v, keys, HD, BN, W);
   if (rc) return rc;
-  const int nwg = sm90_warpgroups(p.G, p.block);
+  const int nwg = p.nwg ? p.nwg : sm90_warpgroups(p.G, p.block);
   const int chunks = (p.G * p.block + 64 * nwg - 1) / (64 * nwg);
-  const size_t smem = dq_sm90_smem_bytes<HD, BN>(nwg, p.width);
-  auto kernel = block_sparse_dq_kernel_sm90<HD, BN>;
+  const size_t smem = sm90_dq_smem_bytes(HD, BN, nwg, p.depth, p.width);
+  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  auto kernel = block_sparse_dq_kernel_sm90<HD, BN, kDepth>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -304,35 +304,45 @@ int launch_dq_sm90_hd(const BwdParams& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// One launcher per key-tile width, each in its own file so that the two
-// sets of head dims compile in parallel.
+// One launcher per key-tile width and ring (the default depth fixed at
+// compile time, or any depth: _anydepth), each in its own file so that the
+// four sets of head dims compile in parallel.
 int launch_dq_sm90_bn64(const BwdParams& p, int hd, cudaStream_t stream);
 int launch_dq_sm90_bn128(const BwdParams& p, int hd, cudaStream_t stream);
+int launch_dq_sm90_bn64_anydepth(const BwdParams& p, int hd,
+                                 cudaStream_t stream);
+int launch_dq_sm90_bn128_anydepth(const BwdParams& p, int hd,
+                                  cudaStream_t stream);
 
 // The bf16 entry point's launcher (SPION_DEFINE_BWD_ENTRY): key tiles of 64
 // for block <= 64, 128 above.
 template <typename T>
 int launch_dq_sm90(const BwdParams& p, int hd, cudaStream_t stream) {
-  if (p.block < 16 || p.block > 128 || p.block % 16 != 0 || p.width < 0)
+  if (p.block < 16 || p.block > 128 || p.block % 16 != 0 || p.width < 0 ||
+      p.depth < 1 || p.depth > kMaxDepth || p.nwg < 0 || p.nwg > 2)
     return (int)cudaErrorInvalidValue;
   if (p.nrb == 0 || p.G == 0 || p.N == 0) return (int)cudaSuccess;
   (void)cudaGetLastError();  // report only what this launch raises
-  return sm90_key_tile(p.block) == 64 ? launch_dq_sm90_bn64(p, hd, stream)
-                                      : launch_dq_sm90_bn128(p, hd, stream);
+  const bool fixed = p.depth == kDefaultDepth;
+  if (sm90_key_tile(p.block) == 64)
+    return fixed ? launch_dq_sm90_bn64(p, hd, stream)
+                 : launch_dq_sm90_bn64_anydepth(p, hd, stream);
+  return fixed ? launch_dq_sm90_bn128(p, hd, stream)
+               : launch_dq_sm90_bn128_anydepth(p, hd, stream);
 }
 
 }  // namespace spion
 
-// Dispatch a runtime head dim to launch_dq_sm90_hd<HD, BN>.
-#define SPION_DQ_SM90_HD_SWITCH(BN, hd, ...)                                  \
+// Dispatch a runtime head dim to launch_dq_sm90_hd<HD, BN, DEPTH>.
+#define SPION_DQ_SM90_HD_SWITCH(BN, DEPTH, hd, ...)                           \
   switch (hd) {                                                               \
-    case 16: return launch_dq_sm90_hd<16, BN>(__VA_ARGS__);                   \
-    case 32: return launch_dq_sm90_hd<32, BN>(__VA_ARGS__);                   \
-    case 48: return launch_dq_sm90_hd<48, BN>(__VA_ARGS__);                   \
-    case 64: return launch_dq_sm90_hd<64, BN>(__VA_ARGS__);                   \
-    case 80: return launch_dq_sm90_hd<80, BN>(__VA_ARGS__);                   \
-    case 96: return launch_dq_sm90_hd<96, BN>(__VA_ARGS__);                   \
-    case 112: return launch_dq_sm90_hd<112, BN>(__VA_ARGS__);                 \
-    case 128: return launch_dq_sm90_hd<128, BN>(__VA_ARGS__);                 \
+    case 16: return launch_dq_sm90_hd<16, BN, DEPTH>(__VA_ARGS__);            \
+    case 32: return launch_dq_sm90_hd<32, BN, DEPTH>(__VA_ARGS__);            \
+    case 48: return launch_dq_sm90_hd<48, BN, DEPTH>(__VA_ARGS__);            \
+    case 64: return launch_dq_sm90_hd<64, BN, DEPTH>(__VA_ARGS__);            \
+    case 80: return launch_dq_sm90_hd<80, BN, DEPTH>(__VA_ARGS__);            \
+    case 96: return launch_dq_sm90_hd<96, BN, DEPTH>(__VA_ARGS__);            \
+    case 112: return launch_dq_sm90_hd<112, BN, DEPTH>(__VA_ARGS__);          \
+    case 128: return launch_dq_sm90_hd<128, BN, DEPTH>(__VA_ARGS__);          \
     default: return (int)cudaErrorInvalidValue;                               \
   }

@@ -276,7 +276,9 @@ int launch_fwd(const FwdParams& p, int hd, cudaStream_t stream) {
                       void* lse, int N, int G, int S, int Sk, int hd,         \
                       int nrb, int K, int block, int causal,                  \
                       int sliding_window, int seq_len, int row0, int col0,    \
-                      float scale, void* stream) {                            \
+                      int depth, int nwg, float scale, void* stream) {        \
+    (void)depth; /* no ring: the scalar kernel takes the default config */    \
+    (void)nwg;                                                                \
     spion::FwdParams p;                                                       \
     p.q = q;                                                                  \
     p.k = k;                                                                  \

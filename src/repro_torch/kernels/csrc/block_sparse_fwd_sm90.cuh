@@ -19,11 +19,12 @@
 //   - Order. Program x takes the row block of rank x / (N * chunks) in
 //     (nvalid descending, r ascending), found in every program from a
 //     histogram of nvalid: the row blocks with the most tiles start first.
-//   - Loads. A ring of kStages = 2 stages, each a K and a V tile of BN
-//     rows (separate buffers), filled by TMA: one box per swizzled panel
-//     (block_sparse_sm90.cuh: 128-byte rows at hd 64 and 128, 64 or 32 below),
-//     the layout wgmma's descriptors read, completing a `full` mbarrier by
-//     its transaction bytes. The last warp done with a stage (a shared
+//   - Loads. A ring of `depth` stages (a launch argument, 1 to kMaxDepth,
+//     2 by default), each a K and a V tile of BN rows (separate buffers),
+//     filled by TMA: one box per swizzled panel (block_sparse_sm90.cuh:
+//     128-byte rows at hd 64 and 128, 64 or 32 below), the layout wgmma's
+//     descriptors read, completing a `full` mbarrier by its transaction
+//     bytes. The last warp done with a stage (a shared
 //     counter) refills it at once, so no warp waits for another. BN is 64
 //     for block <= 64, else 128; keys past the block are masked (rows past
 //     the tensor read as zero). Q comes once, by 16-byte cp.async into the
@@ -45,9 +46,13 @@
 //   - Zero-correction. `stored` is counted from the same tile masks
 //     (tile_ok), per thread, and summed over the quad at the end, as is l.
 //
-// Shared memory: K/V ring 2 * 2 * BN * HD * 2 bytes, Q NWG * 64 * HD * 2,
-// 2 mbarriers, 2K + 6 ints and up to 1 KB to align: 161 KB at hd 128 /
-// block 128 / NWG 2 (one program an SM), 11 KB at hd 16 / block 64 / NWG 1.
+// Shared memory (sm90_fwd_smem_bytes): K/V ring depth * 2 * BN * HD * 2
+// bytes, Q NWG * 64 * HD * 2, depth mbarriers, 2K + 4 + depth ints and up to
+// 1 KB to align; at depth 2: 161 KB at hd 128 / block 128 / NWG 2 (one
+// program an SM), 11 KB at hd 16 / block 64 / NWG 1. NWG (1 or 2) is a
+// launch argument too; 0 asks for sm90_warpgroups' rule. Neither changes a
+// result: a row's place in its 64-row tile, and so the warp and lane that
+// compute it, is the same for either NWG, and the depth moves loads only.
 //
 // Bound on the H100 (989e12 bf16 flop/s, 3.35e12 B/s), on the function's
 // work (4 block^2 hd flop a listed tile, not the split's extra products): at
@@ -83,16 +88,9 @@ struct Sm90FwdParams {
   int row0, col0;           // global block of local row-block 0 / K block 0
   int nwg;                  // warpgroups (64-row tiles) a program
   int chunks;               // programs a (n, r)
+  int depth;                // stages of the K/V ring
   float scale;
 };
-
-template <int HD, int BN>
-inline size_t sm90_fwd_smem_bytes(int nwg, int K) {
-  return 1024 +   // the swizzled tiles start on a 1024-byte boundary
-         (size_t)kStages * 2 * BN * HD * 2 + (size_t)nwg * 64 * HD * 2 +
-         kStages * sizeof(uint64_t) +
-         (size_t)(2 * K + 4 + kStages) * sizeof(int);
-}
 
 // Small head dims: P V in rounds of 16 keys (round_keys) and at most 80
 // registers a thread, so that 6 programs of one warpgroup share an SM (a cap of 64
@@ -104,7 +102,7 @@ __host__ __device__ constexpr int min_blocks() {
   return HD <= 32 && BN == 64 ? 3 : 1;
 }
 
-template <int HD, int BN>
+template <int HD, int BN, int kDepth>
 __global__ void __launch_bounds__(256, (min_blocks<HD, BN>()))
     block_sparse_fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_k,
                                  const __grid_constant__ CUtensorMap map_v,
@@ -113,11 +111,12 @@ __global__ void __launch_bounds__(256, (min_blocks<HD, BN>()))
   constexpr int W = sm90_panel_bytes(HD);
   unsigned char* ring =
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* q_s = ring + (size_t)kStages * 2 * BN * HD * 2;
+  const int depth = kDepth ? kDepth : p.depth;   // kDepth 0: any depth
+  unsigned char* q_s = ring + (size_t)depth * 2 * BN * HD * 2;
   uint64_t* full =
       reinterpret_cast<uint64_t*>(q_s + (size_t)p.nwg * 64 * HD * 2);
-  int* done = reinterpret_cast<int*>(full + kStages);     // warps done a stage
-  int* tiles = done + kStages;                             // K
+  int* done = reinterpret_cast<int*>(full + depth);       // warps done a stage
+  int* tiles = done + depth;                               // K
   int* hist = tiles + p.K;                                 // K + 1
   int* shared_int = hist + p.K + 1;                        // row block, tiles
 
@@ -132,7 +131,7 @@ __global__ void __launch_bounds__(256, (min_blocks<HD, BN>()))
   const int ncb = p.Sk / block;
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < depth; ++s) {
       sm90::mbar_init(&full[s], 1);
       done[s] = 0;
     }
@@ -174,7 +173,7 @@ __global__ void __launch_bounds__(256, (min_blocks<HD, BN>()))
     __syncwarp();
     if (lane == 0) {
       shared_int[1] = count;
-      for (int i = 0; i < min(count, kStages); ++i)
+      for (int i = 0; i < min(count, depth); ++i)
         issue_tile<HD, BN>(ring, full, &map_k, &map_v, i,
                            n * p.Sk + tiles[i] * block);
     }
@@ -216,8 +215,10 @@ __global__ void __launch_bounds__(256, (min_blocks<HD, BN>()))
   constexpr int kRoundKeys = round_keys<HD>();
 
   for (int i = 0; i < nt; ++i) {
-    const int s = i % kStages;
-    const uint32_t parity = (i / kStages) & 1;
+    // the stage, and the use of it: the k-th use of a stage waits for the
+    // phase of parity k & 1
+    const int s = i % depth;
+    const uint32_t parity = (i / depth) & 1;
     const int kcol0 = (tiles[i] + p.col0) * block;
     const uint32_t k_addr = sm90::smem_u32(ring + (size_t)2 * s * BN * HD * 2);
     const uint32_t v_addr = k_addr + BN * HD * 2;
@@ -329,16 +330,16 @@ __global__ void __launch_bounds__(256, (min_blocks<HD, BN>()))
     }
 
     // release the stage: the last warp done with it refills it with tile
-    // i + kStages, so that no warp waits for another
+    // i + depth, so that no warp waits for another
     __syncwarp();
     if (lane == 0) {
       __threadfence_block();
       if (atomicAdd(&done[s], 1) == 4 * p.nwg - 1) {
         done[s] = 0;
         __threadfence_block();
-        if (i + kStages < nt)
+        if (i + depth < nt)
           issue_tile<HD, BN>(ring, full, &map_k, &map_v, s,
-                             n * p.Sk + tiles[i + kStages] * block);
+                             n * p.Sk + tiles[i + depth] * block);
       }
     }
     __syncwarp();
@@ -365,11 +366,12 @@ __global__ void __launch_bounds__(256, (min_blocks<HD, BN>()))
   }
 }
 
-template <int HD, int BN>
+template <int HD, int BN, int kDepth>
 int launch_hd_sm90(const Sm90FwdParams& p, const CUtensorMap& map_k,
                    const CUtensorMap& map_v, cudaStream_t stream) {
-  const size_t smem = sm90_fwd_smem_bytes<HD, BN>(p.nwg, p.K);
-  auto kernel = block_sparse_fwd_kernel_sm90<HD, BN>;
+  const size_t smem = sm90_fwd_smem_bytes(HD, BN, p.nwg, p.depth, p.K);
+  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  auto kernel = block_sparse_fwd_kernel_sm90<HD, BN, kDepth>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -378,27 +380,36 @@ int launch_hd_sm90(const Sm90FwdParams& p, const CUtensorMap& map_k,
   return (int)cudaGetLastError();
 }
 
-// One launcher per key-tile width, each in its own file so that the two
-// sets of head dims compile in parallel.
+// One launcher per key-tile width and ring (the default depth fixed at
+// compile time, or any depth: _anydepth), each in its own file so that the
+// four sets of head dims compile in parallel.
 int launch_fwd_sm90_bn64(const Sm90FwdParams& p, int hd,
                          const CUtensorMap& map_k, const CUtensorMap& map_v,
                          cudaStream_t stream);
 int launch_fwd_sm90_bn128(const Sm90FwdParams& p, int hd,
                           const CUtensorMap& map_k, const CUtensorMap& map_v,
                           cudaStream_t stream);
+int launch_fwd_sm90_bn64_anydepth(const Sm90FwdParams& p, int hd,
+                                  const CUtensorMap& map_k,
+                                  const CUtensorMap& map_v,
+                                  cudaStream_t stream);
+int launch_fwd_sm90_bn128_anydepth(const Sm90FwdParams& p, int hd,
+                                   const CUtensorMap& map_k,
+                                   const CUtensorMap& map_v,
+                                   cudaStream_t stream);
 
 }  // namespace spion
 
-// Dispatch a runtime head dim to launch_hd_sm90<HD, BN>.
-#define SPION_SM90_HD_SWITCH(BN, hd, ...)                                     \
+// Dispatch a runtime head dim to launch_hd_sm90<HD, BN, DEPTH>.
+#define SPION_SM90_HD_SWITCH(BN, DEPTH, hd, ...)                              \
   switch (hd) {                                                               \
-    case 16: return launch_hd_sm90<16, BN>(__VA_ARGS__);                      \
-    case 32: return launch_hd_sm90<32, BN>(__VA_ARGS__);                      \
-    case 48: return launch_hd_sm90<48, BN>(__VA_ARGS__);                      \
-    case 64: return launch_hd_sm90<64, BN>(__VA_ARGS__);                      \
-    case 80: return launch_hd_sm90<80, BN>(__VA_ARGS__);                      \
-    case 96: return launch_hd_sm90<96, BN>(__VA_ARGS__);                      \
-    case 112: return launch_hd_sm90<112, BN>(__VA_ARGS__);                    \
-    case 128: return launch_hd_sm90<128, BN>(__VA_ARGS__);                    \
+    case 16: return launch_hd_sm90<16, BN, DEPTH>(__VA_ARGS__);               \
+    case 32: return launch_hd_sm90<32, BN, DEPTH>(__VA_ARGS__);               \
+    case 48: return launch_hd_sm90<48, BN, DEPTH>(__VA_ARGS__);               \
+    case 64: return launch_hd_sm90<64, BN, DEPTH>(__VA_ARGS__);               \
+    case 80: return launch_hd_sm90<80, BN, DEPTH>(__VA_ARGS__);               \
+    case 96: return launch_hd_sm90<96, BN, DEPTH>(__VA_ARGS__);               \
+    case 112: return launch_hd_sm90<112, BN, DEPTH>(__VA_ARGS__);             \
+    case 128: return launch_hd_sm90<128, BN, DEPTH>(__VA_ARGS__);             \
     default: return (int)cudaErrorInvalidValue;                               \
   }

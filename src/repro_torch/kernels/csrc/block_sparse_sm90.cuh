@@ -449,7 +449,17 @@ __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
 
 // -- pieces shared by the forward and the backward kernels -------------------
 
-constexpr int kStages = 2;
+// The ring depth (stages of the K/V ring in the forward and dQ, of the
+// Q/dO/lse/delta ring in dK/dV) is a launch argument in [1, kMaxDepth]: the
+// host clamps the configured depth to the table width, as the reference's
+// _depth does. 2 (the double buffer) is the default, and the kernels are
+// built twice: with the depth fixed at kDefaultDepth at compile time (the
+// launch the default config makes, the code of the kernels before the depth
+// was a knob) and with it read from the launch (every other depth).
+constexpr int kMaxDepth = 4;
+constexpr int kDefaultDepth = 2;
+// the most dynamic shared memory a block may ask for on the H100
+constexpr size_t kMaxSmemBytes = 232448;
 
 // keys a K/V tile holds: the plan block rounded up to a wgmma width
 inline int sm90_key_tile(int block) { return block <= 64 ? 64 : 128; }
@@ -457,9 +467,44 @@ inline int sm90_key_tile(int block) { return block <= 64 ? 64 : 128; }
 __host__ __device__ constexpr int sm90_panel_bytes(int hd) {
   return hd % 64 == 0 ? 128 : hd % 32 == 0 ? 64 : 32;
 }
+// warpgroups (64-row tiles) a forward or dQ program runs by default
 inline int sm90_warpgroups(int G, int block) {
   return G * block >= 128 ? 2 : 1;
 }
+// query rows a dK/dV ring tile holds
+__host__ __device__ constexpr int dkv_query_rows(int hd) {
+  return hd <= 64 ? 64 : 32;
+}
+// warpgroups of keys a dK/dV program holds (64 keys each)
+inline int dkv_warpgroups(int block) { return block <= 64 ? 1 : 2; }
+
+// Dynamic shared memory of one launch, the formulas the launchers use
+// (spion_sm90_smem_bytes returns them to the host, which refuses a config
+// that does not fit before it launches). Each starts with up to 1 KB to put
+// the swizzled tiles on a 1024-byte boundary.
+//   forward: the K/V ring, Q, `depth` mbarriers, then `done` (depth), the
+//   listed tiles (K), the histogram (K + 1) and 2 (+ 1 spare) ints
+inline size_t sm90_fwd_smem_bytes(int hd, int bn, int nwg, int depth, int K) {
+  return 1024 + (size_t)depth * 2 * bn * hd * 2 + (size_t)nwg * 64 * hd * 2 +
+         depth * sizeof(uint64_t) + (size_t)(2 * K + 4 + depth) * sizeof(int);
+}
+//   dQ: the K/V ring, Q and dO, `depth` mbarriers, the same ints
+inline size_t sm90_dq_smem_bytes(int hd, int bn, int nwg, int depth,
+                                 int width) {
+  return 1024 + (size_t)depth * 2 * bn * hd * 2 +
+         (size_t)2 * nwg * 64 * hd * 2 + depth * sizeof(uint64_t) +
+         (size_t)(2 * width + 3 + depth) * sizeof(int);
+}
+//   dK/dV: K and V, the Q/dO ring, its lse and delta, depth + 1 mbarriers
+inline size_t sm90_dkv_smem_bytes(int hd, int nwg, int depth, int width) {
+  const int qn = dkv_query_rows(hd);
+  return 1024 + (size_t)2 * 64 * nwg * hd * 2 +
+         (size_t)depth * 2 * qn * hd * 2 +
+         (size_t)depth * 2 * qn * sizeof(float) +
+         (depth + 1) * sizeof(uint64_t) +
+         (size_t)(2 * width + 3 + depth) * sizeof(int);
+}
+
 
 __device__ __forceinline__ int clamp_nvalid(int nv, int K) {
   return min(max(nv, 0), K);

@@ -46,12 +46,13 @@ def _merge_heads(o, dims):
 
 
 def spion_attention_kernel(cfg, q, k, v, bcsr, *, row_idx=None,
-                           nvalid_t=None):
+                           nvalid_t=None, config=None):
     """Block-sparse attention of q (B,S,H,hd) over k, v (B,S,KV,hd) with the
     layer's BCSR tables; returns (B,S,H,hd), differentiable in q, k, v.
     `row_idx`/`nvalid_t` are a SparsityPlan's transposed tables (width
     KT*) for the dK/dV backward; without them the backward builds them at
-    width nrb."""
+    width nrb. `config` is the autotuned dispatch.KernelConfig for this
+    pattern (kernels/autotune.py): it never changes results."""
     col, nvalid = _prep_tables(bcsr)
     qh, kh, vh, dims = _split_heads(q, k, v)
     B, S, H, hd, KV, G = dims
@@ -59,5 +60,6 @@ def spion_attention_kernel(cfg, q, k, v, bcsr, *, row_idx=None,
     o = fused_block_sparse_attention(qf, kf, vf, col, nvalid,
                                      block=bcsr.block, causal=cfg.causal,
                                      sliding_window=cfg.sliding_window,
-                                     row_idx=row_idx, nvalid_t=nvalid_t)
+                                     row_idx=row_idx, nvalid_t=nvalid_t,
+                                     config=config)
     return _merge_heads(o.reshape(B, KV, G, S, hd), dims)

@@ -122,9 +122,11 @@ class ServeEngine:
         self._prefill_exec = None
         if spion is not None:
             if isinstance(spion, SparsityPlan):
-                ex = SparseAttentionExec.from_plan(spion, phase="decode")
+                ex = SparseAttentionExec.from_plan(spion, phase="decode",
+                                                   dtype=cfg.dtype)
             else:
-                ex = SparseAttentionExec.coerce(spion, phase="decode")
+                ex = SparseAttentionExec.coerce(spion, phase="decode",
+                                                dtype=cfg.dtype)
             self.exec = ex.to(self.device)
             self._prefill_exec = SparseAttentionExec.coerce(self.exec,
                                                             phase="prefill")
@@ -492,14 +494,17 @@ class ServeEngine:
         the stacked forward tables to the first Sp/block row-blocks —
         every listed column of a causal row r is <= r, so the sliced
         tables are self-contained. The transposed row_idx/nvalid_t are
-        dropped: they only feed the training backward."""
+        dropped: they only feed the training backward. As in the JAX
+        package, the sliced exec is built without the full one's kernel
+        config: it looks its own up, under the sliced tables' digest."""
         ex = self._prefill_exec
         if Sp >= ex.coverage:
             return ex
         nrb = Sp // ex.block
         tabs = {"col_idx": ex.tables["col_idx"][:, :nrb],
                 "nvalid": ex.tables["nvalid"][:, :nrb]}
-        return SparseAttentionExec(tabs, block=ex.block, phase="prefill")
+        return SparseAttentionExec(tabs, block=ex.block, phase="prefill",
+                                   dtype=ex.dtype)
 
     def _prefill_into(self, r: Request, s: int) -> int:
         """Contiguous-cache prefill of request `r` into slot `s`; returns

@@ -42,15 +42,19 @@ def causal_band_tables(layers: int, nrb: int, width: Optional[int] = None):
     return {"col_idx": col, "nvalid": nval}
 
 
-def _coerce_step_tables(tables, *, block, phase):
+def _coerce_step_tables(tables, *, block, phase, kernel_config=None,
+                        dtype=None):
     """Normalise a step's sparse-tables argument to a SparseAttentionExec:
-    an exec passes through; a dict payload gets the step's block."""
+    an exec passes through with its own kernel config; a dict payload gets
+    the step's block and `kernel_config`, or, when that is None, the config
+    the autotune cache holds for it under `dtype`."""
     if tables is None:
         return None
     if isinstance(tables, SparseAttentionExec):
         return tables
     arrays = {k: tables[k] for k in PLAN_TABLE_KEYS if k in tables}
-    return SparseAttentionExec(arrays, block=block, phase=phase)
+    return SparseAttentionExec(arrays, block=block, phase=phase,
+                               kernel_config=kernel_config, dtype=dtype)
 
 
 def compute_params(params, dtype):
@@ -62,7 +66,7 @@ def compute_params(params, dtype):
 
 
 def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
-                        sparse_kernel=None):
+                        sparse_kernel=None, kernel_config=None):
     """Returns f(params, batch, tables=None) -> (loss, grads): the forward
     and backward of the train step, without the update.
 
@@ -74,7 +78,9 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
     cfg.spion.block_size), or None for dense attention; on CUDA tensors the
     sparse attention forward and backward are the Hopper kernels, and
     `sparse_kernel` overrides cfg.spion.kernel, which chooses between the
-    gather and the kernels' plain versions on CPU tensors."""
+    gather and the kernels' plain versions on CPU tensors. `kernel_config`
+    is a kernels.dispatch.KernelConfig for dict payloads; an exec carries
+    its own, resolved from the autotune cache at construction."""
     if sparse_kernel is not None:
         cfg = cfg.replace(spion=dataclasses.replace(cfg.spion,
                                                     kernel=sparse_kernel))
@@ -83,7 +89,9 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
     static_block = block or cfg.spion.block_size
 
     def loss_and_grads(params, batch, tables=None):
-        ex = _coerce_step_tables(tables, block=static_block, phase="train")
+        ex = _coerce_step_tables(tables, block=static_block, phase="train",
+                                 kernel_config=kernel_config,
+                                 dtype=cfg.dtype)
 
         def loss_fn(p, mb):
             return bundle.loss(compute_params(p, compute_dtype), mb,
@@ -108,7 +116,7 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
 
 def make_train_step(cfg: ModelConfig, *, spion=False, lr=3e-4,
                     total_steps=10_000, n_micro=1, block=None,
-                    sparse_kernel=None):
+                    sparse_kernel=None, kernel_config=None):
     """Returns f(params, opt_state, batch, step[, tables]) -> (params,
     opt_state, metrics) for one device.
 
@@ -120,9 +128,10 @@ def make_train_step(cfg: ModelConfig, *, spion=False, lr=3e-4,
     AdamW. Metrics: loss, gnorm and lr (0-d tensors).
 
     `spion=True` adds the sparse-tables argument (see `make_loss_and_grads`
-    for it and for `block` and `sparse_kernel`)."""
+    for it and for `block`, `sparse_kernel` and `kernel_config`)."""
     loss_and_grads = make_loss_and_grads(cfg, n_micro=n_micro, block=block,
-                                         sparse_kernel=sparse_kernel)
+                                         sparse_kernel=sparse_kernel,
+                                         kernel_config=kernel_config)
 
     def step_fn(params, opt_state, batch, step, tables=None):
         loss, grads = loss_and_grads(params, batch, tables)
@@ -139,17 +148,20 @@ def make_train_step(cfg: ModelConfig, *, spion=False, lr=3e-4,
 
 
 def make_prefill_step(cfg: ModelConfig, *, spion=False, block=None,
-                      with_cache=False):
+                      with_cache=False, kernel_config=None):
     """Prefill step: logits over the full prompt. `with_cache=True` builds
     the FUSED serving prefill instead — (params, batch[, tables]) ->
     (logits, ks, vs) with ks/vs the per-layer RoPE'd K/V stacked
     (L, B, S, KV, hd), ready for direct insertion into decode-cache pages
-    (launch/serve.ServeEngine)."""
+    (launch/serve.ServeEngine). `kernel_config` as in
+    `make_loss_and_grads`."""
     bundle = build(cfg)
     static_block = block or cfg.spion.block_size
 
     def prefill(params, batch, tables=None):
-        ex = _coerce_step_tables(tables, block=static_block, phase="prefill")
+        ex = _coerce_step_tables(tables, block=static_block, phase="prefill",
+                                 kernel_config=kernel_config,
+                                 dtype=cfg.dtype)
         if with_cache:
             return bundle.prefill_kv(params, batch, spion=ex)
         logits, _ = bundle.forward(params, batch, spion=ex)

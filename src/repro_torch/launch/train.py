@@ -261,7 +261,10 @@ class Trainer:
         per plan (None in the dense phase)."""
         tables = self.spion_state.tables
         if tables is not self._exec_tables:
-            ex = self.spion_ctl.attention_exec(self.spion_state)
+            # a new plan (the transition, a restore) builds its exec anew,
+            # and so looks up the plan's tuned kernel config
+            ex = self.spion_ctl.attention_exec(self.spion_state,
+                                               dtype=self.cfg.dtype)
             self._exec = None if ex is None else ex.to(self.device)
             self._exec_tables = tables
         return self._exec
