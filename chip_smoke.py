@@ -50,6 +50,32 @@ Phases (each one fails the run; nothing falls back to the CPU):
      4096); then at 2 layers in fp32 with a dropless MoE, every decode
      step's logits, across the wrap and after a ring insert, within
      TOL_RING of a fused prefill of the same sequence;
+  4c. zamba2-1.2b at full width and depth (38 Mamba2 layers, one shared
+     attention block applied 6 times, 32 heads of 64), bf16, a random
+     causal plan of one block mask per application (block 128, 2048
+     positions): a sparse forward of 2 x 2048 tokens launches the forward
+     kernel 6 times; a sparse train step (make_loss_and_grads, remat of
+     the Mamba part only) 6 forward, 6 dQ and 6 dK/dV kernels, loss and
+     gradients finite; a covering plan against dense (fp32 logits within
+     TOL_LOGITS; bf16 logits and the shared block's bf16 gradients at most
+     BF16_LOGITS_SLACK x the dense path's distance from fp32; the gate
+     rejects an attention of coarser q, k or gradients, COVERING_CONTROLS);
+     the three
+     kernels against their plain versions and timed at this shape (N 64,
+     G 1, hd 64, block 128, causal); ServeEngine(slots=4, max_len=2048,
+     spion=plan), paged by the registry with 6 pool layers and page 128:
+     four prompts of RECURRENT_PROMPTS tokens prefilled stepwise (no
+     launch), 16 tokens each, equal to a paged=False engine's; a dense
+     engine's logits finite; then at 6 layers in fp32 every teacher-forced
+     decode step of 256 tokens within TOL_RECURRENT of the chunked sparse
+     forward;
+  4d. rwkv6-7b at full width and depth (32 layers, d_model 4096, 64 heads
+     of 64), bf16: ServeEngine(spion=), ServeEngine(paged=True) and
+     make_serve_step(spion=True) raise NotImplementedError before any
+     byte is allocated; the default (contiguous) engine serves four
+     prompts stepwise, 16 tokens each, finite, no launch; at 2 layers in
+     fp32 decode against the chunked forward within TOL_RECURRENT; the
+     parameters are freed;
   5. train spion-lra at its published width under the LRA ListOps preset
      (batch 128 x 2048 tokens) through Trainer for 20 steps: dense steps,
      the flood-fill transition, then sparse steps that must each launch 8
@@ -99,10 +125,12 @@ Phases (each one fails the run; nothing falls back to the CPU):
      heartbeat payload reads back. Save, restore, respawn and rollback
      seconds are printed beside the card's name and power limit.
 The line before the last is the kernels' JSON record (launches_serve,
-launches_serve_shared, launches_mixtral, launches_train, launches_resume,
-launches_rollback and launches_respawn count each kernel's launches in
-phases 4, 4a, 4b, 5 and 9-11, each read from zero; the forward's
-mixtral_shape holds its check and timing at phase 4b's shape; `tuned`
+launches_serve_shared, launches_mixtral, launches_zamba2, launches_train,
+launches_resume, launches_rollback and launches_respawn count each
+kernel's launches in phases 4, 4a, 4b, 4c (its sparse forward and train
+step), 5 and 9-11, each read from zero; the forward's mixtral_shape holds
+its check and timing at phase 4b's shape, and every kernel's zamba2_shape
+its check and timing at phase 4c's; `tuned`
 holds each kernel's phase 8a winner and its time beside the default's at
 each shape); the last line is
 {"ok": true, "device": {...}}.
@@ -639,28 +667,27 @@ def log_backward_path(label, shape, dtype, res):
 
 def bwd_bytes_flops(x):
     """(dq flops, dq bytes, dkv flops, dkv bytes) that these inputs need:
-    each input read once, each output written once; the listed tiles
-    only."""
+    each input read once, each output written once; the (q, k) pairs of
+    the listed tiles that the mask keeps (masked_pairs), and the blocks of
+    K, V (dQ) or of Q, dO, lse, delta (dK/dV) that hold any."""
     N, G, S, hd = x["q"].shape
     block = x["kw"]["block"]
     es = x["q"].element_size()
-    nv, cols = x["nvalid"].cpu().numpy(), x["col"].cpu().numpy()
-    nvt, rows = x["nvalid_t"].cpu().numpy(), x["row"].cpu().numpy()
-    listed, listed_t = int(nv.sum()), int(nvt.sum())
-    kcols = {int(c) for r in range(len(nv)) for c in cols[r, :nv[r]]}
-    qrows = {int(r) for c in range(len(nvt)) for r in rows[c, :nvt[c]]}
+    pairs, _, kblocks = masked_pairs(x["col"], x["nvalid"], block, x["kw"])
+    pairs_t, _, qblocks = masked_pairs(x["row"], x["nvalid_t"], block,
+                                       x["kw"], transposed=True)
     rowvec = N * G * block * 4                    # one row block's lse, delta
-    dq_flops = 6.0 * N * G * listed * block * block * hd
+    dq_flops = 6.0 * N * G * pairs * hd
     dq_bytes = (2 * x["q"].numel() * es           # q, dO
                 + 2 * N * G * S * 4               # lse, delta
                 + x["q"].numel() * 4              # dq (fp32)
-                + 2 * N * len(kcols) * block * hd * es   # listed K, V
+                + 2 * N * kblocks * block * hd * es   # needed K, V
                 + 4 * (x["col"].numel() + x["nvalid"].numel()))
-    dkv_flops = 8.0 * N * G * listed_t * block * block * hd
+    dkv_flops = 8.0 * N * G * pairs_t * hd
     dkv_bytes = (2 * x["k"].numel() * es          # k, v
                  + 2 * x["k"].numel() * 4         # dk, dv (fp32)
-                 + 2 * N * G * len(qrows) * block * hd * es   # listed Q, dO
-                 + 2 * len(qrows) * rowvec        # their lse, delta
+                 + 2 * N * G * qblocks * block * hd * es   # needed Q, dO
+                 + 2 * qblocks * rowvec           # their lse, delta
                  + 4 * (x["row"].numel() + x["nvalid_t"].numel()))
     return dq_flops, dq_bytes, dkv_flops, dkv_bytes
 
@@ -754,23 +781,26 @@ def backward_timing(x, before=None):
     return out
 
 
-def masked_pairs(col, nvalid, block, kw):
+def masked_pairs(col, nvalid, block, kw, transposed=False):
     """The (q, k) pairs of the listed tiles that the causal / sliding-window
-    mask keeps (the work the forward's function needs), the listed tiles
-    holding any, and the distinct column blocks among those. A tile at
-    block distance d = row - col holds block - |t| pairs at position
-    distance d * block + t, t in (-block, block)."""
+    mask keeps (the work the function needs), the listed tiles holding any,
+    and the distinct listed blocks among those (column blocks; row blocks
+    of the transposed tables, `transposed=True`: row r of `col` then lists
+    the row blocks of column block r). A tile at block distance d = row -
+    col holds block - |t| pairs at position distance d * block + t, t in
+    (-block, block)."""
     import numpy as np
     nv = nvalid.cpu().numpy()
-    cols = col.cpu().numpy()
+    ids = col.cpu().numpy()
     row0, col0 = kw.get("offsets") or (0, 0)
     sw = kw.get("sliding_window")
     t = np.arange(1 - block, block)
     weight = block - np.abs(t)
     pairs, tiles, needed = 0, 0, set()
     for r in range(len(nv)):
-        for c in cols[r, :nv[r]]:
-            delta = (r + row0 - int(c) - col0) * block + t
+        for c in ids[r, :nv[r]]:
+            d = int(c) - r if transposed else r - int(c)
+            delta = (d + row0 - col0) * block + t
             ok = np.ones_like(delta, dtype=bool)
             if kw["causal"]:
                 ok &= delta >= 0
@@ -1589,6 +1619,603 @@ def phase_mixtral_ring(before=None):
                 decode_ms=decode_ms, seconds=seconds, ring_gap=ring_gap,
                 kernel=dict(timing, max_abs_err=err, tol=tol, shape=case),
                 tables=tables)
+
+
+# -- the recurrent families: zamba2-1.2b (hybrid) and rwkv6-7b (ssm) -------------
+
+ZAMBA_S = 2048              # positions the zamba2 plan covers (16 blocks)
+ZAMBA_BATCH = 2             # sequences of the sparse forward and train step
+# prompt lengths the recurrent engines serve, every token stepwise (about
+# 50 ms a token on one H100, so 24-160 took phase 4c to 80 s; PERF.md)
+RECURRENT_PROMPTS = (24, 80)
+# fp32 teacher-forced decode against the chunked forward of the same 256
+# tokens (two chunks of 128), max |logit gap| over every step. On one H100
+# sound runs read 1.645e-5 (zamba2, 6 layers) and 2.241e-5 (rwkv6, 2
+# layers); planted decode faults read 1.322e-3 (rwkv6's y read from the
+# decayed state), 2.924e-3 (zamba2's decay exp(1.01 a)) and 6.35 (zamba2's
+# conv window one step off) (PERF.md, Findings)
+TOL_RECURRENT = 2e-4
+DECODE_S = 256
+# controls of zamba2's bf16 covering gate (coarse_attention): the shared
+# block's attention with q and k, or with dq, dk and dv, rounded to fewer
+# significand bits than bf16's 7, and whether the gate must reject it. On
+# one H100 the worst leaf read, by mean/rms, 1.0006x sound; q and k at 5 / 3
+# / 1 bits 1.0211 / 1.1951 / 2.7208x; dq, dk and dv 1.0067 / 1.0612 /
+# 1.7204x: the 38 bf16 Mamba layers of both paths hide a backward at fp8's
+# 3 bits, which the kernels' plain-version check at this shape holds
+# instead (PERF.md, Findings)
+COVERING_CONTROLS = (("scores", 5, False), ("scores", 3, True),
+                     ("scores", 1, True), ("backward", 5, False),
+                     ("backward", 3, False), ("backward", 1, True))
+
+
+def recurrent_requests(rng, cfg, n=4):
+    """n prompts of RECURRENT_PROMPTS tokens, 16 new tokens each."""
+    import numpy as np
+    lens = rng.integers(RECURRENT_PROMPTS[0], RECURRENT_PROMPTS[1] + 1,
+                        size=n)
+    return [rng.integers(0, cfg.vocab_size, size=int(k)).astype(np.int32)
+            for k in lens]
+
+
+def serve_stepwise(cfg, params, prompts, **kw):
+    """ServeEngine(slots=4, max_len=2048, **kw) serving `prompts` (16 new
+    tokens each) after a short warm-up request. Returns the engine, the
+    requests, the host seconds of every stepwise prefill token and every
+    decode tick, the indices of calls whose logits were not finite and the
+    kernel launches of the run."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import Request, ServeEngine
+    eng = ServeEngine(cfg, params, slots=4, max_len=2048, device=DEVICE,
+                      **kw)
+    eng.run([Request(rid=-1, prompt=np.arange(8, dtype=np.int32),
+                     max_new=2)])
+    step_s, decode_s, bad = [], [], []
+    eng._decode1 = timed(eng._decode1_step(), step_s, bad)
+    eng._decode = timed(eng._decode, decode_s, bad)
+    reqs = [Request(rid=i, prompt=p.copy(), max_new=16)
+            for i, p in enumerate(prompts)]
+    tokens0 = eng.prefill_stepwise_tokens
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = launch_counts()
+    check(all(r.done and len(r.out) == 16 for r in reqs),
+          f"a {cfg.name} request did not get its 16 tokens")
+    check(eng.prefill_stepwise_tokens - tokens0 == sum(map(len, prompts))
+          and eng.prefill_fused == 0,
+          f"{cfg.name}: {eng.prefill_stepwise_tokens - tokens0} stepwise "
+          f"tokens and {eng.prefill_fused} fused prefills for prompts of "
+          f"{[len(p) for p in prompts]}")
+    check(not any(launched.values()),
+          f"{cfg.name}'s stepwise serving launched a kernel: {launched}")
+    return dict(eng=eng, reqs=reqs, step_s=step_s, decode_s=decode_s,
+                bad=bad, wall=wall)
+
+
+def decode_against_forward(cfg, params, spion=None, seed=0):
+    """fp32: the chunked forward of 256 tokens and a teacher-forced decode
+    of the same tokens through a fresh contiguous cache; returns the max
+    |logit gap| of every step and the forward's mean |logit|. `spion` is a
+    tables payload: the forward runs the kernel, the decode gathers."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.registry import build
+    S = DECODE_S
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, S)),
+                           device=DEVICE)
+    sparse = spion is not None
+    with torch.inference_mode():
+        fwd = make_prefill_step(cfg, spion=sparse)(
+            params, {"tokens": toks}, *((spion,) if sparse else ()))
+        step = make_serve_step(cfg, spion=sparse)
+        cache = build(cfg).init_cache(1, S, device=DEVICE)
+        gaps = []
+        for t in range(S):
+            lg, cache = step(params, cache, toks[:, t:t + 1], t,
+                             *((spion,) if sparse else ()))
+            gaps.append((lg[0].float() - fwd[0, t].float()).abs().max())
+        gaps = torch.stack(gaps).cpu().numpy()
+    return gaps, fwd.float().abs().mean().item()
+
+
+def log_recurrent_serving(name, run, base, same):
+    """Print an engine's stepwise and decode times (and, with `base` =
+    (label, run), another engine's beside them); returns (ms a stepwise
+    token, mean; ms a decode tick, median)."""
+    import numpy as np
+    step_ms = 1e3 * sum(run["step_s"]) / len(run["step_s"])
+    decode_ms = 1e3 * float(np.median(run["decode_s"]))
+    lens = [len(r.prompt) for r in run["reqs"]]
+    log(f"serve {name}: prompts {lens} prefilled stepwise, 4 x 16 tokens in "
+        f"{run['wall']:.2f} s; stepwise prefill {step_ms:.2f} ms a token "
+        f"(mean of {len(run['step_s'])}, median "
+        f"{1e3 * float(np.median(run['step_s'])):.2f}); decode "
+        f"{decode_ms:.2f} ms per tick median, all {len(run['decode_s'])} "
+        f"ticks {1e3 * sum(run['decode_s']):.2f} ms; no kernel launched"
+        + ("" if base is None else
+           f"; {base[0]} engine: stepwise "
+           f"{1e3 * sum(base[1]['step_s']) / len(base[1]['step_s']):.2f} ms "
+           f"a token, decode "
+           f"{1e3 * float(np.median(base[1]['decode_s'])):.2f} ms per tick"
+           f" median; tokens equal to its: {same}"))
+    return step_ms, decode_ms
+
+
+def phase_zamba2(before=None):
+    """zamba2-1.2b at full width and depth, bf16, with a random causal plan
+    of one block mask per application of the shared attention block (6 at
+    block 128 over ZAMBA_S positions):
+      - a sparse forward of ZAMBA_BATCH x ZAMBA_S tokens launches the
+        forward kernel once per application (6);
+      - a sparse train step (make_loss_and_grads, remat: only the Mamba
+        part of a layer is recomputed, the shared block is not) launches
+        6 forward, 6 dQ and 6 dK/dV kernels; loss and gradients finite;
+      - a fully covering plan against dense attention: fp32 logits within
+        TOL_LOGITS; bf16 logits (max and mean), and the bf16 gradients of
+        the shared block's leaves (mean and rms), at most
+        BF16_LOGITS_SLACK x as far from the fp32 dense ones as the bf16
+        dense ones are; the gate rejects the COVERING_CONTROLS it must;
+      - the three kernels against their plain versions at this path's
+        shape (N = B x 32 heads, G 1, hd 64, block 128, causal), fp32 and
+        bf16, then timed beside their bounds;
+      - ServeEngine(slots=4, max_len=2048, spion=plan): paged by the
+        registry, 6 pool layers, page = block = 128, no prefix sharing;
+        four prompts prefilled stepwise (no kernel launch: decode
+        gathers), 16 tokens each, equal to a paged=False engine's with the
+        same plan; a dense engine's tokens and logits finite;
+      - at 6 layers (one application) in fp32, every teacher-forced decode
+        step of 256 tokens within TOL_RECURRENT of the chunked sparse
+        forward.
+    Returns the launches of the sparse forward and train step, the kernel
+    records at this shape and the serving times."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.attention_exec import SparseAttentionExec
+    from repro_torch.launch.steps import make_loss_and_grads, make_prefill_step
+    from repro_torch.launch.train import masters_of
+    from repro_torch.models.hybrid import n_attn_apps
+    from repro_torch.models.registry import build
+
+    t_phase = time.perf_counter()
+    cfg = get_config("zamba2-1.2b")
+    napps = n_attn_apps(cfg)
+    check(cfg.num_layers == 38 and cfg.d_model == 2048 and
+          cfg.num_heads == cfg.num_kv_heads == 32 and
+          cfg.resolved_head_dim == 64 and cfg.d_ff == 8192 and
+          cfg.vocab_size == 32000 and napps == 6 and cfg.remat and
+          cfg.dtype == "bfloat16" and cfg.spion.block_size == 128,
+          "zamba2-1.2b config changed")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    rng = np.random.default_rng(SEED + 7)
+    t0 = time.perf_counter()
+    params = build(cfg).init(gen, device=DEVICE)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in params.parameters())
+    log(f"zamba2-1.2b: {cfg.num_layers} Mamba2 layers (d_model "
+        f"{cfg.d_model}, {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} "
+        f"SSM heads of {cfg.ssm.head_dim}, state {cfg.ssm.state_size}, chunk "
+        f"{cfg.ssm.chunk}) and one shared attention block ({cfg.num_heads} "
+        f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}) applied {napps} "
+        f"times, vocab {cfg.vocab_size}: {nparams} parameters initialised on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    block = cfg.spion.block_size
+    nrb = ZAMBA_S // block
+    col, nvalid, plan = random_plan(rng, napps, nrb, block)
+    log(f"zamba2 plan: {napps} applications x {nrb} row-blocks of {block}, "
+        f"K={col.shape[-1]}, density "
+        f"{np.mean(plan.stats['per_layer_density']):.3f}")
+    toks = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, size=(ZAMBA_BATCH, ZAMBA_S + 1)),
+        device=DEVICE)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    # the main path: the sparse forward, then the sparse train step
+    prefill = make_prefill_step(cfg, spion=True)
+    pex = SparseAttentionExec.from_plan(plan, phase="prefill",
+                                        dtype=cfg.dtype).to(DEVICE)
+    with torch.inference_mode():
+        prefill(params, {"tokens": batch["tokens"]}, pex)      # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": batch["tokens"]}, pex)
+        torch.cuda.synchronize()
+        fwd_ms = 1e3 * (time.perf_counter() - t0)
+    fwd_launches = launch_counts()
+    check(bool(torch.isfinite(logits).all()), "a zamba2 logit is not finite")
+    check(fwd_launches == {"block_sparse_fwd": napps, "block_sparse_dq": 0,
+                           "block_sparse_dkv": 0},
+          f"the zamba2 sparse forward launched {fwd_launches}, not "
+          f"{napps} forward kernels")
+    del logits
+    masters = masters_of(params)
+    tex = SparseAttentionExec.from_plan(plan, phase="train",
+                                        dtype=cfg.dtype).to(DEVICE)
+    step = make_loss_and_grads(cfg)
+    step(masters, batch, tex)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, grads = step(masters, batch, tex)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    step_launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = dict.fromkeys(step_launches, napps)
+    check(step_launches == want, f"the zamba2 sparse train step launched "
+          f"{step_launches}, not {want} (the shared block is not "
+          f"recomputed)")
+    check(math.isfinite(loss.item()) and
+          all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          "a zamba2 loss or gradient is not finite")
+    check(grads["shared_attn.attn.wq"].abs().max().item() > 0,
+          "the shared block's wq has no gradient")
+    log(f"zamba2 sparse forward, {ZAMBA_BATCH} x {ZAMBA_S} tokens: "
+        f"{fwd_ms:.2f} ms, launches {fwd_launches}; sparse train step "
+        f"(remat): {step_ms:.2f} ms, loss {loss.item():.6f}, launches "
+        f"{step_launches}, peak device memory {peak_gb:.2f} GB")
+    del grads, loss
+
+    covering_zamba2(cfg, masters, batch)
+    del masters
+    torch.cuda.empty_cache()
+    kernels = zamba2_kernels(cfg, col, nvalid, before)
+
+    # serving: paged (the registry's default) and contiguous with the plan,
+    # then dense
+    prompts = recurrent_requests(rng, cfg)
+    runs = {}
+    for name, kw in (("paged", dict(spion=plan)),
+                     ("contiguous", dict(spion=plan, paged=False)),
+                     ("dense", dict())):
+        runs[name] = serve_stepwise(cfg, params, prompts, **kw)
+        eng = runs[name].pop("eng")
+        check(not runs[name]["bad"], f"a {name} zamba2 logit is not finite")
+        if name == "paged":
+            check(eng.paged and eng.pool.kp.shape[0] == napps and
+                  eng.page == block and not eng.share_prefix and
+                  eng._prefill is None,
+                  f"the zamba2 engine: paged {eng.paged}, pool layers "
+                  f"{eng.pool.kp.shape[0]}, page {eng.page}, share_prefix "
+                  f"{eng.share_prefix}")
+        del eng
+    same = [a.out == b.out for a, b in zip(runs["paged"]["reqs"],
+                                           runs["contiguous"]["reqs"])]
+    step_tok_ms, decode_ms = log_recurrent_serving(
+        "zamba2-1.2b, sparse, paged", runs["paged"],
+        ("the contiguous", runs["contiguous"]), same)
+    dense_tok_ms, dense_ms = log_recurrent_serving(
+        "zamba2-1.2b, dense, paged", runs["dense"], None, None)
+    check(all(same), "the paged zamba2 engine's tokens differ from the "
+          "contiguous engine's")
+    del params, runs
+    torch.cuda.empty_cache()
+
+    # fp32 at 6 layers: one application, its tables over 256 positions
+    cfg6 = cfg.replace(num_layers=6, dtype="float32")
+    p6 = build(cfg6).init(torch.Generator(device=DEVICE)
+                          .manual_seed(SEED + 8), device=DEVICE)
+    nr = DECODE_S // block
+    tabs = dict(col_idx=col[:1, :nr], nvalid=nvalid[:1, :nr], block=block)
+    gaps, mean_logit = decode_against_forward(cfg6, p6, tabs, SEED + 8)
+    log(f"zamba2 decode vs chunked forward (fp32, 6 layers, 1 application, "
+        f"256 tokens = 2 chunks, sparse; card {card_line()}): max |logit "
+        f"gap| {gaps.max():.3e} (step {int(gaps.argmax())}), mean over steps "
+        f"{gaps.mean():.3e}; limit {TOL_RECURRENT}; mean |logit| "
+        f"{mean_logit:.4e}")
+    check(math.isfinite(float(gaps.max())) and gaps.max() <= TOL_RECURRENT,
+          f"zamba2 decode logits differ from the chunked forward by "
+          f"{gaps.max()}")
+    del p6
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"zamba2: the phase took {seconds:.1f} s")
+    return dict(launches={k: fwd_launches[k] + step_launches[k]
+                          for k in fwd_launches},
+                kernels=kernels, step_ms=step_tok_ms, decode_ms=decode_ms,
+                dense_step_ms=dense_tok_ms, dense_decode_ms=dense_ms,
+                fwd_ms=fwd_ms, train_ms=step_ms, gap32=float(gaps.max()),
+                seconds=seconds)
+
+
+def round_bits(x, bits):
+    """x with its significand rounded to `bits` explicit bits (bf16 keeps
+    7, fp8 e4m3 3), its exponent range kept."""
+    import torch
+    m, e = torch.frexp(x.float())
+    scale = 2.0 ** (bits + 1)
+    return torch.ldexp(torch.round(m * scale) / scale, e).to(x.dtype)
+
+
+@contextlib.contextmanager
+def coarse_attention(kind, bits):
+    """A control of the bf16 covering gate: while it is open, the shared
+    block's sparse attention runs with q and k rounded to `bits`
+    significand bits (kind "scores": the forward's scores and the
+    backward's recomputed probabilities come from coarser operands; the
+    gradient passes straight through), or with its dq, dk and dv rounded
+    so (kind "backward")."""
+    import torch
+    from repro_torch.core.attention_exec import SparseAttentionExec
+
+    class Round(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return round_bits(x, bits) if kind == "scores" else x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g if kind == "scores" else round_bits(g, bits)
+
+    sound = SparseAttentionExec.attend_app
+
+    def attend_app(self, cfg, q, k, v, app_idx):
+        if kind == "scores":
+            q, k = Round.apply(q), Round.apply(k)
+        else:
+            q, k, v = Round.apply(q), Round.apply(k), Round.apply(v)
+        return sound(self, cfg, q, k, v, app_idx)
+    SparseAttentionExec.attend_app = attend_app
+    try:
+        yield
+    finally:
+        SparseAttentionExec.attend_app = sound
+
+
+def covering_zamba2(cfg, masters, batch):
+    """A fully covering plan (the kernels in every application) against
+    dense attention from the same masters and batch: the fp32 logits within
+    TOL_LOGITS; the bf16 logits no farther from the fp32 dense ones than
+    BF16_LOGITS_SLACK x the bf16 dense ones, by max and by mean; the bf16
+    gradients of the shared block's leaves likewise by mean and by root
+    mean square, their max printed beside. Then each of COVERING_CONTROLS
+    (coarse_attention) through the same readings, printed beside the
+    sound ones with whether the gate rejects it; the run fails if the gate
+    passes a control it must reject."""
+    import torch
+    from repro_torch.core.attention_exec import SparseAttentionExec
+    from repro_torch.core.sparse_attention import build_sparsity_plan
+    from repro_torch.launch.steps import (causal_band_tables, compute_params,
+                                          make_loss_and_grads)
+    from repro_torch.models.hybrid import n_attn_apps
+    from repro_torch.models.registry import build
+    napps, S = n_attn_apps(cfg), batch["tokens"].shape[1]
+    band = causal_band_tables(napps, S // cfg.spion.block_size)
+    cover = build_sparsity_plan(band["col_idx"], band["nvalid"],
+                                cfg.spion.block_size)
+    one = {k: v[:1] for k, v in batch.items()}
+
+    def run(dtype, sparse):
+        c = cfg.replace(dtype=dtype)
+        ex = SparseAttentionExec.from_plan(cover, dtype=dtype).to(DEVICE) \
+            if sparse else None
+        with torch.inference_mode():
+            lg, _ = build(c).forward(
+                compute_params(masters, getattr(torch, dtype)),
+                {"tokens": one["tokens"]}, spion=ex)
+        _, grads = make_loss_and_grads(c)(masters, one, ex)
+        return lg.float(), {k: g.float() for k, g in grads.items()
+                            if k.startswith("shared_attn.")}
+
+    ls32, gs32 = run("float32", True)
+    ld32, gd32 = run("float32", False)
+    ld16, gd16 = run("bfloat16", False)
+    e32 = (ls32 - ld32).abs().max().item()
+    g32 = max((gs32[k] - gd32[k]).abs().max().item() for k in gd32)
+
+    def dist(a, ref):
+        d = (a - ref).abs()
+        return d.max().item(), d.mean().item(), d.square().mean().sqrt().item()
+    ed, ed_mean, _ = dist(ld16, ld32)
+
+    def readings(ls16, gs16):
+        """The bf16 sparse run's distances from fp32 dense over the bf16
+        dense run's: logits by max and mean, and per leaf the gated
+        max(mean, rms) ratio with its distances."""
+        es, es_mean, _ = dist(ls16, ld32)
+        leaves = {}
+        for name, ref in gd32.items():
+            (sm, sa, sr), (dm, da, dr) = dist(gs16[name], ref), \
+                dist(gd16[name], ref)
+            ratio = max(sa / da if da else math.inf,
+                        sr / dr if dr else math.inf)
+            leaves[name] = (ratio, sm / dm if dm else math.inf,
+                            (sm, sa, sr, dm, da, dr))
+        worst = max(leaves, key=lambda n: leaves[n][0])
+        ok = (math.isfinite(es) and es <= BF16_LOGITS_SLACK * ed and
+              es_mean <= BF16_LOGITS_SLACK * ed_mean)
+        far = [(n, r[0]) for n, r in leaves.items()
+               if not (math.isfinite(r[0]) and r[0] <= BF16_LOGITS_SLACK)]
+        return dict(es=es, es_mean=es_mean, max_ratio=es / ed,
+                    mean_ratio=es_mean / ed_mean, leaves=leaves,
+                    worst=worst, logits_ok=ok, far=far)
+
+    sound = readings(*run("bfloat16", True))
+    log(f"zamba2 covering plan vs dense, 1 x {S} tokens (mean |logit| "
+        f"{ld32.abs().mean().item():.4e}): fp32 logits max |diff| {e32:.4e} "
+        f"(tol {TOL_LOGITS}); fp32 shared-block grads max |diff| {g32:.4e}; "
+        f"against fp32 dense logits: bf16 sparse max {sound['es']:.4e} mean "
+        f"{sound['es_mean']:.4e}, bf16 dense max {ed:.4e} mean "
+        f"{ed_mean:.4e}")
+    check(math.isfinite(e32) and e32 <= TOL_LOGITS,
+          f"zamba2 covering fp32 logits differ from dense by {e32}")
+    check(sound["logits_ok"],
+          f"the zamba2 bf16 covering logits are farther from fp32 "
+          f"({sound['es']}, mean {sound['es_mean']}) than "
+          f"{BF16_LOGITS_SLACK} x the dense ones ({ed}, mean {ed_mean})")
+    for name, (ratio, mx, (sm, sa, sr, dm, da, dr)) in sound["leaves"].items():
+        log(f"  {name:28s} mean |grad| {gd32[name].abs().mean().item():.4e}; "
+            f"bf16 from fp32 dense: sparse max {sm:.4e} mean {sa:.4e} rms "
+            f"{sr:.4e}, dense max {dm:.4e} mean {da:.4e} rms {dr:.4e} "
+            f"(mean/rms ratio {ratio:.4f}, gated; max ratio {mx:.4f})")
+    check(not sound["far"], f"zamba2 bf16 covering gradients farther from "
+          f"fp32 than {BF16_LOGITS_SLACK} x the dense ones (mean or rms): "
+          f"{sound['far']}")
+    missed = []
+    for kind, bits, must in COVERING_CONTROLS:
+        with coarse_attention(kind, bits):
+            r = readings(*run("bfloat16", True))
+        rejected = not r["logits_ok"] or bool(r["far"])
+        if must and not rejected:
+            missed.append((kind, bits))
+        log(f"zamba2 covering control, the attention's "
+            f"{'q and k' if kind == 'scores' else 'dq, dk and dv'} at "
+            f"{bits} significand bits: logits {r['max_ratio']:.4f}x dense's "
+            f"distance by max, {r['mean_ratio']:.4f}x by mean; worst leaf "
+            f"{r['worst']} {r['leaves'][r['worst']][0]:.4f}x by mean/rms "
+            f"(max {r['leaves'][r['worst']][1]:.4f}x); "
+            f"{len(r['far'])} of {len(r['leaves'])} leaves past "
+            f"{BF16_LOGITS_SLACK}; the gate "
+            f"{'rejects' if rejected else 'PASSES'} it"
+            f"{' (must reject)' if must else ''}")
+    log(f"zamba2 covering, sound: logits {sound['max_ratio']:.4f}x by max, "
+        f"{sound['mean_ratio']:.4f}x by mean; worst leaf {sound['worst']} "
+        f"{sound['leaves'][sound['worst']][0]:.4f}x by mean/rms")
+    check(not missed, f"the zamba2 bf16 covering gate passed controls it "
+          f"must reject (kind, significand bits): {missed}")
+
+
+def zamba2_kernels(cfg, col, nvalid, before=None):
+    """The three kernels at zamba2's shape (N = ZAMBA_BATCH x 32 heads, G 1,
+    hd 64, block 128, causal) on application 0's tables: against their
+    plain versions in fp32 and bf16, then timed (bf16) beside their bounds
+    and PyTorch's SDPA. Returns {kernel: record}."""
+    import numpy as np
+    import torch
+    shape = dict(N=ZAMBA_BATCH * cfg.num_kv_heads,
+                 G=cfg.num_heads // cfg.num_kv_heads, S=ZAMBA_S,
+                 hd=cfg.resolved_head_dim, block=cfg.spion.block_size)
+    tables = (col[0], nvalid[0])
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    err = {}
+    for dtype in ("float32", "bfloat16"):
+        case = dict(dtype=dtype, causal=True, **shape)
+        o_err, tol, share, typical, lerr, _ = compare_kernel(
+            case, gen, None, tables=tables)
+        log(f"kernel at zamba2's shape {shape} {dtype} causal, application "
+            f"0's tables ({int(tables[1].sum())} listed tiles): |o - plain| "
+            f"= {o_err:.3e} (that element's limit {tol:.3e}; no element past "
+            f"{share:.3f} of its limit; mean |o| {typical:.3e}); |lse - "
+            f"plain| {lerr:.3e}")
+        res, x = compare_backward(case, gen, None, tables=tables)
+        log_backward_path("zamba2", shape, dtype, res)
+        err[dtype] = dict(o=o_err, **{n: res[n][0] for n in ("dq", "dk",
+                                                             "dv")})
+    timing = backward_timing(x, before)
+    timing["block_sparse_fwd"] = kernel_timing(
+        (x["q"], x["k"], x["v"], x["col"], x["nvalid"], x["kw"]),
+        "zamba2's shared-block shape", before)
+    checks = {"block_sparse_fwd": ("o",), "block_sparse_dq": ("dq",),
+              "block_sparse_dkv": ("dk", "dv")}
+    out = {}
+    for name, t in timing.items():
+        out[name] = dict(
+            shape=dict(shape, causal=True),
+            max_abs_err=max(err["bfloat16"][g] for g in checks[name]),
+            max_abs_err_fp32=max(err["float32"][g] for g in checks[name]),
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "before_ms") if k in t})
+    return out
+
+
+def phase_rwkv6():
+    """rwkv6-7b at full width and depth, bf16, seeded random weights:
+      - ServeEngine(spion=...), ServeEngine(paged=True) and
+        make_serve_step(spion=True) raise NotImplementedError before the
+        card's allocated memory moves;
+      - the default engine (contiguous, the registry's
+        supports_paged_cache) serves four prompts stepwise, 16 tokens
+        each: tokens and logits finite, no kernel launched;
+      - at 2 layers in fp32, every teacher-forced decode step of 256 tokens
+        within TOL_RECURRENT of the chunked forward.
+    The parameters are freed at the end."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.registry import build
+
+    t_phase = time.perf_counter()
+    cfg = get_config("rwkv6-7b")
+    check(cfg.family == "ssm" and cfg.num_layers == 32 and
+          cfg.d_model == 4096 and cfg.num_heads == 64 and
+          cfg.resolved_head_dim == 64 and cfg.d_ff == 14336 and
+          cfg.vocab_size == 65536 and cfg.dtype == "bfloat16",
+          "rwkv6-7b config changed")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    rng = np.random.default_rng(SEED + 10)
+    t0 = time.perf_counter()
+    params = build(cfg).init(gen, device=DEVICE)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"rwkv6-7b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}: {nparams} parameters ({nbytes / 1e9:.2f} "
+        f"GB) initialised on the card in {time.perf_counter() - t0:.1f} s")
+    nrb = 2048 // 128
+    plan = random_plan(rng, cfg.num_layers, nrb, 128)[2]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    refused = []
+    for what, make in (
+            ("ServeEngine(spion=plan)", lambda: ServeEngine(
+                cfg, params, slots=4, max_len=2048, spion=plan,
+                device=DEVICE)),
+            ("ServeEngine(paged=True)", lambda: ServeEngine(
+                cfg, params, slots=4, max_len=2048, paged=True,
+                device=DEVICE)),
+            ("make_serve_step(spion=True)",
+             lambda: make_serve_step(cfg, spion=True))):
+        try:
+            make()
+        except NotImplementedError as e:
+            refused.append(what)
+            log(f"rwkv6 refuses {what}: {str(e)[:90]}...")
+        torch.cuda.synchronize()
+        check(torch.cuda.memory_allocated() == held,
+              f"{what} allocated {torch.cuda.memory_allocated() - held} "
+              f"bytes before it raised")
+    check(len(refused) == 3, f"rwkv6-7b refused only {refused}")
+    prompts = recurrent_requests(rng, cfg)
+    run = serve_stepwise(cfg, params, prompts)
+    eng = run.pop("eng")
+    check(not eng.paged and eng._prefill is None,
+          "the rwkv6-7b engine is paged or built a fused prefill")
+    check(not run["bad"], "an rwkv6-7b logit is not finite")
+    check(all(0 <= t < cfg.vocab_size for r in run["reqs"] for t in r.out),
+          "an rwkv6-7b token is out of the vocabulary")
+    del eng
+    step_ms, decode_ms = log_recurrent_serving("rwkv6-7b, dense, contiguous",
+                                               run, None, None)
+    del params, run
+    torch.cuda.empty_cache()
+    cfg2 = cfg.replace(num_layers=2, dtype="float32")
+    p2 = build(cfg2).init(torch.Generator(device=DEVICE)
+                          .manual_seed(SEED + 11), device=DEVICE)
+    gaps, mean_logit = decode_against_forward(cfg2, p2, None, SEED + 11)
+    log(f"rwkv6 decode vs chunked forward (fp32, 2 layers, 256 tokens = 2 "
+        f"chunks; card {card_line()}): max |logit gap| {gaps.max():.3e} "
+        f"(step {int(gaps.argmax())}), mean over steps {gaps.mean():.3e}; "
+        f"limit {TOL_RECURRENT}; mean |logit| {mean_logit:.4e}")
+    check(math.isfinite(float(gaps.max())) and gaps.max() <= TOL_RECURRENT,
+          f"rwkv6 decode logits differ from the chunked forward by "
+          f"{gaps.max()}")
+    del p2
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"rwkv6: the phase took {seconds:.1f} s")
+    return dict(step_ms=step_ms, decode_ms=decode_ms, gap32=float(gaps.max()),
+                seconds=seconds)
 
 
 # -- training ------------------------------------------------------------------
@@ -2667,6 +3294,8 @@ def main(argv):
             torch.cuda.empty_cache()
         else:
             mixtral = out
+    zamba = phase_zamba2(before)
+    rwkv = phase_rwkv6()
     train = phase_train()
     train_err, train_timing = phase_train_path_kernels(train, gen, before)
     phase_covering_step(train)
@@ -2678,10 +3307,12 @@ def main(argv):
     respawn = phase_respawn(train, resume)
 
     fwd = {"launches": serve["launches"] + shared["launches"]
-           + mixtral["launches"] + train["launches"]["block_sparse_fwd"],
+           + mixtral["launches"] + zamba["launches"]["block_sparse_fwd"]
+           + train["launches"]["block_sparse_fwd"],
            "launches_serve": serve["launches"],
            "launches_serve_shared": shared["launches"],
            "launches_mixtral": mixtral["launches"],
+           "launches_zamba2": zamba["launches"]["block_sparse_fwd"],
            "launches_train": train["launches"]["block_sparse_fwd"],
            "max_abs_err": err, "tol": tol,
            "train_shape": dict(train_timing.pop("block_sparse_fwd"),
@@ -2693,13 +3324,17 @@ def main(argv):
     for name, grads in (("block_sparse_dq", ("dq",)),
                         ("block_sparse_dkv", ("dk", "dv"))):
         t = train_timing[name]
-        rows[name] = {"launches": train["launches"][name],
+        rows[name] = {"launches": train["launches"][name]
+                      + zamba["launches"][name],
+                      "launches_zamba2": zamba["launches"][name],
+                      "launches_train": train["launches"][name],
                       "max_abs_err": max(train_err["bfloat16"][g]
                                          for g in grads),
                       **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms",
                                            "before_ms") if k in t}}
     for name, row in rows.items():
+        row["zamba2_shape"] = zamba["kernels"][name]
         row["tuned"] = tuned[name]
         for path, run in (("resume", resume), ("rollback", rollback),
                           ("respawn", respawn)):
@@ -2717,7 +3352,15 @@ def main(argv):
         f"ring prefill_ms median {mixtral['prefill_ms']:.3f}, "
         f"decode_ms_per_tick median {mixtral['decode_ms']:.3f}, fp32 ring "
         f"gap {mixtral['ring_gap']:.3e}, phase {mixtral['seconds']:.1f} s; "
-        f"train "
+        f"zamba2 sparse forward {zamba['fwd_ms']:.2f} ms, train step "
+        f"{zamba['train_ms']:.2f} ms, stepwise_ms_per_token sparse "
+        f"{zamba['step_ms']:.3f} dense {zamba['dense_step_ms']:.3f}, "
+        f"decode_ms_per_tick median sparse {zamba['decode_ms']:.3f} dense "
+        f"{zamba['dense_decode_ms']:.3f}, fp32 decode gap "
+        f"{zamba['gap32']:.3e}, phase {zamba['seconds']:.1f} s; rwkv6 "
+        f"stepwise_ms_per_token {rwkv['step_ms']:.3f}, decode_ms_per_tick "
+        f"median {rwkv['decode_ms']:.3f}, fp32 decode gap "
+        f"{rwkv['gap32']:.3e}, phase {rwkv['seconds']:.1f} s; train "
         f"dense_step_ms median {train['dense_ms']:.3f}, sparse_step_ms median "
         f"{train['sparse_ms']:.3f}")
     card = card_line()

@@ -14,7 +14,9 @@ execution.
 `attend()` (full-sequence block-sparse attention: the Hopper kernels or
 the plain gather per `resolve_kernel`, both differentiable); decode uses
 `decode()` / `decode_paged()` — the pattern-bounded KV-cache gather, which
-reads only the cache blocks the query position's row-block lists.
+reads only the cache blocks the query position's row-block lists. The
+`*_app` forms index the stacked tables by the hybrid family's shared-block
+application instead of taking a layer's slice.
 """
 from __future__ import annotations
 
@@ -125,6 +127,12 @@ class SparseAttentionExec:
             else PLAN_TABLE_KEYS
         return {k: self.tables[k] for k in keys if k in self.tables}
 
+    def layer(self, idx):
+        """Per-layer (or per-application) slice of the stacked tables, for
+        callers that index by a layer id instead of looping over layers
+        (the hybrid family's shared attention block)."""
+        return {k: v[idx] for k, v in self.scan_tables().items()}
+
     # -- execution ------------------------------------------------------------
 
     def attend(self, cfg, q, k, v, layer_tables):
@@ -143,6 +151,11 @@ class SparseAttentionExec:
                                           config=self.kernel_config)
         return bcsr_attention(cfg, q, k, v, bcsr)
 
+    def attend_app(self, cfg, q, k, v, app_idx):
+        """`attend` for the hybrid family's shared attention block: the
+        stacked tables are indexed by the application, not by the layer."""
+        return self.attend(cfg, q, k, v, self.layer(app_idx))
+
     def decode(self, cfg, q, k_cache, v_cache, pos, layer_tables, *,
                ring=False):
         """Sparse one-token decode for ONE layer over a contiguous cache:
@@ -154,6 +167,11 @@ class SparseAttentionExec:
             cfg, q, k_cache, v_cache, pos,
             layer_tables["col_idx"].to(q.device),
             layer_tables["nvalid"].to(q.device), block=self.block, ring=ring)
+
+    def decode_app(self, cfg, q, k_cache, v_cache, pos, app_idx, *,
+                   ring=False):
+        return self.decode(cfg, q, k_cache, v_cache, pos, self.layer(app_idx),
+                           ring=ring)
 
     def decode_paged(self, cfg, q, kp, vp, layer, pos, page_table,
                      layer_tables, *, ring=False):
@@ -168,6 +186,13 @@ class SparseAttentionExec:
             cfg, q, kp, vp, layer, pos, page_table,
             layer_tables["col_idx"].to(q.device),
             layer_tables["nvalid"].to(q.device), page=self.block, ring=ring)
+
+    def decode_paged_app(self, cfg, q, kp, vp, app_idx, pos, page_table, *,
+                         ring=False):
+        """`decode_paged` for the hybrid shared block: the pool's layer axis
+        and the tables are both indexed by the application."""
+        return self.decode_paged(cfg, q, kp, vp, app_idx, pos, page_table,
+                                 self.layer(app_idx), ring=ring)
 
     # -- introspection --------------------------------------------------------
 

@@ -8,7 +8,8 @@ with PER-SLOT positions: requests of different lengths decode at their own
 offsets, finish independently, and their slots are reclaimed and refilled
 mid-decode.
 
-Paged serving (the default): K/V live in a shared core.kv_pool.PagePool of
+Paged serving (the default for attention families, from the registry's
+supports_paged_cache): K/V live in a shared core.kv_pool.PagePool of
 cross-layer pages and each slot owns a page-table row. A request enters a
 slot when its WORST-CASE page budget (ceil((prompt + max_new)/page), clipped
 to the ring length for sliding-window archs) fits the pool, so it can never
@@ -26,7 +27,8 @@ the fused prefill, which leaves the shared pages untouched; a suffix of at
 most `stepwise_suffix_max` tokens can instead be prefilled stepwise through
 the shared pages (off by default: on the card a stepwise token costs about
 what a whole fused prefill does). Sharing is off for sliding-window rings
-(pages are overwritten in place).
+(pages are overwritten in place) and for stepwise families (recurrent state
+depends on the full prefix).
 
 Sliding-window archs (mixtral-8x7b) keep each slot's cache as a ring of
 max_len positions: position p lives in slot p % max_len (paged: table slot
@@ -40,9 +42,17 @@ blocks the query position's pattern row lists. With paging the page size
 equals the plan block, so that gather is pure page indirection. The plan
 must cover the positions the engine will ever decode.
 
-Not ported yet: the stepwise prefill of the families without a fused one
-(ROADMAP.md A11). The JAX package hands the pool back from each donated
-step (`_absorb`); here steps write the pool and caches in place.
+Families without a fused prefill (bundle.prefill_kv is None: hybrid and
+ssm) prefill stepwise from position 0: a FRESH B=1 recurrent state (and,
+contiguous, a fresh B=1 cache) is teacher-forced through the prompt one
+token at a time and then written into the slot, so no stale state of an
+earlier request leaks in. The hybrid family's conv/ssm states live beside
+the page pool (`_extra_cache`); its pool's layer axis is the shared
+attention block's application. The ssm family (rwkv) has no KV cache: the
+engine refuses `spion=` and `paged=True` for it before allocating anything.
+
+The JAX package hands the pool back from each donated step (`_absorb`);
+here steps write the pool and caches in place.
 """
 from __future__ import annotations
 
@@ -81,12 +91,14 @@ class ServeEngine:
     params: the model's ParamTree, on `device` (None: the first CUDA card).
     spion: None | SparsityPlan | tables payload | SparseAttentionExec —
     enables sparse prefill AND pattern-bounded sparse decode from the same
-    layer-wise plan. paged: page the KV cache through a shared PagePool
-    (default True); page_size defaults to the plan block (sparse) or
+    layer-wise plan; refused for families the registry marks
+    supports_sparse_decode=False (ssm). paged: None (default: the
+    registry's supports_paged_cache flag) | bool — page the KV cache
+    through a shared PagePool; page_size defaults to the plan block (sparse) or
     min(32, max_len) (dense); num_pages defaults to
     slots * (max_len/page) + 1 scratch — the contiguous footprint.
-    share_prefix: copy-on-write prompt sharing (default: on whenever paged
-    and not a sliding-window ring; True on a ring raises).
+    share_prefix: copy-on-write prompt sharing (default: on whenever paged,
+    fused-prefill and not a sliding-window ring; True otherwise raises).
     stepwise_suffix_max: a shared-prefix request whose uncovered suffix is
     at most this many tokens prefills the suffix stepwise THROUGH the shared
     pages (one B=1 decode step a token) instead of running the fused
@@ -98,10 +110,12 @@ class ServeEngine:
     never read. Sparse plans prefill at the same bucketed length — the
     stacked row tables slice to the prompt's row-blocks
     (_sparse_prefill_exec), so admission stays O(prompt), not O(coverage).
+    Families without a fused prefill (hybrid, ssm) prefill stepwise, one
+    request at a time from a fresh state (module docstring).
     """
 
     def __init__(self, cfg, params, *, slots=4, max_len=512, spion=None,
-                 prefill_bucket=32, paged=True, page_size=None,
+                 prefill_bucket=32, paged=None, page_size=None,
                  num_pages=None, share_prefix=None, stepwise_suffix_max=None,
                  device=None):
         if not cfg.causal:
@@ -118,6 +132,23 @@ class ServeEngine:
         self.max_len = max_len
         self.prefill_bucket = prefill_bucket
 
+        if spion is not None and not self.bundle.supports_sparse_decode:
+            raise NotImplementedError(
+                f"ServeEngine(spion=...): family {cfg.family!r} (arch "
+                f"{cfg.name!r}) keeps recurrent state, not an attention KV "
+                f"cache — registry supports_sparse_decode is False for it; "
+                f"serve it densely (spion=None)")
+        self.paged = (self.bundle.supports_paged_cache if paged is None
+                      else bool(paged))
+        if self.paged and not self.bundle.supports_paged_cache:
+            raise NotImplementedError(
+                f"ServeEngine(paged=True): family {cfg.family!r} keeps "
+                f"recurrent state, not a KV cache — paging does not apply "
+                f"(registry supports_paged_cache is False)")
+        self._can_fuse = (self.bundle.prefill_kv is not None and cfg.causal
+                          and not cfg.num_patch_tokens)
+        self._spion_step = self.bundle.supports_sparse_decode
+
         self.exec: Optional[SparseAttentionExec] = None
         self._prefill_exec = None
         if spion is not None:
@@ -131,7 +162,6 @@ class ServeEngine:
             self._prefill_exec = SparseAttentionExec.coerce(self.exec,
                                                             phase="prefill")
 
-        self.paged = bool(paged)
         if self.paged:
             self.page = int(page_size or (self.exec.block if self.exec
                                           else min(32, max_len)))
@@ -145,8 +175,12 @@ class ServeEngine:
                                  f"of the page size ({self.page})")
             self.nblocks = max_len // self.page
             npages = int(num_pages) if num_pages else slots * self.nblocks + 1
+            # the cache's K/V layer axis: layers, or the hybrid family's
+            # applications of its shared attention block
+            pool_layers = self.bundle.init_cache(
+                1, 0, device=self.device)["k"].shape[0]
             self.pool = PagePool(
-                layers=cfg.num_layers, num_pages=npages, page=self.page,
+                layers=pool_layers, num_pages=npages, page=self.page,
                 kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
                 dtype=getattr(torch, cfg.cache_dtype or cfg.dtype),
                 device=self.device)
@@ -155,7 +189,10 @@ class ServeEngine:
             # finished slots keep their pages mapped until the next
             # admission needs them (post-run inspection)
             self._held = [False] * slots
-            default_share = not cfg.sliding_window
+            # the per-slot recurrent states of families that keep them
+            # beside the KV cache (hybrid: conv, ssm); {} for pure-KV ones
+            self._extra_cache = self._recurrent_state(slots)
+            default_share = self._can_fuse and not cfg.sliding_window
             self.share_prefix = (default_share if share_prefix is None
                                  else bool(share_prefix))
             if self.share_prefix and not default_share:
@@ -185,12 +222,19 @@ class ServeEngine:
         self.prefill_fused = 0
         self.prefill_stepwise_tokens = 0
 
-        self._decode = make_serve_step(cfg, spion=True)
+        self._decode = make_serve_step(cfg, spion=self._spion_step)
         self._decode1 = None
-        self._prefill = make_prefill_step(cfg, spion=True, with_cache=True)
+        self._prefill = (make_prefill_step(cfg, spion=True, with_cache=True)
+                         if self._can_fuse else None)
 
     def _to_device(self, a):
         return torch.as_tensor(np.asarray(a)).to(self.device)
+
+    def _recurrent_state(self, batch):
+        """A zero recurrent state of `batch` rows: the family's cache with
+        its K/V part at length 0, whatever else it holds."""
+        base = self.bundle.init_cache(batch, 0, device=self.device)
+        return {k: v for k, v in base.items() if k not in ("k", "v")}
 
     # -- request lifecycle ----------------------------------------------------
 
@@ -276,11 +320,14 @@ class ServeEngine:
             worst = min(worst, self.nblocks)
         return worst
 
+    def _ex_args(self):
+        return (self.exec,) if self._spion_step else ()
+
     def _decode1_step(self):
-        """The B=1 decode step of the stepwise suffix prefill (a step of
-        its own, so timing the batched decode does not count it)."""
+        """The B=1 decode step of the stepwise prefill (a step of its own,
+        so timing the batched decode does not count it)."""
         if self._decode1 is None:
-            self._decode1 = make_serve_step(self.cfg, spion=True)
+            self._decode1 = make_serve_step(self.cfg, spion=self._spion_step)
         return self._decode1
 
     def _admit(self):
@@ -335,7 +382,7 @@ class ServeEngine:
         # the step updates the cache (contiguous or pool) in place
         logits, _ = self._decode(
             self.params, self._engine_cache(), self._to_device(tok),
-            self._to_device(posv), self.exec)
+            self._to_device(posv), *self._ex_args())
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         for s, r in enumerate(self.active):
             if r is None:
@@ -348,7 +395,8 @@ class ServeEngine:
     def _engine_cache(self):
         if not self.paged:
             return self.cache
-        return self.pool.cache(self._pt_dev)
+        pkv = self.pool.cache(self._pt_dev)
+        return dict(self._extra_cache, kv=pkv) if self._extra_cache else pkv
 
     # -- paged admission (free-page admission + COW prefix sharing) -----------
 
@@ -401,7 +449,8 @@ class ServeEngine:
             first = int(m.first_tok)
             self.pool.stats["prefill_reused"] += 1
             self.pool.stats["prefix_tokens_reused"] += P
-        elif covered == 0 or P - covered > self.stepwise_suffix_max:
+        elif (self._can_fuse
+              and (covered == 0 or P - covered > self.stepwise_suffix_max)):
             first = self._fused_prefill_paged(r, s, nshared)
             if m:
                 self.pool.stats["prefix_tokens_reused"] += covered
@@ -463,14 +512,29 @@ class ServeEngine:
         """Teacher-force prompt positions [start, P) one at a time through
         the slot's page-table row with a B=1 decode step — attending the
         SHARED prefix pages below `start` without recomputing them (this is
-        what makes 'prefill once' literal for shared-prefix suffixes)."""
+        what makes 'prefill once' literal for shared-prefix suffixes), or
+        from 0 for families without a fused prefill, whose fresh
+        per-request conv/ssm states are written into the slot afterwards."""
+        pkv = self.pool.cache(self._to_device(self.page_tables[s:s + 1]))
+        sub = self._recurrent_state(1) if self._extra_cache else {}
+        cache1 = dict(sub, kv=pkv) if sub else pkv
+        return self._teacher_force(r, start, cache1, sub, self._extra_cache,
+                                   s)
+
+    def _teacher_force(self, r: Request, start: int, cache1, state, into,
+                       s: int) -> int:
+        """Feed prompt positions [start, P) of `r` one at a time through
+        the B=1 decode step over `cache1` (updated in place), then write
+        each B=1 tensor of `state` into row `s` of the same key of `into`;
+        returns the first generated token."""
         P = len(r.prompt)
         step1 = self._decode1_step()
-        cache1 = self.pool.cache(self._to_device(self.page_tables[s:s + 1]))
         logits = None
         for t in range(start, P):
             tok = self._to_device(np.asarray([[r.prompt[t]]], np.int64))
-            logits, _ = step1(self.params, cache1, tok, t, self.exec)
+            logits, _ = step1(self.params, cache1, tok, t, *self._ex_args())
+        for k, v in state.items():
+            into[k][:, s] = v[:, 0]
         self.prefill_stepwise_tokens += P - start
         return int(torch.argmax(logits[0]))
 
@@ -510,9 +574,15 @@ class ServeEngine:
         """Contiguous-cache prefill of request `r` into slot `s`; returns
         its first generated token (argmax of the last prompt position's
         logits — which is when t_first is stamped, per request)."""
-        first, ks, vs = self._prefill_tokens(r)
-        self._insert_fn(self.cache, ks, vs, s, len(r.prompt))
-        return first
+        if self._can_fuse:
+            first, ks, vs = self._prefill_tokens(r)
+            self._insert_fn(self.cache, ks, vs, s, len(r.prompt))
+            return first
+        # stepwise fallback (recurrent states): teacher-force the prompt
+        # through a FRESH B=1 cache — per request, so no other slot is
+        # touched and no stale state leaks in — then write the slot
+        sub = self.bundle.init_cache(1, self.max_len, device=self.device)
+        return self._teacher_force(r, 0, sub, sub, self.cache, s)
 
     def _insert_fn(self, cache, ks, vs, slot, plen):
         """Write a prefilled request's K/V stack (L, 1, Sp, KV, hd) into

@@ -153,9 +153,14 @@ def make_prefill_step(cfg: ModelConfig, *, spion=False, block=None,
     the FUSED serving prefill instead — (params, batch[, tables]) ->
     (logits, ks, vs) with ks/vs the per-layer RoPE'd K/V stacked
     (L, B, S, KV, hd), ready for direct insertion into decode-cache pages
-    (launch/serve.ServeEngine). `kernel_config` as in
-    `make_loss_and_grads`."""
+    (launch/serve.ServeEngine). Families without a plain KV cache have
+    no fused prefill (bundle.prefill_kv is None) and raise here.
+    `kernel_config` as in `make_loss_and_grads`."""
     bundle = build(cfg)
+    if with_cache and bundle.prefill_kv is None:
+        raise NotImplementedError(
+            f"make_prefill_step(with_cache=True): family {cfg.family!r} has "
+            f"no fused KV prefill; serve it via stepwise prefill instead")
     static_block = block or cfg.spion.block_size
 
     def prefill(params, batch, tables=None):
@@ -176,8 +181,19 @@ def make_serve_step(cfg: ModelConfig, *, spion=False, block=None):
     """Decode step: (params, cache, tokens, pos[, tables]) -> (logits,
     cache). `pos` may be a scalar or per-row (B,) vector; with `spion` the
     decode is sparse over the pattern-listed cache blocks. The cache may be
-    the contiguous dict or a core.kv_pool.PagedKVCache."""
+    the family's contiguous form or its paged form (a
+    core.kv_pool.PagedKVCache, alone or under a "kv" key beside the hybrid
+    family's recurrent states).
+
+    spion=True on a family without an attention KV cache (ssm) raises
+    here, at step construction (the registry's supports_sparse_decode)."""
     bundle = build(cfg)
+    if spion and not bundle.supports_sparse_decode:
+        raise NotImplementedError(
+            f"make_serve_step(spion=True): family {cfg.family!r} (arch "
+            f"{cfg.name!r}) keeps recurrent state, not an attention KV "
+            f"cache — registry supports_sparse_decode is False for it. "
+            f"Build the step with spion=False and serve densely.")
     static_block = block or cfg.spion.block_size
 
     def serve_step(params, cache, tokens, pos, tables=None):

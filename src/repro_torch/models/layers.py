@@ -78,6 +78,16 @@ def he_init(gen, shape, fan_in, dtype, device, layers=None):
     return out
 
 
+def normal_init(gen, shape, scale, dtype, device, layers=None):
+    """normal * scale, drawn in fp32 and cast to `dtype`; stacked over
+    `layers` as `he_init` does."""
+    out = torch.empty(shape if layers is None else (layers, *shape),
+                      dtype=dtype, device=device)
+    for view in (out if layers is not None else [out]):
+        view.copy_(torch.randn(shape, generator=gen, device=device) * scale)
+    return out
+
+
 # -- norms -------------------------------------------------------------------
 
 def rmsnorm(p, x, eps=1e-5):

@@ -1,0 +1,176 @@
+"""Mamba2 (SSD) layer — chunked state-space dual form.
+
+Per head h with scalar decay a_t = Δ_t·A_h (<= 0):
+    h_t = exp(a_t) h_{t-1} + Δ_t (B_t ⊗ x_t)     state (N, P)
+    y_t = C_t @ h_t + D_h x_t
+All exponents are cumsum differences <= 0 (safe). Short causal depthwise
+conv (width 4) on the xBC stream, gated output, as in the reference model.
+
+The JAX package computes all of this in plain jnp (no Pallas kernel), so
+these are PyTorch ops too; its lax.scan over chunks is a loop here.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as Lyr
+from repro_torch.models.layers import he_init, normal_init
+
+CONV_W = 4
+NGROUPS = 1
+
+
+def _widths(cfg):
+    """(inner, heads H, head dim P, state N, conv channels)."""
+    ssm = cfg.ssm
+    inner = ssm.expand * cfg.d_model
+    N = ssm.state_size
+    return inner, inner // ssm.head_dim, ssm.head_dim, N, \
+        inner + 2 * NGROUPS * N
+
+
+def mamba_init(gen, cfg, dtype, device, layers=None):
+    """The reference's leaves (in_proj, conv_w, conv_b, A_log, D, dt_bias,
+    out_norm, out_proj), stacked over `layers` when given."""
+    d = cfg.d_model
+    inner, H, _, N, conv_dim = _widths(cfg)
+    lead = () if layers is None else (layers,)
+
+    def full(n, value, dt=torch.float32):
+        return torch.full((*lead, n), value, dtype=dt, device=device)
+
+    return {
+        "in_proj": he_init(gen, (d, 2 * inner + 2 * NGROUPS * N + H), d,
+                           dtype, device, layers),
+        "conv_w": normal_init(gen, (CONV_W, conv_dim), 0.1, dtype, device,
+                              layers),
+        "conv_b": full(conv_dim, 0.0, dtype),
+        "A_log": full(H, 0.0),             # A = -exp(A_log)
+        "D": full(H, 1.0),
+        "dt_bias": full(H, -2.0),          # softplus(-2) ~ .13
+        "out_norm": {"scale": full(inner, 1.0)},
+        "out_proj": he_init(gen, (inner, d), inner, dtype, device, layers),
+    }
+
+
+def _causal_conv(x, w, b, state=None):
+    """depthwise causal conv: x (B,S,C), w (W,C). state (B,W-1,C) for
+    decode, rounded to x's dtype on the way in as the reference does; the
+    new state is returned in fp32."""
+    W = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, W - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(W))
+    new_state = xp[:, -(W - 1):].float() if state is not None else None
+    return F.silu(y + b), new_state
+
+
+def ssd_chunked(x, dt, A, B, C, D, chunk):
+    """x (b,S,H,P); dt (b,S,H) (>0); A (H,) (<0); B,C (b,S,G,N); D (H,).
+    Returns y (b,S,H,P). S must be a multiple of min(chunk, S): the
+    reference reshapes S into whole chunks and fails otherwise; nothing is
+    padded here either."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    Ch = min(chunk, S)
+    if S % Ch:
+        raise ValueError(f"ssd_chunked: sequence length {S} is not a "
+                         f"multiple of the chunk {Ch}")
+    n = S // Ch
+    xr = x.reshape(b, n, Ch, H, P).float()
+    dtr = dt.reshape(b, n, Ch, H).float()
+    # NGROUPS == 1: the group axis is dropped
+    Br = B.reshape(b, n, Ch, N).float()
+    Cr = C.reshape(b, n, Ch, N).float()
+
+    a = dtr * A                                     # (b,n,Ch,H) <= 0
+    cum = torch.cumsum(a, dim=2)                    # inclusive
+    last = cum[:, :, -1]                            # (b,n,H)
+
+    dec_k = torch.exp(last[:, :, None] - cum) * dtr  # (b,n,Ch,H)
+    delta = torch.einsum("bnsq,bnshp->bnhqp", Br, xr * dec_k[..., None])
+    decay = torch.exp(last)                         # (b,n,H)
+
+    # the sequential state combine: S_{j+1} = decay_j S_j + delta_j, each
+    # chunk reading the state that enters it
+    state = torch.zeros((b, H, N, P), dtype=torch.float32, device=x.device)
+    incoming = []
+    for j in range(n):
+        incoming.append(state)
+        state = state * decay[:, j, :, None, None] + delta[:, j]
+    S_in = torch.stack(incoming, dim=1)             # (b,n,H,N,P)
+
+    # inter-chunk: y_t += exp(cum_t) C_t @ S_in
+    y_inter = torch.einsum("bntq,bnhqp->bnthp", Cr, S_in) * \
+        torch.exp(cum)[..., None]
+
+    # intra-chunk: M_ts = C_t.B_s exp(cum_t - cum_s) dt_s, s <= t
+    Dm = cum[:, :, :, None] - cum[:, :, None, :]    # (b,n,Ch,Ch,H)
+    ar = torch.arange(Ch, device=x.device)
+    mask = (ar[:, None] >= ar[None, :])[None, None, :, :, None]
+    expD = torch.where(mask, torch.exp(Dm.clamp(max=0.0)), 0.0)
+    CB = torch.einsum("bntq,bnsq->bnts", Cr, Br)
+    M = CB[..., None] * expD * dtr[:, :, None, :, :]
+    y_intra = torch.einsum("bntsh,bnshp->bnthp", M, xr)
+
+    y = (y_inter + y_intra).to(x.dtype).reshape(b, S, H, P)
+    return y + x * D[None, None, :, None].to(x.dtype)
+
+
+def mamba_apply(cfg, p, x, state=None):
+    """x (B,S,d). state None | dict(conv (B,W-1,convdim), ssm (B,H,N,P)),
+    the decode form (S = 1). Returns (out, new state or None)."""
+    Bsz, S, d = x.shape
+    inner, H, P, N, _ = _widths(cfg)
+
+    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    # split: z (inner), xBC (inner + 2GN), dt (H)
+    z = zxbcdt[..., :inner]
+    xBC = zxbcdt[..., inner:inner + inner + 2 * NGROUPS * N]
+    dt_raw = zxbcdt[..., -H:]
+
+    conv_state = None if state is None else state["conv"]
+    xBC, new_conv = _causal_conv(xBC, p["conv_w"].to(x.dtype),
+                                 p["conv_b"].to(x.dtype), conv_state)
+    xs = xBC[..., :inner].reshape(Bsz, S, H, P)
+    Bmat = xBC[..., inner:inner + NGROUPS * N].reshape(Bsz, S, NGROUPS, N)
+    Cmat = xBC[..., inner + NGROUPS * N:].reshape(Bsz, S, NGROUPS, N)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+
+    if state is None:
+        y = ssd_chunked(xs, dt, A, Bmat, Cmat, p["D"], cfg.ssm.chunk)
+        new_ssm = None
+    else:
+        S_in = state["ssm"]                          # (B,H,N,P)
+        a = dt[:, 0] * A                             # (B,H)
+        x1 = xs[:, 0].float()
+        B1 = Bmat[:, 0, 0].float()                   # (B,N) with G=1
+        C1 = Cmat[:, 0, 0].float()
+        S_new = S_in * torch.exp(a)[..., None, None] + \
+            torch.einsum("bn,bhp,bh->bhnp", B1, x1, dt[:, 0])
+        y = torch.einsum("bn,bhnp->bhp", C1, S_new) + \
+            x1 * p["D"][None, :, None]
+        y = y[:, None].to(x.dtype)
+        new_ssm = S_new
+
+    y = y.reshape(Bsz, S, inner)
+    y = Lyr.rmsnorm(p["out_norm"], y.float()).to(x.dtype)
+    y = y * F.silu(z)
+    out = y @ p["out_proj"].to(x.dtype)
+    new_state = None if state is None else {"conv": new_conv, "ssm": new_ssm}
+    return out, new_state
+
+
+def init_state(cfg, batch_size, device="cpu"):
+    """Zero decode state: conv (B, W-1, convdim) and ssm (B, H, N, P), fp32."""
+    _, H, P, N, conv_dim = _widths(cfg)
+    return {
+        "conv": torch.zeros((batch_size, CONV_W - 1, conv_dim),
+                            dtype=torch.float32, device=device),
+        "ssm": torch.zeros((batch_size, H, N, P), dtype=torch.float32,
+                           device=device),
+    }

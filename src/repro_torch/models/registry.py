@@ -1,5 +1,6 @@
 """Uniform model API over the families ported so far (dense, moe and
-encoder).
+encoder through models/transformer, ssm through models/rwkv, hybrid
+through models/hybrid).
 
 build(cfg) -> ModelBundle with:
     init(generator=None, *, device=None) -> params (a ParamTree)
@@ -8,7 +9,11 @@ build(cfg) -> ModelBundle with:
     init_cache(batch_size, max_len, *, device=None) -> cache
     decode_step(params, cache, tokens, pos, *, spion=None) -> (logits, cache)
     prefill_kv(params, batch, *, spion=None) -> (logits, ks, vs) — the fused
-        serving prefill
+        serving prefill; None for families without a plain KV cache (ssm,
+        hybrid), which the serving engine prefills stepwise
+    supports_sparse_decode, supports_paged_cache — capability flags, False
+        for the ssm family (recurrent state, no attention KV cache), checked
+        where steps and engines are built
 `device=None` means the first CUDA card (see repro_torch.resolve_device).
 """
 from __future__ import annotations
@@ -19,11 +24,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, rwkv, transformer
 
 # where each family waits in ROADMAP.md queue A
-_PENDING = {"vlm": "A11", "ssm": "A11", "hybrid": "A11", "audio": "A11",
-            "encdec": "A11"}
+_PENDING = {"vlm": "A11b", "audio": "A11b", "encdec": "A11b"}
 
 MOE_LB_WEIGHT = 0.01
 MOE_Z_WEIGHT = 1e-3
@@ -37,6 +41,24 @@ class ModelBundle(NamedTuple):
     init_cache: Callable
     decode_step: Callable
     prefill_kv: Optional[Callable] = None
+    # capability flags, checked at engine/step construction: the ssm
+    # family keeps recurrent state, so there is no attention KV cache to
+    # sparsify or page
+    supports_sparse_decode: bool = True
+    supports_paged_cache: bool = True
+
+
+def _family_module(cfg: ModelConfig):
+    if cfg.family in ("dense", "moe", "encoder"):
+        return transformer
+    if cfg.family == "ssm":
+        return rwkv
+    if cfg.family == "hybrid":
+        return hybrid
+    item = _PENDING.get(cfg.family, "A11b")
+    raise NotImplementedError(
+        f"family {cfg.family!r} (arch {cfg.name!r}) is not ported yet; "
+        f"it waits in ROADMAP.md item {item}")
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -51,12 +73,7 @@ def cross_entropy(logits, labels, mask=None):
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
-    if cfg.family not in ("dense", "moe", "encoder"):
-        item = _PENDING.get(cfg.family, "A11")
-        raise NotImplementedError(
-            f"family {cfg.family!r} (arch {cfg.name!r}) is not ported yet; "
-            f"it waits in ROADMAP.md item {item}")
-    mod = transformer
+    mod = _family_module(cfg)
 
     def init(generator=None, *, device=None):
         dev = resolve_device(device)
@@ -82,8 +99,12 @@ def build(cfg: ModelConfig) -> ModelBundle:
     def decode_step(params, cache, tokens, pos, *, spion=None):
         return mod.decode_step(params, cfg, cache, tokens, pos, spion=spion)
 
-    def prefill_kv(params, batch, *, spion=None):
-        return mod.prefill_step(params, cfg, batch, spion=spion)
+    prefill_kv = None
+    if hasattr(mod, "prefill_step"):
+        def prefill_kv(params, batch, *, spion=None):
+            return mod.prefill_step(params, cfg, batch, spion=spion)
 
+    has_kv = cfg.family != "ssm"
     return ModelBundle(cfg, init, forward, loss, init_cache, decode_step,
-                       prefill_kv)
+                       prefill_kv, supports_sparse_decode=has_kv,
+                       supports_paged_cache=has_kv)

@@ -10,7 +10,10 @@ The properties of tests/test_kv_pool.py, each held port against reference:
     without the ring, and within 3e-5 of the reference;
   - engine level: the COW fork with a cached first token, the shared system
     prompt prefilled once, ring page recycling and exhaustion queues give
-    the reference engine's tokens and prefix_stats, logits within 3e-5.
+    the reference engine's tokens and prefix_stats, logits within 3e-5;
+  - the hybrid family's pool (its layer axis the shared block's
+    application) against the contiguous engine and the reference's, and
+    the ssm family's capability gate.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +37,7 @@ from repro_torch.launch.serve import Request, ServeEngine
 from repro_torch.launch.steps import causal_band_tables
 from repro_torch.models.attention import (decode_attention,
                                           paged_decode_attention, ring_kpos)
-from torch_parity import configs, params, to_np, to_torch
+from torch_parity import arch_configs, configs, params, to_np, to_torch
 
 TOL = 3e-5     # fp32 logits and attention outputs, port vs reference
 
@@ -431,3 +434,57 @@ def test_pool_exhaustion_queues_until_pages_free():
     with pytest.raises(ValueError, match="page budget"):
         te.submit(Request(rid=9, prompt=np.arange(1, 70, dtype=np.int32),
                           max_new=30))
+
+
+# ---------------------------------------------------------------------------
+# the hybrid family's pool (layer axis = application) and the ssm gate
+# ---------------------------------------------------------------------------
+
+def test_engine_paged_hybrid_matches_contiguous():
+    """The reference's test of the same name: zamba2 (fp32 cache), paged
+    and contiguous engines give the same tokens; here both also equal the
+    reference's paged engine's, and every logit the stepwise prefill and
+    the decode return is within TOL of the reference's."""
+    jc, tc = arch_configs("zamba2-1.2b", remat=False,
+                          cache_dtype="float32")
+    jp, tp = params(jc, tc, seed=2)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, tc.vocab_size, size=n).astype(np.int32)
+               for n in (9, 17)]
+    outs, logs = {}, {}
+    for name, paged in (("paged", True), ("contiguous", False),
+                        ("reference", True)):
+        if name == "reference":
+            eng, req = JEngine(jc, jp, slots=2, max_len=64), JRequest
+        else:
+            eng = ServeEngine(tc, tp, slots=2, max_len=64, paged=paged,
+                              device="cpu")
+            req = Request
+        log = logs[name] = []
+        eng._decode = _recorded(eng._decode, log)
+        step1 = eng._decode1_step
+        eng._decode1_step = lambda s=step1, lg=log: _recorded(s(), lg)
+        reqs = [req(rid=i, prompt=p.copy(), max_new=4)
+                for i, p in enumerate(prompts)]
+        eng.run(reqs)
+        outs[name] = [r.out for r in reqs]
+    assert outs["paged"] == outs["contiguous"] == outs["reference"]
+    assert len(logs["paged"]) == len(logs["reference"])
+    for a, b in zip(logs["paged"], logs["reference"]):
+        np.testing.assert_allclose(a, b, atol=TOL, rtol=0)
+
+
+def test_paged_capability_gate():
+    """The reference's test of the same name: rwkv6-7b's bundle has
+    neither capability, and the engine refuses paged=True and spion=."""
+    jc, tc = arch_configs("rwkv6-7b", remat=False)
+    _jp, tp = params(jc, tc)
+    from repro_torch.models.registry import build
+    b = build(tc)
+    assert not b.supports_paged_cache and not b.supports_sparse_decode
+    with pytest.raises(NotImplementedError,
+                       match="supports_paged_cache|recurrent"):
+        ServeEngine(tc, tp, slots=1, max_len=32, paged=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="recurrent"):
+        ServeEngine(tc, tp, slots=1, max_len=32, spion={"block": 8},
+                    device="cpu")

@@ -14,7 +14,8 @@ from repro.launch.serve import ServeEngine as JEngine
 from repro_torch.core.kv_pool import SCRATCH_PAGE, PagePool
 from repro_torch.core.sparse_attention import build_sparsity_plan as t_plan
 from repro_torch.launch.serve import Request, ServeEngine
-from torch_parity import configs, params, random_blockmask, to_np
+from torch_parity import (arch_configs, configs, params, random_blockmask,
+                          to_np)
 
 MAX_LEN, BLOCK = 64, 16
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
@@ -180,3 +181,163 @@ def test_page_pool_allocator():
         pool.decref(SCRATCH_PAGE)
     assert pool.nbytes == 2 * 4 * 2 * 2 * 4
 
+
+
+# ---------------------------------------------------------------------------
+# families without a fused prefill: hybrid (zamba2) and ssm (rwkv6)
+# ---------------------------------------------------------------------------
+
+def _family(arch, seed=0, **kw):
+    jc, tc = arch_configs(arch, remat=False, **kw)
+    jp, tp = params(jc, tc, seed)
+    return jc, tc, jp, tp
+
+
+def _run_pair(je, te, prompts, max_new):
+    """The same requests through a reference and a port engine; returns
+    (reference tokens, port tokens, port requests)."""
+    jr = [JRequest(rid=i, prompt=p.copy(), max_new=max_new)
+          for i, p in enumerate(prompts)]
+    tr = [Request(rid=i, prompt=p.copy(), max_new=max_new)
+          for i, p in enumerate(prompts)]
+    je.run(jr)
+    te.run(tr)
+    return [r.out for r in jr], [r.out for r in tr], tr
+
+
+def test_hybrid_stepwise_prefill_engine():
+    """The reference's test of the same name, against the reference's
+    engine: zamba2's paged engine prefills stepwise per request (a FRESH
+    B=1 recurrent state teacher-forced and written into the slot), then
+    joins the batched per-slot-position decode; tokens equal."""
+    jc, tc, jp, tp = _family("zamba2-1.2b")
+    prompts = [np.array([3, 1, 4, 1, 5], np.int32),
+               np.array([2, 7], np.int32)]
+    je = JEngine(jc, jp, slots=2, max_len=16)
+    te = ServeEngine(tc, tp, slots=2, max_len=16, device="cpu")
+    assert not je._can_fuse and not te._can_fuse and te.paged
+    want, got, _ = _run_pair(je, te, prompts, 3)
+    assert got == want
+
+
+def test_engine_paged_default_reads_the_registry():
+    """`paged=None` is the registry's supports_paged_cache: paged for the
+    attention and hybrid families, contiguous for ssm (PR 17's engine took
+    True for every family)."""
+    for arch, want in (("rwkv6-7b", False), ("zamba2-1.2b", True)):
+        _jc, tc, _jp, tp = _family(arch)
+        assert ServeEngine(tc, tp, slots=1, max_len=32,
+                           device="cpu").paged is want
+    _jc, tc = configs()
+    assert ServeEngine(tc, params(_jc, tc)[1], device="cpu").paged
+
+
+def test_hybrid_pool_layers_are_the_applications():
+    """The hybrid pool's layer axis is the shared block's application
+    (n_attn_apps), not the layer: 4 layers, the block every 2nd -> 2."""
+    _jc, tc, _jp, tp = _family("zamba2-1.2b", num_layers=4)
+    eng = ServeEngine(tc, tp, slots=2, max_len=32, device="cpu")
+    assert eng.pool.kp.shape[0] == 2 and eng.pool.vp.shape[0] == 2
+    assert set(eng._extra_cache) == {"conv", "ssm"}
+    assert eng._extra_cache["conv"].shape[:2] == (4, 2)
+
+
+def test_hybrid_engine_does_not_share_prefixes():
+    """share_prefix defaults off without a fused prefill (recurrent state
+    depends on the whole prefix), and share_prefix=True raises."""
+    jc, tc, jp, tp = _family("zamba2-1.2b")
+    eng = ServeEngine(tc, tp, slots=1, max_len=32, device="cpu")
+    assert eng.paged and not eng.share_prefix
+    for make, cfg, p in ((JEngine, jc, jp), (ServeEngine, tc, tp)):
+        kw = {} if make is JEngine else {"device": "cpu"}
+        with pytest.raises(ValueError, match="fused-prefill"):
+            make(cfg, p, slots=1, max_len=32, share_prefix=True, **kw)
+
+
+def test_engine_builds_no_fused_prefill_it_cannot_run():
+    """No fused prefill is built for a family without one (the step maker
+    refuses it), and the ssm family's decode steps are built dense; the
+    engines still serve."""
+    for arch in ("zamba2-1.2b", "rwkv6-7b"):
+        _jc, tc, _jp, tp = _family(arch)
+        eng = ServeEngine(tc, tp, slots=1, max_len=32, device="cpu")
+        assert eng._prefill is None and not eng._can_fuse
+        assert eng._spion_step is (arch != "rwkv6-7b")
+        assert eng._ex_args() == ((None,) if eng._spion_step else ())
+        r = Request(rid=0, prompt=np.arange(1, 6, dtype=np.int32),
+                    max_new=3)
+        eng.run([r])
+        assert r.done and len(r.out) == 3 and eng.prefill_fused == 0
+
+
+def test_hybrid_paged_request_prefills_stepwise_from_zero():
+    """With no prefix covered, a hybrid request goes stepwise from position
+    0 (the fused branch needs _can_fuse), whatever stepwise_suffix_max
+    says."""
+    _jc, tc, _jp, tp = _family("zamba2-1.2b")
+    for suffix_max in (None, 0, 64):
+        eng = ServeEngine(tc, tp, slots=2, max_len=32, device="cpu",
+                          stepwise_suffix_max=suffix_max)
+        reqs = [Request(rid=i, prompt=np.arange(1, n, dtype=np.int32),
+                        max_new=2) for i, n in enumerate((9, 14))]
+        eng.run(reqs)
+        assert eng.prefill_fused == 0
+        assert eng.prefill_stepwise_tokens == 8 + 13
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_stepwise_prefill_carries_the_recurrent_state(paged):
+    """The stepwise prefill writes the request's own conv/ssm states into
+    its slot (paged: `_extra_cache`; contiguous: the whole fresh B=1 cache),
+    so a slot reused after other requests holds what a fresh B=1 decode of
+    the new prompt leaves, with no stale state. Tokens equal the reference
+    engine's."""
+    jc, tc, jp, tp = _family("zamba2-1.2b", seed=1)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, tc.vocab_size, size=n).astype(np.int32)
+               for n in (6, 11, 4)]
+    je = JEngine(jc, jp, slots=2, max_len=32, paged=paged)
+    te = ServeEngine(tc, tp, slots=2, max_len=32, paged=paged, device="cpu")
+    want, got, treqs = _run_pair(je, te, prompts, 4)
+    assert got == want
+    # a fresh B=1 run of the second prompt
+    b = te.bundle
+    again = treqs[1].prompt
+    fresh = b.init_cache(1, 32, device="cpu")
+    for t, tok in enumerate(again):
+        b.decode_step(tp, fresh, torch.tensor([[int(tok)]]), t)
+    state = te._extra_cache if paged else te.cache
+    keys = ("conv", "ssm") if paged else tuple(fresh)
+    # slot 0 served the first and the third request: its state is stale
+    assert not torch.equal(state["ssm"][:, 0], fresh["ssm"][:, 0])
+    # max_new=1 finishes at admission: no decode tick touches the slot
+    te.submit(Request(rid=9, prompt=again.copy(), max_new=1))
+    te.step()
+    assert te.active == [None, None]
+    for k in keys:
+        assert torch.equal(state[k][:, 0], fresh[k][:, 0]), k
+
+
+def test_hybrid_sparse_engine_matches_reference():
+    """zamba2 served with a per-application plan (4 layers, 2 applications,
+    block 16 = page): paged and contiguous, tokens equal the reference
+    engine's; the stepwise prefill and decode gather only the listed
+    blocks."""
+    jc, tc, jp, tp = _family("zamba2-1.2b", num_layers=4)
+    rng = np.random.default_rng(8)
+    nrb = MAX_LEN // BLOCK
+    bs = [bcsr_from_blockmask(random_blockmask(rng, nrb, causal=True), BLOCK,
+                              max_k=nrb) for _ in range(2)]
+    col = np.stack([np.asarray(b.col_idx) for b in bs])
+    nv = np.stack([np.asarray(b.nvalid) for b in bs])
+    prompts = [rng.integers(1, tc.vocab_size, size=n).astype(np.int32)
+               for n in (21, 7)]
+    for paged in (True, False):
+        je = JEngine(jc, jp, slots=2, max_len=MAX_LEN, paged=paged,
+                     spion=j_plan(col, nv, BLOCK))
+        te = ServeEngine(tc, tp, slots=2, max_len=MAX_LEN, paged=paged,
+                         spion=t_plan(col, nv, BLOCK), device="cpu")
+        want, got, _ = _run_pair(je, te, prompts, 5)
+        assert got == want, paged
+        if paged:
+            assert te.pool.kp.shape[0] == 2 and te.page == BLOCK

@@ -37,6 +37,22 @@ def configs(dtype="float32", **kw):
     return jc, tc
 
 
+def arch_configs(arch, dtype="float32", chunk=None, kernel=None, **kw):
+    """(JAX cfg, port cfg) of reduced `arch` (zamba2-1.2b, rwkv6-7b, ...)
+    with `kw` replaced and, when given, the SSM chunk and the sparse
+    kernel setting. The two must be equal as dataclass dicts."""
+    out = []
+    for mod in (jcfgs, tcfgs):
+        c = mod.get_config(arch).reduced().replace(dtype=dtype, **kw)
+        if chunk is not None:
+            c = c.replace(ssm=dataclasses.replace(c.ssm, chunk=chunk))
+        if kernel is not None:
+            c = c.replace(spion=dataclasses.replace(c.spion, kernel=kernel))
+        out.append(c)
+    assert dataclasses.asdict(out[0]) == dataclasses.asdict(out[1])
+    return out
+
+
 BLOCK = 32    # the training tests' SPION block: S = 128 has 4 row blocks
 
 
