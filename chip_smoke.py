@@ -76,6 +76,36 @@ Phases (each one fails the run; nothing falls back to the CPU):
      prompts stepwise, 16 tokens each, finite, no launch; at 2 layers in
      fp32 decode against the chunked forward within TOL_RECURRENT; the
      parameters are freed;
+  4e. whisper-tiny at full width and depth (4 encoder + 4 decoder layers,
+     d_model 384, 6 heads of 64), bf16, a random causal plan per decoder
+     layer (block 64, 448 positions): a sparse forward of 4 x (1500
+     frames, 448 tokens) launches the forward kernel 4 times, a sparse
+     train step (remat) 8 + 4 + 4; forward(capture=) -> SpionController ->
+     a plan -> one train step on it; covering plan against dense
+     (covering_gate on the decoder's attention leaves,
+     WHISPER_QK_GRAD_SLACK for those dq and dk feed, and its controls);
+     the three kernels against their plain versions and timed at N 24, G 1,
+     hd 64, block 64, S 448; ServeEngine(slots=4, max_len=512, spion=plan)
+     paged with page 64 serves four prompts stepwise (no launch), tokens
+     equal to a paged=False engine's, cross K/V zero at max_len as the
+     reference engine leaves them; at full depth in fp32, precompute_cross
+     + teacher-forced decode (contiguous and paged, dense and sparse)
+     within TOL_DECODE of the forward, and two planted faults (the cross
+     K/V of the previous layer, the encoder's positions one off) past it;
+  4f. internvl2-2b at full width and depth (24 layers, d_model 2048, 16/8
+     heads of 128, 256 patch tokens), bf16, a random causal plan per layer
+     (block 64, 2048 positions): a sparse forward of 2 x (256 patch
+     embeddings + 1792 tokens) launches 24 forward kernels, a train step
+     48 + 24 + 24, its peak memory printed; the loss equals cross-entropy
+     over the text logits taken apart; the covering gate (the leaves dq
+     and dk feed at INTERNVL2_QK_GRAD_SLACK); the three
+     kernels at N 16, G 2, hd 128, block 64, S 2048; four text prompts
+     served stepwise, paged tokens equal contiguous; at 2 layers in fp32
+     teacher-forced decode within TOL_DECODE of the forward;
+  4g. the forward kernel at the attention shapes of qwen2.5-14b (G 5),
+     command-r-35b (G 8) and mistral-large-123b (G 12): N 8, S 2048, hd
+     128, block 128, causal, against its plain version in fp32 and bf16
+     and timed;
   5. train spion-lra at its published width under the LRA ListOps preset
      (batch 128 x 2048 tokens) through Trainer for 20 steps: dense steps,
      the flood-fill transition, then sparse steps that must each launch 8
@@ -125,12 +155,15 @@ Phases (each one fails the run; nothing falls back to the CPU):
      heartbeat payload reads back. Save, restore, respawn and rollback
      seconds are printed beside the card's name and power limit.
 The line before the last is the kernels' JSON record (launches_serve,
-launches_serve_shared, launches_mixtral, launches_zamba2, launches_train,
-launches_resume, launches_rollback and launches_respawn count each
-kernel's launches in phases 4, 4a, 4b, 4c (its sparse forward and train
-step), 5 and 9-11, each read from zero; the forward's mixtral_shape holds
-its check and timing at phase 4b's shape, and every kernel's zamba2_shape
-its check and timing at phase 4c's; `tuned`
+launches_serve_shared, launches_mixtral, launches_zamba2,
+launches_whisper, launches_internvl2, launches_train, launches_resume,
+launches_rollback and launches_respawn count each kernel's launches in
+phases 4, 4a, 4b, 4c, 4e, 4f (their sparse forward and train step), 5 and
+9-11, each read from zero; the forward's mixtral_shape holds its check
+and timing at phase 4b's shape and its qwen2_5_14b_shape,
+command_r_35b_shape and mistral_large_123b_shape at phase 4g's, and every
+kernel's zamba2_shape, whisper_shape and internvl2_shape its check and
+timing at phases 4c, 4e and 4f; `tuned`
 holds each kernel's phase 8a winner and its time beside the default's at
 each shape); the last line is
 {"ok": true, "device": {...}}.
@@ -1649,32 +1682,33 @@ COVERING_CONTROLS = (("scores", 5, False), ("scores", 3, True),
                      ("backward", 3, False), ("backward", 1, True))
 
 
-def recurrent_requests(rng, cfg, n=4):
-    """n prompts of RECURRENT_PROMPTS tokens, 16 new tokens each."""
+def stepwise_requests(rng, cfg, lens, n=4):
+    """n prompts of `lens` = (least, most) tokens, for an engine that
+    prefills them stepwise."""
     import numpy as np
-    lens = rng.integers(RECURRENT_PROMPTS[0], RECURRENT_PROMPTS[1] + 1,
-                        size=n)
+    lo, hi = lens
+    lens = rng.integers(lo, hi + 1, size=n)
     return [rng.integers(0, cfg.vocab_size, size=int(k)).astype(np.int32)
             for k in lens]
 
 
-def serve_stepwise(cfg, params, prompts, **kw):
-    """ServeEngine(slots=4, max_len=2048, **kw) serving `prompts` (16 new
-    tokens each) after a short warm-up request. Returns the engine, the
-    requests, the host seconds of every stepwise prefill token and every
-    decode tick, the indices of calls whose logits were not finite and the
-    kernel launches of the run."""
+def serve_stepwise(cfg, params, prompts, max_len=2048, max_new=16, **kw):
+    """ServeEngine(slots=4, max_len=max_len, **kw) serving `prompts`
+    (`max_new` new tokens each) after a short warm-up request. Returns the
+    engine, the requests, the host seconds of every stepwise prefill token
+    and every decode tick, the indices of calls whose logits were not
+    finite and the kernel launches of the run."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import Request, ServeEngine
-    eng = ServeEngine(cfg, params, slots=4, max_len=2048, device=DEVICE,
+    eng = ServeEngine(cfg, params, slots=4, max_len=max_len, device=DEVICE,
                       **kw)
     eng.run([Request(rid=-1, prompt=np.arange(8, dtype=np.int32),
                      max_new=2)])
     step_s, decode_s, bad = [], [], []
     eng._decode1 = timed(eng._decode1_step(), step_s, bad)
     eng._decode = timed(eng._decode, decode_s, bad)
-    reqs = [Request(rid=i, prompt=p.copy(), max_new=16)
+    reqs = [Request(rid=i, prompt=p.copy(), max_new=max_new)
             for i, p in enumerate(prompts)]
     tokens0 = eng.prefill_stepwise_tokens
     reset_launch_counts()
@@ -1683,8 +1717,8 @@ def serve_stepwise(cfg, params, prompts, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = launch_counts()
-    check(all(r.done and len(r.out) == 16 for r in reqs),
-          f"a {cfg.name} request did not get its 16 tokens")
+    check(all(r.done and len(r.out) == max_new for r in reqs),
+          f"a {cfg.name} request did not get its {max_new} tokens")
     check(eng.prefill_stepwise_tokens - tokens0 == sum(map(len, prompts))
           and eng.prefill_fused == 0,
           f"{cfg.name}: {eng.prefill_stepwise_tokens - tokens0} stepwise "
@@ -1724,7 +1758,7 @@ def decode_against_forward(cfg, params, spion=None, seed=0):
     return gaps, fwd.float().abs().mean().item()
 
 
-def log_recurrent_serving(name, run, base, same):
+def log_stepwise_serving(name, run, base, same):
     """Print an engine's stepwise and decode times (and, with `base` =
     (label, run), another engine's beside them); returns (ms a stepwise
     token, mean; ms a decode tick, median)."""
@@ -1732,7 +1766,8 @@ def log_recurrent_serving(name, run, base, same):
     step_ms = 1e3 * sum(run["step_s"]) / len(run["step_s"])
     decode_ms = 1e3 * float(np.median(run["decode_s"]))
     lens = [len(r.prompt) for r in run["reqs"]]
-    log(f"serve {name}: prompts {lens} prefilled stepwise, 4 x 16 tokens in "
+    log(f"serve {name}: prompts {lens} prefilled stepwise, 4 x "
+        f"{run['reqs'][0].max_new} tokens in "
         f"{run['wall']:.2f} s; stepwise prefill {step_ms:.2f} ms a token "
         f"(mean of {len(run['step_s'])}, median "
         f"{1e3 * float(np.median(run['step_s'])):.2f}); decode "
@@ -1745,6 +1780,68 @@ def log_recurrent_serving(name, run, base, same):
            f"{1e3 * float(np.median(base[1]['decode_s'])):.2f} ms per tick"
            f" median; tokens equal to its: {same}"))
     return step_ms, decode_ms
+
+
+def sparse_forward_and_step(label, cfg, params, plan, batch, *, fwd, step,
+                            leaf):
+    """A model phase's main path: a sparse forward of `batch` (without its
+    labels) through the plan's prefill exec, then a sparse train step
+    (make_loss_and_grads from fp32 masters of `params`) through its train
+    exec, each after a warm-up, with their launches read from zero and held
+    to `fwd` and `step`; logits, loss and gradients finite, and `leaf`'s
+    gradient not zero. Returns the times, launches and peak memory of the
+    step, and the masters."""
+    import torch
+    from repro_torch.core.attention_exec import SparseAttentionExec
+    from repro_torch.launch.steps import make_loss_and_grads, make_prefill_step
+    from repro_torch.launch.train import masters_of
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    prefill = make_prefill_step(cfg, spion=True)
+    pex = SparseAttentionExec.from_plan(plan, phase="prefill",
+                                        dtype=cfg.dtype).to(DEVICE)
+    with torch.inference_mode():
+        prefill(params, inputs, pex)                            # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = prefill(params, inputs, pex)
+        torch.cuda.synchronize()
+        fwd_ms = 1e3 * (time.perf_counter() - t0)
+    fwd_launches = launch_counts()
+    check(bool(torch.isfinite(logits).all()), f"a {label} logit is not "
+          f"finite")
+    check(fwd_launches == fwd, f"the {label} sparse forward launched "
+          f"{fwd_launches}, not {fwd}")
+    del logits
+    masters = masters_of(params)
+    tex = SparseAttentionExec.from_plan(plan, phase="train",
+                                        dtype=cfg.dtype).to(DEVICE)
+    loss_and_grads = make_loss_and_grads(cfg)
+    loss_and_grads(masters, batch, tex)                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(masters, batch, tex)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    step_launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(step_launches == step, f"the {label} sparse train step launched "
+          f"{step_launches}, not {step}")
+    check(math.isfinite(loss.item()) and
+          all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          f"a {label} loss or gradient is not finite")
+    check(grads[leaf].abs().max().item() > 0, f"{label}'s {leaf} has no "
+          f"gradient")
+    shapes = ", ".join(f"{k} {tuple(v.shape)}" for k, v in inputs.items())
+    log(f"{label} sparse forward of {shapes}: {fwd_ms:.2f} ms, launches "
+        f"{fwd_launches}; sparse train step (remat): {step_ms:.2f} ms, loss "
+        f"{loss.item():.6f}, launches {step_launches}, peak device memory "
+        f"{peak_gb:.2f} GB")
+    return dict(fwd_ms=fwd_ms, train_ms=step_ms, fwd_launches=fwd_launches,
+                step_launches=step_launches, peak_gb=peak_gb,
+                loss=loss.item(), masters=masters)
 
 
 def phase_zamba2(before=None):
@@ -1777,9 +1874,6 @@ def phase_zamba2(before=None):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.attention_exec import SparseAttentionExec
-    from repro_torch.launch.steps import make_loss_and_grads, make_prefill_step
-    from repro_torch.launch.train import masters_of
     from repro_torch.models.hybrid import n_attn_apps
     from repro_torch.models.registry import build
 
@@ -1817,52 +1911,14 @@ def phase_zamba2(before=None):
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
     # the main path: the sparse forward, then the sparse train step
-    prefill = make_prefill_step(cfg, spion=True)
-    pex = SparseAttentionExec.from_plan(plan, phase="prefill",
-                                        dtype=cfg.dtype).to(DEVICE)
-    with torch.inference_mode():
-        prefill(params, {"tokens": batch["tokens"]}, pex)      # warm-up
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        logits = prefill(params, {"tokens": batch["tokens"]}, pex)
-        torch.cuda.synchronize()
-        fwd_ms = 1e3 * (time.perf_counter() - t0)
-    fwd_launches = launch_counts()
-    check(bool(torch.isfinite(logits).all()), "a zamba2 logit is not finite")
-    check(fwd_launches == {"block_sparse_fwd": napps, "block_sparse_dq": 0,
-                           "block_sparse_dkv": 0},
-          f"the zamba2 sparse forward launched {fwd_launches}, not "
-          f"{napps} forward kernels")
-    del logits
-    masters = masters_of(params)
-    tex = SparseAttentionExec.from_plan(plan, phase="train",
-                                        dtype=cfg.dtype).to(DEVICE)
-    step = make_loss_and_grads(cfg)
-    step(masters, batch, tex)                                  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    loss, grads = step(masters, batch, tex)
-    torch.cuda.synchronize()
-    step_ms = 1e3 * (time.perf_counter() - t0)
-    step_launches = launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = dict.fromkeys(step_launches, napps)
-    check(step_launches == want, f"the zamba2 sparse train step launched "
-          f"{step_launches}, not {want} (the shared block is not "
-          f"recomputed)")
-    check(math.isfinite(loss.item()) and
-          all(bool(torch.isfinite(g).all()) for g in grads.values()),
-          "a zamba2 loss or gradient is not finite")
-    check(grads["shared_attn.attn.wq"].abs().max().item() > 0,
-          "the shared block's wq has no gradient")
-    log(f"zamba2 sparse forward, {ZAMBA_BATCH} x {ZAMBA_S} tokens: "
-        f"{fwd_ms:.2f} ms, launches {fwd_launches}; sparse train step "
-        f"(remat): {step_ms:.2f} ms, loss {loss.item():.6f}, launches "
-        f"{step_launches}, peak device memory {peak_gb:.2f} GB")
-    del grads, loss
+    main = sparse_forward_and_step(
+        "zamba2", cfg, params, plan, batch,
+        fwd={"block_sparse_fwd": napps, "block_sparse_dq": 0,
+             "block_sparse_dkv": 0},
+        step=dict.fromkeys(KERNELS, napps), leaf="shared_attn.attn.wq")
+    masters = main.pop("masters")
+    fwd_launches, step_launches = main["fwd_launches"], main["step_launches"]
+    fwd_ms, step_ms = main["fwd_ms"], main["train_ms"]
 
     covering_zamba2(cfg, masters, batch)
     del masters
@@ -1871,7 +1927,7 @@ def phase_zamba2(before=None):
 
     # serving: paged (the registry's default) and contiguous with the plan,
     # then dense
-    prompts = recurrent_requests(rng, cfg)
+    prompts = stepwise_requests(rng, cfg, RECURRENT_PROMPTS)
     runs = {}
     for name, kw in (("paged", dict(spion=plan)),
                      ("contiguous", dict(spion=plan, paged=False)),
@@ -1889,10 +1945,10 @@ def phase_zamba2(before=None):
         del eng
     same = [a.out == b.out for a, b in zip(runs["paged"]["reqs"],
                                            runs["contiguous"]["reqs"])]
-    step_tok_ms, decode_ms = log_recurrent_serving(
+    step_tok_ms, decode_ms = log_stepwise_serving(
         "zamba2-1.2b, sparse, paged", runs["paged"],
         ("the contiguous", runs["contiguous"]), same)
-    dense_tok_ms, dense_ms = log_recurrent_serving(
+    dense_tok_ms, dense_ms = log_stepwise_serving(
         "zamba2-1.2b, dense, paged", runs["dense"], None, None)
     check(all(same), "the paged zamba2 engine's tokens differ from the "
           "contiguous engine's")
@@ -1937,8 +1993,9 @@ def round_bits(x, bits):
 
 @contextlib.contextmanager
 def coarse_attention(kind, bits):
-    """A control of the bf16 covering gate: while it is open, the shared
-    block's sparse attention runs with q and k rounded to `bits`
+    """A control of the bf16 covering gate: while it is open, every sparse
+    attention (zamba2's shared block, a decoder's layers) runs with q and k
+    rounded to `bits`
     significand bits (kind "scores": the forward's scores and the
     backward's recomputed probabilities come from coarser operands; the
     gradient passes straight through), or with its dq, dk and dv rounded
@@ -1955,43 +2012,56 @@ def coarse_attention(kind, bits):
         def backward(ctx, g):
             return g if kind == "scores" else round_bits(g, bits)
 
-    sound = SparseAttentionExec.attend_app
+    sound = SparseAttentionExec.attend
 
-    def attend_app(self, cfg, q, k, v, app_idx):
+    def attend(self, cfg, q, k, v, layer_tables):
         if kind == "scores":
             q, k = Round.apply(q), Round.apply(k)
         else:
             q, k, v = Round.apply(q), Round.apply(k), Round.apply(v)
-        return sound(self, cfg, q, k, v, app_idx)
-    SparseAttentionExec.attend_app = attend_app
+        return sound(self, cfg, q, k, v, layer_tables)
+    SparseAttentionExec.attend = attend      # attend_app calls attend
     try:
         yield
     finally:
-        SparseAttentionExec.attend_app = sound
+        SparseAttentionExec.attend = sound
 
 
 def covering_zamba2(cfg, masters, batch):
-    """A fully covering plan (the kernels in every application) against
-    dense attention from the same masters and batch: the fp32 logits within
-    TOL_LOGITS; the bf16 logits no farther from the fp32 dense ones than
-    BF16_LOGITS_SLACK x the bf16 dense ones, by max and by mean; the bf16
-    gradients of the shared block's leaves likewise by mean and by root
-    mean square, their max printed beside. Then each of COVERING_CONTROLS
-    (coarse_attention) through the same readings, printed beside the
-    sound ones with whether the gate rejects it; the run fails if the gate
-    passes a control it must reject."""
+    """covering_gate on zamba2's shared block, one plan row per
+    application, with its controls (COVERING_CONTROLS)."""
+    from repro_torch.models.hybrid import n_attn_apps
+    covering_gate("zamba2", cfg, masters, batch, layers=n_attn_apps(cfg),
+                  leaves=("shared_attn.",), controls=COVERING_CONTROLS)
+
+
+def covering_gate(label, cfg, masters, batch, *, layers, leaves,
+                  controls=(), qk_slack=BF16_LOGITS_SLACK):
+    """A fully covering plan (the kernels in each of `layers` attention
+    layers or applications) against dense attention from the same masters
+    and the batch's first sequence: the fp32 logits within TOL_LOGITS; the
+    bf16 logits no farther from the fp32 dense ones than BF16_LOGITS_SLACK
+    x the bf16 dense ones, by max and by mean; the bf16 gradients of the
+    leaves whose names start with one of `leaves` likewise by mean and by
+    root mean square, their max printed beside; the leaves that dq and dk
+    feed (the q and k projections and the attention's input norm) at
+    `qk_slack` x instead. Then each of `controls` (coarse_attention)
+    through the same readings, printed beside the sound ones with whether
+    the gate rejects it; the run fails if the gate passes a control it must
+    reject."""
     import torch
     from repro_torch.core.attention_exec import SparseAttentionExec
     from repro_torch.core.sparse_attention import build_sparsity_plan
     from repro_torch.launch.steps import (causal_band_tables, compute_params,
                                           make_loss_and_grads)
-    from repro_torch.models.hybrid import n_attn_apps
     from repro_torch.models.registry import build
-    napps, S = n_attn_apps(cfg), batch["tokens"].shape[1]
-    band = causal_band_tables(napps, S // cfg.spion.block_size)
+    S = batch["tokens"].shape[1] + (cfg.num_patch_tokens
+                                    if "patch_embeds" in batch else 0)
+    band = causal_band_tables(layers, S // cfg.spion.block_size)
     cover = build_sparsity_plan(band["col_idx"], band["nvalid"],
                                 cfg.spion.block_size)
     one = {k: v[:1] for k, v in batch.items()}
+    inputs = {k: v for k, v in one.items() if k != "labels"}
 
     def run(dtype, sparse):
         c = cfg.replace(dtype=dtype)
@@ -1999,11 +2069,11 @@ def covering_zamba2(cfg, masters, batch):
             if sparse else None
         with torch.inference_mode():
             lg, _ = build(c).forward(
-                compute_params(masters, getattr(torch, dtype)),
-                {"tokens": one["tokens"]}, spion=ex)
+                compute_params(masters, getattr(torch, dtype)), inputs,
+                spion=ex)
         _, grads = make_loss_and_grads(c)(masters, one, ex)
         return lg.float(), {k: g.float() for k, g in grads.items()
-                            if k.startswith("shared_attn.")}
+                            if k.startswith(leaves)}
 
     ls32, gs32 = run("float32", True)
     ld32, gd32 = run("float32", False)
@@ -2015,6 +2085,11 @@ def covering_zamba2(cfg, masters, batch):
         d = (a - ref).abs()
         return d.max().item(), d.mean().item(), d.square().mean().sqrt().item()
     ed, ed_mean, _ = dist(ld16, ld32)
+
+    def slack(name):
+        fed = name.rsplit(".", 1)[-1] in ("wq", "wk", "bq", "bk") or \
+            ".attn_norm." in name
+        return qk_slack if fed else BF16_LOGITS_SLACK
 
     def readings(ls16, gs16):
         """The bf16 sparse run's distances from fp32 dense over the bf16
@@ -2033,86 +2108,100 @@ def covering_zamba2(cfg, masters, batch):
         ok = (math.isfinite(es) and es <= BF16_LOGITS_SLACK * ed and
               es_mean <= BF16_LOGITS_SLACK * ed_mean)
         far = [(n, r[0]) for n, r in leaves.items()
-               if not (math.isfinite(r[0]) and r[0] <= BF16_LOGITS_SLACK)]
+               if not (math.isfinite(r[0]) and r[0] <= slack(n))]
         return dict(es=es, es_mean=es_mean, max_ratio=es / ed,
                     mean_ratio=es_mean / ed_mean, leaves=leaves,
                     worst=worst, logits_ok=ok, far=far)
 
     sound = readings(*run("bfloat16", True))
-    log(f"zamba2 covering plan vs dense, 1 x {S} tokens (mean |logit| "
+    log(f"{label} covering plan vs dense, 1 x {S} tokens (mean |logit| "
         f"{ld32.abs().mean().item():.4e}): fp32 logits max |diff| {e32:.4e} "
-        f"(tol {TOL_LOGITS}); fp32 shared-block grads max |diff| {g32:.4e}; "
+        f"(tol {TOL_LOGITS}); fp32 attention grads max |diff| {g32:.4e}; "
         f"against fp32 dense logits: bf16 sparse max {sound['es']:.4e} mean "
         f"{sound['es_mean']:.4e}, bf16 dense max {ed:.4e} mean "
         f"{ed_mean:.4e}")
     check(math.isfinite(e32) and e32 <= TOL_LOGITS,
-          f"zamba2 covering fp32 logits differ from dense by {e32}")
+          f"{label} covering fp32 logits differ from dense by {e32}")
     check(sound["logits_ok"],
-          f"the zamba2 bf16 covering logits are farther from fp32 "
+          f"the {label} bf16 covering logits are farther from fp32 "
           f"({sound['es']}, mean {sound['es_mean']}) than "
           f"{BF16_LOGITS_SLACK} x the dense ones ({ed}, mean {ed_mean})")
-    for name, (ratio, mx, (sm, sa, sr, dm, da, dr)) in sound["leaves"].items():
+    shown = list(sound["leaves"])
+    if len(shown) > 12:
+        shown = sorted(shown, key=lambda n: -sound["leaves"][n][0])[:8]
+        log(f"  the {len(shown)} of {len(sound['leaves'])} leaves farthest "
+            f"by mean/rms:")
+    for name in shown:
+        ratio, mx, (sm, sa, sr, dm, da, dr) = sound["leaves"][name]
         log(f"  {name:28s} mean |grad| {gd32[name].abs().mean().item():.4e}; "
             f"bf16 from fp32 dense: sparse max {sm:.4e} mean {sa:.4e} rms "
             f"{sr:.4e}, dense max {dm:.4e} mean {da:.4e} rms {dr:.4e} "
-            f"(mean/rms ratio {ratio:.4f}, gated; max ratio {mx:.4f})")
-    check(not sound["far"], f"zamba2 bf16 covering gradients farther from "
-          f"fp32 than {BF16_LOGITS_SLACK} x the dense ones (mean or rms): "
-          f"{sound['far']}")
+            f"(mean/rms ratio {ratio:.4f}, gated at {slack(name)}; max "
+            f"ratio {mx:.4f})")
+    check(not sound["far"], f"{label} bf16 covering gradients farther from "
+          f"fp32 than {BF16_LOGITS_SLACK} x (the leaves dq and dk feed: "
+          f"{qk_slack} x) the dense ones (mean or rms): {sound['far']}")
     missed = []
-    for kind, bits, must in COVERING_CONTROLS:
+    for kind, bits, must in controls:
         with coarse_attention(kind, bits):
             r = readings(*run("bfloat16", True))
         rejected = not r["logits_ok"] or bool(r["far"])
         if must and not rejected:
             missed.append((kind, bits))
-        log(f"zamba2 covering control, the attention's "
+        log(f"{label} covering control, the attention's "
             f"{'q and k' if kind == 'scores' else 'dq, dk and dv'} at "
             f"{bits} significand bits: logits {r['max_ratio']:.4f}x dense's "
             f"distance by max, {r['mean_ratio']:.4f}x by mean; worst leaf "
             f"{r['worst']} {r['leaves'][r['worst']][0]:.4f}x by mean/rms "
             f"(max {r['leaves'][r['worst']][1]:.4f}x); "
-            f"{len(r['far'])} of {len(r['leaves'])} leaves past "
-            f"{BF16_LOGITS_SLACK}; the gate "
+            f"{len(r['far'])} of {len(r['leaves'])} leaves past their "
+            f"limit; the gate "
             f"{'rejects' if rejected else 'PASSES'} it"
             f"{' (must reject)' if must else ''}")
-    log(f"zamba2 covering, sound: logits {sound['max_ratio']:.4f}x by max, "
+    log(f"{label} covering, sound: logits {sound['max_ratio']:.4f}x by max, "
         f"{sound['mean_ratio']:.4f}x by mean; worst leaf {sound['worst']} "
         f"{sound['leaves'][sound['worst']][0]:.4f}x by mean/rms")
-    check(not missed, f"the zamba2 bf16 covering gate passed controls it "
+    check(not missed, f"the {label} bf16 covering gate passed controls it "
           f"must reject (kind, significand bits): {missed}")
+    return dict(logits_max=sound["max_ratio"], logits_mean=sound["mean_ratio"],
+                worst_leaf=sound["leaves"][sound["worst"]][0], fp32=e32)
 
 
 def zamba2_kernels(cfg, col, nvalid, before=None):
-    """The three kernels at zamba2's shape (N = ZAMBA_BATCH x 32 heads, G 1,
-    hd 64, block 128, causal) on application 0's tables: against their
-    plain versions in fp32 and bf16, then timed (bf16) beside their bounds
-    and PyTorch's SDPA. Returns {kernel: record}."""
-    import numpy as np
-    import torch
+    """path_kernels at zamba2's shape (N = ZAMBA_BATCH x 32 heads, G 1, hd
+    64, block 128, causal) on application 0's tables."""
     shape = dict(N=ZAMBA_BATCH * cfg.num_kv_heads,
                  G=cfg.num_heads // cfg.num_kv_heads, S=ZAMBA_S,
                  hd=cfg.resolved_head_dim, block=cfg.spion.block_size)
-    tables = (col[0], nvalid[0])
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    return path_kernels("zamba2", shape, (col[0], nvalid[0]),
+                        "application 0's", SEED + 9, before)
+
+
+def path_kernels(label, shape, tables, which, seed, before=None):
+    """The three kernels at a path's causal `shape` on `tables` = (col_idx,
+    nvalid) numpy (`which` names them): against their plain versions in
+    fp32 and bf16, then timed (bf16) beside their bounds and PyTorch's
+    SDPA. Returns {kernel: record}."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     err = {}
     for dtype in ("float32", "bfloat16"):
         case = dict(dtype=dtype, causal=True, **shape)
         o_err, tol, share, typical, lerr, _ = compare_kernel(
             case, gen, None, tables=tables)
-        log(f"kernel at zamba2's shape {shape} {dtype} causal, application "
-            f"0's tables ({int(tables[1].sum())} listed tiles): |o - plain| "
+        log(f"kernel at {label}'s shape {shape} {dtype} causal, {which} "
+            f"tables ({int(tables[1].sum())} listed tiles): |o - plain| "
             f"= {o_err:.3e} (that element's limit {tol:.3e}; no element past "
             f"{share:.3f} of its limit; mean |o| {typical:.3e}); |lse - "
             f"plain| {lerr:.3e}")
         res, x = compare_backward(case, gen, None, tables=tables)
-        log_backward_path("zamba2", shape, dtype, res)
+        log_backward_path(label, shape, dtype, res)
         err[dtype] = dict(o=o_err, **{n: res[n][0] for n in ("dq", "dk",
                                                              "dv")})
     timing = backward_timing(x, before)
     timing["block_sparse_fwd"] = kernel_timing(
         (x["q"], x["k"], x["v"], x["col"], x["nvalid"], x["kw"]),
-        "zamba2's shared-block shape", before)
+        f"{label}'s shape", before)
     checks = {"block_sparse_fwd": ("o",), "block_sparse_dq": ("dq",),
               "block_sparse_dkv": ("dk", "dv")}
     out = {}
@@ -2186,7 +2275,7 @@ def phase_rwkv6():
               f"{what} allocated {torch.cuda.memory_allocated() - held} "
               f"bytes before it raised")
     check(len(refused) == 3, f"rwkv6-7b refused only {refused}")
-    prompts = recurrent_requests(rng, cfg)
+    prompts = stepwise_requests(rng, cfg, RECURRENT_PROMPTS)
     run = serve_stepwise(cfg, params, prompts)
     eng = run.pop("eng")
     check(not eng.paged and eng._prefill is None,
@@ -2195,7 +2284,7 @@ def phase_rwkv6():
     check(all(0 <= t < cfg.vocab_size for r in run["reqs"] for t in r.out),
           "an rwkv6-7b token is out of the vocabulary")
     del eng
-    step_ms, decode_ms = log_recurrent_serving("rwkv6-7b, dense, contiguous",
+    step_ms, decode_ms = log_stepwise_serving("rwkv6-7b, dense, contiguous",
                                                run, None, None)
     del params, run
     torch.cuda.empty_cache()
@@ -2216,6 +2305,499 @@ def phase_rwkv6():
     log(f"rwkv6: the phase took {seconds:.1f} s")
     return dict(step_ms=step_ms, decode_ms=decode_ms, gap32=float(gaps.max()),
                 seconds=seconds)
+
+
+# -- the encoder-decoder and vision-language families: whisper-tiny, internvl2-2b
+
+WHISPER_BATCH = 4
+WHISPER_ENC = 1500          # encoder frames of a 30 s window
+WHISPER_S = 448             # decoder tokens: 7 blocks of 64
+WHISPER_DECODE_S = 128      # tokens of the fp32 decode check (2 blocks)
+INTERNVL_BATCH = 2
+INTERNVL_S = 2048           # 256 patch embeddings + 1792 text tokens
+TEXT_PROMPTS = (16, 48)     # prompts of these engines, TEXT_NEW tokens each
+TEXT_NEW = 8
+# fp32 teacher-forced decode against the forward, max |logit gap| over
+# every step: whisper-tiny at full depth (contiguous and paged, dense and
+# sparse) and internvl2-2b at 2 layers. Sound readings must lie below it,
+# whisper's two planted faults (the cross K/V of the previous layer; the
+# encoder's positions one off) above it. On one H100 sound runs read
+# 2.146e-6 to 2.384e-6 (whisper) and 1.359e-5 (internvl2); the planted
+# faults 1.433e-2 (positions) and 2.382 (cross K/V) (PERF.md, Findings)
+TOL_DECODE = 2e-4
+# internvl2's loss against cross-entropy over the text logits taken apart
+# (the same forward twice), relative
+TOL_LOSS_SPLIT = 1e-6
+# covering_gate's limit on the bf16 gradients that dq and dk feed (wq, wk,
+# bq, bk, the attention's input norm), as a multiple of dense bf16
+# attention's distance from fp32 dense: the op's backward takes delta =
+# rowsum(dO * O) from the bf16 output, as the JAX package's does, so where
+# attention is near uniform (random weights) the small ds = p (dp - delta)
+# carries that rounding. The other leaves keep BF16_LOGITS_SLACK. Each
+# cell's limit lies between its own sound reading and its smallest control
+# that must be rejected. On one H100 the worst of those leaves read, by
+# mean/rms: whisper-tiny 1.3714x sound (wq), q and k at 3 significand bits
+# 4.1143x, dq, dk and dv at 3 bits 2.7297x and at 1 bit 9.3488x;
+# internvl2-2b 0.9234x sound (attn_norm), q and k at 3 bits 3.9390x, dq,
+# dk and dv at 3 bits 1.0940x and at 1 bit 2.4792x (PERF.md, Findings)
+WHISPER_QK_GRAD_SLACK = 2.0
+INTERNVL2_QK_GRAD_SLACK = BF16_LOGITS_SLACK
+COVERING_CONTROLS_DECODER = (("scores", 3, True), ("scores", 1, True),
+                             ("backward", 3, False), ("backward", 1, True))
+# the dense configs' attention shapes (S 2048, hd 128, block 128, causal,
+# one sequence of 8 KV heads): (arch, G)
+DENSE_SHAPES = (("qwen2.5-14b", 5), ("command-r-35b", 8),
+                ("mistral-large-123b", 12))
+DENSE_S = 2048
+
+
+@contextlib.contextmanager
+def shifted_encoder_positions():
+    """A planted fault: while open, the encoder's sinusoidal table starts at
+    position 1 instead of 0."""
+    from repro_torch.models import layers as Lyr
+    sound = Lyr.sinusoidal_positions
+
+    def shifted(length, d, device="cpu"):
+        return sound(length + 1, d, device)[1:]
+    Lyr.sinusoidal_positions = shifted
+    try:
+        yield
+    finally:
+        Lyr.sinusoidal_positions = sound
+
+
+def encdec_decode_check(cfg, params, col, nvalid, seed):
+    """fp32 whisper at full depth: the forward of WHISPER_DECODE_S tokens
+    of 2 sequences over WHISPER_ENC frames against teacher-forced decode
+    after precompute_cross, contiguous and paged (page = block), dense and
+    sparse (the plan's first row blocks); then two planted faults through
+    the contiguous dense decode: the cross K/V of the previous decoder
+    layer, and the encoder's positions one off. Returns {reading: max
+    |logit gap| over every step} and the forward's mean |logit|."""
+    import numpy as np
+    import torch
+    from repro_torch.core.attention_exec import SparseAttentionExec
+    from repro_torch.core.kv_pool import PagePool
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import build
+    rng = np.random.default_rng(seed)
+    B, S, block = 2, WHISPER_DECODE_S, cfg.spion.block_size
+    nr = S // block
+    frames = torch.as_tensor(
+        rng.standard_normal((B, WHISPER_ENC, cfg.d_model), np.float32),
+        device=DEVICE)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(B, S)),
+                           device=DEVICE)
+    tabs = dict(col_idx=col[:, :nr], nvalid=nvalid[:, :nr], block=block)
+    bundle = build(cfg)
+    dex = SparseAttentionExec(tabs, block=block, phase="decode").to(DEVICE)
+    with torch.inference_mode():
+        fwd = {sparse: bundle.forward(
+            params, {"frames": frames, "tokens": toks},
+            spion=tabs if sparse else None)[0].float()
+            for sparse in (False, True)}
+        ck, cv = encdec.precompute_cross(params, cfg, frames)
+        with shifted_encoder_positions():
+            sck, scv = encdec.precompute_cross(params, cfg, frames)
+
+        def gap(paged, sparse, ck, cv):
+            if paged:
+                pool = PagePool(layers=cfg.num_layers, num_pages=1 + B * nr,
+                                page=block, kv_heads=cfg.num_kv_heads,
+                                head_dim=cfg.resolved_head_dim,
+                                dtype=torch.float32, device=DEVICE)
+                pt = torch.arange(1, 1 + B * nr, dtype=torch.int32,
+                                  device=DEVICE).reshape(B, nr)
+                cache = {"kv": pool.cache(pt), "ck": ck, "cv": cv}
+            else:
+                cache = dict(bundle.init_cache(B, S, device=DEVICE), ck=ck,
+                             cv=cv)
+            gaps = []
+            for t in range(S):
+                lg, cache = bundle.decode_step(params, cache,
+                                               toks[:, t:t + 1], t,
+                                               spion=dex if sparse else None)
+                gaps.append((lg.float() - fwd[sparse][:, t]).abs().max())
+            return torch.stack(gaps).max().item()
+        out = {f"{'paged' if paged else 'contiguous'} "
+               f"{'sparse' if sparse else 'dense'}": gap(paged, sparse, ck, cv)
+               for paged in (False, True) for sparse in (False, True)}
+        out["planted: cross K/V of the previous layer"] = gap(
+            False, False, ck.roll(1, 0), cv.roll(1, 0))
+        out["planted: encoder positions one off"] = gap(False, False, sck,
+                                                        scv)
+    return out, fwd[False].abs().mean().item()
+
+
+def phase_whisper(before=None):
+    """whisper-tiny at full width and depth (4 encoder and 4 decoder
+    layers, d_model 384, 6 heads of 64), bf16, with a random causal plan of
+    one block mask per decoder layer (block 64 over WHISPER_S positions):
+      - a sparse forward of WHISPER_BATCH x (WHISPER_ENC frames,
+        WHISPER_S tokens) launches the forward kernel once per decoder
+        layer (4); a sparse train step (make_loss_and_grads, remat: each
+        layer recomputed) 8 forward, 4 dQ and 4 dK/dV kernels;
+      - forward(capture=) gives finite pooled maps, SpionController turns
+        them into a plan, and one train step runs on it (8 + 4 + 4);
+      - covering_gate on the decoder's self-attention leaves (those dq
+        and dk feed at WHISPER_QK_GRAD_SLACK) with COVERING_CONTROLS_DECODER;
+      - the three kernels against their plain versions and timed at this
+        shape (N 24, G 1, hd 64, block 64, S 448, causal);
+      - at full depth in fp32, teacher-forced decode within TOL_DECODE of
+        the forward, contiguous and paged, dense and sparse; two planted
+        faults past it (encdec_decode_check);
+      - ServeEngine(slots=4, max_len=512, spion=plan), paged with page 64:
+        four prompts of TEXT_PROMPTS tokens prefilled stepwise (no launch),
+        TEXT_NEW tokens each, equal to a paged=False engine's; its cross
+        K/V at max_len and zero, as the reference engine leaves them.
+    Returns the launches of the sparse forward and train step, the kernel
+    records at this shape and the phase's readings."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.spion import SpionController, SpionState
+    from repro_torch.launch.steps import make_loss_and_grads
+    from repro_torch.models.registry import build
+
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-tiny")
+    L, block = cfg.num_layers, cfg.spion.block_size
+    check(cfg.family == "audio" and cfg.encoder_layers == 4 and L == 4 and
+          cfg.d_model == 384 and cfg.num_heads == cfg.num_kv_heads == 6 and
+          cfg.resolved_head_dim == 64 and cfg.d_ff == 1536 and
+          cfg.vocab_size == 51865 and cfg.remat and
+          cfg.dtype == "bfloat16" and block == 64,
+          "whisper-tiny config changed")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    rng = np.random.default_rng(SEED + 12)
+    t0 = time.perf_counter()
+    params = build(cfg).init(gen, device=DEVICE)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in params.parameters())
+    log(f"whisper-tiny: {cfg.encoder_layers} encoder and {L} decoder "
+        f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+        f"{nparams} parameters (the 65,536-row learned position table "
+        f"included) initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    nrb = WHISPER_S // block
+    col, nvalid, plan = random_plan(rng, L, nrb, block)
+    log(f"whisper plan: {L} decoder layers x {nrb} row-blocks of {block}, "
+        f"K={col.shape[-1]}, density "
+        f"{np.mean(plan.stats['per_layer_density']):.3f}")
+    frames = torch.randn((WHISPER_BATCH, WHISPER_ENC, cfg.d_model),
+                         generator=gen, device=DEVICE)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        size=(WHISPER_BATCH, WHISPER_S + 1)),
+                           device=DEVICE)
+    batch = {"frames": frames, "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    main = sparse_forward_and_step(
+        "whisper-tiny", cfg, params, plan, batch,
+        fwd={"block_sparse_fwd": L, "block_sparse_dq": 0,
+             "block_sparse_dkv": 0},
+        step=sparse_launches(cfg), leaf="dec_layers.attn.wq")
+    masters = main.pop("masters")
+
+    # capture -> flood fill -> plan -> one train step on it
+    ctl = SpionController(cfg.spion, causal=True, seq_len=WHISPER_S)
+    state = SpionState()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        _, aux = build(cfg).forward(
+            params, {"frames": frames, "tokens": batch["tokens"]},
+            capture=ctl.capture_kwargs(state))
+    pooled, frob = (t.float().cpu() for t in aux["captured"])
+    capture_ms = 1e3 * (time.perf_counter() - t0)
+    check(tuple(pooled.shape) == (L, nrb, nrb) and
+          bool(torch.isfinite(pooled).all()) and
+          bool(torch.isfinite(frob).all()) and pooled.sum().item() > 0,
+          f"whisper capture: {tuple(pooled.shape)}, finite "
+          f"{bool(torch.isfinite(pooled).all())}")
+    t0 = time.perf_counter()
+    state = ctl.generate(state, pooled.numpy())
+    fill_ms = 1e3 * (time.perf_counter() - t0)
+    cex = ctl.attention_exec(state, dtype=cfg.dtype).to(DEVICE)
+    reset_launch_counts()
+    loss, grads = make_loss_and_grads(cfg)(masters, batch, cex)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    check(launched == sparse_launches(cfg) and math.isfinite(loss.item())
+          and all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          f"the train step on the captured plan launched {launched}, loss "
+          f"{loss.item()}")
+    log(f"whisper capture -> plan: {L} pooled maps of {nrb} x {nrb} "
+        f"(Frobenius {', '.join(f'{f:.4f}' for f in frob.sqrt())}) in "
+        f"{capture_ms:.1f} ms, flood fill {fill_ms:.1f} ms, density "
+        f"{state.density:.3f}, K={state.tables['col_idx'].shape[-1]}; a "
+        f"train step on it: loss {loss.item():.6f}, launches {launched}")
+    del grads, loss
+
+    covering = covering_gate(
+        "whisper-tiny", cfg, masters, batch, layers=L,
+        leaves=("dec_layers.attn.", "dec_layers.attn_norm."),
+        controls=COVERING_CONTROLS_DECODER, qk_slack=WHISPER_QK_GRAD_SLACK)
+    del masters
+    torch.cuda.empty_cache()
+    kernels = path_kernels(
+        "whisper-tiny", dict(N=WHISPER_BATCH * cfg.num_kv_heads,
+                             G=cfg.num_heads // cfg.num_kv_heads,
+                             S=WHISPER_S, hd=cfg.resolved_head_dim,
+                             block=block),
+        (col[0], nvalid[0]), "decoder layer 0's", SEED + 13, before)
+
+    prompts = stepwise_requests(rng, cfg, TEXT_PROMPTS)
+    runs = {}
+    for name, kw in (("paged", dict(spion=plan)),
+                     ("contiguous", dict(spion=plan, paged=False))):
+        runs[name] = serve_stepwise(cfg, params, prompts, max_len=512,
+                                    max_new=TEXT_NEW, **kw)
+        eng = runs[name].pop("eng")
+        check(not runs[name]["bad"], f"a {name} whisper logit is not finite")
+        cross = eng._extra_cache if eng.paged else eng.cache
+        want = (L, 4, 512, cfg.num_kv_heads, cfg.resolved_head_dim)
+        check(all(tuple(cross[k].shape) == want and not cross[k].any()
+                  for k in ("ck", "cv")),
+              f"the {name} whisper engine's cross K/V are "
+              f"{tuple(cross['ck'].shape)}, not zeros of {want}")
+        if name == "paged":
+            check(eng.paged and eng.page == block and eng._prefill is None
+                  and not eng.share_prefix,
+                  f"the whisper engine: paged {eng.paged}, page {eng.page}, "
+                  f"share_prefix {eng.share_prefix}")
+        del eng
+    same = [a.out == b.out for a, b in zip(runs["paged"]["reqs"],
+                                           runs["contiguous"]["reqs"])]
+    step_tok_ms, decode_ms = log_stepwise_serving(
+        "whisper-tiny, sparse, paged (cross K/V zero, as the reference "
+        "engine serves it)", runs["paged"], ("the contiguous",
+                                             runs["contiguous"]), same)
+    check(all(same), "the paged whisper engine's tokens differ from the "
+          "contiguous engine's")
+    del params, runs
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = build(cfg32).init(torch.Generator(device=DEVICE)
+                            .manual_seed(SEED + 14), device=DEVICE)
+    gaps, mean_logit = encdec_decode_check(cfg32, p32, col, nvalid,
+                                           SEED + 14)
+    sound = {k: v for k, v in gaps.items() if not k.startswith("planted")}
+    planted = {k: v for k, v in gaps.items() if k.startswith("planted")}
+    log(f"whisper decode vs forward (fp32, full depth, 2 x "
+        f"{WHISPER_DECODE_S} tokens over {WHISPER_ENC} frames; card "
+        f"{card_line()}): max |logit gap| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+        + f"; limit {TOL_DECODE}; mean |logit| {mean_logit:.4e}")
+    check(all(math.isfinite(v) and v <= TOL_DECODE for v in sound.values()),
+          f"whisper decode logits differ from the forward: {sound}")
+    check(all(v > TOL_DECODE for v in planted.values()),
+          f"TOL_DECODE passes a planted whisper decode fault: {planted}")
+    del p32
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"whisper: the phase took {seconds:.1f} s")
+    return dict(launches={k: main["fwd_launches"][k]
+                          + main["step_launches"][k] for k in KERNELS},
+                kernels=kernels, fwd_ms=main["fwd_ms"],
+                train_ms=main["train_ms"], peak_gb=main["peak_gb"],
+                step_ms=step_tok_ms, decode_ms=decode_ms,
+                gap32=max(sound.values()), planted=min(planted.values()),
+                covering=covering, seconds=seconds)
+
+
+def phase_internvl2(before=None):
+    """internvl2-2b at full width and depth (24 layers, d_model 2048, 16
+    query heads over 8 KV heads of 128, 256 patch tokens), bf16, with a
+    random causal plan per layer (block 64 over INTERNVL_S positions):
+      - a sparse forward of INTERNVL_BATCH x (256 patch embeddings + 1792
+        text tokens) launches the forward kernel 24 times; a sparse train
+        step (remat) 48 forward, 24 dQ and 24 dK/dV kernels; its peak
+        memory printed;
+      - the loss equals cross-entropy over the text logits taken apart
+        (TOL_LOSS_SPLIT);
+      - covering_gate on the attention leaves, as in phase_whisper but
+        with INTERNVL2_QK_GRAD_SLACK for those dq and dk feed;
+      - the three kernels against their plain versions and timed at this
+        shape (N 16, G 2, hd 128, block 64, S 2048, causal);
+      - ServeEngine(slots=4, max_len=2048, spion=plan): four text prompts
+        of TEXT_PROMPTS tokens prefilled stepwise (no launch; the engine
+        serves text only, as the reference's), TEXT_NEW tokens each; the
+        paged engine's tokens equal the contiguous one's;
+      - at 2 layers in fp32, teacher-forced decode of 256 text tokens
+        within TOL_DECODE of the sparse forward."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.attention_exec import SparseAttentionExec
+    from repro_torch.models.registry import build, cross_entropy
+
+    t_phase = time.perf_counter()
+    cfg = get_config("internvl2-2b")
+    L, block, P = cfg.num_layers, cfg.spion.block_size, cfg.num_patch_tokens
+    check(cfg.family == "vlm" and L == 24 and cfg.d_model == 2048 and
+          cfg.num_heads == 16 and cfg.num_kv_heads == 8 and
+          cfg.resolved_head_dim == 128 and cfg.d_ff == 8192 and
+          cfg.vocab_size == 92553 and P == 256 and not cfg.tie_embeddings
+          and cfg.remat and cfg.dtype == "bfloat16" and block == 64,
+          "internvl2-2b config changed")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+    rng = np.random.default_rng(SEED + 15)
+    t0 = time.perf_counter()
+    bundle = build(cfg)
+    params = bundle.init(gen, device=DEVICE)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"internvl2-2b: {L} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} query heads over {cfg.num_kv_heads} KV heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{P} patch tokens: {nparams} parameters ({nbytes / 1e9:.2f} GB) "
+        f"initialised on the card in {time.perf_counter() - t0:.1f} s")
+    nrb = INTERNVL_S // block
+    col, nvalid, plan = random_plan(rng, L, nrb, block)
+    log(f"internvl2 plan: {L} layers x {nrb} row-blocks of {block}, "
+        f"K={col.shape[-1]}, density "
+        f"{np.mean(plan.stats['per_layer_density']):.3f}")
+    T = INTERNVL_S - P
+    patches = torch.randn((INTERNVL_BATCH, P, cfg.d_model), generator=gen,
+                          device=DEVICE)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        size=(INTERNVL_BATCH, T + 1)),
+                           device=DEVICE)
+    batch = {"patch_embeds": patches, "tokens": toks[:, :-1],
+             "labels": toks[:, 1:]}
+
+    main = sparse_forward_and_step(
+        "internvl2-2b", cfg, params, plan, batch,
+        fwd={"block_sparse_fwd": L, "block_sparse_dq": 0,
+             "block_sparse_dkv": 0},
+        step=sparse_launches(cfg), leaf="layers.attn.wq")
+    masters = main.pop("masters")
+
+    ex = SparseAttentionExec.from_plan(plan, phase="prefill",
+                                       dtype=cfg.dtype).to(DEVICE)
+    with torch.inference_mode():
+        logits, _ = bundle.forward(params, batch, spion=ex)
+        apart = cross_entropy(logits[:, P:], batch["labels"]).item()
+        loss = bundle.loss(params, batch, spion=ex)[0].item()
+    split_gap = abs(loss - apart) / abs(apart)
+    log(f"internvl2 loss over the text: {loss:.6f}; cross-entropy over "
+        f"logits[:, {P}:] of the {tuple(logits.shape)} logits "
+        f"{apart:.6f}; relative gap {split_gap:.3e} (limit "
+        f"{TOL_LOSS_SPLIT})")
+    check(tuple(logits.shape) == (INTERNVL_BATCH, INTERNVL_S, cfg.vocab_size)
+          and split_gap <= TOL_LOSS_SPLIT,
+          f"internvl2's loss {loss} is not cross-entropy over the text "
+          f"logits ({apart})")
+    del logits
+
+    covering = covering_gate(
+        "internvl2-2b", cfg, masters, batch, layers=L,
+        leaves=("layers.attn.", "layers.attn_norm."),
+        controls=COVERING_CONTROLS_DECODER, qk_slack=INTERNVL2_QK_GRAD_SLACK)
+    del masters
+    torch.cuda.empty_cache()
+    kernels = path_kernels(
+        "internvl2-2b", dict(N=INTERNVL_BATCH * cfg.num_kv_heads,
+                             G=cfg.num_heads // cfg.num_kv_heads,
+                             S=INTERNVL_S, hd=cfg.resolved_head_dim,
+                             block=block),
+        (col[0], nvalid[0]), "layer 0's", SEED + 16, before)
+
+    prompts = stepwise_requests(rng, cfg, TEXT_PROMPTS)
+    runs = {}
+    for name, kw in (("paged", dict(spion=plan)),
+                     ("contiguous", dict(spion=plan, paged=False))):
+        runs[name] = serve_stepwise(cfg, params, prompts, max_new=TEXT_NEW,
+                                    **kw)
+        eng = runs[name].pop("eng")
+        check(not runs[name]["bad"], f"a {name} internvl2 logit is not "
+              f"finite")
+        if name == "paged":
+            check(eng.paged and eng.page == block and eng._prefill is None
+                  and not eng.share_prefix and eng._extra_cache == {},
+                  f"the internvl2 engine: paged {eng.paged}, page "
+                  f"{eng.page}, share_prefix {eng.share_prefix}, extra "
+                  f"state {list(eng._extra_cache)}")
+        del eng
+    same = [a.out == b.out for a, b in zip(runs["paged"]["reqs"],
+                                           runs["contiguous"]["reqs"])]
+    step_tok_ms, decode_ms = log_stepwise_serving(
+        "internvl2-2b, text only, sparse, paged", runs["paged"],
+        ("the contiguous", runs["contiguous"]), same)
+    check(all(same), "the paged internvl2 engine's tokens differ from the "
+          "contiguous engine's")
+    del params, runs, bundle
+    torch.cuda.empty_cache()
+
+    cfg2 = cfg.replace(num_layers=2, dtype="float32")
+    p2 = build(cfg2).init(torch.Generator(device=DEVICE)
+                          .manual_seed(SEED + 17), device=DEVICE)
+    nr = DECODE_S // block
+    tabs = dict(col_idx=col[:2, :nr], nvalid=nvalid[:2, :nr], block=block)
+    gaps, mean_logit = decode_against_forward(cfg2, p2, tabs, SEED + 17)
+    log(f"internvl2 decode vs forward (fp32, 2 layers, {DECODE_S} text "
+        f"tokens, sparse; card {card_line()}): max |logit gap| "
+        f"{gaps.max():.3e} (step {int(gaps.argmax())}), mean over steps "
+        f"{gaps.mean():.3e}; limit {TOL_DECODE}; mean |logit| "
+        f"{mean_logit:.4e}")
+    check(math.isfinite(float(gaps.max())) and gaps.max() <= TOL_DECODE,
+          f"internvl2 decode logits differ from the forward by {gaps.max()}")
+    del p2
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"internvl2: the phase took {seconds:.1f} s")
+    return dict(launches={k: main["fwd_launches"][k]
+                          + main["step_launches"][k] for k in KERNELS},
+                kernels=kernels, fwd_ms=main["fwd_ms"],
+                train_ms=main["train_ms"], peak_gb=main["peak_gb"],
+                step_ms=step_tok_ms, decode_ms=decode_ms,
+                gap32=float(gaps.max()), covering=covering, seconds=seconds)
+
+
+def phase_dense_shapes(before=None):
+    """The forward kernel at the attention shapes of the three other dense
+    configs (DENSE_SHAPES: one sequence of 8 KV heads, S 2048, hd 128,
+    block 128, causal, random tables): against its plain version in fp32
+    and bf16 (phase 3's gates), then timed (bf16) beside its bound and
+    SDPA. Their model path is qwen2-7b's (phase 4). Returns {arch:
+    record}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+    rng = np.random.default_rng(SEED + 18)
+    out = {}
+    for arch, G in DENSE_SHAPES:
+        cfg = get_config(arch)
+        shape = dict(N=cfg.num_kv_heads, G=G, S=DENSE_S,
+                     hd=cfg.resolved_head_dim, block=cfg.spion.block_size)
+        check(cfg.num_heads // cfg.num_kv_heads == G and
+              cfg.num_kv_heads == 8 and shape["hd"] == 128 and
+              shape["block"] == 128, f"{arch} config changed")
+        nrb = shape["S"] // shape["block"]
+        tables = random_tables(rng, nrb, nrb, causal=True, pad=0)
+        err = {}
+        for dtype in ("float32", "bfloat16"):
+            err[dtype], tol, share, typical, lerr, inputs = compare_kernel(
+                dict(dtype=dtype, causal=True, **shape), gen, None,
+                tables=tables)
+            log(f"kernel at {arch}'s shape {shape} {dtype} causal "
+                f"({int(tables[1].sum())} listed tiles): |o - plain| = "
+                f"{err[dtype]:.3e} (that element's limit {tol:.3e}; no "
+                f"element past {share:.3f} of its limit; mean |o| "
+                f"{typical:.3e}); |lse - plain| {lerr:.3e}")
+        t = kernel_timing(inputs, f"{arch}'s shape", before)
+        out[arch] = dict(
+            shape=dict(shape, causal=True), max_abs_err=err["bfloat16"],
+            max_abs_err_fp32=err["float32"],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "before_ms") if k in t})
+        del inputs
+    return out
 
 
 # -- training ------------------------------------------------------------------
@@ -3296,6 +3878,9 @@ def main(argv):
             mixtral = out
     zamba = phase_zamba2(before)
     rwkv = phase_rwkv6()
+    whisper = phase_whisper(before)
+    internvl = phase_internvl2(before)
+    dense_shapes = phase_dense_shapes(before)
     train = phase_train()
     train_err, train_timing = phase_train_path_kernels(train, gen, before)
     phase_covering_step(train)
@@ -3307,26 +3892,33 @@ def main(argv):
     respawn = phase_respawn(train, resume)
 
     fwd = {"launches": serve["launches"] + shared["launches"]
-           + mixtral["launches"] + zamba["launches"]["block_sparse_fwd"]
-           + train["launches"]["block_sparse_fwd"],
+           + mixtral["launches"]
+           + sum(run["launches"]["block_sparse_fwd"]
+                 for run in (zamba, whisper, internvl, train)),
            "launches_serve": serve["launches"],
            "launches_serve_shared": shared["launches"],
            "launches_mixtral": mixtral["launches"],
            "launches_zamba2": zamba["launches"]["block_sparse_fwd"],
+           "launches_whisper": whisper["launches"]["block_sparse_fwd"],
+           "launches_internvl2": internvl["launches"]["block_sparse_fwd"],
            "launches_train": train["launches"]["block_sparse_fwd"],
            "max_abs_err": err, "tol": tol,
            "train_shape": dict(train_timing.pop("block_sparse_fwd"),
                                max_abs_err=train_err["bfloat16"]["o"]),
            "mixtral_shape": mixtral["kernel"],
+           **{f"{arch.replace('-', '_').replace('.', '_')}_shape": rec
+              for arch, rec in dense_shapes.items()},
            **timing}
     rows = {"block_sparse_fwd": fwd}
     tuned = tuned_record(autotuned)
     for name, grads in (("block_sparse_dq", ("dq",)),
                         ("block_sparse_dkv", ("dk", "dv"))):
         t = train_timing[name]
-        rows[name] = {"launches": train["launches"][name]
-                      + zamba["launches"][name],
+        rows[name] = {"launches": sum(run["launches"][name] for run in
+                                      (train, zamba, whisper, internvl)),
                       "launches_zamba2": zamba["launches"][name],
+                      "launches_whisper": whisper["launches"][name],
+                      "launches_internvl2": internvl["launches"][name],
                       "launches_train": train["launches"][name],
                       "max_abs_err": max(train_err["bfloat16"][g]
                                          for g in grads),
@@ -3335,6 +3927,8 @@ def main(argv):
                                            "before_ms") if k in t}}
     for name, row in rows.items():
         row["zamba2_shape"] = zamba["kernels"][name]
+        row["whisper_shape"] = whisper["kernels"][name]
+        row["internvl2_shape"] = internvl["kernels"][name]
         row["tuned"] = tuned[name]
         for path, run in (("resume", resume), ("rollback", rollback),
                           ("respawn", respawn)):
@@ -3360,7 +3954,19 @@ def main(argv):
         f"{zamba['gap32']:.3e}, phase {zamba['seconds']:.1f} s; rwkv6 "
         f"stepwise_ms_per_token {rwkv['step_ms']:.3f}, decode_ms_per_tick "
         f"median {rwkv['decode_ms']:.3f}, fp32 decode gap "
-        f"{rwkv['gap32']:.3e}, phase {rwkv['seconds']:.1f} s; train "
+        f"{rwkv['gap32']:.3e}, phase {rwkv['seconds']:.1f} s; "
+        + "; ".join(
+            f"{label} sparse forward {run['fwd_ms']:.2f} ms, train step "
+            f"{run['train_ms']:.2f} ms (peak {run['peak_gb']:.2f} GB), "
+            f"stepwise_ms_per_token {run['step_ms']:.3f}, decode_ms_per_tick "
+            f"median {run['decode_ms']:.3f}, fp32 decode gap "
+            f"{run['gap32']:.3e}, covering logits "
+            f"{run['covering']['logits_max']:.4f}x by max, worst leaf "
+            f"{run['covering']['worst_leaf']:.4f}x, phase "
+            f"{run['seconds']:.1f} s"
+            for label, run in (("whisper", whisper), ("internvl2", internvl)))
+        + f"; whisper planted decode faults from "
+        f"{whisper['planted']:.3e}; train "
         f"dense_step_ms median {train['dense_ms']:.3f}, sparse_step_ms median "
         f"{train['sparse_ms']:.3f}")
     card = card_line()

@@ -1,7 +1,6 @@
-"""Architecture registry. Importing this package registers the configs the
-port runs so far (qwen2-7b, mixtral-8x7b, arctic-480b, zamba2-1.2b and
-rwkv6-7b for serving, spion-lra for training); the other architectures
-arrive with their families."""
+"""Architecture registry. Importing this package registers every
+architecture of the JAX package (one module per architecture, plus the
+paper's own spion-lra)."""
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     ModelConfig,
@@ -16,9 +15,16 @@ from repro_torch.configs.base import (  # noqa: F401
 
 from repro_torch.configs import (  # noqa: F401,E402
     arctic_480b,
+    command_r_35b,
+    internvl2_2b,
+    mistral_large_123b,
     mixtral_8x7b,
+    qwen2_5_14b,
     qwen2_7b,
     rwkv6_7b,
     spion_lra,
+    whisper_tiny,
     zamba2_1_2b,
 )
+
+ARCH_IDS = sorted(all_configs().keys())

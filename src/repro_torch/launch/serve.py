@@ -42,14 +42,19 @@ blocks the query position's pattern row lists. With paging the page size
 equals the plan block, so that gather is pure page indirection. The plan
 must cover the positions the engine will ever decode.
 
-Families without a fused prefill (bundle.prefill_kv is None: hybrid and
-ssm) prefill stepwise from position 0: a FRESH B=1 recurrent state (and,
-contiguous, a fresh B=1 cache) is teacher-forced through the prompt one
-token at a time and then written into the slot, so no stale state of an
-earlier request leaks in. The hybrid family's conv/ssm states live beside
-the page pool (`_extra_cache`); its pool's layer axis is the shared
-attention block's application. The ssm family (rwkv) has no KV cache: the
-engine refuses `spion=` and `paged=True` for it before allocating anything.
+Families without a fused prefill (bundle.prefill_kv is None: hybrid, ssm
+and audio / encdec) and the vlm family (patch tokens) prefill stepwise
+from position 0: a FRESH B=1 recurrent state (and, contiguous, a fresh B=1
+cache) is teacher-forced through the prompt one token at a time and then
+written into the slot, so no stale state of an earlier request leaks in.
+The per-slot state a family keeps beside its K/V lives beside the page
+pool (`_extra_cache`): the hybrid family's conv/ssm states (its pool's
+layer axis is the shared attention block's application) and the encdec
+family's cross K/V at max_len. As in the JAX package, the engine never
+fills the cross K/V (they stay zero: the engine serves the decoder without
+audio) and serves the vlm family's text only. The ssm family (rwkv) has no
+KV cache: the engine refuses `spion=` and `paged=True` for it before
+allocating anything.
 
 The JAX package hands the pool back from each donated step (`_absorb`);
 here steps write the pool and caches in place.
@@ -110,8 +115,9 @@ class ServeEngine:
     never read. Sparse plans prefill at the same bucketed length — the
     stacked row tables slice to the prompt's row-blocks
     (_sparse_prefill_exec), so admission stays O(prompt), not O(coverage).
-    Families without a fused prefill (hybrid, ssm) prefill stepwise, one
-    request at a time from a fresh state (module docstring).
+    Families without a fused prefill (hybrid, ssm, encdec) and the vlm
+    family prefill stepwise, one request at a time from a fresh state
+    (module docstring).
     """
 
     def __init__(self, cfg, params, *, slots=4, max_len=512, spion=None,
@@ -231,9 +237,15 @@ class ServeEngine:
         return torch.as_tensor(np.asarray(a)).to(self.device)
 
     def _recurrent_state(self, batch):
-        """A zero recurrent state of `batch` rows: the family's cache with
-        its K/V part at length 0, whatever else it holds."""
-        base = self.bundle.init_cache(batch, 0, device=self.device)
+        """The zero per-slot state of `batch` rows that a family keeps
+        beside its K/V: the family's cache without "k" and "v" (hybrid:
+        conv, ssm; encdec: the cross K/V "ck", "cv" at max_len, as in the
+        JAX package; {} for pure-KV families). The K/V are built at length
+        0, so no contiguous slots x max_len cache is allocated beside the
+        page pool."""
+        kw = ({"enc_len": self.max_len}
+              if self.cfg.family in ("audio", "encdec") else {})
+        base = self.bundle.init_cache(batch, 0, device=self.device, **kw)
         return {k: v for k, v in base.items() if k not in ("k", "v")}
 
     # -- request lifecycle ----------------------------------------------------
@@ -578,9 +590,10 @@ class ServeEngine:
             first, ks, vs = self._prefill_tokens(r)
             self._insert_fn(self.cache, ks, vs, s, len(r.prompt))
             return first
-        # stepwise fallback (recurrent states): teacher-force the prompt
-        # through a FRESH B=1 cache — per request, so no other slot is
-        # touched and no stale state leaks in — then write the slot
+        # stepwise fallback (recurrent states, cross K/V, patch tokens):
+        # teacher-force the prompt through a FRESH B=1 cache — per request,
+        # so no other slot is touched and no stale state leaks in — then
+        # write the slot
         sub = self.bundle.init_cache(1, self.max_len, device=self.device)
         return self._teacher_force(r, 0, sub, sub, self.cache, s)
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -143,6 +144,17 @@ def unembed(p, x):
 
 
 # -- positions ---------------------------------------------------------------
+
+def sinusoidal_positions(length, d, device="cpu"):
+    """(length, d) fp32 table: sin over the first d/2 columns, cos over the
+    rest. Computed in numpy float64 and cast to float32 once, as the JAX
+    package does, so the two tables are bitwise equal."""
+    pos = np.arange(length)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos * (1.0 / (10_000 ** (2 * dim / d)))
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(table.astype(np.float32)).to(device)
+
 
 def rope(x, positions, theta):
     """x: (..., seq, heads, head_dim). positions: (..., seq)."""

@@ -1,6 +1,6 @@
-"""Uniform model API over the families ported so far (dense, moe and
-encoder through models/transformer, ssm through models/rwkv, hybrid
-through models/hybrid).
+"""Uniform model API over every family: dense, moe, vlm and encoder
+through models/transformer, ssm through models/rwkv, hybrid through
+models/hybrid, audio / encdec through models/encdec.
 
 build(cfg) -> ModelBundle with:
     init(generator=None, *, device=None) -> params (a ParamTree)
@@ -9,8 +9,8 @@ build(cfg) -> ModelBundle with:
     init_cache(batch_size, max_len, *, device=None) -> cache
     decode_step(params, cache, tokens, pos, *, spion=None) -> (logits, cache)
     prefill_kv(params, batch, *, spion=None) -> (logits, ks, vs) — the fused
-        serving prefill; None for families without a plain KV cache (ssm,
-        hybrid), which the serving engine prefills stepwise
+        serving prefill; None for the families without one (ssm, hybrid,
+        audio / encdec), which the serving engine prefills stepwise
     supports_sparse_decode, supports_paged_cache — capability flags, False
         for the ssm family (recurrent state, no attention KV cache), checked
         where steps and engines are built
@@ -24,10 +24,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, rwkv, transformer
-
-# where each family waits in ROADMAP.md queue A
-_PENDING = {"vlm": "A11b", "audio": "A11b", "encdec": "A11b"}
+from repro_torch.models import encdec, hybrid, rwkv, transformer
 
 MOE_LB_WEIGHT = 0.01
 MOE_Z_WEIGHT = 1e-3
@@ -49,16 +46,15 @@ class ModelBundle(NamedTuple):
 
 
 def _family_module(cfg: ModelConfig):
-    if cfg.family in ("dense", "moe", "encoder"):
+    if cfg.family in ("dense", "moe", "vlm", "encoder"):
         return transformer
     if cfg.family == "ssm":
         return rwkv
     if cfg.family == "hybrid":
         return hybrid
-    item = _PENDING.get(cfg.family, "A11b")
-    raise NotImplementedError(
-        f"family {cfg.family!r} (arch {cfg.name!r}) is not ported yet; "
-        f"it waits in ROADMAP.md item {item}")
+    if cfg.family in ("audio", "encdec"):
+        return encdec
+    raise ValueError(cfg.family)
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -86,6 +82,9 @@ def build(cfg: ModelConfig) -> ModelBundle:
 
     def loss(params, batch, *, spion=None, capture=None):
         logits, aux = forward(params, batch, spion=spion, capture=capture)
+        if cfg.num_patch_tokens and "patch_embeds" in batch:
+            # vlm: logits cover [patch, text]; the loss is over text only
+            logits = logits[:, cfg.num_patch_tokens:]
         l = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
         if cfg.moe is not None and "lb_loss" in aux:
             l = l + MOE_LB_WEIGHT * aux["lb_loss"] + \

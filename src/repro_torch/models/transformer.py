@@ -1,6 +1,8 @@
-"""Transformer with a loop over stacked layers: the decoder LM (the dense
-and moe families: qwen2-7b, mixtral-8x7b, arctic-480b) and the encoder
-(spion-lra: LayerNorm, relu MLP, learned positions, non-causal).
+"""Transformer with a loop over stacked layers: the decoder LM (the dense,
+moe and vlm families: qwen2-7b, qwen2.5-14b, command-r-35b,
+mistral-large-123b, mixtral-8x7b, arctic-480b, internvl2-2b, whose
+precomputed patch embeddings precede the text) and the encoder (spion-lra:
+LayerNorm, relu MLP, learned positions, non-causal).
 
 SPION hooks: `spion` (per-layer BCSR tables or a SparseAttentionExec)
 switches self-attention to the block-sparse path; `capture` streams pooled
@@ -102,6 +104,9 @@ def _block_h(cfg, lp, positions, ex, sp, h):
 
 def _embed_inputs(cfg, params, batch, dtype):
     h = Lyr.embed(params["tok_embed"], batch["tokens"], dtype)
+    if cfg.num_patch_tokens and "patch_embeds" in batch:
+        # vlm: the frontend's patch embeddings precede the text
+        h = torch.cat([batch["patch_embeds"].to(dtype), h], dim=1)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
     if not cfg.rope_theta and "pos_embed" in params:
@@ -111,7 +116,8 @@ def _embed_inputs(cfg, params, batch, dtype):
 
 def forward(params, cfg, batch, *, spion=None, capture=None,
             collect_kv=False):
-    """batch: {'tokens': (B,S)} -> (logits (B,S,V), aux).
+    """batch: {'tokens': (B,S') [, 'patch_embeds': (B,P,d)]} -> (logits
+    (B,S,V), aux), S = P + S' with patches.
 
     spion: None | SparseAttentionExec | tables dict payload.
     capture: None | {'filt': (F,), 'block': int} -> aux["captured"] is

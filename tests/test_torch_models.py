@@ -1,8 +1,10 @@
-"""Port parity, models: configs, parameter conversion, the layers, the dense
-transformer's forward and fused prefill (dense and sparse), and its decode
-step over contiguous and paged caches (dense and sparse), each against the
-JAX package with the same parameters (the JAX init, converted by
-`params_from_numpy`) and the same numpy tokens. fp32 first, then bf16."""
+"""Port parity, models: configs (every architecture of the reference's
+registry), parameter conversion, the layers, the dense transformer's
+forward and fused prefill (dense and sparse), and its decode step over
+contiguous and paged caches (dense and sparse), each against the JAX
+package with the same parameters (the JAX init, converted by
+`params_from_numpy`) and the same numpy tokens, for reduced qwen2-7b and
+the three other dense configs. fp32 first, then bf16."""
 import dataclasses
 
 import jax
@@ -29,7 +31,7 @@ LOGIT_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
 
 
 def test_full_config_and_band_tables_match_reference():
-    for name in ("qwen2-7b",):
+    for name in jcfgs.ARCH_IDS:
         assert dataclasses.asdict(tcfgs.get_config(name)) == \
             dataclasses.asdict(jcfgs.get_config(name))
     for width in (None, 2):
@@ -55,11 +57,61 @@ def test_converted_params_are_the_reference_leaves(dtype):
         {k: (tuple(v.shape), v.dtype) for k, v in got.items()}
 
 
-def test_other_families_are_refused():
-    for family in ("vlm", "encdec", "audio"):
-        cfg = tcfgs.get_config("qwen2-7b").replace(family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item A11b"):
-            tbuild(cfg)
+NEW_ARCHS = ("qwen2.5-14b", "command-r-35b", "mistral-large-123b",
+             "internvl2-2b", "whisper-tiny")
+DENSE_ARCHS = NEW_ARCHS[:3]
+
+
+def test_arch_ids_are_the_references():
+    assert tcfgs.ARCH_IDS == jcfgs.ARCH_IDS
+    assert set(NEW_ARCHS) <= set(tcfgs.ARCH_IDS)
+
+
+@pytest.mark.parametrize("arch", jcfgs.ARCH_IDS)
+def test_every_arch_builds(arch):
+    """Every architecture of the reference's registry builds a model
+    bundle whose reduced init runs (no family is refused)."""
+    tc = tcfgs.get_config(arch)
+    bundle = tbuild(tc.reduced())
+    assert bundle.supports_paged_cache == (tc.family != "ssm")
+    p = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    assert sum(t.numel() for t in p.parameters()) > 0
+
+
+def arch_pair(arch, dtype="float32"):
+    """(JAX cfg, port cfg) of reduced `arch` with 2 KV heads (GQA, G = 2):
+    reduced() alone keeps num_kv_heads = num_heads = 4."""
+    jc = jcfgs.get_config(arch).reduced().replace(num_kv_heads=2, dtype=dtype)
+    tc = tcfgs.get_config(arch).reduced().replace(num_kv_heads=2, dtype=dtype)
+    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+    return jc, tc
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_converted_params_of_each_new_arch_are_the_reference_leaves(arch):
+    """The identity holds for the encdec tree, untied heads (internvl2,
+    qwen2.5, mistral) and tied ones (command-r: no lm_head), qkv biases
+    (qwen2.5); the port's own init has the same keys, shapes and dtypes."""
+    jc, tc = arch_pair(arch, "bfloat16")
+    jp, tp = params(jc, tc)
+    flat = jax.tree_util.tree_flatten_with_path(jp)[0]
+    want = {".".join(k.key for k in path): leaf for path, leaf in flat}
+    got = dict(tp.named_parameters())
+    assert set(got) == set(want)
+    assert ("lm_head.w" in got) == (not tc.tie_embeddings and
+                                    tc.family != "audio")
+    assert ("layers.attn.bq" in got) == tc.qkv_bias
+    if tc.family == "audio":
+        assert {"enc_norm.bias", "pos_embed.w", "dec_layers.cross.wq",
+                "dec_layers.cross_norm.scale",
+                "enc_layers.mlp.w_in"} <= set(got)
+    for name, leaf in want.items():
+        assert got[name].dtype == getattr(torch, str(leaf.dtype)), name
+        np.testing.assert_array_equal(to_np(got[name]), to_np(leaf), name)
+    mine = dict(tbuild(tc).init(torch.Generator().manual_seed(0),
+                                device="cpu").named_parameters())
+    assert {k: (tuple(v.shape), v.dtype) for k, v in mine.items()} == \
+        {k: (tuple(v.shape), v.dtype) for k, v in got.items()}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -101,7 +153,19 @@ def test_forward_and_prefill_match_reference(dtype, sparse):
     The port's "fused" runs the kernel's plain version on CPU tensors; the
     reference runs its gather path (the same function on -1-padded
     tables)."""
-    jc, tc = configs(dtype)
+    check_forward_and_prefill(*configs(dtype), dtype, sparse)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sparse", [None, "fused"])
+def test_dense_archs_forward_and_prefill_match_reference(arch, dtype, sparse):
+    """The same for reduced qwen2.5-14b (qkv bias), command-r-35b (tied
+    embeddings) and mistral-large-123b (explicit head_dim), G = 2."""
+    check_forward_and_prefill(*arch_pair(arch, dtype), dtype, sparse)
+
+
+def check_forward_and_prefill(jc, tc, dtype, sparse):
     jp, tp = params(jc, tc)
     rng = np.random.default_rng(3)
     toks = rng.integers(0, jc.vocab_size, size=(2, 64))
@@ -129,7 +193,19 @@ def test_decode_step_matches_reference(dtype, paged, sparse):
     """Three decode steps at per-row positions after a prefill, over a
     contiguous cache or a paged pool; logits each step and the final
     cache."""
-    jc, tc = configs(dtype)
+    check_decode_step(*configs(dtype), dtype, paged, sparse)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("sparse", [False, True])
+def test_dense_archs_decode_step_matches_reference(arch, paged, sparse):
+    """The same for reduced qwen2.5-14b, command-r-35b and
+    mistral-large-123b, fp32."""
+    check_decode_step(*arch_pair(arch), "float32", paged, sparse)
+
+
+def check_decode_step(jc, tc, dtype, paged, sparse):
     jp, tp = params(jc, tc)
     jb, tb = jbuild(jc), tbuild(tc)
     rng = np.random.default_rng(4)

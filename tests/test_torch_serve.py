@@ -232,6 +232,34 @@ def test_engine_paged_default_reads_the_registry():
     assert ServeEngine(tc, params(_jc, tc)[1], device="cpu").paged
 
 
+@pytest.mark.parametrize("arch", ["qwen2-7b", "internvl2-2b",
+                                  "zamba2-1.2b", "whisper-tiny"])
+def test_paged_extra_state_allocates_no_kv(arch):
+    """A paged engine's per-slot extra state builds no contiguous K/V beside
+    the page pool: every "k"/"v" the family's init_cache returns for it is
+    empty. Pure-KV families build nothing at all; hybrid builds conv/ssm;
+    encdec builds only the cross K/V, at max_len."""
+    _jc, tc, _jp, tp = _family(arch)
+    eng = ServeEngine(tc, tp, slots=4, max_len=MAX_LEN, device="cpu")
+    assert eng.paged
+    built, init = {}, eng.bundle.init_cache
+
+    def spy(*a, **kw):
+        out = init(*a, **kw)
+        built.update(out)
+        return out
+    eng.bundle = eng.bundle._replace(init_cache=spy)
+    state = eng._recurrent_state(4)
+    assert built["k"].numel() == built["v"].numel() == 0
+    want = {"dense": set(), "vlm": set(), "hybrid": {"conv", "ssm"},
+            "audio": {"ck", "cv"}}[tc.family]
+    assert set(state) == want
+    assert sum(t.numel() for t in built.values()) == \
+        sum(t.numel() for t in state.values())
+    for k in want & {"ck", "cv"}:
+        assert state[k].shape[:3] == (tc.num_layers, 4, MAX_LEN)
+
+
 def test_hybrid_pool_layers_are_the_applications():
     """The hybrid pool's layer axis is the shared block's application
     (n_attn_apps), not the layer: 4 layers, the block every 2nd -> 2."""
