@@ -153,13 +153,40 @@ Phases (each one fails the run; nothing falls back to the CPU):
      sparse phase to bitwise the state generation 0 saved at step 14 and
      finishes, the stitched losses equal phase 5's within TOL_RESUME, the
      heartbeat payload reads back. Save, restore, respawn and rollback
-     seconds are printed beside the card's name and power limit.
+     seconds are printed beside the card's name and power limit;
+ 12. multi-process, ranks of this script sharing the one card over gloo
+     (the parent frees its cached memory first; a failure of any rank
+     fails the run):
+     12a. four ranks (`--seq-worker DIR`) run kernels/sharded.py's
+     sequence-parallel op on 2 and on 4 of them, in fp32 and bf16, at
+     spion-lra's attention (128 x 4 rows, hd 16, block 64, S 2048,
+     non-causal) and qwen2-7b's (KV 4, G 7, hd 128, block 128, causal, S
+     8192), on dry-run plans banded to the shards' halo, in the plan form
+     and the plan-less form: o, lse and dq bitwise the unsharded kernels'
+     on the same card, dk and dv within grad_limit; the halo exchange's
+     time, the kernels' and the op's, per rank (bf16, plan form);
+     12b. spion-lra at ListOps size through phase 5's 20 steps as a
+     data-parallel job of 2 ranks (`--dp-worker DIR`, 64 sequences a
+     rank): 8 + 4 + 4 launches a sparse step on every rank, plan digests
+     and masters equal across the ranks, the dense losses within TOL_DP
+     of phase 5's; two planted faults (a rank that skips its gradient
+     all-reduce: the masters split; both ranks on the same half batch:
+     the losses miss TOL_DP); whether the plan equals phase 5's, step
+     times and peak memory per rank;
+     12c. FleetSupervisor(nproc=2) from 12b's sparse checkpoint, rank 1
+     SIGKILLed: one respawn, generation 1 resumes from process 0's
+     checkpoint, stitched losses within TOL_RESUME of 12b's; and, run by
+     12b's ranks after their training (no spawn of its own), one SIGTERM
+     on rank 1 makes both ranks save at the same step.
 The line before the last is the kernels' JSON record (launches_serve,
 launches_serve_shared, launches_mixtral, launches_zamba2,
 launches_whisper, launches_internvl2, launches_train, launches_resume,
-launches_rollback and launches_respawn count each kernel's launches in
-phases 4, 4a, 4b, 4c, 4e, 4f (their sparse forward and train step), 5 and
-9-11, each read from zero; the forward's mixtral_shape holds its check
+launches_rollback, launches_respawn, launches_dp (both ranks of 12b) and
+launches_fleet (both ranks of 12c's generation 1) count each kernel's
+launches in phases 4, 4a, 4b, 4c, 4e, 4f (their sparse forward and train
+step), 5, 9-11 and 12, each read from zero; `seq_parallel` holds phase
+12a's worst differences and per-rank times; the forward's mixtral_shape
+holds its check
 and timing at phase 4b's shape and its qwen2_5_14b_shape,
 command_r_35b_shape and mistral_large_123b_shape at phase 4g's, and every
 kernel's zamba2_shape, whisper_shape and internvl2_shape its check and
@@ -3793,7 +3820,709 @@ def phase_respawn(train, resume):
                 gap=gap)
 
 
+# -- multi-process (phase 12) ------------------------------------------------------
+
+# 12a: the sequence-parallel op at two attention shapes, the dry-run plans
+# banded to `max_extent` blocks so that the halo fits the shards of 4 ranks
+SEQ_SHAPES = {
+    "spion_lra": dict(arch="spion-lra", B=128, KV=4, G=1, S=2048, hd=16,
+                      block=64, causal=False, max_extent=4),
+    "qwen2_7b": dict(arch="qwen2-7b", B=1, KV=4, G=7, S=8192, hd=128,
+                     block=128, causal=True, max_extent=8),
+}
+SEQ_RANKS = (2, 4)
+SEQ_TIMING_REPS = 5
+DP_RANKS = 2
+DP_FAULT_STEPS = 2       # dense steps of each planted data-parallel fault
+DP_KILL_STEP = 16        # 12c: rank 1 is SIGKILLed here (sparse phase)
+DP_TERM_STEP = 17        # 12c: rank 1 gets one SIGTERM here
+DP_DIR = os.path.join(ROOT, "build", "chip_smoke_dp")
+# 12b: the 2-rank run's dense-phase losses against phase 5's one-process
+# losses, relative. Not 0: the loss and the gradients are sums of two
+# halves, and F.embedding's backward is not bitwise reproducible on the
+# card (TOL_RESUME). On one H100 80GB HBM3 at 700 W the sound run read
+# 5.455e-07 over 12 dense steps, a planted fault training both ranks on
+# the same half batch 1.060e-03; a rank that skips its gradient all-reduce
+# read only 3.277e-06 there (the warmup keeps the first steps' updates
+# small), so that fault is held by the masters' digest, which must be equal
+# on every rank after the run (it differs after the fault's first step).
+TOL_DP = 1e-5
+
+
+def spawn_ranks(args, n, env=None, **popen):
+    """Start `n` processes of this script with `args`, as ranks of one job
+    over a fresh localhost port (the SPION_* environment)."""
+    from repro_torch.distributed.supervisor import free_port
+    port = free_port()
+    procs = []
+    for i in range(n):
+        e = dict(os.environ if env is None else env,
+                 SPION_COORDINATOR=f"localhost:{port}",
+                 SPION_NUM_PROCESSES=str(n), SPION_PROCESS_ID=str(i))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *args], env=e,
+            start_new_session=True, **popen))
+    return procs
+
+
+def wait_ranks(procs, what, timeout=600):
+    """Wait for every rank; any rank's failure fails the phase, and the
+    others are killed then (a rank left alone waits in a collective)."""
+    import signal
+    t0 = time.time()
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [p.returncode for p in procs
+                   if p.returncode not in (None, 0)]
+            check(not bad, f"{what}: a rank exited with {bad}")
+            check(time.time() - t0 < timeout, f"{what}: ranks still running "
+                  f"after {timeout} s")
+            time.sleep(0.1)
+        rcs = [p.returncode for p in procs]
+        check(rcs == [0] * len(procs), f"{what}: ranks exited with {rcs}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(os.getpgid(p.pid), signal.SIGKILL)
+                p.wait()
+
+
+def seq_tables(shp):
+    """Layer 0 of the dry-run plan of a SEQ_SHAPES entry: (col, nvalid,
+    row_idx, nvalid_t, halo), host numpy."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import spion_dryrun_tables
+    cfg = get_config(shp["arch"])
+    cfg = cfg.replace(spion=dataclasses.replace(cfg.spion,
+                                                block_size=shp["block"]))
+    check(cfg.causal == shp["causal"], f"{shp['arch']}: causal changed")
+    t = spion_dryrun_tables(cfg, shp["S"], layers=1,
+                            max_extent=shp["max_extent"])
+    return tuple(t[k][0].numpy() for k in ("col_idx", "nvalid", "row_idx",
+                                           "nvalid_t")) + (tuple(t["halo"]),)
+
+
+def seq_worker(d):
+    """Phase 12a's rank (`--seq-worker DIR`, 4 ranks on the card over
+    gloo): for each SEQ_SHAPES entry, dtype and job size (2 and 4 ranks;
+    ranks 2 and 3 wait out the 2-rank runs), the sharded op on this rank's
+    rows against the unsharded kernels on the same card: o, lse and dq
+    bitwise, dk and dv at grad_limit, in the plan form and the plan-less
+    form; then the bf16 plan form timed. Writes DIR/seq_<rank>.json."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.sharding import (kernel_pspecs_from_axes,
+                                                  local_slices)
+    from repro_torch.kernels import sharded as sh
+    from repro_torch.kernels.block_sparse_attn import (
+        block_sparse_fwd, fused_block_sparse_attention, load_library)
+    from repro_torch.launch.mesh import make_mesh, make_seq_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(runtime.initialize(), "the seq worker did not join its job")
+    pid = runtime.process_index()
+    load_library()
+    meshes = {4: make_seq_mesh(4, 1),
+              2: make_mesh((2, 1), ("seq", "data"), ranks=[0, 1])}
+    out = {"rank": pid, "runs": []}
+    for name, shp in SEQ_SHAPES.items():
+        col, nvalid, row, nvt, halo = seq_tables(shp)
+        B, KV, G, S, hd, block = (shp[k] for k in
+                                  ("B", "KV", "G", "S", "hd", "block"))
+        dev = DEVICE
+        colt, nvt_ = (torch.as_tensor(a, device=dev) for a in (col, nvalid))
+        rowt, nvtt = (torch.as_tensor(a, device=dev) for a in (row, nvt))
+        kw = dict(block=block, causal=shp["causal"])
+        for dtype in ("float32", "bfloat16"):
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            dt = getattr(torch, dtype)
+            full = {n: torch.randn(s, generator=gen, device=dev).to(dt)
+                    for n, s in (("q", (B, KV, G, S, hd)),
+                                 ("k", (B, KV, S, hd)), ("v", (B, KV, S, hd)),
+                                 ("g", (B, KV, G, S, hd)))}
+            N = B * KV
+            o_ref, lse_ref = block_sparse_fwd(
+                full["q"].reshape(N, G, S, hd), full["k"].reshape(N, S, hd),
+                full["v"].reshape(N, S, hd), colt, nvt_, **kw)
+            refs = {}
+            for form in ("plan", "planless"):
+                q, k, v = (full[n].clone().requires_grad_() for n in "qkv")
+                tk = dict(row_idx=rowt, nvalid_t=nvtt) if form == "plan" \
+                    else {}
+                o = fused_block_sparse_attention(
+                    q.reshape(N, G, S, hd), k.reshape(N, S, hd),
+                    v.reshape(N, S, hd), colt, nvt_, **tk, **kw)
+                o.backward(full["g"].reshape(N, G, S, hd))
+                refs[form] = {"dq": q.grad, "dk": k.grad, "dv": v.grad}
+            o_ref = o_ref.reshape(B, KV, G, S, hd)
+            lse_ref = lse_ref.reshape(B, KV, G, S)
+            for n_r in SEQ_RANKS:
+                if pid < n_r:
+                    out["runs"] += seq_rank_runs(
+                        meshes[n_r], name, shp, dtype, full, o_ref, lse_ref,
+                        refs, (colt, nvt_, rowt, nvtt, halo), d)
+                runtime.barrier(f"seq {name} {dtype} {n_r}")
+    out["transport"] = sh.transport(meshes[4].group("seq"),
+                                    torch.zeros(1, device=DEVICE))
+    with open(os.path.join(d, f"seq_{pid}.json"), "w") as f:
+        json.dump(out, f)
+    runtime.shutdown(0)   # ends the process
+    return 0
+
+
+def seq_rank_runs(mesh, name, shp, dtype, full, o_ref, lse_ref, refs,
+                  tables, d):
+    """One rank's share of one (shape, dtype, job size) of seq_worker:
+    the plan form and the plan-less form held, the bf16 plan form timed."""
+    import torch
+    from repro_torch.distributed.sharding import (kernel_pspecs_from_axes,
+                                                  local_slices)
+    from repro_torch.kernels import sharded as sh
+    from repro_torch.kernels.block_sparse_attn import (
+        block_sparse_fwd, fused_block_sparse_attention)
+    colt, nvt_, rowt, nvtt, halo = tables
+    B, KV, G, S, hd, block = (shp[k] for k in
+                              ("B", "KV", "G", "S", "hd", "block"))
+    qs, ks, _ = kernel_pspecs_from_axes(None, None, "seq")
+    sl_q = local_slices(mesh, qs, full["q"].shape)
+    sl_k = local_slices(mesh, ks, full["k"].shape)
+    n = mesh.shape["seq"]
+    S_l, W = S // n, S // n // block
+    r0 = mesh.axis_index("seq") * W
+    h_l, h_r = halo
+    N = B * KV
+    runs = []
+    for form in ("plan", "planless"):
+        tk = dict(row_idx=rowt, nvalid_t=nvtt) if form == "plan" else {}
+        q, k, v = (full[x][sl].clone().requires_grad_()
+                   for x, sl in (("q", sl_q), ("k", sl_k), ("v", sl_k)))
+
+        def op():
+            return sh.sharded_fused_attention(
+                mesh, q, k, v, colt, nvt_, halo=halo, causal=shp["causal"],
+                block=block, **tk)
+        o = op()
+        o.backward(full["g"][sl_q])
+        with torch.no_grad():     # lse on the halo storage, kernel level
+            kh, vh = sh.halo_forward(
+                sh.Halo(mesh, h_l * block, h_r * block, k),
+                k.reshape(N, S_l, hd), v.reshape(N, S_l, hd))
+            col_l, nv_l, row_l, nvt_l = sh.local_tables(
+                colt, nvt_, tk.get("row_idx"), tk.get("nvalid_t"), r0=r0,
+                W=W, h_l=h_l, h_r=h_r)
+            lkw = dict(block=block, causal=shp["causal"],
+                       offsets=(r0, r0 - h_l), seq_len=S)
+            o2, lse = block_sparse_fwd(q.reshape(N, G, S_l, hd).contiguous(),
+                                       kh.contiguous(), vh.contiguous(),
+                                       col_l, nv_l, **lkw)
+        got = {"o": o.detach(), "o_kernel": o2.reshape(o.shape),
+               "lse": lse.reshape(B, KV, G, S_l)}
+        want = {"o": o_ref[sl_q], "o_kernel": o_ref[sl_q],
+                "lse": lse_ref[sl_q[:4]]}
+        rec = {"shape": name, "dtype": dtype, "ranks": n, "form": form,
+               "halo": list(halo)}
+        for key in ("o", "o_kernel", "lse"):
+            diff = (got[key].float() - want[key].float()).abs().max().item()
+            rec[key] = diff
+            check(diff == 0.0, f"seq {name} {dtype} {n} ranks {form}: {key} "
+                  f"differs from the unsharded kernel's by {diff}")
+        ref = refs[form]
+        rows = {"dq": (q.grad, ref["dq"][sl_q]),
+                "dk": (k.grad, ref["dk"][sl_k]),
+                "dv": (v.grad, ref["dv"][sl_k])}
+        dq = (rows["dq"][0].float() - rows["dq"][1].float()).abs().max()
+        rec["dq"] = dq.item()
+        check(rec["dq"] == 0.0, f"seq {name} {dtype} {n} ranks {form}: dq "
+              f"differs from the unsharded kernel's by {rec['dq']}")
+        for g in ("dk", "dv"):
+            got_g, ref_g = (t.float() for t in rows[g])
+            err, share, _, _ = hold_grad(g, dtype, got_g, ref_g,
+                                         f"seq {name} {n} ranks {form}")
+            rec[g], rec[f"{g}_share"] = err, share
+        if dtype == "bfloat16" and form == "plan":
+            go = full["g"][sl_q]
+
+            def step():
+                op().backward(go)
+            h0 = sh.halo_seconds
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(SEQ_TIMING_REPS):
+                step()
+            torch.cuda.synchronize()
+            rec["op_ms"] = 1e3 * (time.perf_counter() - t) / SEQ_TIMING_REPS
+            rec["halo_ms"] = 1e3 * (sh.halo_seconds - h0) / SEQ_TIMING_REPS
+            ql = q.detach().reshape(N, G, S_l, hd).clone().requires_grad_()
+            kl, vl = (x.detach().clone().requires_grad_() for x in (kh, vh))
+            gl = go.reshape(N, G, S_l, hd)
+
+            def kernels():
+                fused_block_sparse_attention(
+                    ql, kl, vl, col_l, nv_l, row_idx=row_l, nvalid_t=nvt_l,
+                    block=block, causal=shp["causal"], offsets=(r0, r0 - h_l),
+                    seq_len=S).backward(gl)
+            rec["kernels_ms"] = cuda_ms(kernels, SEQ_TIMING_REPS)
+        runs.append(rec)
+    return runs
+
+
+def dp_worker(d, stages):
+    """A rank of a data-parallel spion-lra job (`--dp-worker DIR`, the
+    SPION_* environment): the ListOps preset's global batch over the ranks,
+    checkpoints in DIR every CKPT_EVERY steps, to step TRAIN_STEPS, resumed
+    from DIR's latest checkpoint when there is one. Every step appends
+    {pid, step, phase, loss, launches, s} to DIR/losses_<rank>.jsonl; the
+    end writes DIR/done_<rank>_<pid>.json (step, phase, plan digest,
+    preempted, launches, peak memory). SPION_SMOKE_DP=train (12b) adds the
+    planted faults' losses and the SIGTERM leg of 12c (`dp_term`).
+    `stages` holds the wall-clock times of main()'s start and of torch's
+    import; the worker adds its own start-up stages and writes them to
+    DIR/start_<rank>_<pid>.json before its first step."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import runtime
+    from repro_torch.kernels.block_sparse_attn import load_library
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(runtime.initialize(), "the data-parallel worker did not join")
+    stages["joined"] = time.time()
+    rank, pid = runtime.process_index(), os.getpid()
+    mode = os.environ.get("SPION_SMOKE_DP", "fleet")
+    torch.zeros(1, device=DEVICE)
+    torch.cuda.synchronize()
+    stages["cuda"] = time.time()
+    load_library()
+    stages["library"] = time.time()
+    reduce_s, inner_reduce = [], runtime.all_reduce_sum
+
+    def all_reduce_sum(tensors, **kw):
+        """The step's gradient all-reduce, timed (host clock around a
+        synchronize on each side)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_reduce(tensors, **kw)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t)
+        return out
+    runtime.all_reduce_sum = all_reduce_sum   # the steps bind it when made
+    tr, cfg, _ = lra_trainer(ckpt_dir=d, heartbeat_interval=0.0)
+    stages["trainer"] = time.time()
+    runtime.all_reduce_sum = inner_reduce
+    check(tr.mesh is not None and tr.mesh.size == runtime.process_count(),
+          f"rank {rank}: the trainer's mesh is {tr.mesh}")
+    tr.install_preemption_handler()
+    resumed = tr.maybe_resume()
+    stages["resumed"] = time.time()
+    with open(os.path.join(d, f"start_{rank}_{pid}.json"), "w") as f:
+        json.dump(stages, f)
+    start = tr.step
+    steps, _ = record_steps(tr)
+    fills = []
+    inner_generate = tr.spion_ctl._generate_local
+
+    def generate(state, pooled):
+        t = time.perf_counter()
+        out = inner_generate(state, pooled)
+        fills.append(time.perf_counter() - t)
+        return out
+    tr.spion_ctl._generate_local = generate
+
+    def on_step(step, loss):
+        r = steps[-1]
+        with open(os.path.join(d, f"losses_{rank}.jsonl"), "a") as f:
+            f.write(json.dumps({"pid": pid, "step": step, "loss": loss,
+                                "phase": r["phase"], "s": r["s"],
+                                "launches": r["launches"],
+                                "t": time.time()}) + "\n")
+    tr.step_callback = on_step
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    tr.train(TRAIN_STEPS - tr.step, ckpt_every=CKPT_EVERY, log_every=10**9,
+             log=lambda m: None)
+    stages["trained"] = time.time()
+    st = tr.spion_state
+    done = {"rank": rank, "pid": pid, "resumed": resumed, "start": start,
+            "step": tr.step, "phase": st.phase, "preempted": tr.preempted,
+            "digest": plan_digest_of(st) if st.tables else None,
+            "masters": masters_digest(tr),
+            "launches": launch_counts(), "fills": fills,
+            "allreduce_ms": 1e3 * float(np.median(reduce_s)) if reduce_s
+            else None,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "stats": st.plan_stats}
+    if mode == "train":
+        done["faults"] = dp_faults(rank)
+        stages["faults"] = time.time()
+        done["term"] = dp_term(d)
+        stages["term"] = time.time()
+    done["stages"] = stages
+    with open(os.path.join(d, f"done_{rank}_{pid}.json"), "w") as f:
+        json.dump(done, f)
+    runtime.shutdown(0)   # ends the process
+    return 0
+
+
+def masters_digest(tr):
+    """Digest of a trainer's fp32 masters (bytes and names): equal on every
+    rank of a sound data-parallel run."""
+    import hashlib
+    h = hashlib.sha256()
+    for n, p in tr.params.named_parameters():
+        h.update(n.encode())
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:32]
+
+
+def dp_faults(rank):
+    """Planted data-parallel faults, DP_FAULT_STEPS dense steps each from
+    the seed: "no_allreduce" (each rank updates with its own gradient
+    share) and "one_shard" (every rank trains on the first half of the
+    batch). Returns {fault: {"losses", "masters" (digest)}}."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import runtime
+    out = {}
+    for fault in ("no_allreduce", "one_shard"):
+        inner = runtime.all_reduce_sum
+        if fault == "no_allreduce":
+            runtime.all_reduce_sum = lambda ts, **kw: ts
+        try:
+            tr, _, _ = lra_trainer(sentinel=False)
+        finally:
+            runtime.all_reduce_sum = inner
+        if fault == "one_shard":
+            half = lra_config()[1]["batch"] // DP_RANKS
+
+            def first_half(b, tr=tr):
+                return {k: torch.as_tensor(np.asarray(v)[:half],
+                                           device=tr.device)
+                        for k, v in b.items()}
+            tr._device_batch = first_half
+        losses = tr.train(DP_FAULT_STEPS, ckpt_every=0, log_every=10**9,
+                          log=lambda m: None)
+        out[fault] = {"losses": losses, "masters": masters_digest(tr)}
+        del tr
+        runtime.barrier(f"fault {fault}")
+    return out
+
+
+def dp_term(d):
+    """12c's SIGTERM leg, on 12b's ranks after their run: a trainer resumed
+    from the checkpoint of step RESUME_AT (copied to DIR/term by process
+    0), rank 1 sends itself one SIGTERM at DP_TERM_STEP. Returns {step,
+    preempted, committed}: the step both ranks stopped at, and whether its
+    checkpoint is committed."""
+    import shutil
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.chaos import ChaosMonkey
+    td = os.path.join(d, "term")
+    src = f"step_{RESUME_AT:09d}"
+    if runtime.is_coordinator():
+        shutil.copytree(os.path.join(d, src), os.path.join(td, src))
+    runtime.barrier("term copy")
+    tr, _, _ = lra_trainer(ckpt_dir=td, heartbeat_interval=0.0,
+                           chaos=ChaosMonkey(kill_step=DP_TERM_STEP,
+                                             kill_process=1, sig="TERM"))
+    tr.install_preemption_handler()
+    check(tr.maybe_resume() and tr.step == RESUME_AT,
+          f"the SIGTERM leg resumed at step {tr.step}")
+    tr.train(TRAIN_STEPS - tr.step, ckpt_every=CKPT_EVERY, log_every=10**9,
+             log=lambda m: None)
+    return {"step": tr.step, "preempted": tr.preempted,
+            "committed": os.path.exists(os.path.join(
+                td, f"step_{tr.step:09d}", "DONE"))}
+
+
+START_STAGES = (("main", "to main()"), ("torch", "import torch"),
+                ("joined", "join the job"), ("cuda", "CUDA context"),
+                ("library", "kernel library"), ("trainer", "trainer"),
+                ("resumed", "resume"))
+
+
+def stage_split(t0, stages, more=()):
+    """{stage: seconds since the stage before} of a worker's wall-clock
+    `stages`, the first from `t0`."""
+    out, prev = {}, t0
+    for key, name in START_STAGES + tuple(more):
+        out[name] = stages[key] - prev
+        prev = stages[key]
+    return out
+
+
+def fmt_split(split):
+    return ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+
+
+def read_dp(d):
+    """(losses by rank: {step: record} of the last writer, done records by
+    rank) of a data-parallel run in `d`."""
+    losses, done = {}, {}
+    for name in sorted(os.listdir(d)):
+        path = os.path.join(d, name)
+        if name.startswith("losses_"):
+            with open(path) as f:
+                rows = [json.loads(x) for x in f]
+            losses[int(name[7:-6])] = rows
+        elif name.startswith("done_"):
+            with open(path) as f:
+                rec = json.load(f)
+            done.setdefault(rec["rank"], []).append(rec)
+    return losses, done
+
+
+def phase_seq_parallel():
+    """12a: four ranks of this script on the card (gloo) run the
+    sequence-parallel op at the SEQ_SHAPES and hold it against the
+    unsharded kernels; their records are printed here."""
+    import shutil
+    d = os.path.join(DP_DIR, "seq")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    wait_ranks(spawn_ranks(["--seq-worker", d], max(SEQ_RANKS)),
+               "the sequence-parallel ranks")
+    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(max(SEQ_RANKS)):
+        with open(os.path.join(d, f"seq_{r}.json")) as f:
+            recs.append(json.load(f))
+    transport = recs[0]["transport"]
+    runs = [dict(run, rank=rec["rank"]) for rec in recs for run in rec["runs"]]
+    want = len(SEQ_SHAPES) * 2 * 2 * sum(SEQ_RANKS)
+    check(len(runs) == want, f"{len(runs)} sequence-parallel runs, not "
+          f"{want}")
+    out = {}
+    for name, shp in SEQ_SHAPES.items():
+        for n_r in SEQ_RANKS:
+            sel = [r for r in runs if r["shape"] == name and r["ranks"] == n_r]
+            worst = {k: max(r[k] for r in sel)
+                     for k in ("o", "lse", "dq", "dk", "dv", "dk_share",
+                               "dv_share")}
+            timed = [r for r in sel if "op_ms" in r]
+            log(f"seq-parallel {name} ({shp['B']}x{shp['KV']} rows, G "
+                f"{shp['G']}, S {shp['S']}, hd {shp['hd']}, block "
+                f"{shp['block']}, {'causal' if shp['causal'] else 'non-causal'}"
+                f", halo {sel[0]['halo']}) on {n_r} ranks, fp32 and bf16, plan "
+                f"and plan-less tables: o, lse and dq bitwise the unsharded "
+                f"kernels' (max |diff| {worst['o']}, {worst['lse']}, "
+                f"{worst['dq']}); dk, dv within grad_limit (max |diff| "
+                f"{worst['dk']:.3e}, {worst['dv']:.3e}; at most "
+                f"{max(worst['dk_share'], worst['dv_share']):.3f} of it); bf16 "
+                f"plan form per rank: " + "; ".join(
+                    f"rank {r['rank']} op fwd+bwd {r['op_ms']:.3f} ms, halo "
+                    f"exchange {r['halo_ms']:.3f} ms, kernels "
+                    f"{r['kernels_ms']:.3f} ms" for r in timed))
+            out[f"{name}_{n_r}"] = dict(
+                worst, op_ms=[r["op_ms"] for r in timed],
+                halo_ms=[r["halo_ms"] for r in timed],
+                kernels_ms=[r["kernels_ms"] for r in timed])
+    log(f"seq-parallel: halo transport {transport} (ranks sharing a card "
+        f"talk over gloo, which moves CUDA tensors only for broadcast and "
+        f"all_reduce, so each neighbour's edge blocks cross as one message "
+        f"through pinned host buffers); 4 ranks share the one card, so "
+        f"their times overlap; phase 12a {wall:.1f} s")
+    return dict(runs=out, transport=transport, seconds=wall)
+
+
+def phase_data_parallel(train):
+    """12b: spion-lra at ListOps size through phase 5's TRAIN_STEPS steps
+    as a job of DP_RANKS ranks on the card (64 sequences a rank): every
+    sparse step of every rank launches 8 + 4 + 4 kernels, the ranks' plan
+    digests are equal, the dense-phase losses equal phase 5's within
+    TOL_DP; the planted faults' gaps, whether the plan equals phase 5's,
+    step times and peak memory are printed."""
+    import shutil
+    import numpy as np
+    d = os.path.join(DP_DIR, "train")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0, t_spawn = time.perf_counter(), time.time()
+    wait_ranks(spawn_ranks(["--dp-worker", d], DP_RANKS,
+                           env=dict(os.environ, SPION_SMOKE_DP="train")),
+               "the data-parallel ranks")
+    wall = time.perf_counter() - t0
+    losses, done = read_dp(d)
+    check(sorted(done) == list(range(DP_RANKS)) and
+          all(len(v) == 1 for v in done.values()),
+          f"done records {sorted(done)}")
+    done = {r: v[0] for r, v in done.items()}
+    cfg, ref = train["cfg"], train["losses"]
+    want = sparse_launches(cfg)
+    for r in range(DP_RANKS):
+        rows = losses[r]
+        check([x["step"] for x in rows] == list(range(TRAIN_STEPS)),
+              f"rank {r} ran steps {[x['step'] for x in rows]}")
+        sparse = [x for x in rows if x["phase"] == "sparse"]
+        check(sparse and all(x["launches"] == want for x in sparse),
+              f"rank {r}: a sparse step launched other than {want}: "
+              f"{[x['launches'] for x in sparse]}")
+        check(done[r]["launches"] == {k: n * len(sparse)
+                                      for k, n in want.items()},
+              f"rank {r} launched {done[r]['launches']}")
+        check(all(not any(x["launches"].values()) for x in rows
+                  if x["phase"] == "dense"), f"rank {r}: a dense step "
+              "launched a kernel")
+    digests = {done[r]["digest"] for r in range(DP_RANKS)}
+    check(len(digests) == 1 and None not in digests,
+          f"the ranks' plan digests differ: {digests}")
+    got = [x["loss"] for x in losses[0]]
+    check(got == [x["loss"] for x in losses[1]],
+          "the ranks' losses differ")
+    dense_n = min(train["dense_steps"],
+                  sum(x["phase"] == "dense" for x in losses[0]))
+    gap = loss_gap(got[:dense_n], ref[:dense_n])
+    sparse_gap = loss_gap(got[dense_n:], ref[dense_n:]) \
+        if dense_n < TRAIN_STEPS else 0.0
+    masters = {done[r]["masters"] for r in range(DP_RANKS)}
+    check(len(masters) == 1, f"the ranks' masters differ after the run: "
+          f"{masters}")
+    faults = done[0]["faults"]
+    fault_gaps = {f: loss_gap(v["losses"], ref[:DP_FAULT_STEPS])
+                  for f, v in faults.items()}
+    split = {f: done[0]["faults"][f]["masters"] !=
+             done[1]["faults"][f]["masters"] for f in faults}
+    same_plan = done[0]["digest"] == plan_digest_of(
+        train["trainer"].spion_state)
+    step_ms = {r: {ph: float(np.median([1e3 * x["s"] for x in losses[r][1:]
+                                        if x["phase"] == ph]))
+                   for ph in ("dense", "sparse")} for r in range(DP_RANKS)}
+    log(f"data-parallel: {DP_RANKS} ranks on the card (gloo), spion-lra at "
+        f"ListOps size, {lra_config()[1]['batch'] // DP_RANKS} sequences a "
+        f"rank: {TRAIN_STEPS} steps in {wall:.1f} s (spawn included); "
+        f"{dense_n} dense steps then sparse, each sparse step {want} per "
+        f"rank; plan digests equal ({done[0]['digest']}); the plan from the "
+        f"reduced pooled map {'equals' if same_plan else 'DIFFERS from'} "
+        f"phase 5's; dense losses vs phase 5's max rel {gap:.3e}, sparse "
+        f"{sparse_gap:.3e} (gate {TOL_DP} on the dense ones); masters "
+        f"bitwise equal across the ranks; planted faults over "
+        f"{DP_FAULT_STEPS} dense steps: " + ", ".join(
+            f"{f} loss gap {g:.3e}, masters "
+            f"{'split' if split[f] else 'equal'} across the ranks"
+            for f, g in fault_gaps.items())
+        + "; per rank: " + "; ".join(
+            f"rank {r} step median dense {step_ms[r]['dense']:.2f} ms sparse "
+            f"{step_ms[r]['sparse']:.2f} ms, gradient all-reduce median "
+            f"{done[r]['allreduce_ms']:.3f} ms, peak {done[r]['peak_gb']:.2f} GB"
+            f", flood fill {', '.join(f'{1e3 * s:.1f}' for s in done[r]['fills']) or 'none'} ms"
+            for r in range(DP_RANKS)))
+    log(f"data-parallel losses: {', '.join(f'{x:.6f}' for x in got)}")
+    clock = stage_split(t_spawn, done[0]["stages"], (
+        ("trained", f"{TRAIN_STEPS} steps"), ("faults", "planted faults"),
+        ("term", "SIGTERM leg")))
+    clock["exit"] = wall - sum(clock.values())
+    log(f"data-parallel wall clock, rank 0, s: {fmt_split(clock)}; "
+        f"{wall:.1f} in all; the steps themselves "
+        f"{sum(x['s'] for x in losses[0]):.2f} of the {TRAIN_STEPS} steps'")
+    check(gap <= TOL_DP, f"the 2-rank dense losses differ from phase 5's "
+          f"by {gap}; gate {TOL_DP}")
+    check(split["no_allreduce"] and fault_gaps["one_shard"] > TOL_DP,
+          f"a planted fault passes the gates: {fault_gaps}, masters split "
+          f"{split}")
+    return dict(dir=d, losses=got, launches={
+        k: sum(done[r]["launches"][k] for r in range(DP_RANKS))
+        for k in KERNELS}, gap=gap, fault_gaps=fault_gaps,
+        term=[done[r]["term"] for r in range(DP_RANKS)],
+        same_plan=same_plan, step_ms=step_ms, seconds=wall,
+        allreduce_ms=[done[r]["allreduce_ms"] for r in range(DP_RANKS)],
+        peak_gb=[done[r]["peak_gb"] for r in range(DP_RANKS)])
+
+
+def phase_fleet(dp):
+    """12c: the fleet's recovery. (i) FleetSupervisor(nproc=DP_RANKS) from
+    12b's sparse checkpoint of step RESUME_AT, rank 1 SIGKILLed at
+    DP_KILL_STEP: one respawn of the whole generation, which resumes from
+    process 0's checkpoint of step RESUME_AT and finishes; the stitched
+    losses equal 12b's within TOL_RESUME; every step of both generations
+    8 + 4 + 4 a rank. (ii) 12b's ranks ran the SIGTERM leg (`dp_term`):
+    both ranks saved at DP_TERM_STEP and stopped."""
+    import shutil
+    from repro_torch.distributed.supervisor import FleetSupervisor
+    cfg_launch = sparse_launches(lra_config()[0])
+    kd = os.path.join(DP_DIR, "kill")
+    shutil.rmtree(kd, ignore_errors=True)
+    os.makedirs(kd)
+    src = f"step_{RESUME_AT:09d}"
+    shutil.copytree(os.path.join(dp["dir"], src), os.path.join(kd, src))
+    t0 = time.perf_counter()
+    env = dict(os.environ, SPION_CHAOS_KILL_STEP=str(DP_KILL_STEP),
+               SPION_CHAOS_KILL_PROC="1",
+               SPION_CHAOS_ONCE_DIR=os.path.join(kd, "once"))
+    sup = FleetSupervisor(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", kd],
+        DP_RANKS, kd, dead_timeout=180.0, hang_timeout=180.0,
+        poll_interval=0.2, max_respawns=2, backoff_base=0.1, backoff_max=1.0,
+        env=env, log=lambda m: log(f"  {m}"))
+    rc = sup.run()
+    wall = time.perf_counter() - t0
+    check(rc == 0 and sup.respawns == 1,
+          f"the supervisor returned {rc} after {sup.respawns} respawns")
+    losses, done = read_dp(kd)
+    check(all(len(done.get(r, [])) == 1 for r in range(DP_RANKS)),
+          f"generation 1's done records {done}")
+    gen1 = {r: done[r][0]["pid"] for r in range(DP_RANKS)}
+    rows = losses[0]
+    g0 = [x for x in rows if x["pid"] != gen1[0]]
+    g1 = [x for x in rows if x["pid"] == gen1[0]]
+    check([x["step"] for x in g0] == list(range(RESUME_AT, DP_KILL_STEP))
+          and [x["step"] for x in g1] == list(range(RESUME_AT, TRAIN_STEPS)),
+          f"generation 0 ran steps {[x['step'] for x in g0]}, generation 1 "
+          f"{[x['step'] for x in g1]}")
+    for r in range(DP_RANKS):
+        check(all(x["phase"] == "sparse" and x["launches"] == cfg_launch
+                  for x in losses[r]), f"rank {r}: a resumed step launched "
+              f"other than {cfg_launch}")
+    stitched = {x["step"]: x["loss"] for x in rows}
+    gap = loss_gap([stitched[s] for s in range(RESUME_AT, TRAIN_STEPS)],
+                   dp["losses"][RESUME_AT:])
+    respawn_s = g1[0]["t"] - g0[-1]["t"]
+    with open(os.path.join(kd, f"start_0_{gen1[0]}.json")) as f:
+        split = stage_split(g0[-1]["t"], json.load(f))
+    split["first step"] = g1[0]["t"] - g0[-1]["t"] - sum(split.values())
+    # the first stage: the supervisor sees the death, ends rank 0, backs
+    # off and starts generation 1, whose interpreter reaches main()
+    split = {("teardown and spawn to main()" if k == "to main()" else k): v
+             for k, v in split.items()}
+    hbs = [os.path.exists(os.path.join(kd, f"hb_{r}"))
+           for r in range(DP_RANKS)]
+    check(all(hbs), f"heartbeat files {hbs}")
+    term = dp["term"]
+    check(all(t["preempted"] and t["committed"] for t in term) and
+          {t["step"] for t in term} == {DP_TERM_STEP},
+          f"the SIGTERM leg ended {term}")
+    log(f"fleet: rank 1 of {DP_RANKS} SIGKILLed at step {DP_KILL_STEP}; the "
+        f"supervisor respawned the generation once; generation 1 resumed at "
+        f"step {RESUME_AT} (process 0's checkpoint) and finished; from "
+        f"generation 0's last step to generation 1's first {respawn_s:.2f} "
+        f"s (rank 0, s: {fmt_split(split)}); stitched losses vs 12b's max "
+        f"rel {gap:.3e} (gate {TOL_RESUME}); phase 12c {wall:.1f} s; 12b's ranks, one SIGTERM on rank 1 at step "
+        f"{DP_TERM_STEP}: both saved at step {DP_TERM_STEP} and stopped")
+    check(gap <= TOL_RESUME, f"stitched losses differ from 12b's by {gap}; "
+          f"gate {TOL_RESUME}")
+    return dict(seconds=respawn_s, wall=wall, gap=gap, launches={
+        k: sum(done[r][0]["launches"][k] for r in range(DP_RANKS))
+        for k in KERNELS})
+
+
+def phase_multiprocess(train):
+    """Phase 12: 12a, 12b and 12c, after the parent frees its cached
+    memory for the ranks."""
+    import gc
+    import shutil
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"multi-process: the parent holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of the card")
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    seq = phase_seq_parallel()
+    dp = phase_data_parallel(train)
+    fleet = phase_fleet(dp)
+    return dict(seq=seq, dp=dp, fleet=fleet)
+
+
 def main(argv):
+    t_main = time.time()
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--before", metavar="DIR", help="another checkout "
@@ -3805,13 +4534,24 @@ def main(argv):
     parser.add_argument("--train-worker", metavar="DIR", help="run as the "
                         "respawn phase's training worker with checkpoints "
                         "in DIR (started by the phase's FleetSupervisor)")
+    parser.add_argument("--seq-worker", metavar="DIR", help="run as a rank "
+                        "of phase 12a (the SPION_* environment names the "
+                        "job); records go to DIR")
+    parser.add_argument("--dp-worker", metavar="DIR", help="run as a rank "
+                        "of phases 12b and 12c's data-parallel training "
+                        "with checkpoints in DIR")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_torch = time.time()
     if args.train_worker:
         return train_worker(args.train_worker)
+    if args.seq_worker:
+        return seq_worker(args.seq_worker)
+    if args.dp_worker:
+        return dp_worker(args.dp_worker, {"main": t_main, "torch": t_torch})
     import shutil
     import numpy as np
     # every exec of this run (and of the respawn phase's worker, which
@@ -3890,11 +4630,13 @@ def main(argv):
     resume = phase_resume(train)
     rollback = phase_rollback(resume)
     respawn = phase_respawn(train, resume)
+    multi = phase_multiprocess(train)
+    dp, fleet = multi["dp"], multi["fleet"]
 
     fwd = {"launches": serve["launches"] + shared["launches"]
            + mixtral["launches"]
            + sum(run["launches"]["block_sparse_fwd"]
-                 for run in (zamba, whisper, internvl, train)),
+                 for run in (zamba, whisper, internvl, train, dp)),
            "launches_serve": serve["launches"],
            "launches_serve_shared": shared["launches"],
            "launches_mixtral": mixtral["launches"],
@@ -3915,7 +4657,7 @@ def main(argv):
                         ("block_sparse_dkv", ("dk", "dv"))):
         t = train_timing[name]
         rows[name] = {"launches": sum(run["launches"][name] for run in
-                                      (train, zamba, whisper, internvl)),
+                                      (train, zamba, whisper, internvl, dp)),
                       "launches_zamba2": zamba["launches"][name],
                       "launches_whisper": whisper["launches"][name],
                       "launches_internvl2": internvl["launches"][name],
@@ -3931,8 +4673,10 @@ def main(argv):
         row["internvl2_shape"] = internvl["kernels"][name]
         row["tuned"] = tuned[name]
         for path, run in (("resume", resume), ("rollback", rollback),
-                          ("respawn", respawn)):
+                          ("respawn", respawn), ("dp", dp),
+                          ("fleet", fleet)):
             row[f"launches_{path}"] = run["launches"][name]
+        row["seq_parallel"] = multi["seq"]["runs"]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], **row} for name, row in rows.items()]}
@@ -3978,6 +4722,16 @@ def main(argv):
                       ("rollback", rollback["seconds"])):
         log(f"recovery, spion-lra at ListOps size, {what}: {sec:.3f} s "
             f"({card})")
+    log(f"multi-process, spion-lra at ListOps size on {DP_RANKS} ranks "
+        f"sharing the card (gloo): step median per rank "
+        + ", ".join(f"rank {r} dense {ms['dense']:.2f} ms sparse "
+                    f"{ms['sparse']:.2f} ms" for r, ms in dp["step_ms"].items())
+        + f"; gradient all-reduce median per rank "
+        f"{', '.join(f'{x:.3f}' for x in dp['allreduce_ms'])} ms"
+        + f"; peak per rank {', '.join(f'{g:.2f}' for g in dp['peak_gb'])} "
+        f"GB; fleet respawn (killed rank's last step to the new generation's "
+        f"first) {fleet['seconds']:.3f} s; halo transport "
+        f"{multi['seq']['transport']} ({card})")
     log(f"recovery: supervisor {respawn['wall']:.2f} s in all; a sparse step "
         f"run twice is {'' if resume['bitwise'] else 'NOT '}bitwise "
         f"reproducible; max rel gap to the uninterrupted run's losses (gate "

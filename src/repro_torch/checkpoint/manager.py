@@ -1,5 +1,6 @@
-"""Checkpointing: atomic, async-capable, single-process; the JAX package's
-on-disk format, so each package restores the other's checkpoints.
+"""Checkpointing: atomic, async-capable, multi-process-aware; the JAX
+package's on-disk format, so each package restores the other's
+checkpoints.
 
 Format: one directory `step_XXXXXXXXX/` per step containing
   - arrays.npz       every leaf of the state tree as `leaf_i`, in the order
@@ -19,8 +20,14 @@ bf16. An async save copies every leaf to the host first, so a step that
 updates the parameters in place cannot tear the checkpoint being written;
 a failed background write surfaces at the next save()/wait().
 
-Multi-process checkpoints (process 0 writes, every process reads, a commit
-barrier) wait in ROADMAP.md item A12.
+Multi-process protocol (process 0 writes, every process reads): every
+process calls save()/wait()/restore() at the same step, but only process 0
+copies the state to the host and commits it (the parameters are replicated,
+so its copy is the whole state). The cross-process commit barrier runs in
+wait(), on the main thread (distributed/runtime: collectives never from a
+background thread), so after wait() returns every process agrees the step
+is committed; restore()/latest_step() wait() first and never see a
+half-written step. quarantine_after() has its own barrier.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import msgpack_lite
+from repro_torch.distributed import runtime
 
 _BF16_FILE = np.dtype("V2")      # bf16 leaves on disk: raw 2-byte patterns
 
@@ -119,18 +127,29 @@ def _from_file(a: np.ndarray, ref, where: str):
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3, async_save: bool = True,
                  multiprocess: Optional[bool] = None):
-        if multiprocess:
-            raise NotImplementedError(
-                "multi-process checkpoints (process 0 writes, a commit "
-                "barrier) are not ported yet; they wait in ROADMAP.md item "
-                "A12")
+        """`multiprocess=None` resolves at first use from the runtime's
+        process count."""
         self.dir = directory
         self.keep = keep
         self.async_save = async_save
+        self._multiprocess = multiprocess
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending_commit = False
         self._pins: set = set()
         os.makedirs(directory, exist_ok=True)
+
+    # -- multi-process roles ----------------------------------------------
+
+    @property
+    def multiprocess(self) -> bool:
+        if self._multiprocess is None:
+            self._multiprocess = runtime.process_count() > 1
+        return self._multiprocess
+
+    @property
+    def is_writer(self) -> bool:
+        return not self.multiprocess or runtime.is_coordinator()
 
     # -- save ------------------------------------------------------------
 
@@ -138,19 +157,25 @@ class CheckpointManager:
              extra_arrays: Optional[dict] = None):
         """Copy to the host, then (a)synchronously serialise and commit.
         `extra_arrays` ({name: array}) are written beside the tree (the
-        SPION plan tables)."""
-        self.wait()  # join and surface any previous async write
-        host = [(p, to_host(x)) for p, x in tree_flatten(tree)]
-        treedef = treedef_str(tree)
-        if extra_arrays is not None:
-            extra_arrays = {k: to_host(v) for k, v in extra_arrays.items()}
-        args = (step, host, treedef, extra or {}, extra_arrays)
-        if self.async_save:
-            self._thread = threading.Thread(target=self._write_guarded,
-                                            args=args, daemon=True)
-            self._thread.start()
-        else:
-            self._write(*args)
+        SPION plan tables). Multi-process: every process calls it at the
+        same step; process 0 writes, and the commit is acknowledged
+        fleet-wide at the next wait()."""
+        self.wait()  # join and surface any previous async write, barrier
+        if self.is_writer:
+            host = [(p, to_host(x)) for p, x in tree_flatten(tree)]
+            treedef = treedef_str(tree)
+            if extra_arrays is not None:
+                extra_arrays = {k: to_host(v)
+                                for k, v in extra_arrays.items()}
+            args = (step, host, treedef, extra or {}, extra_arrays)
+            if self.async_save:
+                self._thread = threading.Thread(target=self._write_guarded,
+                                                args=args, daemon=True)
+                self._thread.start()
+            else:
+                self._write(*args)
+        # a barrier here would block the step loop on the async write
+        self._pending_commit = self.multiprocess
 
     def _write_guarded(self, *args):
         try:
@@ -197,13 +222,18 @@ class CheckpointManager:
 
     def wait(self):
         """Block until any in-flight async save is committed; raise if the
-        background write failed."""
+        background write failed. Multi-process: also the commit barrier,
+        which every process reaches through save()/restore()/latest_step()
+        at the same step."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("checkpoint background write failed") from err
+        if self._pending_commit:
+            self._pending_commit = False
+            runtime.barrier("ckpt_commit")
 
     def _gc(self):
         steps = self.all_steps(_wait=False)
@@ -233,16 +263,22 @@ class CheckpointManager:
         """Move every committed checkpoint with step > `step` aside
         (step_X -> quarantined_step_X): saves after a divergence point hold
         poisoned state and must never be restored. The renamed directories
-        keep their payload for forensics but are invisible to all_steps."""
+        keep their payload for forensics but are invisible to all_steps.
+        Multi-process: every process calls it; process 0 renames, and the
+        barrier after it keeps any process from listing the directory
+        half-quarantined."""
         self.wait()
-        for s in self.all_steps(_wait=False):
-            if s <= step:
-                continue
-            src = os.path.join(self.dir, f"step_{s:09d}")
-            dst = os.path.join(self.dir, f"quarantined_step_{s:09d}")
-            if os.path.exists(dst):
-                shutil.rmtree(dst)
-            os.rename(src, dst)
+        if self.is_writer:
+            for s in self.all_steps(_wait=False):
+                if s <= step:
+                    continue
+                src = os.path.join(self.dir, f"step_{s:09d}")
+                dst = os.path.join(self.dir, f"quarantined_step_{s:09d}")
+                if os.path.exists(dst):
+                    shutil.rmtree(dst)
+                os.rename(src, dst)
+        if self.multiprocess:
+            runtime.barrier("ckpt_quarantine")
 
     # -- restore -----------------------------------------------------------
 

@@ -3,7 +3,9 @@ execution.
 
   - `tables` — the SparsityPlan tensors (col_idx / nvalid and, when
     plan-built, row_idx / nvalid_t), stacked over layers;
-  - `block` and `phase` — the static metadata;
+  - `block`, `halo` and `phase` — the static metadata (`halo` is the
+    plan's (left, right) column extent in blocks, stats["halo"]: it lets
+    the kernels shard the sequence under a mesh with a 'seq' axis);
   - `kernel_config` — the autotuner's pick for this pattern
     (kernels/autotune.py), looked up in the on-disk cache once, when the
     exec is constructed (never a sweep), under the `dtype` the kernels
@@ -12,7 +14,9 @@ execution.
 
 `phase` is "train" | "prefill" | "decode". Train and prefill share
 `attend()` (full-sequence block-sparse attention: the Hopper kernels or
-the plain gather per `resolve_kernel`, both differentiable); decode uses
+the plain gather per `resolve_kernel`, both differentiable; under an
+active mesh of more than one rank the kernels run through
+kernels/sharded.py on the rank's shard); decode uses
 `decode()` / `decode_paged()` — the pattern-bounded KV-cache gather, which
 reads only the cache blocks the query position's row-block lists. The
 `*_app` forms index the stacked tables by the hybrid family's shared-block
@@ -40,11 +44,26 @@ def resolve_kernel(cfg, q) -> str:
     tensors "auto" takes the plain gather ("jnp", the JAX package's name for
     it) and "fused" the kernel's plain version. The JAX package resolves
     meshless "auto" to its gather everywhere but on a TPU, because its GPU
-    lowering was never ported; here the kernel exists."""
+    lowering was never ported; here the kernel exists.
+
+    Under an active mesh of more than one rank "auto" is "fused" (the
+    sharded kernels, as in the reference), and a mesh with a 'seq' axis
+    refuses the gather, which has no sequence-sharded form here (ROADMAP.md
+    item A12b)."""
     impl = cfg.spion.kernel
     if impl not in ("auto", "fused", "jnp"):
         raise ValueError(f"cfg.spion.kernel must be auto/fused/jnp, got "
                          f"{impl!r}")
+    from repro_torch.distributed.sharding import active_mesh, seq_size
+    mesh = active_mesh()
+    if mesh is not None:
+        if impl == "jnp" and seq_size(mesh) > 1:
+            raise NotImplementedError(
+                'cfg.spion.kernel="jnp" under a mesh with a \'seq\' axis: the '
+                "gather of a sequence shard waits in ROADMAP.md item A12b; "
+                'use "auto" or "fused"')
+        if impl == "auto":
+            return "fused"
     if q.is_cuda:
         if impl == "jnp":
             raise ValueError(
@@ -63,14 +82,15 @@ class SparseAttentionExec:
     stacked tables (tensors or numpy arrays). `attend`/`decode` consume
     the PER-LAYER slices of `scan_tables()`."""
 
-    def __init__(self, tables, *, block, phase="train", kernel_config=None,
-                 dtype=None):
+    def __init__(self, tables, *, block, halo=None, phase="train",
+                 kernel_config=None, dtype=None):
         if phase not in _PHASES:
             raise ValueError(f"phase must be one of {_PHASES}, got {phase!r}")
         from repro_torch.kernels.autotune import dtype_name, lookup
         self.tables = {k: torch.as_tensor(tables[k]) for k in PLAN_TABLE_KEYS
                        if tables is not None and tables.get(k) is not None}
         self.block = int(block)
+        self.halo = None if halo is None else (int(halo[0]), int(halo[1]))
         self.phase = phase
         # the kernels' dtype keys the lookup (the reference always looks up
         # float32, its default): fp32 runs the scalar kernels, which have no
@@ -83,7 +103,8 @@ class SparseAttentionExec:
     def __repr__(self):
         shapes = {k: tuple(v.shape) for k, v in self.tables.items()}
         return (f"SparseAttentionExec(phase={self.phase!r}, "
-                f"block={self.block}, kernel_config={self.kernel_config!r}, "
+                f"block={self.block}, halo={self.halo}, "
+                f"kernel_config={self.kernel_config!r}, "
                 f"dtype={self.dtype!r}, tables={shapes})")
 
     # -- constructors ---------------------------------------------------------
@@ -91,8 +112,9 @@ class SparseAttentionExec:
     @classmethod
     def coerce(cls, spion, *, phase=None, kernel_config=None, dtype=None):
         """None | exec | tables-dict payload -> exec (or None). An exec
-        keeps its config and dtype; a dict payload looks its config up
-        under `dtype` unless `kernel_config` is given."""
+        keeps its config and dtype; a dict payload (an int 'block' and
+        optionally the 'halo' pair) looks its config up under `dtype`
+        unless `kernel_config` is given."""
         if spion is None:
             return None
         if isinstance(spion, cls):
@@ -101,14 +123,17 @@ class SparseAttentionExec:
                 ex.phase = phase
                 return ex
             return spion
-        return cls(spion, block=spion["block"], phase=phase or "train",
-                   kernel_config=kernel_config, dtype=dtype)
+        return cls(spion, block=spion["block"], halo=spion.get("halo"),
+                   phase=phase or "train", kernel_config=kernel_config,
+                   dtype=dtype)
 
     @classmethod
     def from_plan(cls, plan, *, phase="train", kernel_config=None,
                   dtype=None):
-        """From a core.sparse_attention.SparsityPlan."""
-        return cls(plan.tables, block=plan.tables["block"], phase=phase,
+        """From a core.sparse_attention.SparsityPlan (halo from its
+        stats)."""
+        return cls(plan.tables, block=plan.tables["block"],
+                   halo=plan.stats.get("halo"), phase=phase,
                    kernel_config=kernel_config, dtype=dtype)
 
     def to(self, device):
@@ -148,6 +173,7 @@ class SparseAttentionExec:
             return spion_attention_kernel(cfg, q, k, v, bcsr,
                                           row_idx=tabs.get("row_idx"),
                                           nvalid_t=tabs.get("nvalid_t"),
+                                          halo=self.halo,
                                           config=self.kernel_config)
         return bcsr_attention(cfg, q, k, v, bcsr)
 

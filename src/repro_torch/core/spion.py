@@ -9,8 +9,11 @@ sparse phase. Pattern generation runs once, between epochs, on the host
 true column-population width KT*, all small int32 tensors) becomes the
 sparse step's input.
 
-Single-process: the JAX package's multi-process plan broadcast and digest
-check wait in ROADMAP.md item A12; `generate` here is its `_generate_local`.
+Single controller in a multi-process job: process 0 flood-fills
+(`_generate_local`), the plan reaches every process as one broadcast
+(distributed/runtime.broadcast_arrays) and a digest check across the
+processes follows, so two ranks never run different patterns through the
+kernels.
 """
 from __future__ import annotations
 
@@ -158,21 +161,22 @@ class SpionController:
         if tables is None:
             return None
         from repro_torch.core.attention_exec import SparseAttentionExec
-        return SparseAttentionExec(tables, block=tables["block"], phase=phase,
-                                   dtype=dtype)
+        halo = (state.plan_stats or {}).get("halo")
+        return SparseAttentionExec(tables, block=tables["block"], halo=halo,
+                                   phase=phase, dtype=dtype)
 
     def verify_plan_sync(self, state: SpionState,
                          tag: str = "spion_plan_restore"):
-        """Multi-process: assert every process holds the SAME plan after a
-        restore (the JAX package compares plan digests across processes).
-        A no-op in a single process, which is all the port runs until
-        ROADMAP.md item A12, and in the dense phase."""
-        from repro_torch.distributed import process_count
-        if process_count() <= 1 or state.tables is None:
+        """Multi-process: assert every process holds the SAME plan (digest
+        over tables + block), after a restore, where each process read the
+        checkpoint itself: a torn read on one host must fail loudly, not
+        train through another pattern. A no-op in a single process and in
+        the dense phase."""
+        from repro_torch.distributed import runtime
+        if runtime.process_count() <= 1 or state.tables is None:
             return
-        raise NotImplementedError(
-            f"{tag}: checking the plan across processes waits in ROADMAP.md "
-            "item A12")
+        runtime.assert_in_sync(
+            tag, plan_digest(state.table_arrays(), state.tables["block"]))
 
     # -- per-epoch update (paper Alg. 2 lines 7-12) ----------------------------
 
@@ -204,7 +208,34 @@ class SpionController:
         """Pattern generation for every layer; builds the full SparsityPlan:
         stacked padded BCSR plus the transposed tables at the true max
         column population KT*, host-side and once, so the dK/dV backward
-        streams KT* entries per column block with no per-step transpose."""
+        streams KT* entries per column block with no per-step transpose.
+
+        In a multi-process job the flood fill runs on process 0 only and
+        its plan (arrays, block, stats, density) is broadcast, then checked
+        by digest on every process: N processes flood-filling on their own
+        are N chances for a float tie-break to differ."""
+        from repro_torch.distributed import runtime
+        if runtime.process_count() <= 1:
+            return self._generate_local(state, pooled)
+        if runtime.is_coordinator():
+            state = self._generate_local(state, pooled)
+            arrays = state.table_arrays()
+            meta = {"block": int(state.tables["block"]),
+                    "plan_stats": state.plan_stats,
+                    "density": state.density}
+        else:
+            arrays, meta = None, None
+        arrays, meta = runtime.broadcast_arrays(arrays, meta)
+        runtime.assert_in_sync("spion_plan",
+                               plan_digest(arrays, meta["block"]))
+        state.tables = _int32_tables(arrays, meta["block"])
+        state.plan_stats = meta["plan_stats"]
+        state.density = meta["density"]
+        state.phase = "sparse"
+        return state
+
+    def _generate_local(self, state: SpionState,
+                        pooled: np.ndarray) -> SpionState:
         pooled = np.asarray(pooled, np.float64)
         Ly = pooled.shape[0]
         masks = [

@@ -1,7 +1,9 @@
-"""Fault tolerance of a training run: heartbeats, the divergence sentinel,
-step retries, fault injection and the fleet supervisor. Single-process:
-the collectives of the JAX package's `distributed/runtime.py` wait in
-ROADMAP.md item A12."""
+"""Fault tolerance and multi-process plumbing of a training run:
+heartbeats, the divergence sentinel, step retries, fault injection and the
+fleet supervisor, the process group and its collectives (`runtime`), and
+the mesh's sharding decisions (`sharding`). The two functions here read
+the launcher's environment without torch, for the supervisor; a joined
+process asks `runtime.process_count()` / `runtime.process_index()`."""
 from __future__ import annotations
 
 import os

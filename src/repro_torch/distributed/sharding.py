@@ -1,0 +1,162 @@
+"""The mesh context and the sharding decisions of the sparse-attention
+kernels (the JAX package's `distributed/sharding.py`, the parts the
+kernels need).
+
+`mesh_context(mesh)` makes a mesh current, so model code reaches the
+sharded kernels without carrying a mesh argument. `kernel_shard_axes` and
+`kernel_seq_axis` decide, exactly as the reference does and with its
+reasons, which mesh axes the kernels' batch, KV heads and query rows split
+over; `kernel_pspecs_from_axes` states that layout per tensor dimension,
+as tuples where the reference has PartitionSpecs.
+
+The parameter rules (`_RULES`, `best_spec`, `param_pspecs`,
+`zero1_pspecs`) belong to the 'model' axis and wait in ROADMAP.md item
+A12b: parameters are replicated on every rank here.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Optional
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh):
+    tok = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(tok)
+
+
+def current_mesh():
+    return _MESH.get()
+
+
+def active_mesh():
+    """The current mesh when it spans more than one rank, else None."""
+    mesh = current_mesh()
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def data_axes(mesh):
+    """All data-parallel axes present in the mesh (pod composes with data)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def seq_size(mesh) -> int:
+    return 1 if mesh is None else int(mesh.shape.get("seq", 1))
+
+
+# ---------------------------------------------------------------------------
+# sparse-attention kernel sharding
+# ---------------------------------------------------------------------------
+
+def kernel_shard_axes(mesh, batch: int, kv_heads: int):
+    """Mesh axes of the kernels' (batch, KV) dims: (batch_axes, kv_axis).
+
+      - batch over the data axes ('pod', 'data'), greedily keeping every
+        axis whose size still divides the (global) batch exactly;
+      - KV heads over 'model' when KV % |model| == 0, else replicated.
+    Both None means nothing shards."""
+    acc, chosen = 1, []
+    for a in data_axes(mesh):
+        if mesh.shape[a] > 1 and batch % (acc * mesh.shape[a]) == 0:
+            chosen.append(a)
+            acc *= mesh.shape[a]
+    baxes = tuple(chosen) if chosen else None
+    model = mesh.shape.get("model", 1)
+    kv_ax = "model" if model > 1 and kv_heads % model == 0 else None
+    return baxes, kv_ax
+
+
+def kernel_seq_axis(mesh, nrb, halo):
+    """'seq'-axis decision of the kernels (DESIGN.md §10): (axis or None,
+    reason). `nrb` is the global row-block count; `halo` the pattern's
+    (left, right) column extent in blocks (SparsityPlan stats["halo"]).
+    Q row-blocks shard over 'seq' with a single-neighbour halo exchange
+    when
+
+      - nrb % n == 0; W = nrb // n;
+      - halo_left <= W and halo_right <= W (one step to the adjacent
+        shard);
+      - halo_left + halo_right <= (n - 1) * W (the halo-extended window must
+        not alias global column-blocks across the ring wrap, or the dK/dV
+        halo sum would count a block twice).
+
+    Otherwise the caller falls back to batch sharding, loudly."""
+    n = mesh.shape.get("seq", 1)
+    if n <= 1:
+        return None, "mesh has no 'seq' axis (or |seq| == 1)"
+    if halo is None:
+        return None, ("no pattern halo supplied — seq sharding needs the "
+                      "SparsityPlan's column-extent stats (stats['halo'], "
+                      "threaded as the static spion tables key 'halo')")
+    if nrb is None or nrb % n != 0:
+        return None, f"nrb={nrb} row-blocks not divisible by |seq|={n}"
+    W = nrb // n
+    h_l, h_r = int(halo[0]), int(halo[1])
+    if h_l > W or h_r > W:
+        return None, (f"pattern halo ({h_l},{h_r}) blocks exceeds the shard "
+                      f"width W={W} — the exchange would need more than the "
+                      f"adjacent shard's edge")
+    if h_l + h_r > (n - 1) * W:
+        return None, (f"halo window {h_l}+{W}+{h_r} blocks exceeds the "
+                      f"global {nrb} — local storage would alias "
+                      f"column-blocks across the ring wrap")
+    return "seq", f"W={W} halo=({h_l},{h_r})"
+
+
+def kernel_pspecs_from_axes(baxes, kv_ax, seq_ax=None):
+    """(qspec, kvspec, table_spec): the mesh axes of each dimension of q
+    (B, KV, G, S, hd), k / v (B, KV, S, hd) and the tables (replicated, the
+    empty tuple), as the reference's PartitionSpecs list them."""
+    return ((baxes, kv_ax, None, seq_ax, None),
+            (baxes, kv_ax, seq_ax, None), ())
+
+
+def local_slices(mesh, spec, shape, rank: Optional[int] = None):
+    """The slices of a global tensor of `shape` that `rank` (default: this
+    process) holds under `spec` (one entry per leading dimension: None, an
+    axis name or a tuple of names)."""
+    out = []
+    for d, e in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        n = mesh.axis_size(e)
+        if n == 1:
+            out.append(slice(None))
+            continue
+        if d % n:
+            raise ValueError(f"dimension {d} does not split over {e} "
+                             f"({n} ranks)")
+        i = mesh.flat_index(e, rank)
+        out.append(slice(i * (d // n), (i + 1) * (d // n)))
+    return tuple(out)
+
+
+def batch_spec(mesh, ndim: int):
+    """Spec of a (B, S, ...) batch tensor: the batch over the data axes,
+    the sequence over 'seq' when the mesh has one (launch/steps.
+    batch_pspecs in the reference)."""
+    daxes = data_axes(mesh) or None
+    if ndim == 0:
+        return ()
+    seq_ax = "seq" if seq_size(mesh) > 1 else None
+    return (daxes,) + ((seq_ax,) if ndim >= 2 else ())
+
+
+def mean_over_data(x):
+    """Mean of `x` over the ranks of the data axes (in place; statistics
+    only, no gradient): the capture's batch average of a data-parallel
+    run."""
+    import torch.distributed as dist
+    mesh = active_mesh()
+    if mesh is None:
+        return x
+    n = mesh.axis_size(data_axes(mesh))
+    if n == 1:
+        return x
+    dist.all_reduce(x, group=mesh.group(data_axes(mesh)))
+    return x.div_(n)

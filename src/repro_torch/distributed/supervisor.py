@@ -34,9 +34,11 @@ their descendants die with them), the heartbeat files are cleared, and a
 NEW generation starts, resuming from the last committed checkpoint. Capped
 exponential backoff between generations; a max-respawn budget turns a
 crash-loop into a clean failure instead of an infinite burn. Each worker
-gets SPION_COORDINATOR / SPION_NUM_PROCESSES / SPION_PROCESS_ID; the port's
-Trainer refuses SPION_NUM_PROCESSES > 1 until ROADMAP.md item A12, so run it
-with --nproc 1.
+gets SPION_COORDINATOR / SPION_NUM_PROCESSES / SPION_PROCESS_ID, which the
+worker's `distributed.runtime.initialize()` joins the job with
+(`python -m repro_torch.launch.train` does); a kill of one rank tears the
+whole generation down, and the next resumes from process 0's last
+committed checkpoint.
 
 Everything here is plain-process logic that never imports torch: the
 supervisor must stay alive and responsive precisely when the CUDA runtime

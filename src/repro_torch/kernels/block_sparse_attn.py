@@ -604,19 +604,30 @@ class _FusedAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse, col_idx, nvalid, row_idx, nvalid_t = \
             ctx.saved_tensors
-        kw = dict(ctx.kw)
-        kw.pop("seq_len")       # the correction reaches the backward via lse
-        block = kw["block"]
-        do = do.contiguous()
-        delta = (do.float() * o.float()).sum(dim=-1)
-        if row_idx is None:
-            row_idx, nvalid_t = bcsr_transpose(col_idx, nvalid,
-                                               ncb=k.shape[1] // block)
-        dq = block_sparse_dq(q, k, v, do, lse, delta, col_idx, nvalid, **kw)
-        dk, dv = block_sparse_dkv(q, k, v, do, lse, delta, row_idx,
-                                  nvalid_t, **kw)
+        dq, dk, dv = fused_backward(q, k, v, o, lse, do, col_idx, nvalid,
+                                    row_idx, nvalid_t, ctx.kw)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None, None, None)
+
+
+def fused_backward(q, k, v, o, lse, do, col_idx, nvalid, row_idx, nvalid_t,
+                   kw):
+    """The op's backward, (dq, dk, dv) in fp32: delta = rowsum(dO * O) in
+    fp32, then the dQ and dK/dV kernels under the forward's `kw` (its
+    seq_len dropped: the correction reaches the backward through lse).
+    row_idx None builds the transposed tables with bcsr_transpose."""
+    kw = dict(kw)
+    kw.pop("seq_len", None)
+    block = kw["block"]
+    do = do.contiguous()
+    delta = (do.float() * o.float()).sum(dim=-1)
+    if row_idx is None:
+        row_idx, nvalid_t = bcsr_transpose(col_idx, nvalid,
+                                           ncb=k.shape[1] // block)
+    dq = block_sparse_dq(q, k, v, do, lse, delta, col_idx, nvalid, **kw)
+    dk, dv = block_sparse_dkv(q, k, v, do, lse, delta, row_idx, nvalid_t,
+                              **kw)
+    return dq, dk, dv
 
 
 def fused_block_sparse_attention(q, k, v, col_idx, nvalid, *, block,

@@ -1,10 +1,13 @@
-"""Step makers: the train step (single device), the fused prefill step and
-the decode step.
+"""Step makers: the train step (one device, or every rank of a mesh), the
+fused prefill step and the decode step, and the dry-run SPION patterns.
 
 PyTorch runs eagerly, so a step is a plain closure over the model bundle;
 the JAX package's jit, shardings and donation have no counterpart here (the
 port updates parameters, optimizer state and caches in place instead of
-donating them).
+donating them). Under a mesh (`mesh=`) each rank runs the step on its
+shard of the batch, and of the sequence on a 'seq' axis: the loss is the
+global mean and the gradients are summed over the mesh, so every rank
+applies the same update to its replicated parameters.
 """
 from __future__ import annotations
 
@@ -14,14 +17,81 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.sparse_attention import PLAN_TABLE_KEYS
+from repro_torch.distributed.sharding import mesh_context, seq_size
 from repro_torch.models.layers import tree_map
 from repro_torch.models.registry import build
-from repro_torch.optim import (accumulate_microbatches, adamw_update,
-                               clip_by_global_norm, cosine_schedule)
+from repro_torch.optim import (adamw_update, clip_by_global_norm,
+                               cosine_schedule)
+
+SEQ_STEP_REFUSAL = ("waits in ROADMAP.md item A12b (the dense phase, the "
+                    "capture and the Trainer under a 'seq' axis)")
+
+
+def spion_dryrun_tables(cfg: ModelConfig, seq_len: int,
+                        layers: Optional[int] = None,
+                        max_extent: Optional[int] = None):
+    """Deterministic SPION-shaped pattern (diagonal band + verticals) at the
+    configured alpha density, as the full SparsityPlan payload: forward
+    tables plus the transposed tables, 'block', 'kt_star' and the 'halo'
+    pair. `max_extent` clips the off-diagonal verticals to [r - max_extent,
+    r + max_extent]: the default global verticals make the pattern's extent
+    ~nrb (a 'seq' axis then falls back to batch sharding by design); a
+    bounded band stands in for the near-diagonal flood-fill patterns the
+    halo exchange targets. The reference's tables, bitwise."""
+    from repro_torch.core.sparse_attention import build_sparsity_plan
+    cols, nval, blk, nrb = _dryrun_pattern(cfg, seq_len, layers, max_extent)
+    plan = build_sparsity_plan(cols, nval, blk, ncb=nrb)
+    return dict(plan.tables, kt_star=plan.kt_star, halo=plan.stats["halo"])
+
+
+def spion_dryrun_halo(cfg: ModelConfig, seq_len: int,
+                      layers: Optional[int] = None,
+                      max_extent: Optional[int] = None):
+    """Just the [left, right] halo of the dry-run pattern, from the forward
+    tables alone (no host transpose)."""
+    from repro_torch.core.sparse_attention import pattern_col_extents
+    cols, nval, _, nrb = _dryrun_pattern(cfg, seq_len, layers, max_extent)
+    ext_l, ext_r = pattern_col_extents(cols, nval, ncb=nrb)
+    return [int(ext_l.max()), int(ext_r.max())]
+
+
+def _dryrun_pattern(cfg: ModelConfig, seq_len: int, layers, max_extent):
+    """The deterministic dry-run pattern's forward tables (host numpy)."""
+    sp = cfg.spion
+    blk = sp.block_size
+    nrb = max(seq_len // blk, 1)
+    Ly = layers if layers is not None else cfg.num_layers
+    keep = max(1.0 - sp.alpha_quantile, 1.0 / nrb)
+    K = max(int(np.ceil(nrb * keep)) + 1, 2)
+    K = min(K, nrb)
+    rng = np.random.default_rng(0)
+    cols = np.zeros((Ly, nrb, K), np.int32)
+    nval = np.full((Ly, nrb), K, np.int32)
+    for l in range(Ly):
+        for r in range(nrb):
+            c = {r}  # forced diagonal
+            c.add(max(r - 1, 0))                       # band
+            verts = rng.integers(0, nrb, size=K)
+            for v0 in verts:
+                if len(c) >= K:
+                    break
+                if max_extent is not None:
+                    v0 = int(np.clip(v0, r - max_extent, r + max_extent))
+                    v0 = int(np.clip(v0, 0, nrb - 1))
+                    c.add(min(v0, r) if cfg.causal else v0)
+                else:
+                    c.add(int(v0 if not cfg.causal else min(v0 % (r + 1), r)))
+            cs = sorted(c)[:K]
+            cols[l, r, : len(cs)] = cs
+            nval[l, r] = len(cs)
+            if len(cs) < K:
+                cols[l, r, len(cs):] = cs[-1]          # clamped padding
+    return cols, nval, blk, nrb
 
 
 def causal_band_tables(layers: int, nrb: int, width: Optional[int] = None):
@@ -42,18 +112,18 @@ def causal_band_tables(layers: int, nrb: int, width: Optional[int] = None):
     return {"col_idx": col, "nvalid": nval}
 
 
-def _coerce_step_tables(tables, *, block, phase, kernel_config=None,
-                        dtype=None):
+def _coerce_step_tables(tables, *, block, phase, halo=None,
+                        kernel_config=None, dtype=None):
     """Normalise a step's sparse-tables argument to a SparseAttentionExec:
-    an exec passes through with its own kernel config; a dict payload gets
-    the step's block and `kernel_config`, or, when that is None, the config
-    the autotune cache holds for it under `dtype`."""
+    an exec passes through with its own halo and kernel config; a dict
+    payload gets the step's block, `halo` and `kernel_config`, or, when that
+    is None, the config the autotune cache holds for it under `dtype`."""
     if tables is None:
         return None
     if isinstance(tables, SparseAttentionExec):
         return tables
     arrays = {k: tables[k] for k in PLAN_TABLE_KEYS if k in tables}
-    return SparseAttentionExec(arrays, block=block, phase=phase,
+    return SparseAttentionExec(arrays, block=block, halo=halo, phase=phase,
                                kernel_config=kernel_config, dtype=dtype)
 
 
@@ -66,7 +136,8 @@ def compute_params(params, dtype):
 
 
 def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
-                        sparse_kernel=None, kernel_config=None):
+                        sparse_kernel=None, kernel_config=None, mesh=None,
+                        halo=None):
     """Returns f(params, batch, tables=None) -> (loss, grads): the forward
     and backward of the train step, without the update.
 
@@ -80,43 +151,82 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
     `sparse_kernel` overrides cfg.spion.kernel, which chooses between the
     gather and the kernels' plain versions on CPU tensors. `kernel_config`
     is a kernels.dispatch.KernelConfig for dict payloads; an exec carries
-    its own, resolved from the autotune cache at construction."""
+    its own, resolved from the autotune cache at construction.
+
+    `mesh` (launch/mesh.Mesh of more than one rank): `batch` is this rank's
+    shard (batch over the data axes, the sequence over 'seq'); the loss is
+    the global mean (the nll sums and token counts, masked ones too,
+    all-reduced: not a mean of the ranks' means) and the gradients are
+    summed over the mesh in buckets, so they are the global batch's on
+    every rank. `halo` is the plan's (left, right) column extent for dict
+    payloads (an exec carries its own): with it a 'seq' axis shards the
+    sparse attention's rows. Under a 'seq' axis a dense step raises."""
     if sparse_kernel is not None:
         cfg = cfg.replace(spion=dataclasses.replace(cfg.spion,
                                                     kernel=sparse_kernel))
     bundle = build(cfg)
     compute_dtype = getattr(torch, cfg.dtype)
     static_block = block or cfg.spion.block_size
+    nranks = 1 if mesh is None else mesh.size
+    if nranks > 1:
+        from repro_torch.distributed import runtime
+        from repro_torch.launch.mesh import MODEL_AXIS_REFUSAL
+        if mesh.shape.get("model", 1) > 1:
+            raise NotImplementedError(f"train step on {mesh}: "
+                                      f"{MODEL_AXIS_REFUSAL}")
+        all_reduce_sum = runtime.all_reduce_sum      # bound when made
 
     def loss_and_grads(params, batch, tables=None):
         ex = _coerce_step_tables(tables, block=static_block, phase="train",
-                                 kernel_config=kernel_config,
+                                 halo=halo, kernel_config=kernel_config,
                                  dtype=cfg.dtype)
-
-        def loss_fn(p, mb):
-            return bundle.loss(compute_params(p, compute_dtype), mb,
-                               spion=ex)
-
-        if n_micro > 1:
-            mbs = [{k: v.reshape(n_micro, v.shape[0] // n_micro,
-                                 *v.shape[1:])[i] for k, v in batch.items()}
-                   for i in range(n_micro)]
-            loss, grads, _ = accumulate_microbatches(loss_fn, params, mbs,
-                                                     n_micro)
-            return loss, grads
-        loss, _aux = loss_fn(params, batch)
+        if nranks > 1 and seq_size(mesh) > 1 and ex is None:
+            raise NotImplementedError(
+                f"a dense train step on {mesh} {SEQ_STEP_REFUSAL}")
+        group = mesh.group(mesh.axis_names) if nranks > 1 else None
         named = list(params.named_parameters())
-        gs = torch.autograd.grad(loss, [p for _, p in named],
-                                 allow_unused=True)
-        return loss, {n: torch.zeros_like(p) if g is None else g
-                      for (n, p), g in zip(named, gs)}
+        leaves = [p for _, p in named]
+        mbs = [batch] if n_micro == 1 else [
+            {k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])[i]
+             for k, v in batch.items()} for i in range(n_micro)]
+        loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        grads = None
+        with mesh_context(mesh):
+            for mb in mbs:
+                nll, count, extra, _ = bundle.loss_parts(
+                    compute_params(params, compute_dtype), mb, spion=ex)
+                extra = torch.as_tensor(extra, dtype=torch.float32,
+                                        device=loss.device)
+                # under a mesh one all-reduce: the nll sum and the MoE's aux
+                # terms (for the loss value) and the token count (the
+                # divisor of every rank's share)
+                tot = torch.stack([nll.detach().float(), count.float(),
+                                   extra.detach()])
+                if group is not None:
+                    dist.all_reduce(tot, group=group)
+                denom = tot[1].clamp(min=1.0)
+                share = nll / denom + extra / nranks
+                gs = torch.autograd.grad(share, leaves, allow_unused=True)
+                gs = [torch.zeros_like(p) if g is None else g.float()
+                      for p, g in zip(leaves, gs)]
+                grads = gs if grads is None else \
+                    [a + b for a, b in zip(grads, gs)]
+                loss = loss + tot[0] / denom + tot[2] / nranks
+        if group is not None:
+            # the ranks' shares sum to the global batch's gradient
+            all_reduce_sum(grads, group=group)
+        if n_micro == 1:
+            return loss, dict(zip((n for n, _ in named), grads))
+        scale = 1.0 / n_micro
+        return loss * scale, {n: g * scale for (n, _), g in zip(named, grads)}
 
     return loss_and_grads
 
 
 def make_train_step(cfg: ModelConfig, *, spion=False, lr=3e-4,
                     total_steps=10_000, n_micro=1, block=None,
-                    sparse_kernel=None, kernel_config=None):
+                    sparse_kernel=None, kernel_config=None, mesh=None,
+                    halo=None):
     """Returns f(params, opt_state, batch, step[, tables]) -> (params,
     opt_state, metrics) for one device.
 
@@ -128,10 +238,13 @@ def make_train_step(cfg: ModelConfig, *, spion=False, lr=3e-4,
     AdamW. Metrics: loss, gnorm and lr (0-d tensors).
 
     `spion=True` adds the sparse-tables argument (see `make_loss_and_grads`
-    for it and for `block`, `sparse_kernel` and `kernel_config`)."""
+    for it and for `block`, `sparse_kernel`, `kernel_config`, `mesh` and
+    `halo`). Under a mesh every rank clips and updates with the same
+    global gradients."""
     loss_and_grads = make_loss_and_grads(cfg, n_micro=n_micro, block=block,
                                          sparse_kernel=sparse_kernel,
-                                         kernel_config=kernel_config)
+                                         kernel_config=kernel_config,
+                                         mesh=mesh, halo=halo)
 
     def step_fn(params, opt_state, batch, step, tables=None):
         loss, grads = loss_and_grads(params, batch, tables)

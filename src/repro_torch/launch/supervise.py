@@ -1,12 +1,13 @@
 """CLI for the self-healing fleet supervisor (distributed/supervisor.py).
 
-    python -m repro_torch.launch.supervise --nproc 1 --ckpt-dir /ckpt \\
+    python -m repro_torch.launch.supervise --nproc 2 --ckpt-dir /ckpt \\
         [--dead-timeout 60] [--hang-timeout 120] [--max-respawns 5] \\
         -- python -m repro_torch.launch.train --ckpt-dir /ckpt --steps 10000
 
 Everything after ``--`` is the worker command, run once per process with
 SPION_COORDINATOR / SPION_NUM_PROCESSES / SPION_PROCESS_ID injected (fresh
-coordinator port per generation). The supervisor watches the heartbeat
+coordinator port per generation), which the training CLI joins the job
+with (distributed/runtime.initialize): N data-parallel ranks. The supervisor watches the heartbeat
 files under --ckpt-dir and respawns the whole fleet — resuming from the
 last committed checkpoint — whenever a worker dies, exits non-zero, or
 freezes its step counter. Exit 0: all workers completed; exit 1: respawn

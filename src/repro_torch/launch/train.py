@@ -1,5 +1,6 @@
-"""Training loop, single process on one device: the SPION three phases,
-with checkpoints, resume, divergence rollback and fault injection.
+"""Training loop on one device or as a data-parallel job of N processes:
+the SPION three phases, with checkpoints, resume, divergence rollback and
+fault injection.
 
   data -> train step (dense phase) -> SPION capture at each epoch boundary
   -> Frobenius transition -> pattern generation (host flood fill) -> sparse
@@ -25,8 +26,22 @@ only from the last checkpoint, on the batch of the step restored; without a
 checkpoint the error re-raises. A failure of the card or of a kernel ends
 the process, and the supervisor restarts it from the last checkpoint.
 
-The JAX package's trainer also spans processes over a mesh: `mesh=` and
-SPION_NUM_PROCESSES > 1 raise NotImplementedError until ROADMAP.md item A12.
+Multi-process (the JAX package's multi-host trainer): launch one process
+per rank with the SPION_* environment (or --coordinator / --num-processes /
+--process-id), as `python -m repro_torch.launch.supervise --nproc N` does.
+`distributed/runtime.initialize` joins the process group, the mesh is
+`make_distributed_mesh()` (the 'pod' axis over the processes: data
+parallelism), and each rank trains on its slice of the global batch on
+its own card (`cuda:{local_rank % device_count}`; ranks share cards when
+there are fewer): the loss is the global batch's mean and the gradients
+are all-reduced, so the replicated parameters stay equal. The capture's
+statistics are averaged over the ranks, the flood fill runs on process 0
+and its plan is broadcast and digest-checked, process 0 writes the
+checkpoints that every process reads (commit barrier), and the per-step
+flags (preemption, divergence) are OR-reduced, so a SIGTERM on one rank
+saves the whole fleet at the same step. `_emit` prints on process 0; every
+process has its heartbeat file hb_{process_index}. A 'model' axis and a
+'seq' axis wait in ROADMAP.md item A12b.
 """
 from __future__ import annotations
 
@@ -43,12 +58,17 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core.spion import SpionController, SpionState
+from repro_torch.data.pipeline import local_batch
 from repro_torch.data.synthetic import lm_batch_iterator
-from repro_torch.distributed import process_count, process_index
+from repro_torch.distributed import process_count as env_process_count
+from repro_torch.distributed import runtime
 from repro_torch.distributed.chaos import ChaosMonkey
 from repro_torch.distributed.fault import (DivergenceSentinel, Heartbeat,
                                            StepSupervisor, StragglerMonitor)
-from repro_torch.launch.steps import compute_params, make_train_step
+from repro_torch.distributed.sharding import data_axes, mesh_context, seq_size
+from repro_torch.launch.mesh import MODEL_AXIS_REFUSAL, make_distributed_mesh
+from repro_torch.launch.steps import (SEQ_STEP_REFUSAL, compute_params,
+                                      make_train_step)
 from repro_torch.models.layers import ParamTree, tree_map
 from repro_torch.models.registry import build
 from repro_torch.optim import adamw_init
@@ -82,17 +102,28 @@ class Trainer:
                  chaos=None, heartbeat_interval=5.0, sentinel=None,
                  max_rollbacks=3, step_callback=None, params=None,
                  device=None):
+        if env_process_count() > 1 and not runtime.is_initialized():
+            raise RuntimeError(
+                f"SPION_NUM_PROCESSES={env_process_count()} but this process "
+                "has not joined the job: call repro_torch.distributed."
+                "runtime.initialize() first (launch/train.main does)")
+        if mesh is None and runtime.process_count() > 1:
+            mesh = make_distributed_mesh()
         if mesh is not None:
-            raise NotImplementedError(
-                "multi-device training (mesh=) is not ported yet; it waits "
-                "in ROADMAP.md item A12")
-        if process_count() > 1:
-            raise NotImplementedError(
-                f"SPION_NUM_PROCESSES={process_count()}: multi-process "
-                "training (plan broadcast, one checkpoint writer) is not "
-                "ported yet; it waits in ROADMAP.md item A12. Supervise the "
-                "port with --nproc 1")
+            if mesh.shape.get("model", 1) > 1:
+                raise NotImplementedError(f"Trainer on {mesh}: "
+                                          f"{MODEL_AXIS_REFUSAL}")
+            if seq_size(mesh) > 1:
+                raise NotImplementedError(f"the Trainer on {mesh} "
+                                          f"{SEQ_STEP_REFUSAL}")
+            ndata = mesh.axis_size(data_axes(mesh))
+            if batch % ndata:
+                raise ValueError(f"global batch {batch} does not split over "
+                                 f"the {ndata} data-parallel ranks")
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.cfg = cfg
+        if device is None and self.mesh is not None:
+            device = runtime.local_device()
         self.device = resolve_device(device)
         self.bundle = build(cfg)
         self.seq_len = seq_len
@@ -139,19 +170,27 @@ class Trainer:
         self.heartbeat = None
         if ckpt_dir:
             self.heartbeat = Heartbeat(
-                os.path.join(ckpt_dir, f"hb_{process_index()}"),
+                os.path.join(ckpt_dir, f"hb_{runtime.process_index()}"),
                 interval=heartbeat_interval)
 
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.bundle.init(gen, device=self.device)
         self.params = masters_of(params).to(self.device)
+        if self.mesh is not None:
+            # replicated from process 0, whatever each process drew
+            with torch.no_grad():
+                runtime.broadcast_tensors(list(self.params.parameters()),
+                                          group=self.mesh.group(
+                                              self.mesh.axis_names))
         self.opt = adamw_init(self.params)
         self._dense_step = make_train_step(cfg, spion=False, lr=lr,
-                                           total_steps=total_steps)
+                                           total_steps=total_steps,
+                                           mesh=self.mesh)
         self._sparse_step = make_train_step(cfg, spion=True, lr=lr,
                                             total_steps=total_steps,
-                                            sparse_kernel=sparse_kernel)
+                                            sparse_kernel=sparse_kernel,
+                                            mesh=self.mesh)
         self._exec = None            # the plan's exec, tables on the device
         self._exec_tables = None
         # maybe_resume is False without a checkpoint: then no retry
@@ -164,14 +203,22 @@ class Trainer:
             self._preempted = True
         signal.signal(signal.SIGTERM, _handler)
 
+    def _device_batch(self, batch):
+        """Host batch -> this rank's slice on its device. Every process
+        holds the same global batch; under a mesh each keeps its shard of
+        the batch axis ('pod' x 'data')."""
+        if self.mesh is not None:
+            return local_batch(self.mesh, batch, self.device)
+        return {k: torch.as_tensor(np.asarray(v), device=self.device)
+                for k, v in batch.items()}
+
     def _next_batch(self):
         # `+ data_offset`: each divergence rollback advances the offset past
         # the poisoned window, so the replayed steps see fresh data while
         # staying step-indexed (resume-exact)
         b = self.data_fn(self.step + self.data_offset) if self.data_fn \
             else next(self.data)
-        return {k: torch.as_tensor(np.asarray(v), device=self.device)
-                for k, v in b.items()}
+        return self._device_batch(b)
 
     # -- checkpoint/restart --------------------------------------------------
 
@@ -293,7 +340,7 @@ class Trainer:
         """(pooled (Ly, nb, nb), frob_sq (Ly,)) of the dense-phase capture on
         `batch`, with the masters cast to cfg.dtype as the step casts them."""
         cap = self.spion_ctl.capture_kwargs(self.spion_state)
-        with torch.no_grad():
+        with torch.no_grad(), mesh_context(self.mesh):
             pc = compute_params(self.params, getattr(torch, self.cfg.dtype))
             _, aux = self.bundle.forward(pc, batch, capture=cap)
         return aux["captured"]
@@ -307,32 +354,49 @@ class Trainer:
         self.spion_state = self.spion_ctl.observe_epoch(
             self.spion_state, pooled.cpu().numpy(), frob.cpu().numpy())
 
+    def _poll_flags(self):
+        """Fleet-wide (preempted, diverged): the same answer on every
+        process at the same step, both flags in ONE collective, on the main
+        thread at the loop top."""
+        if runtime.process_count() > 1:
+            return tuple(runtime.any_flags(
+                [self._preempted, self._diverged_pending]))
+        return self._preempted, self._diverged_pending
+
     def _emit(self, kind: str, **fields):
-        """Structured fault event: appended to self.events and printed as
-        one JSON line (`SPION_EVENT {...}`) for a supervisor tailing
-        stdout."""
-        ev = {"event": kind, "step": self.step, "process": process_index()}
+        """Structured fault event: appended to self.events on every process
+        and printed as one JSON line (`SPION_EVENT {...}`) by the
+        coordinator only, so a supervisor tailing stdout sees it once."""
+        ev = {"event": kind, "step": self.step,
+              "process": runtime.process_index()}
         ev.update(fields)
         self.events.append(ev)
-        print("SPION_EVENT " + json.dumps(ev), flush=True)
+        if runtime.is_coordinator():
+            print("SPION_EVENT " + json.dumps(ev), flush=True)
 
     @torch.no_grad()
     def _poison_params(self):
-        """Chaos NaN injection: fill every float master with NaN in place;
-        the next real step's loss diverges through the forward."""
+        """Chaos NaN injection: fill every float master of this process with
+        NaN in place; the next real step's loss diverges through the
+        forward, and under a mesh through the gradient all-reduce on every
+        rank."""
         for p in self.params.parameters():
             if p.is_floating_point():
                 p.fill_(float("nan"))
 
     def _rollback(self, log):
-        """Divergence rollback: quarantine the checkpoints saved after the
-        last good step, restore the pinned good checkpoint, and skip the
-        poisoned data window so the replay sees fresh batches. Hard-fails
-        after `max_rollbacks` consecutive rollbacks with no healthy
-        checkpoint in between — then the divergence is not data-borne and
-        a human needs to look."""
+        """Divergence rollback: every process reaches it at the same step
+        (the any_flags OR) and agrees on the divergence step (max over the
+        processes); quarantine the checkpoints saved after the last good
+        step, restore the pinned good checkpoint, and skip the poisoned
+        data window so the replay sees fresh batches. Hard-fails after
+        `max_rollbacks` consecutive rollbacks with no healthy checkpoint in
+        between — then the divergence is not data-borne and a human needs
+        to look."""
         t0 = time.time()
         d = -1 if self._diverge_step is None else self._diverge_step
+        if runtime.process_count() > 1:
+            d = runtime.max_value(d)
         self.rollback_count += 1
         self._rollback_streak += 1
         if self._rollback_streak > self.max_rollbacks:
@@ -364,6 +428,8 @@ class Trainer:
         """Run until the step counter has advanced by `num_steps` (a
         rollback replays steps, so it may take more); returns the loss of
         every step run, replays included."""
+        if not runtime.is_coordinator():
+            log = lambda *a, **k: None      # noqa: E731 - one log per fleet
         if self.heartbeat:
             self.heartbeat.pulse()          # announce liveness immediately
             self.heartbeat.start_thread()   # keeps ts fresh even mid-step
@@ -381,10 +447,11 @@ class Trainer:
             if self.chaos:
                 self.chaos.maybe_kill(self.step)
                 self.chaos.maybe_hang(self.step)
-            if self._diverged_pending:
+            preempted, diverged = self._poll_flags()
+            if diverged:
                 self._rollback(log)
                 continue
-            if self._preempted:
+            if preempted:
                 self.preempted = True
                 self.save()
                 if self.ckpt:
@@ -398,7 +465,9 @@ class Trainer:
             losses.append(loss)
             self.loss_history[self.step - 1] = loss  # replay overwrites: stitched
             if self.sentinel and self.sentinel.observe(loss):
-                # rolled back at the top of the next iteration
+                # a local observation: the fleet decides at the top of the
+                # next iteration (the OR), so every process rolls back at
+                # the same step
                 self._diverged_pending = True
                 self._diverge_step = self.step - 1
                 self._emit("divergence", loss=loss,
@@ -454,18 +523,31 @@ def main(argv=None):
                          "cfg.spion.kernel); on the card it is always the "
                          "Hopper kernels")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the first CUDA card)")
+                    help="torch device (default: the first CUDA card; in a "
+                         "multi-process job the rank's card)")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="process-group rendezvous (or env "
+                         "SPION_COORDINATOR); with --num-processes and "
+                         "--process-id this process joins a job")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args(argv)
+    distributed = runtime.initialize(args.coordinator, args.num_processes,
+                                     args.process_id)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    mesh = make_distributed_mesh() if distributed else None
     tr = Trainer(cfg, seq_len=args.seq_len, batch=args.batch,
                  steps_per_epoch=args.steps_per_epoch, ckpt_dir=args.ckpt_dir,
-                 sparse_kernel=args.sparse_kernel, device=args.device)
+                 mesh=mesh, sparse_kernel=args.sparse_kernel,
+                 device=args.device)
     tr.install_preemption_handler()
-    if tr.maybe_resume():
+    if tr.maybe_resume() and runtime.is_coordinator():
         print(f"resumed from step {tr.step} (phase {tr.spion_state.phase})")
     tr.train(args.steps, ckpt_every=args.ckpt_every)
+    # a rank of a job leaves it and ends here (runtime.shutdown)
+    runtime.shutdown(0 if distributed else None)
 
 
 if __name__ == "__main__":

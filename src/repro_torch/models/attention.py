@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import mean_over_data
 from repro_torch.models.layers import he_init, rope
 
 
@@ -231,6 +232,11 @@ def capture_pooled_scores(cfg, q, k, q_pos, k_pos, filt, block: int):
                 row at a time so peak memory is O(block x L), not O(L^2);
       frob_sq = sum(A^s ** 2) of the averaged scores (Eq. 2 transition term).
 
+    Under a data-parallel mesh each rank holds a shard of the batch: each
+    panel of the averaged scores is averaged over the ranks (one all-reduce
+    a panel), so every rank gets the whole batch's statistics, as the
+    reference's replicated capture does.
+
     Matches paper Eq. 3 (conv_out(i,j) = sum_f A(i+f, j+f) filter(f)) with
     zero padding, then Eq. 4 average pooling. Statistics only: no gradient.
     """
@@ -255,6 +261,9 @@ def capture_pooled_scores(cfg, q, k, q_pos, k_pos, filt, block: int):
         s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() / math.sqrt(hd)
         s = s + _mask_bias(cfg, qpos_[r0:r0 + rows], k_pos)
         a = torch.softmax(s, dim=-1).mean(dim=(0, 1, 2))        # (rows, L)
+        # data-parallel ranks: the average over the whole batch, before the
+        # square of the Frobenius term
+        a = mean_over_data(a)
         valid = (r0 + torch.arange(rows, device=q.device)) < Sq
         a = torch.where(valid[:, None], a, 0.0)
         frob = frob + (a[:panel] ** 2).sum()

@@ -6,6 +6,9 @@ build(cfg) -> ModelBundle with:
     init(generator=None, *, device=None) -> params (a ParamTree)
     forward(params, batch, *, spion=None, capture=None) -> (logits, aux)
     loss(params, batch, *, spion=None, capture=None) -> (loss, aux)
+    loss_parts(params, batch, *, spion=None, capture=None) -> (nll_sum,
+        count, extra, aux): the loss before its division, for a mean over
+        ranks (loss = nll_sum / count + extra)
     init_cache(batch_size, max_len, *, device=None) -> cache
     decode_step(params, cache, tokens, pos, *, spion=None) -> (logits, cache)
     prefill_kv(params, batch, *, spion=None) -> (logits, ks, vs) — the fused
@@ -43,6 +46,7 @@ class ModelBundle(NamedTuple):
     # sparsify or page
     supports_sparse_decode: bool = True
     supports_paged_cache: bool = True
+    loss_parts: Optional[Callable] = None
 
 
 def _family_module(cfg: ModelConfig):
@@ -57,15 +61,23 @@ def _family_module(cfg: ModelConfig):
     raise ValueError(cfg.family)
 
 
-def cross_entropy(logits, labels, mask=None):
+def nll_terms(logits, labels, mask=None):
+    """(sum of the token nll, the tokens it sums over): the cross entropy
+    before its division, so ranks holding shards of one batch can take the
+    global mean (the mask's tokens all-reduced, not a mean of means)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is not None:
         mask = mask.float()
-        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
-    return nll.mean()
+        return (nll * mask).sum(), mask.sum()
+    return nll.sum(), torch.tensor(float(nll.numel()), device=nll.device)
+
+
+def cross_entropy(logits, labels, mask=None):
+    nll_sum, count = nll_terms(logits, labels, mask)
+    return nll_sum / count.clamp(min=1.0)
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
@@ -80,16 +92,26 @@ def build(cfg: ModelConfig) -> ModelBundle:
     def forward(params, batch, *, spion=None, capture=None):
         return mod.forward(params, cfg, batch, spion=spion, capture=capture)
 
-    def loss(params, batch, *, spion=None, capture=None):
-        logits, aux = forward(params, batch, spion=spion, capture=capture)
+    def text_logits(logits, batch):
         if cfg.num_patch_tokens and "patch_embeds" in batch:
             # vlm: logits cover [patch, text]; the loss is over text only
-            logits = logits[:, cfg.num_patch_tokens:]
-        l = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+            return logits[:, cfg.num_patch_tokens:]
+        return logits
+
+    def loss_parts(params, batch, *, spion=None, capture=None):
+        logits, aux = forward(params, batch, spion=spion, capture=capture)
+        nll_sum, count = nll_terms(text_logits(logits, batch),
+                                   batch["labels"], batch.get("loss_mask"))
+        extra = 0.0
         if cfg.moe is not None and "lb_loss" in aux:
-            l = l + MOE_LB_WEIGHT * aux["lb_loss"] + \
+            extra = MOE_LB_WEIGHT * aux["lb_loss"] + \
                 MOE_Z_WEIGHT * aux["z_loss"]
-        return l, aux
+        return nll_sum, count, extra, aux
+
+    def loss(params, batch, *, spion=None, capture=None):
+        nll_sum, count, extra, aux = loss_parts(params, batch, spion=spion,
+                                                capture=capture)
+        return nll_sum / count.clamp(min=1.0) + extra, aux
 
     def init_cache(batch_size, max_len, *, device=None, **kw):
         return mod.init_cache(cfg, batch_size, max_len,
@@ -106,4 +128,4 @@ def build(cfg: ModelConfig) -> ModelBundle:
     has_kv = cfg.family != "ssm"
     return ModelBundle(cfg, init, forward, loss, init_cache, decode_step,
                        prefill_kv, supports_sparse_decode=has_kv,
-                       supports_paged_cache=has_kv)
+                       supports_paged_cache=has_kv, loss_parts=loss_parts)

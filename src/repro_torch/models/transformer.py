@@ -9,6 +9,12 @@ switches self-attention to the block-sparse path; `capture` streams pooled
 conv scores for pattern generation during the dense phase. With cfg.remat
 each layer is recomputed in the backward (torch.utils.checkpoint), as the
 JAX package's jax.checkpoint of the scanned layer.
+
+Under a mesh with a 'seq' axis (distributed.sharding.mesh_context) the
+encoder holds this rank's shard of the sequence: its learned positions are
+indexed by global position, and its sparse attention shards over 'seq'
+(kernels/sharded.py). The dense attention, the capture and the other
+families under a 'seq' axis wait in ROADMAP.md item A12b.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.kv_pool import PagedKVCache, scatter_token, write_target
+from repro_torch.distributed.sharding import active_mesh, seq_size
 from repro_torch.models import attention as A
 from repro_torch.models import layers as Lyr
 from repro_torch.models.moe import moe_apply, moe_init
@@ -102,16 +109,39 @@ def _block_h(cfg, lp, positions, ex, sp, h):
     return (h, *(aux or ()))
 
 
-def _embed_inputs(cfg, params, batch, dtype):
+def _embed_inputs(cfg, params, batch, dtype, start=0):
+    """Embeddings and positions of the batch, whose first position is the
+    global position `start` (a sequence shard's offset)."""
     h = Lyr.embed(params["tok_embed"], batch["tokens"], dtype)
     if cfg.num_patch_tokens and "patch_embeds" in batch:
         # vlm: the frontend's patch embeddings precede the text
         h = torch.cat([batch["patch_embeds"].to(dtype), h], dim=1)
     S = h.shape[1]
-    positions = torch.arange(S, device=h.device)
+    positions = torch.arange(start, start + S, device=h.device)
     if not cfg.rope_theta and "pos_embed" in params:
-        h = h + params["pos_embed"]["w"][:S].to(dtype)
+        h = h + params["pos_embed"]["w"][start:start + S].to(dtype)
     return h, positions
+
+
+def _seq_shard_start(cfg, batch, ex, capture):
+    """Global position of this rank's first row: 0 unless the active mesh
+    has a 'seq' axis, where only the encoder's sparse forward is ported."""
+    mesh = active_mesh()
+    n = seq_size(mesh)
+    if n == 1:
+        return 0
+    what = None
+    if cfg.family != "encoder":
+        what = f"the {cfg.family!r} family"
+    elif ex is None:
+        what = "dense attention"
+    elif capture is not None:
+        what = "the SPION capture"
+    if what is not None:
+        raise NotImplementedError(
+            f"{what} under a 'seq' axis ({mesh}) waits in ROADMAP.md item "
+            "A12b")
+    return mesh.axis_index("seq") * batch["tokens"].shape[1]
 
 
 def forward(params, cfg, batch, *, spion=None, capture=None,
@@ -128,7 +158,8 @@ def forward(params, cfg, batch, *, spion=None, capture=None,
              cache pages. Return becomes (logits, aux, (ks, vs))."""
     dtype = _dtype(cfg)
     ex = SparseAttentionExec.coerce(spion)
-    h, positions = _embed_inputs(cfg, params, batch, dtype)
+    h, positions = _embed_inputs(cfg, params, batch, dtype,
+                                 _seq_shard_start(cfg, batch, ex, capture))
     tabs = None if ex is None else ex.scan_tables()
     remat = cfg.remat and torch.is_grad_enabled() and capture is None \
         and not collect_kv

@@ -244,9 +244,29 @@ def test_checkpoint_quarantine_after(tmp_path):
     assert mgr.all_steps() == [1, 2]
 
 
-def test_multiprocess_checkpoint_raises_naming_the_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="A12"):
-        CheckpointManager(str(tmp_path), multiprocess=True)
+def test_multiprocess_checkpoint_raises_naming_the_roadmap_item(tmp_path,
+                                                                monkeypatch):
+    """Multi-process checkpoints are ported (process 0 writes, every
+    process reads, the commit barrier in wait()): multiprocess=True no
+    longer raises. Process 0 writes and commits; another process copies
+    nothing to the host and writes nothing, and reads what process 0
+    wrote. (The barriers across real processes: test_torch_multiprocess.)"""
+    from repro_torch.distributed import runtime
+    tree = {"w": torch.arange(6, dtype=torch.float32).reshape(2, 3)}
+    mgr = CheckpointManager(str(tmp_path), multiprocess=True)
+    assert mgr.multiprocess and mgr.is_writer
+    mgr.save(3, tree)
+    assert mgr._pending_commit
+    mgr.wait()                       # the (one-process) commit barrier
+    assert mgr.all_steps() == [3] and not mgr._pending_commit
+    monkeypatch.setattr(runtime, "is_coordinator", lambda: False)
+    other = CheckpointManager(str(tmp_path), multiprocess=True)
+    assert not other.is_writer
+    other.save(4, {"w": None})       # a non-writer never reads its tree
+    other.quarantine_after(3)
+    assert other.all_steps() == [3]
+    got, step, _ = other.restore(target=tree)
+    assert step == 3 and torch.equal(got["w"], tree["w"])
 
 
 def test_restore_refuses_a_mismatched_leaf(tmp_path):

@@ -381,7 +381,8 @@ def _imported_modules(path):
 def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_repro.py",
-              ROOT / "examples" / "train_listops_spion_torch.py"]
+              ROOT / "examples" / "train_listops_spion_torch.py",
+              ROOT / "examples" / "serve_batch_torch.py"]
     names = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files
              if "repro_torch" in str(f)}
     # the training slice's and the fault-tolerance slice's modules are
@@ -393,7 +394,9 @@ def test_port_imports_nothing_of_jax():
             "checkpoint/manager.py", "checkpoint/msgpack_lite.py",
             "distributed/__init__.py", "distributed/fault.py",
             "distributed/chaos.py", "distributed/supervisor.py",
-            "launch/supervise.py"} <= names
+            "launch/supervise.py", "distributed/runtime.py",
+            "distributed/sharding.py", "kernels/sharded.py",
+            "launch/mesh.py", "data/pipeline.py"} <= names
     assert len(files) > 35
     # nor the packages the JAX package's checkpoints are written with
     bad = [(f.relative_to(ROOT), m) for f in files

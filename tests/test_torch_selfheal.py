@@ -356,15 +356,37 @@ def test_supervisor_respawns_a_port_worker(tmp_path):
 
 
 def test_trainer_refuses_several_processes(monkeypatch):
+    """Several processes are ported (test_torch_multiprocess). What still
+    raises: a worker the supervisor announced as one of several that has
+    not joined the job (it would train and checkpoint alone), and, under a
+    'seq' axis, the dense phase and the capture (ROADMAP.md item A12b),
+    before any collective."""
+    import torch
     from repro_torch.configs import get_config
+    from repro_torch.core.spion import SpionController, SpionState
+    from repro_torch.distributed.sharding import mesh_context
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import make_loss_and_grads
     from repro_torch.launch.train import Trainer
+    from repro_torch.models.registry import build
+    cfg = get_config("spion-lra").reduced()
     monkeypatch.setenv("SPION_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="A12"):
-        Trainer(get_config("spion-lra").reduced(), seq_len=64, batch=1,
-                device="cpu")
+    with pytest.raises(RuntimeError, match="has not joined the job"):
+        Trainer(cfg, seq_len=64, batch=1, device="cpu")
     monkeypatch.setenv("SPION_NUM_PROCESSES", "1")
-    Trainer(get_config("spion-lra").reduced(), seq_len=64, batch=1,
-            device="cpu")
+    tr = Trainer(cfg, seq_len=64, batch=1, device="cpu")
+    seq = Mesh([[0], [1]], ("seq", "data"))
+    batch = {"tokens": torch.zeros((1, 32), dtype=torch.int64),
+             "labels": torch.zeros((1, 32), dtype=torch.int64)}
+    with pytest.raises(NotImplementedError, match="A12b"):
+        make_loss_and_grads(cfg, mesh=seq)(tr.params, batch)
+    bundle = build(cfg)
+    cap = SpionController(cfg.spion, causal=cfg.causal,
+                          seq_len=64).capture_kwargs(SpionState())
+    with mesh_context(seq):
+        for kw in ({}, {"capture": cap}):
+            with pytest.raises(NotImplementedError, match="A12b"):
+                bundle.forward(tr.params, batch, **kw)
 
 
 def test_supervise_cli(tmp_path):

@@ -269,20 +269,27 @@ def test_dense_train_steps_match_reference(dtype, n_micro):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """Meshes and several processes wait in ROADMAP.md: asking for them
-    raises and names the item. Checkpointing (item A8) is ported: ckpt_dir=
+    """Data-parallel meshes are ported (item A12; test_torch_multiprocess);
+    a 'model' axis and a 'seq' axis wait in ROADMAP.md item A12b: asking
+    for them raises and names the item. A mesh of one rank is the
+    single-device trainer. Checkpointing (item A8) is ported: ckpt_dir=
     gives the trainer its manager and heartbeat."""
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.train import Trainer
     _jc, tc = lra_configs()
     tr = Trainer(tc, seq_len=S, batch=B, ckpt_dir=str(tmp_path),
                  device="cpu")
     assert tr.ckpt.dir == str(tmp_path) and tr.ckpt.keep == 3
     assert tr.heartbeat.path == str(tmp_path / "hb_0")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item A12"):
-        Trainer(tc, seq_len=S, batch=B, mesh=object(), device="cpu")
-    monkeypatch.setenv("SPION_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item A12"):
-        Trainer(tc, seq_len=S, batch=B, device="cpu")
+    assert tr.mesh is None
+    one = Mesh([[[0]]], ("pod", "data", "model"))
+    assert Trainer(tc, seq_len=S, batch=B, mesh=one, device="cpu").mesh \
+        is None
+    for mesh in (Mesh([[0, 1]], ("data", "model")),
+                 Mesh([[0], [1]], ("seq", "data"))):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md item A12b"):
+            Trainer(tc, seq_len=S, batch=B, mesh=mesh, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
