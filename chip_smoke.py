@@ -177,14 +177,31 @@ Phases (each one fails the run; nothing falls back to the CPU):
      SIGKILLed: one respawn, generation 1 resumes from process 0's
      checkpoint, stitched losses within TOL_RESUME of 12b's; and, run by
      12b's ranks after their training (no spawn of its own), one SIGTERM
-     on rank 1 makes both ranks save at the same step.
+     on rank 1 makes both ranks save at the same step;
+     12d. training over a 'seq' axis: four ranks (`--seqtrain-worker DIR`)
+     on a mesh of seq 2 x data 2 train spion-lra through phase 5's 20
+     steps (its configuration, data and seed; 64 sequences x 1024
+     positions a rank): dense losses within TOL_DP of phase 5's, each
+     capture within TOL_CAPTURE of phase 5's (a planted capture whose last
+     panel reads zero rows past it), plan digests equal, the plan phase
+     5's when the maps are, else this process's controller's on the ranks'
+     map, 8 + 4 + 4 launches a sparse step on every rank, masters equal;
+     the trained plan's branch (halo exchange or gathered fallback) and
+     kernel_seq_axis' reason printed. Then internvl2-2b at full width, 2 of
+     24 layers, fp32, 2 x (256 patches + 1792 tokens) on the same mesh: a
+     dense and a sparse make_loss_and_grads (a plan banded to halo (8, 0),
+     so the halo exchange runs) within TOL_SEQ_LOSS and TOL_SEQ_GRAD of
+     one process on the card, gradients equal across the ranks, and a
+     planted K/V gather whose backward skips the sum over 'seq' past the
+     gate. Step, capture and gather ms and peak memory per rank.
 The line before the last is the kernels' JSON record (launches_serve,
 launches_serve_shared, launches_mixtral, launches_zamba2,
 launches_whisper, launches_internvl2, launches_train, launches_resume,
-launches_rollback, launches_respawn, launches_dp (both ranks of 12b) and
-launches_fleet (both ranks of 12c's generation 1) count each kernel's
-launches in phases 4, 4a, 4b, 4c, 4e, 4f (their sparse forward and train
-step), 5, 9-11 and 12, each read from zero; `seq_parallel` holds phase
+launches_rollback, launches_respawn, launches_dp (both ranks of 12b),
+launches_fleet (both ranks of 12c's generation 1) and launches_seqtrain
+(12d's four ranks, training and the decoder's sparse step) count each
+kernel's launches in phases 4, 4a, 4b, 4c, 4e, 4f (their sparse forward
+and train step), 5, 9-11 and 12, each read from zero; `seq_parallel` holds phase
 12a's worst differences and per-rank times; the forward's mixtral_shape
 holds its check
 and timing at phase 4b's shape and its qwen2_5_14b_shape,
@@ -2938,7 +2955,7 @@ def phase_train():
         f"{time.perf_counter() - t0:.1f} s")
     init = {n: p.detach().clone() for n, p in tr.params.named_parameters()}
 
-    captures, fills = [], []
+    captures, fills, pooled = [], [], []
     inner_capture = tr.capture
     inner_generate = tr.spion_ctl.generate
 
@@ -2948,6 +2965,7 @@ def phase_train():
         out = inner_capture(batch)
         torch.cuda.synchronize()
         captures.append(time.perf_counter() - t)
+        pooled.append(out[0].float().cpu().numpy())   # phase 12d's reference
         return out
 
     def generate(state, pooled):
@@ -3016,7 +3034,7 @@ def phase_train():
     profile_sparse_step(tr, tr._one_step)
     return dict(trainer=tr, cfg=cfg, launches=launches, dense_ms=d_med,
                 sparse_ms=s_med, data_fn=data_fn, losses=losses,
-                dense_steps=len(dense))
+                dense_steps=len(dense), pooled=pooled)
 
 
 def profile_sparse_step(tr, step_fn):
@@ -4240,11 +4258,11 @@ START_STAGES = (("main", "to main()"), ("torch", "import torch"),
                 ("resumed", "resume"))
 
 
-def stage_split(t0, stages, more=()):
+def stage_split(t0, stages, more=(), start=START_STAGES):
     """{stage: seconds since the stage before} of a worker's wall-clock
-    `stages`, the first from `t0`."""
+    `stages`, the first from `t0`: the `start` stages, then `more`."""
     out, prev = {}, t0
-    for key, name in START_STAGES + tuple(more):
+    for key, name in tuple(start) + tuple(more):
         out[name] = stages[key] - prev
         prev = stages[key]
     return out
@@ -4504,8 +4522,414 @@ def phase_fleet(dp):
         for k in KERNELS})
 
 
+SEQ_TRAIN_MESH = (2, 2)     # 12d: 'seq' x 'data', four ranks on the card
+SEQ_DECODER_LAYERS = 2      # internvl2-2b's 24 layers cut to 2 (reduced)
+SEQ_DECODER_BATCH = 2       # sequences of 256 patches + 1792 tokens
+SEQ_DECODER_EXTENT = 8      # the decoder plan's band: halo (<= 8, 0) blocks
+# 12d: the capture on the ranks' shards against phase 5's, as a share of
+# the map's largest entry. The shards' bf16 q and k round where phase 5's
+# do not (other matmul shapes, masters within TOL_DP): on one H100 80GB
+# HBM3 at 700 W the sound captures read up to 5.630e-05, the planted zero
+# rows in the last panel 4.815e-02.
+TOL_CAPTURE = 1e-3
+# 12d's decoder steps, fp32 on the card: the loss's relative gap to one
+# process, and each gradient leaf's largest |difference| over its largest
+# |element|. The shards' sums run in another order than one process's.
+TOL_SEQ_LOSS = 3e-5
+TOL_SEQ_GRAD = 1e-4
+
+
+def gather_timer():
+    """Wrap distributed.sharding.GatherSeq so that its forward (the
+    all_gather) and backward (the all-reduce) add their host seconds to
+    the returned dict's "fwd" and "bwd" (a synchronize on each side)."""
+    import torch
+    from repro_torch.distributed import sharding
+    secs = {"fwd": 0.0, "bwd": 0.0}
+    fwd, bwd = sharding.GatherSeq.forward, sharding.GatherSeq.backward
+
+    def timed(key, fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            secs[key] += time.perf_counter() - t
+            return out
+        return staticmethod(run)
+    sharding.GatherSeq.forward = timed("fwd", fwd)
+    sharding.GatherSeq.backward = timed("bwd", bwd)
+    return secs
+
+
+def zero_next_rows(q, nf):
+    """Phase 12d's planted capture fault: the last panel of every shard
+    reads zero rows in place of the next shard's first rows."""
+    return q.new_zeros((q.shape[0], nf, *q.shape[2:]))
+
+
+def kv_local_backward(ctx, g):
+    """Phase 12d's planted K/V fault: the gather's backward keeps this
+    shard's rows of the gradient without summing them over 'seq'."""
+    return (g.narrow(ctx.dim, ctx.idx * ctx.rows, ctx.rows), None, None,
+            None, None)
+
+
+def seqtrain_lra(mesh, d, rank):
+    """12d's main path on one rank: spion-lra at ListOps size through
+    phase 5's TRAIN_STEPS steps on `mesh`, every capture timed and kept;
+    the first capture also run with the planted zero rows."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.sharding import kernel_seq_axis
+    from repro_torch.models import attention as A
+    tr, cfg, _ = lra_trainer(mesh=mesh)
+    check(tr.mesh is mesh, f"rank {rank}: the trainer's mesh is {tr.mesh}")
+    steps, undo = record_steps(tr)
+    secs = gather_timer()
+    caps, pooled, planted = [], [], []
+    in_captures = [0.0]          # gather seconds inside the captures
+    inner_capture = tr.capture
+
+    def capture(batch):
+        g0 = secs["fwd"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_capture(batch)
+        torch.cuda.synchronize()
+        caps.append({"ms": 1e3 * (time.perf_counter() - t),
+                     "gather_ms": 1e3 * (secs["fwd"] - g0)})
+        pooled.append(out[0].float().cpu().numpy())
+        if not planted:
+            sound, A.next_shard_rows = A.next_shard_rows, zero_next_rows
+            try:
+                planted.append(inner_capture(batch)[0].float().cpu().numpy())
+            finally:
+                A.next_shard_rows = sound
+        in_captures[0] += secs["fwd"] - g0
+        return out
+    tr.capture = capture
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    gather_steps = []
+
+    def on_step(step, loss):
+        gather_steps.append(
+            1e3 * (secs["fwd"] + secs["bwd"] - in_captures[0]))
+    tr.step_callback = on_step
+    tr.train(TRAIN_STEPS, ckpt_every=0, log_every=10**9, log=lambda m: None)
+    undo()
+    st = tr.spion_state
+    block = cfg.spion.block_size
+    axis, reason = kernel_seq_axis(mesh, tr.seq_len // block,
+                                   st.plan_stats["halo"])
+    np.savez(os.path.join(d, f"pooled_{rank}.npz"),
+             **{f"p{i}": p for i, p in enumerate(pooled)},
+             zero_rows=planted[0])
+    # the K/V gathers' ms a step (forward and backward)
+    gathers = np.diff([0.0] + gather_steps).tolist()
+    out = {"losses": [r["loss"] for r in steps],
+           "phases": [r["phase"] for r in steps],
+           "launches": [r["launches"] for r in steps],
+           "step_ms": [1e3 * r["s"] for r in steps],
+           "gather_ms": gathers, "captures": caps,
+           "digest": plan_digest_of(st), "stats": st.plan_stats,
+           "masters": masters_digest(tr),
+           "branch": "halo" if axis else "gathered fallback",
+           "reason": reason, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del tr
+    return out
+
+
+def seqtrain_decoder(mesh, rank):
+    """12d's decoder part on one rank: internvl2-2b at full width,
+    SEQ_DECODER_LAYERS layers, fp32, SEQ_DECODER_BATCH sequences: a dense
+    and a sparse make_loss_and_grads on `mesh` (the plan banded so that
+    the halo exchange runs), and the dense one again with the planted K/V
+    fault. Rank 0 also runs both steps in one process on the global batch
+    and holds the mesh steps (and the fault) against them."""
+    import hashlib
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import local_batch
+    from repro_torch.distributed import runtime, sharding
+    from repro_torch.distributed.sharding import kernel_seq_axis
+    from repro_torch.launch.steps import (make_loss_and_grads,
+                                          spion_dryrun_tables)
+    from repro_torch.launch.train import masters_of
+    from repro_torch.models.registry import build
+    cfg = get_config("internvl2-2b").replace(num_layers=SEQ_DECODER_LAYERS,
+                                             dtype="float32")
+    P, block, S = cfg.num_patch_tokens, cfg.spion.block_size, INTERNVL_S
+    check(P == 256 and cfg.d_model == 2048 and block == 64 and cfg.remat,
+          "internvl2-2b config changed")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    params = masters_of(build(cfg).init(gen, device=DEVICE))
+    rng = np.random.default_rng(SEED + 21)
+    toks = rng.integers(0, cfg.vocab_size, size=(SEQ_DECODER_BATCH,
+                                                 S - P + 1)).astype(np.int64)
+    gb = {"patch_embeds": rng.standard_normal(
+              (SEQ_DECODER_BATCH, P, cfg.d_model)).astype(np.float32),
+          "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    tables = spion_dryrun_tables(cfg, S, max_extent=SEQ_DECODER_EXTENT)
+    tables = {k: v.to(DEVICE) if torch.is_tensor(v) else v
+              for k, v in tables.items()}
+    axis, reason = kernel_seq_axis(mesh, S // block, tables["halo"])
+    check(axis == "seq", f"the decoder plan does not take the halo path: "
+          f"{reason}")
+    batch = local_batch(mesh, gb, DEVICE)
+    f = make_loss_and_grads(cfg, mesh=mesh, halo=tables["halo"])
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for kind in ("dense", "sparse", "planted"):
+        tabs = tables if kind == "sparse" else None
+        inner = sharding.GatherSeq.backward
+        if kind == "planted":
+            sharding.GatherSeq.backward = staticmethod(kv_local_backward)
+        try:
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, grads = f(params, batch, tabs)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+        finally:
+            sharding.GatherSeq.backward = inner
+        h = hashlib.sha256()
+        for k in sorted(grads):
+            h.update(grads[k].cpu().numpy().tobytes())
+        runs[kind] = {"loss": float(loss), "ms": ms,
+                      "launches": launch_counts(),
+                      "grads": h.hexdigest()[:32]}
+        if rank == 0:
+            runs[kind]["_grads"] = grads
+        else:
+            del grads
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if rank == 0:
+        one = make_loss_and_grads(cfg)
+        full = {k: torch.as_tensor(v, device=DEVICE) for k, v in gb.items()}
+        for kind in ("dense", "sparse"):
+            loss, ref = one(params, full, tables if kind == "sparse" else None)
+            for k_ in ([kind, "planted"] if kind == "dense" else [kind]):
+                got = runs[k_].pop("_grads")
+                rel = {n: ((got[n] - g).abs().max() /
+                           g.abs().max().clamp(min=1e-30)).item()
+                       for n, g in ref.items()}
+                worst = max(rel, key=rel.get)
+                runs[k_].update(ref_loss=float(loss), grad_rel=rel[worst],
+                                worst_leaf=worst,
+                                loss_gap=loss_gap([runs[k_]["loss"]],
+                                                  [float(loss)]))
+                del got
+            del ref
+    runtime.barrier("decoder reference")
+    return {"runs": runs, "peak_gb": peak, "reason": reason,
+            "halo": list(tables["halo"]),
+            "launches_want": sparse_launches(cfg)}
+
+
+def seqtrain_worker(d, stages):
+    """A rank of phase 12d (`--seqtrain-worker DIR`, the SPION_* environment
+    of a job of 4): on the SEQ_TRAIN_MESH mesh, `seqtrain_lra` then
+    `seqtrain_decoder`; writes DIR/seqtrain_<rank>.json and its start-up
+    stages."""
+    import gc
+    import torch
+    from repro_torch.distributed import runtime
+    from repro_torch.kernels.block_sparse_attn import load_library
+    from repro_torch.launch.mesh import make_seq_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(runtime.initialize(), "the 'seq' worker did not join its job")
+    stages["joined"] = time.time()
+    rank = runtime.process_index()
+    torch.zeros(1, device=DEVICE)
+    torch.cuda.synchronize()
+    stages["cuda"] = time.time()
+    load_library()
+    stages["library"] = time.time()
+    mesh = make_seq_mesh(*SEQ_TRAIN_MESH)
+    out = {"rank": rank, "coords": mesh.coords()}
+    out["lra"] = seqtrain_lra(mesh, d, rank)
+    stages["trained"] = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["decoder"] = seqtrain_decoder(mesh, rank)
+    stages["decoder"] = time.time()
+    out["stages"] = stages
+    with open(os.path.join(d, f"seqtrain_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    runtime.shutdown(0)   # ends the process
+    return 0
+
+
+def phase_seq_train(train):
+    """12d: SPION training over a 'seq' axis, four ranks of this script on
+    the card (`--seqtrain-worker DIR`, mesh SEQ_TRAIN_MESH). The main path
+    at phase 5's configuration, data and seed: dense losses within TOL_DP
+    of phase 5's; each capture within TOL_CAPTURE of phase 5's and the
+    planted zero rows past it; plan digests equal across the ranks, equal
+    to phase 5's when the maps are bitwise phase 5's, else to this
+    process's controller on the ranks' map; every sparse step 8 + 4 + 4 on
+    every rank; masters bitwise equal across the ranks. The decoder:
+    internvl2-2b's dense and sparse steps within TOL_SEQ_LOSS and
+    TOL_SEQ_GRAD of one process, launches as a sparse step's, gradients
+    bitwise equal across the ranks, the planted K/V fault past
+    TOL_SEQ_GRAD."""
+    import shutil
+    import numpy as np
+    from repro_torch.core.spion import SpionState
+    d = os.path.join(DP_DIR, "seqtrain")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    n = SEQ_TRAIN_MESH[0] * SEQ_TRAIN_MESH[1]
+    t0, t_spawn = time.perf_counter(), time.time()
+    wait_ranks(spawn_ranks(["--seqtrain-worker", d], n),
+               "the 'seq' training ranks")
+    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(n):
+        with open(os.path.join(d, f"seqtrain_{r}.json")) as f:
+            recs.append(json.load(f))
+    pooled = [dict(np.load(os.path.join(d, f"pooled_{r}.npz")))
+              for r in range(n)]
+    cfg, ref = train["cfg"], train["losses"]
+    want = sparse_launches(cfg)
+    lra = [rec["lra"] for rec in recs]
+    got = lra[0]["losses"]
+    check(all(x["losses"] == got for x in lra), "the ranks' losses differ")
+    for r, x in enumerate(lra):
+        for ph, ln in zip(x["phases"], x["launches"]):
+            check(ln == want if ph == "sparse" else not any(ln.values()),
+                  f"rank {r}: a {ph} step launched {ln}")
+    check("sparse" in lra[0]["phases"], "the 'seq' run never went sparse")
+    dense_n = min(train["dense_steps"], lra[0]["phases"].count("dense"))
+    gap = loss_gap(got[:dense_n], ref[:dense_n])
+    check(len({x["digest"] for x in lra}) == 1,
+          f"the ranks' plan digests differ: {[x['digest'] for x in lra]}")
+    check(len({x["masters"] for x in lra}) == 1,
+          "the ranks' masters differ after the run")
+    # the captures against phase 5's
+    caps = [k for k in pooled[0] if k != "zero_rows"]
+    check(len(caps) == len(train["pooled"]), f"{len(caps)} captures, phase "
+          f"5 made {len(train['pooled'])}")
+    bitwise = True
+    for r in range(n):
+        for i, want_map in enumerate(train["pooled"]):
+            m = pooled[r][f"p{i}"]
+            check(np.array_equal(m, pooled[0][f"p{i}"]),
+                  f"rank {r}'s capture {i} differs from rank 0's")
+            bitwise &= bool(np.array_equal(m, want_map))
+    cap_gaps = [float(np.abs(pooled[0][f"p{i}"] - w).max() / np.abs(w).max())
+                for i, w in enumerate(train["pooled"])]
+    cap_gap = max(cap_gaps)
+    planted = float(np.abs(pooled[0]["zero_rows"] - train["pooled"][0]).max()
+                    / np.abs(train["pooled"][0]).max())
+    if bitwise:
+        plan_ref, which = plan_digest_of(train["trainer"].spion_state), \
+            "phase 5's"
+    else:
+        tr5 = train["trainer"]
+        st = tr5.spion_ctl.generate(SpionState(),
+                                    pooled[0][f"p{len(caps) - 1}"])
+        plan_ref = plan_digest_of(st)
+        which = "the controller's on the ranks' map"
+    same_plan = lra[0]["digest"] == plan_ref
+    phase5_plan = lra[0]["digest"] == plan_digest_of(
+        train["trainer"].spion_state)
+    # the decoder
+    dec = [rec["decoder"] for rec in recs]
+    d0 = dec[0]["runs"]
+    for r, x in enumerate(dec):
+        for kind in ("dense", "sparse"):
+            ln = x["runs"][kind]["launches"]
+            check(ln == (x["launches_want"] if kind == "sparse"
+                         else {k: 0 for k in ln}),
+                  f"rank {r}: the decoder's {kind} step launched {ln}")
+            check(x["runs"][kind]["grads"] == d0[kind]["grads"],
+                  f"rank {r}: the decoder's {kind} gradients differ from "
+                  f"rank 0's")
+    card = card_line()
+    log(f"seq-train: {n} ranks on the card (gloo), mesh seq "
+        f"{SEQ_TRAIN_MESH[0]} x data {SEQ_TRAIN_MESH[1]}, spion-lra at "
+        f"ListOps size ({lra_config()[1]['batch'] // SEQ_TRAIN_MESH[1]} "
+        f"sequences x {lra_config()[1]['seq_len'] // SEQ_TRAIN_MESH[0]} "
+        f"positions a rank): {TRAIN_STEPS} steps, {dense_n} dense, then "
+        f"sparse at {want} a step on every rank; dense losses vs phase 5's "
+        f"max rel {gap:.3e} (gate {TOL_DP}); captures vs phase 5's "
+        f"{', '.join('%.3e' % g for g in cap_gaps)} of the map's largest "
+        f"entry ({'bitwise' if bitwise else 'not bitwise'}; gate "
+        f"{TOL_CAPTURE}), planted zero rows {planted:.3e}; plan digests "
+        f"equal ({lra[0]['digest']}), "
+        f"{'equal to' if same_plan else 'DIFFERENT from'} {which}, "
+        f"{'equal to' if phase5_plan else 'not'} phase 5's; the "
+        f"trained plan (halo {lra[0]['stats']['halo']}) takes the "
+        f"{lra[0]['branch']} ({lra[0]['reason']}); masters bitwise equal "
+        f"across the ranks")
+    for r, x in enumerate(lra):
+        def med(ph):
+            xs = [ms for ms, p in zip(x["step_ms"][1:], x["phases"][1:])
+                  if p == ph]
+            return float(np.median(xs)) if xs else float("nan")
+        dense_g = [g for g, p in zip(x["gather_ms"][1:], x["phases"][1:])
+                   if p == "dense"]
+        cap_ms = ", ".join("%.2f" % c["ms"] for c in x["captures"])
+        cap_g = ", ".join("%.2f" % c["gather_ms"] for c in x["captures"])
+        log(f"seq-train rank {r} {recs[r]['coords']}: step median dense "
+            f"{med('dense'):.2f} ms, sparse {med('sparse'):.2f} ms; K/V "
+            f"gathers a dense step median {float(np.median(dense_g)):.2f} ms; "
+            f"captures {cap_ms} ms (their gathers {cap_g} ms); launches "
+            f"{sum_launches(x['launches'])}; peak {x['peak_gb']:.2f} GB "
+            f"({card})")
+    log(f"seq-train decoder: internvl2-2b, d_model 2048, "
+        f"{SEQ_DECODER_LAYERS} of 24 layers, fp32, {SEQ_DECODER_BATCH} x "
+        f"(256 patches + 1792 tokens), plan halo {dec[0]['halo']} "
+        f"({dec[0]['reason']}): "
+        + "; ".join(f"{kind} loss {d0[kind]['loss']:.6f} vs one process "
+                    f"{d0[kind]['ref_loss']:.6f} (rel "
+                    f"{d0[kind]['loss_gap']:.3e}), worst gradient leaf {d0[kind]['worst_leaf']} "
+                    f"{d0[kind]['grad_rel']:.3e} of its largest"
+                    for kind in ("dense", "sparse", "planted"))
+        + f" (gates {TOL_SEQ_LOSS}, {TOL_SEQ_GRAD}); per rank: " + "; ".join(
+            f"rank {r} dense {x['runs']['dense']['ms']:.1f} ms, sparse "
+            f"{x['runs']['sparse']['ms']:.1f} ms, launches "
+            f"{x['runs']['sparse']['launches']}, peak {x['peak_gb']:.2f} GB"
+            for r, x in enumerate(dec)))
+    clock = stage_split(t_spawn, recs[0]["stages"], (
+        ("trained", f"trainer and {TRAIN_STEPS} steps"),
+        ("decoder", "decoder steps")), start=START_STAGES[:5])
+    clock["exit"] = wall - sum(clock.values())
+    log(f"seq-train wall clock, rank 0, s: {fmt_split(clock)}; phase 12d "
+        f"{wall:.1f} s")
+    check(gap <= TOL_DP, f"the 'seq' dense losses differ from phase 5's by "
+          f"{gap}; gate {TOL_DP}")
+    check(cap_gap <= TOL_CAPTURE < planted, f"captures {cap_gap}, planted "
+          f"{planted}; gate {TOL_CAPTURE}")
+    check(same_plan, f"the ranks' plan differs from {which}")
+    for kind in ("dense", "sparse"):
+        check(d0[kind]["loss_gap"] <= TOL_SEQ_LOSS and
+              d0[kind]["grad_rel"] <= TOL_SEQ_GRAD,
+              f"the decoder's {kind} step misses one process's: {d0[kind]}")
+    check(d0["planted"]["grad_rel"] > TOL_SEQ_GRAD,
+          f"the planted K/V fault passes the gradient gate: {d0['planted']}")
+    launches = {k: sum(sum(ln[k] for ln in x["launches"]) for x in lra)
+                + sum(x["runs"]["sparse"]["launches"][k] for x in dec)
+                for k in KERNELS}
+    return dict(seconds=wall, launches=launches, gap=gap, cap_gap=cap_gap,
+                planted=planted, branch=lra[0]["branch"],
+                reason=lra[0]["reason"], peak_gb=[x["peak_gb"] for x in lra],
+                decoder=d0)
+
+
+def sum_launches(per_step):
+    """The kernels' launches summed over a run's steps."""
+    return {k: sum(ln[k] for ln in per_step) for k in KERNELS}
+
+
 def phase_multiprocess(train):
-    """Phase 12: 12a, 12b and 12c, after the parent frees its cached
+    """Phase 12: 12a, 12b, 12c and 12d, after the parent frees its cached
     memory for the ranks."""
     import gc
     import shutil
@@ -4518,7 +4942,8 @@ def phase_multiprocess(train):
     seq = phase_seq_parallel()
     dp = phase_data_parallel(train)
     fleet = phase_fleet(dp)
-    return dict(seq=seq, dp=dp, fleet=fleet)
+    seqtrain = phase_seq_train(train)
+    return dict(seq=seq, dp=dp, fleet=fleet, seqtrain=seqtrain)
 
 
 def main(argv):
@@ -4540,6 +4965,9 @@ def main(argv):
     parser.add_argument("--dp-worker", metavar="DIR", help="run as a rank "
                         "of phases 12b and 12c's data-parallel training "
                         "with checkpoints in DIR")
+    parser.add_argument("--seqtrain-worker", metavar="DIR", help="run as a "
+                        "rank of phase 12d's training over a 'seq' axis; "
+                        "records go to DIR")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4552,6 +4980,9 @@ def main(argv):
         return seq_worker(args.seq_worker)
     if args.dp_worker:
         return dp_worker(args.dp_worker, {"main": t_main, "torch": t_torch})
+    if args.seqtrain_worker:
+        return seqtrain_worker(args.seqtrain_worker,
+                               {"main": t_main, "torch": t_torch})
     import shutil
     import numpy as np
     # every exec of this run (and of the respawn phase's worker, which
@@ -4631,12 +5062,12 @@ def main(argv):
     rollback = phase_rollback(resume)
     respawn = phase_respawn(train, resume)
     multi = phase_multiprocess(train)
-    dp, fleet = multi["dp"], multi["fleet"]
+    dp, fleet, seqtrain = multi["dp"], multi["fleet"], multi["seqtrain"]
 
     fwd = {"launches": serve["launches"] + shared["launches"]
            + mixtral["launches"]
            + sum(run["launches"]["block_sparse_fwd"]
-                 for run in (zamba, whisper, internvl, train, dp)),
+                 for run in (zamba, whisper, internvl, train, dp, seqtrain)),
            "launches_serve": serve["launches"],
            "launches_serve_shared": shared["launches"],
            "launches_mixtral": mixtral["launches"],
@@ -4657,7 +5088,8 @@ def main(argv):
                         ("block_sparse_dkv", ("dk", "dv"))):
         t = train_timing[name]
         rows[name] = {"launches": sum(run["launches"][name] for run in
-                                      (train, zamba, whisper, internvl, dp)),
+                                      (train, zamba, whisper, internvl, dp,
+                                       seqtrain)),
                       "launches_zamba2": zamba["launches"][name],
                       "launches_whisper": whisper["launches"][name],
                       "launches_internvl2": internvl["launches"][name],
@@ -4674,7 +5106,7 @@ def main(argv):
         row["tuned"] = tuned[name]
         for path, run in (("resume", resume), ("rollback", rollback),
                           ("respawn", respawn), ("dp", dp),
-                          ("fleet", fleet)):
+                          ("fleet", fleet), ("seqtrain", seqtrain)):
             row[f"launches_{path}"] = run["launches"][name]
         row["seq_parallel"] = multi["seq"]["runs"]
     record = {"kernels": [
@@ -4732,6 +5164,15 @@ def main(argv):
         f"GB; fleet respawn (killed rank's last step to the new generation's "
         f"first) {fleet['seconds']:.3f} s; halo transport "
         f"{multi['seq']['transport']} ({card})")
+    log(f"training over 'seq' (phase 12d, {seqtrain['seconds']:.1f} s): "
+        f"spion-lra on seq {SEQ_TRAIN_MESH[0]} x data {SEQ_TRAIN_MESH[1]} "
+        f"ranks sharing the card, dense gap {seqtrain['gap']:.3e}, captures "
+        f"{seqtrain['cap_gap']:.3e} (planted {seqtrain['planted']:.3e}), the "
+        f"trained plan through the {seqtrain['branch']}; peak per rank "
+        f"{', '.join(f'{g:.2f}' for g in seqtrain['peak_gb'])} GB; "
+        f"internvl2-2b dense / sparse rel loss gap "
+        f"{seqtrain['decoder']['dense']['loss_gap']:.3e} / "
+        f"{seqtrain['decoder']['sparse']['loss_gap']:.3e} ({card})")
     log(f"recovery: supervisor {respawn['wall']:.2f} s in all; a sparse step "
         f"run twice is {'' if resume['bitwise'] else 'NOT '}bitwise "
         f"reproducible; max rel gap to the uninterrupted run's losses (gate "

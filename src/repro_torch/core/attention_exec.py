@@ -32,6 +32,8 @@ from repro_torch.core.sparse_attention import (BCSR, PLAN_TABLE_KEYS,
                                                bcsr_attention,
                                                paged_sparse_decode_attention,
                                                sparse_decode_attention)
+from repro_torch.distributed.sharding import (active_mesh, gather_kv,
+                                              seq_start)
 
 _PHASES = ("train", "prefill", "decode")
 
@@ -47,23 +49,15 @@ def resolve_kernel(cfg, q) -> str:
     lowering was never ported; here the kernel exists.
 
     Under an active mesh of more than one rank "auto" is "fused" (the
-    sharded kernels, as in the reference), and a mesh with a 'seq' axis
-    refuses the gather, which has no sequence-sharded form here (ROADMAP.md
-    item A12b)."""
+    sharded kernels, as in the reference); "jnp" stays the gather, which on
+    a 'seq' shard gathers the sequence's K/V (`SparseAttentionExec.
+    attend`)."""
     impl = cfg.spion.kernel
     if impl not in ("auto", "fused", "jnp"):
         raise ValueError(f"cfg.spion.kernel must be auto/fused/jnp, got "
                          f"{impl!r}")
-    from repro_torch.distributed.sharding import active_mesh, seq_size
-    mesh = active_mesh()
-    if mesh is not None:
-        if impl == "jnp" and seq_size(mesh) > 1:
-            raise NotImplementedError(
-                'cfg.spion.kernel="jnp" under a mesh with a \'seq\' axis: the '
-                "gather of a sequence shard waits in ROADMAP.md item A12b; "
-                'use "auto" or "fused"')
-        if impl == "auto":
-            return "fused"
+    if impl == "auto" and active_mesh() is not None:
+        return "fused"
     if q.is_cuda:
         if impl == "jnp":
             raise ValueError(
@@ -165,7 +159,9 @@ class SparseAttentionExec:
         this layer's col_idx (nrb, K) and nvalid (nrb,) and, from a
         SparsityPlan, the transposed row_idx (ncb, KT*) and nvalid_t (ncb,)
         that the kernel's dK/dV backward streams. Both paths are
-        differentiable."""
+        differentiable. On a 'seq' shard the kernels shard themselves
+        (kernels/sharded.py); the gather gathers the whole sequence's K/V
+        and runs this shard's rows against the global tables."""
         tabs = {k_: t.to(q.device) for k_, t in layer_tables.items()}
         bcsr = BCSR(tabs["col_idx"], tabs["nvalid"], self.block, q.shape[1])
         if resolve_kernel(cfg, q) == "fused":
@@ -175,7 +171,9 @@ class SparseAttentionExec:
                                           nvalid_t=tabs.get("nvalid_t"),
                                           halo=self.halo,
                                           config=self.kernel_config)
-        return bcsr_attention(cfg, q, k, v, bcsr)
+        kg, vg = gather_kv(k, v)
+        return bcsr_attention(cfg, q, kg, vg, bcsr,
+                              row_offset=seq_start(q.shape[1]) // self.block)
 
     def attend_app(self, cfg, q, k, v, app_idx):
         """`attend` for the hybrid family's shared attention block: the

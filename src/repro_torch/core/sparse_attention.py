@@ -218,25 +218,35 @@ def full_bcsr(seq_len: int, block: int) -> BCSR:
                 block, seq_len)
 
 
-def bcsr_attention(cfg, q, k, v, bcsr: BCSR, *, row_chunk=None):
+def bcsr_attention(cfg, q, k, v, bcsr: BCSR, *, row_chunk=None,
+                   row_offset: int = 0):
     """q (B,S,H,hd); k,v (B,S,KV,hd); returns (B,S,H,hd).
 
     Padded-BCSR attention with the paper's sparse-softmax zero-correction,
     gathered in plain PyTorch and chunked over row-blocks so the gathered
     block tensors of all rows are never resident at once. Validity comes
-    from `col_idx >= 0`, as in the JAX package's gather path."""
+    from `col_idx >= 0`, as in the JAX package's gather path.
+
+    `row_offset`: q holds the rows of a sequence shard whose first
+    row-block is the global row-block `row_offset`, k and v the whole
+    sequence, and the tables are the global ones (the gather of a 'seq'
+    shard, core/attention_exec)."""
     nrb_total = q.shape[1] // bcsr.block
     rc = row_chunk or max(1, min(nrb_total, 2**21 // (bcsr.block * bcsr.block *
                                                       max(bcsr.col_idx.shape[1], 1))))
+
+    def rows_of(r, n):
+        return BCSR(bcsr.col_idx[r:r + n], bcsr.nvalid[r:r + n], bcsr.block,
+                    bcsr.seq_len)
     if nrb_total and rc < nrb_total and nrb_total % rc == 0:
         rows = rc * bcsr.block
         outs = [_bcsr_rows(cfg, q[:, i * rows:(i + 1) * rows], k, v,
-                           BCSR(bcsr.col_idx[i * rc:(i + 1) * rc],
-                                bcsr.nvalid[i * rc:(i + 1) * rc],
-                                bcsr.block, bcsr.seq_len), i * rc)
+                           rows_of(row_offset + i * rc, rc),
+                           row_offset + i * rc)
                 for i in range(nrb_total // rc)]
         return torch.cat(outs, dim=1)
-    return _bcsr_rows(cfg, q, k, v, bcsr, 0)
+    return _bcsr_rows(cfg, q, k, v, rows_of(row_offset, nrb_total),
+                      row_offset)
 
 
 def _bcsr_rows(cfg, q, k, v, bcsr: BCSR, row_offset: int):

@@ -3,7 +3,13 @@ kernels (the JAX package's `distributed/sharding.py`, the parts the
 kernels need).
 
 `mesh_context(mesh)` makes a mesh current, so model code reaches the
-sharded kernels without carrying a mesh argument. `kernel_shard_axes` and
+sharded kernels without carrying a mesh argument. On a mesh with a 'seq'
+axis every rank holds a contiguous shard of the sequence: `seq_start` is
+its first row's global position, `gather_seq` the differentiable gather
+of the whole sequence (the dense attention's, the gather path's and the
+capture's K/V: `gather_kv`; the MoE's rows; the kernels' too-wide
+fallback), `sum_over_seq` the sum of a statistic over the shards.
+`kernel_shard_axes` and
 `kernel_seq_axis` decide, exactly as the reference does and with its
 reasons, which mesh axes the kernels' batch, KV heads and query rows split
 over; `kernel_pspecs_from_axes` states that layout per tensor dimension,
@@ -18,6 +24,9 @@ from __future__ import annotations
 import contextlib
 import contextvars
 from typing import Optional
+
+import torch
+import torch.distributed as dist
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
                                                        default=None)
@@ -49,6 +58,92 @@ def data_axes(mesh):
 
 def seq_size(mesh) -> int:
     return 1 if mesh is None else int(mesh.shape.get("seq", 1))
+
+
+SEQ_FAMILY_REFUSAL = (
+    "waits in ROADMAP.md item A12b: its recurrence or encoder scans the "
+    "whole sequence, which a 'seq' shard does not hold")
+
+
+def refuse_seq(what: str, mesh=None):
+    """Raise NotImplementedError naming A12b when `mesh` (default: the
+    active one) has a 'seq' axis: `what` (the hybrid, ssm or encdec family)
+    would run each shard as if it were the whole sequence."""
+    mesh = active_mesh() if mesh is None else mesh
+    if seq_size(mesh) > 1:
+        raise NotImplementedError(f"{what} under a 'seq' axis ({mesh}) "
+                                  f"{SEQ_FAMILY_REFUSAL}")
+
+
+# ---------------------------------------------------------------------------
+# sequence shards
+# ---------------------------------------------------------------------------
+
+def seq_start(rows: int) -> int:
+    """Global position of this rank's first row when each rank of the
+    active mesh's 'seq' line holds `rows` consecutive positions (0 without
+    a 'seq' axis)."""
+    mesh = active_mesh()
+    return mesh.axis_index("seq") * rows if seq_size(mesh) > 1 else 0
+
+
+class GatherSeq(torch.autograd.Function):
+    """x (..., S_loc, ...) -> (..., n * S_loc, ...) along `dim`: the 'seq'
+    line's shards in order. The backward sums the gradient over the line in
+    fp32 (a bf16 sum would round each partial sum) and keeps this shard's
+    rows (gloo has no reduce-scatter). CUDA tensors on a gloo group cross
+    through the host, since gloo gathers only CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, idx, dim):
+        ctx.group, ctx.idx, ctx.dim = group, idx, dim
+        ctx.rows = x.shape[dim]
+        staged = x.is_cuda and dist.get_backend(group) == "gloo"
+        src = (x.detach().to("cpu") if staged else x.detach()).contiguous()
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=group)
+        out = torch.cat(parts, dim=dim)
+        return out.to(x.device) if staged else out
+
+    @staticmethod
+    def backward(ctx, g):
+        total = g.float().contiguous()
+        if total is g:
+            total = g.clone()
+        dist.all_reduce(total, group=ctx.group)
+        return (total.narrow(ctx.dim, ctx.idx * ctx.rows, ctx.rows)
+                .to(g.dtype), None, None, None, None)
+
+
+def gather_seq(x, dim: int, mesh=None):
+    """The whole sequence along `dim` from every rank's shard of the 'seq'
+    line (differentiable: `GatherSeq`); `x` itself without a 'seq' axis."""
+    mesh = active_mesh() if mesh is None else mesh
+    n = seq_size(mesh)
+    if n == 1:
+        return x
+    return GatherSeq.apply(x, mesh.group("seq"), n, mesh.axis_index("seq"),
+                           dim)
+
+
+def gather_kv(k, v):
+    """k, v (B, S_loc, KV, hd) of a 'seq' shard -> the whole sequence's
+    (B, S, KV, hd) each, in one differentiable gather (whose backward sums
+    the K/V gradients over the line); k, v themselves without a 'seq'
+    axis."""
+    if seq_size(active_mesh()) == 1:
+        return k, v
+    kv = gather_seq(torch.stack([k, v]), 2)
+    return kv[0], kv[1]
+
+
+def sum_over_seq(x):
+    """Sum of `x` over the ranks of the active mesh's 'seq' line (in
+    place; statistics only, no gradient)."""
+    mesh = active_mesh()
+    if seq_size(mesh) > 1:
+        dist.all_reduce(x, group=mesh.group("seq"))
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +246,6 @@ def mean_over_data(x):
     """Mean of `x` over the ranks of the data axes (in place; statistics
     only, no gradient): the capture's batch average of a data-parallel
     run."""
-    import torch.distributed as dist
     mesh = active_mesh()
     if mesh is None:
         return x

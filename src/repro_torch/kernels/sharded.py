@@ -24,8 +24,9 @@ they index the global sequence.
     halo blocks back in fp32 and adds them on the shard that owns them
     (`_SeqShardAttention`).
   - **Fallback.** A pattern too wide for the halo (or no halo) on a mesh
-    with a 'seq' axis gathers the sequence over 'seq' and runs the kernels
-    on it, replicated |seq| times, with the reference's warning (once, on
+    with a 'seq' axis gathers the sequence over 'seq' (`distributed.
+    sharding.gather_seq`) and runs the kernels on it, replicated |seq|
+    times, with the reference's warning (once, on
     the coordinator); with no data axis to fall back to it raises, as the
     reference does.
 
@@ -45,7 +46,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed import runtime
-from repro_torch.distributed.sharding import (data_axes, kernel_seq_axis,
+from repro_torch.distributed.sharding import (data_axes, gather_seq,
+                                              kernel_seq_axis,
                                               kernel_shard_axes, seq_size)
 from repro_torch.kernels.block_sparse_attn import (
     _config, block_sparse_fwd, fused_backward, fused_block_sparse_attention)
@@ -88,8 +90,10 @@ def _swap(halo, to_right, to_left):
     travels as one flat buffer (with 2 ranks both neighbours are one peer:
     one message each way, right-bound part first)."""
     global halo_seconds
-    t0 = time.perf_counter()
     to_right, to_left = list(to_right), list(to_left)
+    if not to_right and not to_left:
+        return [], []      # halo (0, 0): no row reads a neighbour's blocks
+    t0 = time.perf_counter()
     if halo.left == halo.right:
         out = [(to_right + to_left, halo.left)]
         inn = out
@@ -203,30 +207,6 @@ class _SeqShardAttention(torch.autograd.Function):
                 None, None, None, None, None)
 
 
-class _GatherSeq(torch.autograd.Function):
-    """x (N, S_loc, ...) -> (N, n * S_loc, ...): the 'seq' line's shards in
-    order. The backward sums the gradient over the line and keeps this
-    shard's rows (gloo has no reduce-scatter)."""
-
-    @staticmethod
-    def forward(ctx, x, group, n, idx, dim):
-        ctx.group, ctx.idx, ctx.dim = group, idx, dim
-        ctx.rows = x.shape[dim]
-        staged = transport(group, x) == "host-p2p"
-        src = x.detach().to("cpu") if staged else x.detach().contiguous()
-        parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=group)
-        out = torch.cat(parts, dim=dim)
-        return out.to(x.device) if staged else out
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return (g.narrow(ctx.dim, ctx.idx * ctx.rows, ctx.rows), None, None,
-                None, None)
-
-
 # ---------------------------------------------------------------------------
 # tables in halo-local storage coordinates
 # ---------------------------------------------------------------------------
@@ -331,10 +311,10 @@ def sharded_fused_attention(mesh, q, k, v, col_idx, nvalid, *, block,
                 f"— {reason}. The kernel work is replicated |seq|="
                 f"{n_seq}x; narrow the pattern or drop the 'seq' axis.",
                 stacklevel=2)
-        group, idx = mesh.group("seq"), mesh.axis_index("seq")
-        qg = _GatherSeq.apply(q, group, n_seq, idx, 3)
-        kg = _GatherSeq.apply(k, group, n_seq, idx, 2)
-        vg = _GatherSeq.apply(v, group, n_seq, idx, 2)
+        idx = mesh.axis_index("seq")
+        qg = gather_seq(q, 3, mesh)
+        kg = gather_seq(k, 2, mesh)
+        vg = gather_seq(v, 2, mesh)
         S = n_seq * S_loc
         o = fused_block_sparse_attention(
             qg.reshape(B_loc * KV, G, S, hd), kg.reshape(B_loc * KV, S, hd),

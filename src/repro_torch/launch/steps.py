@@ -22,15 +22,11 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.sparse_attention import PLAN_TABLE_KEYS
-from repro_torch.distributed.sharding import mesh_context, seq_size
+from repro_torch.distributed.sharding import mesh_context, refuse_seq
 from repro_torch.models.layers import tree_map
 from repro_torch.models.registry import build
 from repro_torch.optim import (adamw_update, clip_by_global_norm,
                                cosine_schedule)
-
-SEQ_STEP_REFUSAL = ("waits in ROADMAP.md item A12b (the dense phase, the "
-                    "capture and the Trainer under a 'seq' axis)")
-
 
 def spion_dryrun_tables(cfg: ModelConfig, seq_len: int,
                         layers: Optional[int] = None,
@@ -160,7 +156,11 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
     summed over the mesh in buckets, so they are the global batch's on
     every rank. `halo` is the plan's (left, right) column extent for dict
     payloads (an exec carries its own): with it a 'seq' axis shards the
-    sparse attention's rows. Under a 'seq' axis a dense step raises."""
+    sparse attention's rows. Under a 'seq' axis the loss is still the
+    global mean (the sums and counts all-reduced over 'seq' too) and the
+    gradients are summed over the whole mesh; the hybrid, ssm and encdec
+    families raise there (ROADMAP.md item A12b), here, before any
+    collective."""
     if sparse_kernel is not None:
         cfg = cfg.replace(spion=dataclasses.replace(cfg.spion,
                                                     kernel=sparse_kernel))
@@ -174,15 +174,14 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
         if mesh.shape.get("model", 1) > 1:
             raise NotImplementedError(f"train step on {mesh}: "
                                       f"{MODEL_AXIS_REFUSAL}")
+        if cfg.family not in ("dense", "moe", "vlm", "encoder"):
+            refuse_seq(f"a train step of the {cfg.family!r} family", mesh)
         all_reduce_sum = runtime.all_reduce_sum      # bound when made
 
     def loss_and_grads(params, batch, tables=None):
         ex = _coerce_step_tables(tables, block=static_block, phase="train",
                                  halo=halo, kernel_config=kernel_config,
                                  dtype=cfg.dtype)
-        if nranks > 1 and seq_size(mesh) > 1 and ex is None:
-            raise NotImplementedError(
-                f"a dense train step on {mesh} {SEQ_STEP_REFUSAL}")
         group = mesh.group(mesh.axis_names) if nranks > 1 else None
         named = list(params.named_parameters())
         leaves = [p for _, p in named]

@@ -40,8 +40,15 @@ and its plan is broadcast and digest-checked, process 0 writes the
 checkpoints that every process reads (commit barrier), and the per-step
 flags (preemption, divergence) are OR-reduced, so a SIGTERM on one rank
 saves the whole fleet at the same step. `_emit` prints on process 0; every
-process has its heartbeat file hb_{process_index}. A 'model' axis and a
-'seq' axis wait in ROADMAP.md item A12b.
+process has its heartbeat file hb_{process_index}.
+
+A 'seq' job passes `mesh=make_seq_mesh(seq, data)` or
+`make_distributed_mesh(seq=, data=)`: each rank holds its data shard's
+sequences cut into |seq| contiguous shards of the sequence, the dense and
+sparse steps and the capture run on the shards (every rank ends the
+capture with the whole pooled map), and the rest is as above. A 'model'
+axis, and the hybrid, ssm and encdec families under 'seq', wait in
+ROADMAP.md item A12b.
 """
 from __future__ import annotations
 
@@ -67,8 +74,7 @@ from repro_torch.distributed.fault import (DivergenceSentinel, Heartbeat,
                                            StepSupervisor, StragglerMonitor)
 from repro_torch.distributed.sharding import data_axes, mesh_context, seq_size
 from repro_torch.launch.mesh import MODEL_AXIS_REFUSAL, make_distributed_mesh
-from repro_torch.launch.steps import (SEQ_STEP_REFUSAL, compute_params,
-                                      make_train_step)
+from repro_torch.launch.steps import compute_params, make_train_step
 from repro_torch.models.layers import ParamTree, tree_map
 from repro_torch.models.registry import build
 from repro_torch.optim import adamw_init
@@ -113,13 +119,15 @@ class Trainer:
             if mesh.shape.get("model", 1) > 1:
                 raise NotImplementedError(f"Trainer on {mesh}: "
                                           f"{MODEL_AXIS_REFUSAL}")
-            if seq_size(mesh) > 1:
-                raise NotImplementedError(f"the Trainer on {mesh} "
-                                          f"{SEQ_STEP_REFUSAL}")
             ndata = mesh.axis_size(data_axes(mesh))
             if batch % ndata:
                 raise ValueError(f"global batch {batch} does not split over "
                                  f"the {ndata} data-parallel ranks")
+            nseq, blk = seq_size(mesh), cfg.spion.block_size
+            if nseq > 1 and seq_len % (nseq * blk):
+                raise ValueError(f"seq_len {seq_len} does not split over "
+                                 f"|seq| = {nseq} shards of whole blocks of "
+                                 f"{blk}")
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.cfg = cfg
         if device is None and self.mesh is not None:
@@ -206,7 +214,7 @@ class Trainer:
     def _device_batch(self, batch):
         """Host batch -> this rank's slice on its device. Every process
         holds the same global batch; under a mesh each keeps its shard of
-        the batch axis ('pod' x 'data')."""
+        the batch axis ('pod' x 'data') and of the sequence ('seq')."""
         if self.mesh is not None:
             return local_batch(self.mesh, batch, self.device)
         return {k: torch.as_tensor(np.asarray(v), device=self.device)

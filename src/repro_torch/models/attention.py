@@ -4,6 +4,13 @@ at its own offset — and the SPION pattern capture, which streams pooled
 diagonal-conv scores without ever holding the L x L attention matrix.
 
 Sparse-phase execution is owned by core.attention_exec.SparseAttentionExec.
+
+Under a mesh with a 'seq' axis q, k and v are this rank's shard of the
+sequence with global positions: the dense attention reads the whole
+sequence's K/V (`distributed.sharding.gather_kv`), and the capture
+gathers K, reads the next shard's first rows for its last panel's filter
+(`next_shard_rows`) and gathers the pooled rows, so every rank ends with
+the whole map.
 """
 from __future__ import annotations
 
@@ -14,7 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import mean_over_data
+from repro_torch.distributed.sharding import (active_mesh, gather_seq,
+                                              mean_over_data, seq_size,
+                                              seq_start, sum_over_seq)
 from repro_torch.models.layers import he_init, rope
 
 
@@ -88,10 +97,13 @@ def attn_q_chunk(Sq, Sk):
 def dense_attention(cfg, q, k, v, q_pos, k_pos):
     """softmax(q k^T / sqrt(hd) + mask) v with GQA head grouping.
 
-    q (B,Sq,H,hd); k,v (B,Sk,KV,hd) -> (B,Sq,H,hd). Chunked over query rows
-    so the S x S score matrix is never resident; under autograd each chunk
-    is recomputed in the backward (the JAX package's per-chunk
-    jax.checkpoint), so only one chunk's scores are held at a time."""
+    q (B,Sq,H,hd); k,v (B,Sk,KV,hd) -> (B,Sq,H,hd). On a 'seq' shard q is
+    the shard's rows with their global `q_pos` and k, v are the whole
+    sequence (`distributed.sharding.gather_kv`) with its `k_pos`. Chunked
+    over query rows so the S x S score matrix is never resident; under
+    autograd each chunk is recomputed in the backward (the JAX package's
+    per-chunk jax.checkpoint), so only one chunk's scores are held at a
+    time."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -224,6 +236,25 @@ def update_cache(k_cache, v_cache, k_new, v_new, slot):
 # SPION pattern capture: pooled diagonal-conv of A^s, streamed (exact Eq. 3+4)
 # ---------------------------------------------------------------------------
 
+def next_shard_rows(q, nf: int):
+    """The first `nf` rows of the next 'seq' shard's q (B, nf, H, hd), which
+    the conv rows at the end of this shard read (Eq. 3: A(i + f, j + f));
+    zeros on the last shard (Eq. 3's zero padding) and without a 'seq'
+    axis. One all_gather of every shard's first rows."""
+    mesh = active_mesh()
+    n = seq_size(mesh)
+    if n == 1:
+        return q.new_zeros((q.shape[0], nf, *q.shape[2:]))
+    if nf > q.shape[1]:
+        raise ValueError(f"capture: a conv filter of {nf} rows reaches past "
+                         f"the next shard of {q.shape[1]} rows")
+    heads = gather_seq(q[:, :nf], 1)
+    i = mesh.axis_index("seq")
+    if i + 1 == n:
+        return torch.zeros_like(heads[:, :nf])
+    return heads[:, (i + 1) * nf:(i + 2) * nf]
+
+
 @torch.no_grad()
 def capture_pooled_scores(cfg, q, k, q_pos, k_pos, filt, block: int):
     """Return (pooled, frob_sq):
@@ -235,22 +266,32 @@ def capture_pooled_scores(cfg, q, k, q_pos, k_pos, filt, block: int):
     Under a data-parallel mesh each rank holds a shard of the batch: each
     panel of the averaged scores is averaged over the ranks (one all-reduce
     a panel), so every rank gets the whole batch's statistics, as the
-    reference's replicated capture does.
+    reference's replicated capture does. Under a 'seq' axis q is this
+    rank's shard of the rows (global `q_pos`) and k its shard too, with
+    `k_pos` the whole sequence's positions: K is gathered, the last panel
+    reads the next shard's first rows, the pooled rows are gathered and
+    the Frobenius term summed over 'seq', so every rank returns the
+    one-process capture's (L/B, L/B) map and term.
 
     Matches paper Eq. 3 (conv_out(i,j) = sum_f A(i+f, j+f) filter(f)) with
     zero padding, then Eq. 4 average pooling. Statistics only: no gradient.
     """
     B_, Sq, H, hd = q.shape
-    L = k.shape[1]
     nf = int(filt.shape[0])
+    # this shard's first row and the whole sequence's rows (one process:
+    # 0 and Sq)
+    row0, Sq_all = seq_start(Sq), Sq * seq_size(active_mesh())
+    k = gather_seq(k, 1)
+    L = k.shape[1]
     filt = filt.to(device=q.device, dtype=torch.float32)
     nb, nbk = Sq // block, L // block
     KV = k.shape[2]
     G = H // KV
     panel = block  # one block row of conv output per step; needs nf halo rows
-    # q rows padded by nf so every panel is in bounds; padded rows are
-    # zeroed after the softmax (Eq. 3 zero padding)
-    qp_ = F.pad(q, (0, 0, 0, 0, 0, nf))
+    # q rows extended by nf so every panel is in bounds: the next shard's
+    # first rows, or zero rows past the sequence, zeroed after the softmax
+    # (Eq. 3 zero padding)
+    qp_ = torch.cat([q, next_shard_rows(q, nf)], dim=1)
     qpos_ = torch.cat([q_pos, q_pos[-1] + 1 +
                        torch.arange(nf, device=q_pos.device)])
     rows = panel + nf
@@ -264,7 +305,7 @@ def capture_pooled_scores(cfg, q, k, q_pos, k_pos, filt, block: int):
         # data-parallel ranks: the average over the whole batch, before the
         # square of the Frobenius term
         a = mean_over_data(a)
-        valid = (r0 + torch.arange(rows, device=q.device)) < Sq
+        valid = (row0 + r0 + torch.arange(rows, device=q.device)) < Sq_all
         a = torch.where(valid[:, None], a, 0.0)
         frob = frob + (a[:panel] ** 2).sum()
         # conv rows r0..r0+block: sum_f w_f * A[r + f, columns shifted by f]
@@ -273,4 +314,5 @@ def capture_pooled_scores(cfg, q, k, q_pos, k_pos, filt, block: int):
         for f in range(nf):
             conv = conv + filt[f] * padded[f:f + panel, f:f + L]
         outs.append(conv.reshape(block, nbk, block).mean(dim=(0, 2)))
-    return torch.stack(outs), frob      # (Sq/B, L/B), scalar
+    pooled = gather_seq(torch.stack(outs), 0)
+    return pooled, sum_over_seq(frob)       # (L/B, L/B), scalar

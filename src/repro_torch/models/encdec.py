@@ -9,7 +9,8 @@ decoder's causal self-attention, through `ex.attend` on the layer's tables
 encoder output is dense and non-causal, with no RoPE, and stays the plain
 `dense_attention`. With cfg.remat each encoder and decoder layer is
 recomputed in the backward (torch.utils.checkpoint), as the JAX package's
-jax.checkpoint of the scanned layer.
+jax.checkpoint of the scanned layer. Under a mesh with a 'seq' axis
+`forward` raises (ROADMAP.md item A12b).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.kv_pool import PagedKVCache, scatter_token, write_target
+from repro_torch.distributed.sharding import refuse_seq
 from repro_torch.models import attention as A
 from repro_torch.models import layers as Lyr
 from repro_torch.models.layers import ParamTree
@@ -142,6 +144,7 @@ def forward(params, cfg, batch, *, spion=None, capture=None):
     block-sparse; cross-attention stays dense. capture: aux["captured"] is
     ((L, S/B, S/B) pooled scores, (L,) Frobenius terms), one per decoder
     layer."""
+    refuse_seq("the encdec family")
     dtype = _dtype(cfg)
     ex = SparseAttentionExec.coerce(spion)
     enc = encode(params, cfg, batch["frames"])

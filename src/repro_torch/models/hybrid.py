@@ -7,7 +7,8 @@ layer-wise pattern, so the plan's tables are stacked over applications
 The reference's lax.cond on `idx % every == every - 1` is a Python branch
 here, with an application counter. With cfg.remat only the Mamba part of a
 layer is recomputed in the backward, as in the reference; the shared block
-is not.
+is not. Under a mesh with a 'seq' axis `forward` raises (ROADMAP.md item
+A12b): a shard would start its Mamba recurrence at zero.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.kv_pool import PagedKVCache, scatter_token, write_target
+from repro_torch.distributed.sharding import refuse_seq
 from repro_torch.models import attention as A
 from repro_torch.models import layers as Lyr
 from repro_torch.models import mamba as M
@@ -107,6 +109,7 @@ def forward(params, cfg, batch, *, spion=None, capture=None):
     aux["captured"] is ((L, S/B, S/B) pooled scores, (L,) Frobenius
     terms), one per LAYER as in the reference, zeros where a layer has no
     attention."""
+    refuse_seq("the hybrid family")
     dtype = _dtype(cfg)
     ex = SparseAttentionExec.coerce(spion)
     h = Lyr.embed(params["tok_embed"], batch["tokens"], dtype)

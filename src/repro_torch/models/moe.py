@@ -10,12 +10,24 @@ the last einsum. Aux losses: load-balance (Switch) + router z-loss.
 
 The expert products are plain einsums (batched matmuls); the JAX package
 computes them outside any Pallas kernel too.
+
+Under a mesh (distributed.sharding.mesh_context) the reference's step is
+one program over the global batch, whose T = B * S tokens it groups in
+(B, S) order. Here each rank holds its shard, so the groups and their
+capacity come from the global token count and every rank must hold whole
+groups (`rank_groups`); under a 'seq' axis the layer first gathers its
+rows over the 'seq' line, routes the whole rows and keeps its shard of the
+output. The ranks of a 'seq' line thus do the MoE's work redundantly
+(ROADMAP.md item 12b.1); their aux losses are identical, and the step's
+mean over the ranks is the global batch's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (active_mesh, data_axes,
+                                              gather_seq, seq_size, seq_start)
 from repro_torch.models.layers import he_init, mlp, mlp_init
 
 GROUP = 1024            # tokens per dispatch group
@@ -57,14 +69,35 @@ def dispatch_groups(T: int) -> int:
     return g
 
 
+def rank_groups(T: int):
+    """(g, sg): the dispatch groups among this rank's T tokens and the
+    tokens of a group. One process groups its T tokens as the reference
+    does; under a mesh the global batch's T * |data| tokens are grouped
+    (`dispatch_groups`), and this rank's tokens must be whole groups of
+    them, else ValueError (its groups would not be the reference's)."""
+    mesh = active_mesh()
+    n = 1 if mesh is None else mesh.axis_size(data_axes(mesh))
+    T_all = T * n
+    sg = T_all // dispatch_groups(T_all)
+    if T % sg:
+        raise ValueError(
+            f"moe_apply: a rank's {T} tokens are not whole dispatch groups of "
+            f"the global batch's {T_all} tokens over {n} data-parallel ranks "
+            f"(groups of {sg}); choose a batch whose rank shares hold whole "
+            f"groups")
+    return T // sg, sg
+
+
 def moe_apply(cfg, p, x):
-    """x (B,S,d) -> (y (B,S,d), aux dict)."""
+    """x (B,S,d) -> (y (B,S,d), aux dict). On a 'seq' shard x holds this
+    rank's positions of its rows; the layer gathers the whole rows, routes
+    them and returns its positions' outputs."""
+    x_loc = x
+    x = gather_seq(x, 1)
     B, S, d = x.shape
     E = cfg.moe.num_experts
     k = cfg.moe.top_k
-    T = B * S
-    g = dispatch_groups(T)
-    sg = T // g
+    g, sg = rank_groups(B * S)
     xt = x.reshape(g, sg, d)
 
     logits = (xt.float() @ p["router"]["w"].float()).float()   # (g, sg, E)
@@ -111,6 +144,9 @@ def moe_apply(cfg, p, x):
     z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
 
     y = y.reshape(B, S, d)
+    if seq_size(active_mesh()) > 1:
+        S_loc = x_loc.shape[1]
+        y = y.narrow(1, seq_start(S_loc), S_loc)
     if "dense_residual" in p:
-        y = y + mlp(cfg, p["dense_residual"], x)
+        y = y + mlp(cfg, p["dense_residual"], x_loc)
     return y, {"lb_loss": lb_loss, "z_loss": z_loss}

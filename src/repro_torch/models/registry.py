@@ -8,7 +8,8 @@ build(cfg) -> ModelBundle with:
     loss(params, batch, *, spion=None, capture=None) -> (loss, aux)
     loss_parts(params, batch, *, spion=None, capture=None) -> (nll_sum,
         count, extra, aux): the loss before its division, for a mean over
-        ranks (loss = nll_sum / count + extra)
+        ranks (loss = nll_sum / count + extra); on a vlm 'seq' shard the
+        nll of the text it holds (0 and 0 when it holds none)
     init_cache(batch_size, max_len, *, device=None) -> cache
     decode_step(params, cache, tokens, pos, *, spion=None) -> (logits, cache)
     prefill_kv(params, batch, *, spion=None) -> (logits, ks, vs) — the fused
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import active_mesh, seq_size
 from repro_torch.models import encdec, hybrid, rwkv, transformer
 
 MOE_LB_WEIGHT = 0.01
@@ -94,8 +96,12 @@ def build(cfg: ModelConfig) -> ModelBundle:
 
     def text_logits(logits, batch):
         if cfg.num_patch_tokens and "patch_embeds" in batch:
-            # vlm: logits cover [patch, text]; the loss is over text only
-            return logits[:, cfg.num_patch_tokens:]
+            # vlm: logits cover [patch, text]; the loss is over text only.
+            # A 'seq' shard holds a cut of that concatenation: its own
+            # patches (maybe none) precede its text (maybe none)
+            P = cfg.num_patch_tokens if seq_size(active_mesh()) == 1 \
+                else batch["patch_embeds"].shape[1]
+            return logits[:, P:]
         return logits
 
     def loss_parts(params, batch, *, spion=None, capture=None):

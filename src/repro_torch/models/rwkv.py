@@ -9,7 +9,9 @@ SPION is inapplicable (no attention-score matrix): the registry marks the
 family without sparse decode and without a paged cache.
 
 The JAX package computes all of this in plain jnp (no Pallas kernel), so
-these are PyTorch ops too; its lax.scans are loops here.
+these are PyTorch ops too; its lax.scans are loops here. Under a mesh with
+a 'seq' axis `forward` raises (ROADMAP.md item A12b): a shard would start
+its recurrence at zero.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import refuse_seq
 from repro_torch.models import layers as Lyr
 from repro_torch.models.layers import ParamTree, he_init, normal_init
 
@@ -231,6 +234,7 @@ def _layer(cfg, lp, h):
 def forward(params, cfg, batch, *, spion=None, capture=None):
     """batch {'tokens': (B,S)} -> (logits (B,S,V), {}). With cfg.remat
     each layer is recomputed in the backward."""
+    refuse_seq("the ssm family")
     dtype = _dtype(cfg)
     h = Lyr.embed(params["tok_embed"], batch["tokens"], dtype)
     h = _ln(params["in_norm"], h)

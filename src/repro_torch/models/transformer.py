@@ -10,11 +10,14 @@ conv scores for pattern generation during the dense phase. With cfg.remat
 each layer is recomputed in the backward (torch.utils.checkpoint), as the
 JAX package's jax.checkpoint of the scanned layer.
 
-Under a mesh with a 'seq' axis (distributed.sharding.mesh_context) the
-encoder holds this rank's shard of the sequence: its learned positions are
-indexed by global position, and its sparse attention shards over 'seq'
-(kernels/sharded.py). The dense attention, the capture and the other
-families under a 'seq' axis wait in ROADMAP.md item A12b.
+Under a mesh with a 'seq' axis (distributed.sharding.mesh_context) each
+rank holds a contiguous shard of the sequence (for vlm, of the [patches,
+text] concatenation): RoPE and learned positions are the shard's global
+positions, the dense attention and the capture read the whole sequence's
+K/V (distributed.sharding.gather_kv, models/attention.
+capture_pooled_scores), the sparse
+attention shards over 'seq' (kernels/sharded.py, or the gather path on
+CPU tensors) and the MoE routes whole rows (models/moe.moe_apply).
 """
 from __future__ import annotations
 
@@ -25,7 +28,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.kv_pool import PagedKVCache, scatter_token, write_target
-from repro_torch.distributed.sharding import active_mesh, seq_size
+from repro_torch.distributed.sharding import (active_mesh, current_mesh,
+                                              gather_kv, mesh_context,
+                                              seq_size, seq_start)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as Lyr
 from repro_torch.models.moe import moe_apply, moe_init
@@ -84,64 +89,55 @@ def _ffn(cfg, lp, x):
     return Lyr.mlp(cfg, lp["mlp"], x), None
 
 
-def _block(cfg, lp, h, positions, ex, sp, capture=None):
+def _block(cfg, lp, h, positions, kv_pos, ex, sp, capture=None):
     """One layer; returns (h, (k, v), captured, aux) with the layer's
     RoPE'd k/v, with `capture` its (pooled, frob_sq) scores (else None),
-    and its MoE's (lb_loss, z_loss) (None for a dense MLP)."""
+    and its MoE's (lb_loss, z_loss) (None for a dense MLP). `positions`
+    are h's rows' global positions, `kv_pos` the whole sequence's (the
+    same tensor without a 'seq' axis)."""
     x = Lyr.norm(cfg, lp["attn_norm"], h)
     q, k, v = A.qkv(cfg, lp["attn"], x, positions)
     cap = None
     if capture is not None:
-        cap = A.capture_pooled_scores(cfg, q, k, positions, positions,
+        cap = A.capture_pooled_scores(cfg, q, k, positions, kv_pos,
                                       capture["filt"], capture["block"])
     if sp is not None:
         ctx = ex.attend(cfg, q, k, v, sp)
     else:
-        ctx = A.dense_attention(cfg, q, k, v, positions, positions)
+        kg, vg = gather_kv(k, v)
+        ctx = A.dense_attention(cfg, q, kg, vg, positions, kv_pos)
     h = h + A.attn_out(cfg, lp["attn"], ctx)
     x = Lyr.norm(cfg, lp["mlp_norm"], h)
     y, aux = _ffn(cfg, lp, x)
     return h + y, (k, v), cap, aux
 
 
-def _block_h(cfg, lp, positions, ex, sp, h):
-    h, _, _, aux = _block(cfg, lp, h, positions, ex, sp)
+def _block_h(cfg, lp, positions, kv_pos, ex, sp, mesh, h):
+    """The remat form of `_block` under the forward's `mesh`: the backward
+    runs it again, on autograd's device thread for CUDA tensors, where the
+    forward's mesh context is not set."""
+    with mesh_context(mesh):
+        h, _, _, aux = _block(cfg, lp, h, positions, kv_pos, ex, sp)
     return (h, *(aux or ()))
 
 
-def _embed_inputs(cfg, params, batch, dtype, start=0):
-    """Embeddings and positions of the batch, whose first position is the
-    global position `start` (a sequence shard's offset)."""
+def _embed_inputs(cfg, params, batch, dtype):
+    """Embeddings, their global positions and the whole sequence's
+    positions. Under a 'seq' axis the batch is this rank's shard, whose
+    first row sits at `seq_start` (vlm: counting the patches)."""
     h = Lyr.embed(params["tok_embed"], batch["tokens"], dtype)
     if cfg.num_patch_tokens and "patch_embeds" in batch:
         # vlm: the frontend's patch embeddings precede the text
         h = torch.cat([batch["patch_embeds"].to(dtype), h], dim=1)
     S = h.shape[1]
+    start = seq_start(S)
     positions = torch.arange(start, start + S, device=h.device)
     if not cfg.rope_theta and "pos_embed" in params:
         h = h + params["pos_embed"]["w"][start:start + S].to(dtype)
-    return h, positions
-
-
-def _seq_shard_start(cfg, batch, ex, capture):
-    """Global position of this rank's first row: 0 unless the active mesh
-    has a 'seq' axis, where only the encoder's sparse forward is ported."""
-    mesh = active_mesh()
-    n = seq_size(mesh)
-    if n == 1:
-        return 0
-    what = None
-    if cfg.family != "encoder":
-        what = f"the {cfg.family!r} family"
-    elif ex is None:
-        what = "dense attention"
-    elif capture is not None:
-        what = "the SPION capture"
-    if what is not None:
-        raise NotImplementedError(
-            f"{what} under a 'seq' axis ({mesh}) waits in ROADMAP.md item "
-            "A12b")
-    return mesh.axis_index("seq") * batch["tokens"].shape[1]
+    n = seq_size(active_mesh())
+    kv_pos = positions if n == 1 else \
+        torch.arange(n * S, device=h.device)
+    return h, positions, kv_pos
 
 
 def forward(params, cfg, batch, *, spion=None, capture=None,
@@ -158,8 +154,7 @@ def forward(params, cfg, batch, *, spion=None, capture=None,
              cache pages. Return becomes (logits, aux, (ks, vs))."""
     dtype = _dtype(cfg)
     ex = SparseAttentionExec.coerce(spion)
-    h, positions = _embed_inputs(cfg, params, batch, dtype,
-                                 _seq_shard_start(cfg, batch, ex, capture))
+    h, positions, kv_pos = _embed_inputs(cfg, params, batch, dtype)
     tabs = None if ex is None else ex.scan_tables()
     remat = cfg.remat and torch.is_grad_enabled() and capture is None \
         and not collect_kv
@@ -171,11 +166,13 @@ def forward(params, cfg, batch, *, spion=None, capture=None,
             # the layer is run again in the backward: bind this layer's
             # arguments now, not the loop variables
             h, *la = checkpoint(functools.partial(
-                _block_h, cfg, lp, positions, ex, sp), h, use_reentrant=False)
+                _block_h, cfg, lp, positions, kv_pos, ex, sp,
+                current_mesh()), h, use_reentrant=False)
             if la:
                 auxs.append(la)
             continue
-        h, (k, v), cap, la = _block(cfg, lp, h, positions, ex, sp, capture)
+        h, (k, v), cap, la = _block(cfg, lp, h, positions, kv_pos, ex, sp,
+                                    capture)
         if la is not None:
             auxs.append(la)
         if collect_kv:

@@ -7,8 +7,11 @@ in one process, on the same global batch.
     masks) against the 1-process step: loss within 3e-5, gradients within
     1e-3, the ranks' gradients bitwise equal (a planted mean of the ranks'
     means misses the masked case's loss by far more);
-  - a 2-rank (seq) step of the encoder through the halo exchange, against
-    the 1-process step;
+  - a 2-rank (seq) step of the encoder under remat: dense (K/V gathered
+    over 'seq'), sparse through the halo exchange, sparse with unequal
+    loss masks, and the gather path on a wide plan, against the 1-process
+    step; a 4-rank (seq 2 x data 2) step: dense, sparse through the halo
+    exchange, and a wide plan through the gathered fallback;
   - a 2-rank Trainer through the transition: one plan (digests equal across
     ranks), equal to the reference controller's given the pooled map the
     ranks captured, checkpoints written by process 0 only, which the JAX
@@ -82,24 +85,34 @@ def run(code, nproc, tmp_path, timeout=240):
                                 env_extra=dict(MP_ENV, MP_OUT=str(tmp_path)))
 
 
+# the cases of each mesh: (its tables, the sparse path on CPU tensors)
+CASES = {"data": ["dense", "sparse", "masked"],
+         "seq": ["dense", "sparse", "masked", "gather", "diagonal"],
+         "seq2data2": ["dense", "sparse", "wide"]}
+NPROC = {"data": 2, "seq": 2, "seq2data2": 4}
+
 STEP_CODE = """
 from repro_torch.data.pipeline import local_batch
 from repro_torch.launch.mesh import make_distributed_mesh, make_seq_mesh
 from repro_torch.launch.steps import make_loss_and_grads, spion_dryrun_tables
 from repro_torch.launch.train import masters_of
 from repro_torch.models.registry import build
-mesh = make_seq_mesh(2, 1) if os.environ["MP_MODE"] == "seq" \\
-    else make_distributed_mesh()
+MODE = os.environ["MP_MODE"]
+mesh = {"seq": lambda: make_seq_mesh(2, 1),
+        "seq2data2": lambda: make_seq_mesh(2, 2),
+        "data": make_distributed_mesh}[MODE]()
+if MODE != "data":
+    cfg = cfg.replace(remat=True)   # the 'seq' collectives inside remat
 params = masters_of(build(cfg).init(torch.Generator().manual_seed(0),
                                     device="cpu"))
-tables = spion_dryrun_tables(cfg, 128, max_extent=1)
-f = make_loss_and_grads(cfg, mesh=mesh, halo=tables["halo"])
 out = {}
-cases = ["sparse"] if os.environ["MP_MODE"] == "seq" else \\
-    ["dense", "sparse", "masked"]
-for case in cases:
+for case in CASES[MODE]:
+    tables = step_tables(cfg, case)
+    f = make_loss_and_grads(cfg, mesh=mesh,
+                            sparse_kernel="jnp" if case == "gather" else None,
+                            halo=None if tables is None else tables["halo"])
     batch = local_batch(mesh, global_batch(case == "masked"), "cpu")
-    loss, grads = f(params, batch, None if case == "dense" else tables)
+    loss, grads = f(params, batch, tables)
     out[f"{case}/loss"] = loss.numpy()
     out.update({f"{case}/{k}": g.numpy() for k, g in grads.items()})
     out[f"{case}/count"] = batch.get("loss_mask", batch["labels"]).float().sum().numpy() \\
@@ -109,22 +122,43 @@ print("STEP_OK")
 runtime.shutdown(0)
 """
 
+TABLES_SRC = """
+CASES = %r
 
-def one_process_step(case):
+def step_tables(cfg, case):
+    # dense: none; the halo path: a plan banded to one block, and the
+    # diagonal alone (halo (0, 0): nothing to exchange); the gather path
+    # and the gathered fallback: the dry run's global verticals
+    from repro_torch.core.sparse_attention import build_sparsity_plan
+    from repro_torch.launch.steps import spion_dryrun_tables
+    if case == "dense":
+        return None
+    if case == "diagonal":
+        diag = np.arange(4, dtype=np.int32)[None, :, None]
+        plan = build_sparsity_plan(diag.repeat(cfg.num_layers, 0),
+                                   np.ones((cfg.num_layers, 4), np.int32), 32)
+        return dict(plan.tables, halo=plan.stats["halo"])
+    return spion_dryrun_tables(
+        cfg, 128, max_extent=None if case in ("gather", "wide") else 1)
+""" % (CASES,)
+exec(TABLES_SRC)
+
+
+def one_process_step(case, remat=False):
     """Loss, gradients and (masked) the planted mean of two half-batch
     means, in one process."""
-    from repro_torch.launch.steps import (make_loss_and_grads,
-                                          spion_dryrun_tables)
+    from repro_torch.launch.steps import make_loss_and_grads
     from repro_torch.launch.train import masters_of
     from repro_torch.models.registry import build
-    cfg = lra_cfg()
+    cfg = lra_cfg().replace(remat=remat)
     params = masters_of(build(cfg).init(torch.Generator().manual_seed(0),
                                         device="cpu"))
-    tables = spion_dryrun_tables(cfg, S, max_extent=1)
-    f = make_loss_and_grads(cfg)
+    tables = step_tables(cfg, case)
+    f = make_loss_and_grads(
+        cfg, sparse_kernel="jnp" if case == "gather" else None)
     gb = global_batch(case == "masked")
     tb = {k: torch.as_tensor(v) for k, v in gb.items()}
-    loss, grads = f(params, tb, None if case == "dense" else tables)
+    loss, grads = f(params, tb, tables)
     halves = None
     if case == "masked":
         halves = [float(f(params, {k: v[i * B // 2:(i + 1) * B // 2]
@@ -134,21 +168,29 @@ def one_process_step(case):
         halves
 
 
-@pytest.mark.parametrize("mode", ["data", "seq"])
+@pytest.mark.parametrize("mode", ["data", "seq", "seq2data2"])
 def test_mesh_step_matches_one_process(mode, tmp_path):
-    """The global-mean loss and the summed gradients of a 2-rank step equal
-    the 1-process step on the same global batch: data parallelism (half the
-    batch a rank; dense, sparse, and sparse with unequal loss masks) and
-    sequence parallelism (half the sequence a rank; the halo exchange
-    around the kernels' plain versions, halo (1, 1))."""
+    """The global-mean loss and the summed gradients of a mesh step equal
+    the 1-process step on the same global batch: data parallelism (half
+    the batch a rank; dense, sparse, and sparse with unequal loss masks),
+    sequence parallelism under remat (half the sequence a rank; dense with
+    K/V gathered over 'seq', the halo exchange around the kernels' plain
+    versions at halo (1, 1) and at halo (0, 0) (a diagonal plan: nothing
+    to exchange), unequal masks, and the gather path on the dry run's wide
+    plan), and 4 ranks of seq 2 x data 2 (dense, the halo
+    exchange, and the wide plan through the gathered fallback)."""
+    import warnings
     outs = run_distributed_case(
-        PRELUDE + BATCH_SRC + STEP_CODE, nproc=2, timeout=240,
+        PRELUDE + BATCH_SRC + TABLES_SRC + STEP_CODE, nproc=NPROC[mode],
+        timeout=240,
         env_extra=dict(MP_ENV, MP_OUT=str(tmp_path), MP_MODE=mode))
     assert all("STEP_OK" in o for o in outs)
-    ranks = [dict(np.load(tmp_path / f"rank{i}.npz")) for i in range(2)]
-    cases = ["sparse"] if mode == "seq" else ["dense", "sparse", "masked"]
-    for case in cases:
-        loss, grads, halves = one_process_step(case)
+    ranks = [dict(np.load(tmp_path / f"rank{i}.npz"))
+             for i in range(NPROC[mode])]
+    for case in CASES[mode]:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            loss, grads, halves = one_process_step(case, mode != "data")
         for r in ranks:
             assert abs(float(r[f"{case}/loss"]) - loss) <= 3e-5, \
                 (case, float(r[f"{case}/loss"]), loss)

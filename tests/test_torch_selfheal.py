@@ -356,11 +356,15 @@ def test_supervisor_respawns_a_port_worker(tmp_path):
 
 
 def test_trainer_refuses_several_processes(monkeypatch):
-    """Several processes are ported (test_torch_multiprocess). What still
-    raises: a worker the supervisor announced as one of several that has
-    not joined the job (it would train and checkpoint alone), and, under a
-    'seq' axis, the dense phase and the capture (ROADMAP.md item A12b),
-    before any collective."""
+    """Several processes are ported (test_torch_multiprocess), and so is a
+    'seq' axis for the encoder and decoder families (test_torch_seq_train).
+    What still raises: a worker the supervisor announced as one of several
+    that has not joined the job (it would train and checkpoint alone), and,
+    under a 'seq' axis, the families whose recurrence or encoder scans the
+    whole sequence (hybrid, encdec, ssm: ROADMAP.md item A12b), in their
+    forward and capture and at the step's construction, before any
+    collective."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.spion import SpionController, SpionState
@@ -374,19 +378,24 @@ def test_trainer_refuses_several_processes(monkeypatch):
     with pytest.raises(RuntimeError, match="has not joined the job"):
         Trainer(cfg, seq_len=64, batch=1, device="cpu")
     monkeypatch.setenv("SPION_NUM_PROCESSES", "1")
-    tr = Trainer(cfg, seq_len=64, batch=1, device="cpu")
     seq = Mesh([[0], [1]], ("seq", "data"))
-    batch = {"tokens": torch.zeros((1, 32), dtype=torch.int64),
-             "labels": torch.zeros((1, 32), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="A12b"):
-        make_loss_and_grads(cfg, mesh=seq)(tr.params, batch)
-    bundle = build(cfg)
-    cap = SpionController(cfg.spion, causal=cfg.causal,
-                          seq_len=64).capture_kwargs(SpionState())
-    with mesh_context(seq):
-        for kw in ({}, {"capture": cap}):
-            with pytest.raises(NotImplementedError, match="A12b"):
-                bundle.forward(tr.params, batch, **kw)
+    for arch in ("zamba2-1.2b", "whisper-tiny", "rwkv6-7b"):
+        c = get_config(arch).reduced()
+        c = c.replace(spion=dataclasses.replace(c.spion, block_size=16))
+        with pytest.raises(NotImplementedError, match="A12b"):
+            make_loss_and_grads(c, mesh=seq)
+        bundle = build(c)
+        params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+        batch = {"tokens": torch.zeros((1, 32), dtype=torch.int64),
+                 "labels": torch.zeros((1, 32), dtype=torch.int64)}
+        if c.family == "audio":
+            batch["frames"] = torch.zeros((1, 32, c.d_model))
+        cap = SpionController(c.spion, causal=c.causal,
+                              seq_len=64).capture_kwargs(SpionState())
+        with mesh_context(seq):
+            for kw in ({}, {"capture": cap}):
+                with pytest.raises(NotImplementedError, match="A12b"):
+                    bundle.forward(params, batch, **kw)
 
 
 def test_supervise_cli(tmp_path):

@@ -269,11 +269,15 @@ def test_dense_train_steps_match_reference(dtype, n_micro):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """Data-parallel meshes are ported (item A12; test_torch_multiprocess);
-    a 'model' axis and a 'seq' axis wait in ROADMAP.md item A12b: asking
-    for them raises and names the item. A mesh of one rank is the
-    single-device trainer. Checkpointing (item A8) is ported: ckpt_dir=
-    gives the trainer its manager and heartbeat."""
+    """Data-parallel meshes (item A12) and a 'seq' axis (item 12b.1) are
+    ported (test_torch_multiprocess, test_torch_seq_train): a 'seq' mesh
+    builds a trainer whose masters are broadcast over the whole mesh, and a
+    seq_len that does not split into whole blocks a shard raises. A 'model'
+    axis waits in ROADMAP.md item A12b: asking for it raises and names the
+    item. A mesh of one rank is the single-device trainer. Checkpointing
+    (item A8) is ported: ckpt_dir= gives the trainer its manager and
+    heartbeat."""
+    from repro_torch.distributed import runtime
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.train import Trainer
     _jc, tc = lra_configs()
@@ -285,11 +289,22 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     one = Mesh([[[0]]], ("pod", "data", "model"))
     assert Trainer(tc, seq_len=S, batch=B, mesh=one, device="cpu").mesh \
         is None
-    for mesh in (Mesh([[0, 1]], ("data", "model")),
-                 Mesh([[0], [1]], ("seq", "data"))):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md item A12b"):
-            Trainer(tc, seq_len=S, batch=B, mesh=mesh, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item A12b"):
+        Trainer(tc, seq_len=S, batch=B, mesh=Mesh([[0, 1]], ("data", "model")),
+                device="cpu")
+    # a 'seq' mesh of this process and a peer: the one group the trainer's
+    # construction uses (the masters' broadcast) stands in for a joined job's
+    seq = Mesh([[0], [1]], ("seq", "data"))
+    seq._groups = {(("seq", "data"), (0, 1)): "whole mesh"}
+    sent = []
+    monkeypatch.setattr(runtime, "broadcast_tensors",
+                        lambda ts, group: sent.append((len(ts), group)))
+    tr = Trainer(tc, seq_len=S, batch=B, mesh=seq, device="cpu")
+    assert tr.mesh is seq
+    assert sent == [(len(list(tr.params.parameters())), "whole mesh")]
+    with pytest.raises(ValueError, match="whole blocks"):
+        Trainer(tc, seq_len=S + tc.spion.block_size, batch=B, mesh=seq,
+                device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
