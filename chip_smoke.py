@@ -194,12 +194,38 @@ Phases (each one fails the run; nothing falls back to the CPU):
      one process on the card, gradients equal across the ranks, and a
      planted K/V gather whose backward skips the sum over 'seq' past the
      gate. Step, capture and gather ms and peak memory per rank.
+     12e. the hybrid, ssm and encdec families over a 'seq' axis. First four
+     ranks (`--carry-worker DIR`) run one layer's Mamba2 and WKV6 scans at
+     zamba2-1.2b's and rwkv6-7b's widths on a 'seq' mesh of 4, so that a
+     shard's state composes more than one earlier shard's: within
+     TOL_SCAN_CARRY of the whole sequence's scan, and a dropped carry and
+     one from the previous shard alone past the gate. Then two ranks
+     (`--seqscan-worker DIR`) on a 'seq' mesh of 2. zamba2-1.2b at full
+     width with 12 of 38 layers (two applications of the shared block),
+     rwkv6-7b at full width with 2 of 32 layers and whisper-tiny whole,
+     fp32: dense steps, and for zamba2 and whisper sparse steps on a plan
+     banded to halo (1, 0) (the halo exchange), within TOL_SEQ_LOSS and
+     TOL_SEQ_GRAD of one process on the global batch (rank 0), gradients
+     bitwise equal across the ranks, 2 + 2 + 2 (zamba2) and 8 + 4 + 4
+     (whisper) launches a sparse step a rank; planted faults past a gate:
+     the scans' state carry dropped, the conv's and token shift's halo
+     rows zeroed, whisper's cross-attention over the local encoder shard,
+     and C2's forward that ignored the mesh (all of those, positions from 0).
+     zamba2's bf16 Trainer through the transition (the capture on the
+     shards within TOL_CAPTURE of one process's, one plan digest, sparse
+     steps on the trained plan through whichever sharded path it takes,
+     masters equal) and whisper's bf16 sparse steps on the kernels. Step
+     ms (a dense step also without the gather timer's synchronizes), the
+     carry's, halo rows', K/V and encoder gathers' ms, capture ms and peak
+     memory per rank.
 The line before the last is the kernels' JSON record (launches_serve,
 launches_serve_shared, launches_mixtral, launches_zamba2,
 launches_whisper, launches_internvl2, launches_train, launches_resume,
 launches_rollback, launches_respawn, launches_dp (both ranks of 12b),
-launches_fleet (both ranks of 12c's generation 1) and launches_seqtrain
-(12d's four ranks, training and the decoder's sparse step) count each
+launches_fleet (both ranks of 12c's generation 1), launches_seqtrain
+(12d's four ranks, training and the decoder's sparse step) and
+launches_seqscan (12e's two ranks: the fp32 sparse steps, the Trainer and
+whisper's bf16 steps) count each
 kernel's launches in phases 4, 4a, 4b, 4c, 4e, 4f (their sparse forward
 and train step), 5, 9-11 and 12, each read from zero; `seq_parallel` holds phase
 12a's worst differences and per-rank times; the forward's mixtral_shape
@@ -4923,14 +4949,830 @@ def phase_seq_train(train):
                 decoder=d0)
 
 
+SCAN_RANKS = 2              # 12e: a 'seq' mesh of 2, both ranks on the card
+SCAN_S = 2048               # zamba2's and rwkv6's positions: 8 chunks of 128
+SCAN_BATCH = 2              # sequences of zamba2's and rwkv6's steps
+SCAN_ZAMBA_LAYERS = 12      # zamba2-1.2b's 38 layers cut to 12 (reduced):
+                            # two applications of the shared block
+SCAN_RWKV_LAYERS = 2        # rwkv6-7b's 32 layers cut to 2 (reduced)
+SCAN_WHISPER_S = 512        # whisper's decoder tokens: 8 blocks of 64 (the
+                            # reference's 448 = 7 blocks do not split into
+                            # two whole-block shards)
+SCAN_WHISPER_BATCH = 4
+SCAN_TRAIN_STEPS = 8        # zamba2's bf16 Trainer: dense, capture, sparse
+SCAN_STEPS_PER_EPOCH = 2
+SCAN_BF16_STEPS = 3         # whisper's bf16 sparse steps on the kernels
+# 12e's planted faults, each on the step whose gate it must miss: the carry
+# dropped (every shard's scan from zero), the halo rows zeros, whisper's
+# cross-attention over the local encoder shard, and C2's forward
+# (no carry, no halo, positions from 0 on every shard)
+SCAN_FAULTS = {"zamba2": (("carry", "sparse"), ("halo", "dense"),
+                          ("c2", "sparse")),
+               "rwkv6": (("carry", "dense"), ("halo", "dense")),
+               "whisper": (("cross", "dense"),)}
+
+
+def no_carry(decay, final):
+    """The planted dropped carry: every shard's scan from zero (C2)."""
+    import torch
+    return torch.zeros_like(final)
+
+
+def last_shard_carry(decay, final):
+    """A planted composition fault: each shard's scan from the previous
+    shard's final state alone, right on a 'seq' line of 2 and wrong where
+    more than one earlier shard's summaries compose."""
+    import torch
+    from repro_torch.distributed.sharding import active_mesh, gather_seq
+    i = active_mesh().axis_index("seq")
+    lines = gather_seq(final[None], 0)
+    return torch.where(torch.tensor(i == 0, device=final.device), 0.0,
+                       lines[max(i - 1, 0)])
+
+
+@contextlib.contextmanager
+def planted_scan_fault(kind):
+    """Phase 12e's planted faults (SCAN_FAULTS), by replacing the models'
+    entry points for the duration; None plants nothing."""
+    import torch
+    from repro_torch.distributed import sharding
+    from repro_torch.models import encdec, hybrid, mamba, rwkv
+    saved = []
+
+    def put(mod, name, fn):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    def zero_rows(x, rows):
+        return x.new_zeros((x.shape[0], rows, *x.shape[2:]))
+    if kind in ("carry", "c2"):
+        put(sharding, "seq_carry", no_carry)
+    if kind in ("halo", "c2"):
+        for mod in (mamba, rwkv):
+            put(mod, "seq_left_rows", zero_rows)
+    if kind == "c2":
+        put(hybrid, "seq_positions", lambda rows, device: (
+            0, *[torch.arange(rows, device=device)] * 2))
+    if kind == "cross":
+        put(encdec, "gather_seq", lambda x, dim: x)
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+GATHER_TIMING = [True]      # labelled_gather_timer's switch (untimed())
+
+
+@contextlib.contextmanager
+def untimed():
+    """labelled_gather_timer's wrappers pass straight through, with no
+    synchronize, for the duration."""
+    GATHER_TIMING[0] = False
+    try:
+        yield
+    finally:
+        GATHER_TIMING[0] = True
+
+
+def labelled_gather_timer():
+    """Host seconds of the 'seq' gathers (GatherSeq's all_gather and its
+    backward's all-reduce, a synchronize on each side), by what called
+    them: "carry" (the scans' state carry), "halo" (the conv's and token
+    shift's left rows), "kv" (the dense attention's K/V), "enc" (whisper's
+    encoder output), "other"; and "grads", the steps' gradient all-reduce
+    (runtime.all_reduce_sum, bound by steps made after this call). Returns
+    the dict of seconds; the halo exchange of the sparse kernels is
+    kernels/sharded.halo_seconds. The synchronizes slow a step: under
+    `untimed()` the wrappers only call through."""
+    import collections
+    import torch
+    from repro_torch.distributed import sharding
+    from repro_torch.models import encdec, hybrid, mamba, rwkv
+    secs = collections.defaultdict(float)
+    label = ["other"]
+    fwd, bwd = sharding.GatherSeq.forward, sharding.GatherSeq.backward
+
+    def timed_fwd(ctx, *a):
+        ctx.label = label[0]
+        if not GATHER_TIMING[0]:
+            return fwd(ctx, *a)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fwd(ctx, *a)
+        torch.cuda.synchronize()
+        secs[ctx.label] += time.perf_counter() - t
+        return out
+
+    def timed_bwd(ctx, g):
+        if not GATHER_TIMING[0]:
+            return bwd(ctx, g)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = bwd(ctx, g)
+        torch.cuda.synchronize()
+        secs[ctx.label] += time.perf_counter() - t
+        return out
+    sharding.GatherSeq.forward = staticmethod(timed_fwd)
+    sharding.GatherSeq.backward = staticmethod(timed_bwd)
+
+    def labelled(mod, name, lab):
+        inner = getattr(mod, name)
+
+        def run(*a, **k):
+            prev, label[0] = label[0], lab
+            try:
+                return inner(*a, **k)
+            finally:
+                label[0] = prev
+        setattr(mod, name, run)
+    labelled(sharding, "seq_carry", "carry")
+    for mod in (mamba, rwkv):
+        labelled(mod, "seq_left_rows", "halo")
+    for mod in (hybrid, encdec):
+        labelled(mod, "gather_kv", "kv")
+    labelled(encdec, "gather_seq", "enc")
+    from repro_torch.distributed import runtime
+    inner_sum = runtime.all_reduce_sum
+
+    def timed_sum(*a, **k):      # the steps' gradient all-reduce
+        if not GATHER_TIMING[0]:
+            return inner_sum(*a, **k)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_sum(*a, **k)
+        torch.cuda.synchronize()
+        secs["grads"] += time.perf_counter() - t
+        return out
+    runtime.all_reduce_sum = timed_sum
+    return secs
+
+
+def scan_sparse_launches(cfg):
+    """A sparse step's launches on one rank: zamba2's shared block once per
+    application (its remat recomputes the Mamba part only), whisper's
+    decoder twice per layer forward (remat) and once backward."""
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import n_attn_apps
+        n = n_attn_apps(cfg)
+        return {k: n for k in KERNELS}
+    return sparse_launches(cfg)
+
+
+def scan_config(name, dtype="float32"):
+    """Phase 12e's configurations at full width: zamba2-1.2b at
+    SCAN_ZAMBA_LAYERS layers, rwkv6-7b at SCAN_RWKV_LAYERS, whisper-tiny
+    whole; and the global batch each leg runs on (seeded)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    rng = np.random.default_rng(SEED + 22)
+    if name == "zamba2":
+        cfg = get_config("zamba2-1.2b")
+        check(cfg.d_model == 2048 and cfg.num_heads == 32 and
+              cfg.ssm.expand == 2 and cfg.ssm.state_size == 64 and
+              cfg.ssm.chunk == 128 and cfg.spion.block_size == 128 and
+              cfg.remat, "zamba2-1.2b config changed")
+        cfg = cfg.replace(num_layers=SCAN_ZAMBA_LAYERS, dtype=dtype)
+        B, S = SCAN_BATCH, SCAN_S
+    elif name == "rwkv6":
+        cfg = get_config("rwkv6-7b")
+        check(cfg.d_model == 4096 and cfg.num_heads == 64 and
+              cfg.ssm.chunk == 128, "rwkv6-7b config changed")
+        cfg = cfg.replace(num_layers=SCAN_RWKV_LAYERS, dtype=dtype)
+        B, S = SCAN_BATCH, SCAN_S
+    else:
+        cfg = get_config("whisper-tiny")
+        check(cfg.d_model == 384 and cfg.encoder_layers == 4 and
+              cfg.num_layers == 4 and cfg.spion.block_size == 64 and
+              cfg.remat, "whisper-tiny config changed")
+        cfg = cfg.replace(dtype=dtype)
+        B, S = SCAN_WHISPER_BATCH, SCAN_WHISPER_S
+    toks = rng.integers(0, cfg.vocab_size, size=(B, S + 1)).astype(np.int64)
+    gb = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "audio":
+        gb["frames"] = rng.standard_normal(
+            (B, WHISPER_ENC, cfg.d_model)).astype(np.float32)
+    return cfg, gb
+
+
+def grads_hash(grads, chunk=1 << 24):
+    """A digest of the gradients' bits, summed on the card: per leaf the
+    (wrapping) int64 sums of its words, of their squares and of each word
+    times its position plus one, hashed with the leaf names on the host.
+    Any single word that differs changes the digest, and so does a leaf's
+    words in another order; it moves no leaf to the host."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for k in sorted(grads):
+        g = grads[k].detach().contiguous().view(-1)
+        w = g.view(torch.int32 if g.element_size() == 4 else torch.int16)
+        acc = torch.zeros(3, dtype=torch.int64, device=g.device)
+        for i in range(0, w.numel(), chunk):
+            part = w[i:i + chunk].long()
+            at = torch.arange(i + 1, i + 1 + part.numel(), device=g.device)
+            acc += torch.stack([part.sum(), (part * part).sum(),
+                                (part * at).sum()])
+        h.update(k.encode())
+        h.update(acc.cpu().numpy().tobytes())
+    return h.hexdigest()[:32]
+
+
+def scan_steps(name, mesh, rank, secs):
+    """12e's fp32 leg of one family on one rank: make_loss_and_grads on
+    `mesh`, dense and (zamba2, whisper) sparse on a plan banded to halo
+    (1, 0), then each SCAN_FAULTS step planted; rank 0 also runs the steps
+    in one process on the global batch and measures each mesh step's loss
+    gap and worst gradient leaf against it."""
+    import gc
+    import torch
+    from repro_torch.data.pipeline import local_batch
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.sharding import kernel_seq_axis
+    from repro_torch.kernels import sharded
+    from repro_torch.launch.steps import (make_loss_and_grads,
+                                          spion_dryrun_tables)
+    from repro_torch.launch.train import masters_of
+    from repro_torch.models.registry import build
+    cfg, gb = scan_config(name)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    params = masters_of(build(cfg).init(gen, device=DEVICE))
+    tables, reason = None, None
+    if cfg.spion.enabled:
+        S, block = gb["tokens"].shape[1], cfg.spion.block_size
+        layers = None
+        if cfg.family == "hybrid":
+            from repro_torch.models.hybrid import n_attn_apps
+            layers = n_attn_apps(cfg)
+        tables = spion_dryrun_tables(cfg, S, layers=layers, max_extent=1)
+        tables = {k: v.to(DEVICE) if torch.is_tensor(v) else v
+                  for k, v in tables.items()}
+        axis, reason = kernel_seq_axis(mesh, S // block, tables["halo"])
+        check(axis == "seq", f"12e {name}: the plan does not take the halo "
+              f"path: {reason}")
+    f = make_loss_and_grads(cfg, mesh=mesh,
+                            halo=None if tables is None else tables["halo"])
+    batch = local_batch(mesh, gb, DEVICE)
+    # the planted faults first: they take the first steps' one-off costs
+    kinds = [(f"{fault}:{on}", fault) for fault, on in SCAN_FAULTS[name]] + \
+        [("dense", None)] + ([("sparse", None)] if tables else [])
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for kind, fault in kinds:
+        sparse = kind.split(":")[-1] == "sparse"
+        with planted_scan_fault(fault):
+            reset_launch_counts()
+            before = dict(secs)
+            h0 = sharded.halo_seconds
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, grads = f(params, batch, tables if sparse else None)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+        runs[kind] = {"loss": float(loss), "ms": ms,
+                      "launches": launch_counts(), "grads": grads_hash(grads),
+                      "gather_ms": {k: 1e3 * (v - before.get(k, 0.0))
+                                    for k, v in secs.items()},
+                      "halo_ms": 1e3 * (sharded.halo_seconds - h0)}
+        if rank == 0:
+            runs[kind]["_grads"] = {k: g.cpu() for k, g in grads.items()}
+        del grads
+    # a dense step again without the timer's synchronizes: its time beside
+    # the instrumented step's
+    with untimed():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, grads = f(params, batch, None)
+        torch.cuda.synchronize()
+        runs["dense"]["untimed_ms"] = 1e3 * (time.perf_counter() - t)
+    del loss, grads
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the card is shared: every rank hands its cached blocks back before
+    # rank 0's one-process steps (rwkv6's WKV exp(D) terms of a whole
+    # sequence are tens of GB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runtime.barrier(f"12e {name} mesh steps")
+    if rank == 0:
+        one = make_loss_and_grads(cfg)
+        full = {k: torch.as_tensor(v, device=DEVICE) for k, v in gb.items()}
+        for ref_kind in [k for k, _ in kinds if ":" not in k]:
+            loss, ref = one(params, full,
+                            tables if ref_kind == "sparse" else None)
+            for kind in [k for k, _ in kinds
+                         if k.split(":")[-1] == ref_kind]:
+                got = runs[kind].pop("_grads")
+                rel = {n: ((got[n].to(DEVICE) - g).abs().max() /
+                           g.abs().max().clamp(min=1e-30)).item()
+                       for n, g in ref.items()}
+                worst = max(rel, key=rel.get)
+                runs[kind].update(ref_loss=float(loss), grad_rel=rel[worst],
+                                  worst_leaf=worst,
+                                  loss_gap=loss_gap([runs[kind]["loss"]],
+                                                    [float(loss)]))
+            del ref
+    else:
+        for r in runs.values():
+            r.pop("_grads", None)
+    runtime.barrier(f"12e {name} reference")
+    del params, f
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "peak_gb": peak, "reason": reason,
+            "launches_want": scan_sparse_launches(cfg) if tables else None}
+
+
+def scan_bf16_steps(mesh, secs):
+    """12e's whisper leg in bf16: SCAN_BF16_STEPS sparse make_loss_and_grads
+    on the kernels (the plan banded to halo (1, 0)), each step's loss,
+    launches, time and gradients' digest."""
+    import gc
+    import torch
+    from repro_torch.data.pipeline import local_batch
+    from repro_torch.launch.steps import (make_loss_and_grads,
+                                          spion_dryrun_tables)
+    from repro_torch.launch.train import masters_of
+    from repro_torch.models.registry import build
+    cfg, gb = scan_config("whisper", dtype="bfloat16")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    params = masters_of(build(cfg).init(gen, device=DEVICE))
+    tables = spion_dryrun_tables(cfg, gb["tokens"].shape[1], max_extent=1)
+    f = make_loss_and_grads(cfg, mesh=mesh, halo=tables["halo"])
+    batch = local_batch(mesh, gb, DEVICE)
+    steps = []
+    for _ in range(SCAN_BF16_STEPS):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, grads = f(params, batch, tables)
+        torch.cuda.synchronize()
+        steps.append({"loss": float(loss),
+                      "ms": 1e3 * (time.perf_counter() - t),
+                      "launches": launch_counts(),
+                      "grads": grads_hash(grads),
+                      "finite": all(bool(torch.isfinite(g).all())
+                                    for g in grads.values())})
+        check(math.isfinite(steps[-1]["loss"]), "12e whisper bf16 loss "
+              "not finite")
+    del params, f, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": steps, "launches_want": scan_sparse_launches(cfg)}
+
+
+def lm_data_fn(cfg, batch, seq_len):
+    """data_fn(step): `batch` random token sequences of seq_len + 1 tokens,
+    seeded by (SEED, step); next-token targets."""
+    import numpy as np
+
+    def data_fn(step):
+        rng = np.random.default_rng([SEED + 22, step])
+        toks = rng.integers(0, cfg.vocab_size,
+                            size=(batch, seq_len + 1)).astype(np.int64)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    return data_fn
+
+
+def scan_trainer(mesh, rank, secs):
+    """12e's zamba2 Trainer on one rank: bf16, SCAN_ZAMBA_LAYERS layers,
+    SCAN_BATCH x SCAN_S through SCAN_TRAIN_STEPS steps on `mesh` (dense
+    steps, the capture on the shards at each epoch boundary, the flood
+    fill on process 0 and its broadcast, sparse steps on the trained plan
+    through whichever sharded path it takes). Each capture is timed and,
+    on rank 0, held against the capture of one process on the global
+    batch."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.distributed.sharding import (gather_seq,
+                                                  kernel_seq_axis,
+                                                  mesh_context)
+    from repro_torch.launch.steps import compute_params
+    from repro_torch.launch.train import Trainer
+    cfg, _ = scan_config("zamba2", dtype="bfloat16")
+    cfg = cfg.replace(spion=dataclasses.replace(
+        cfg.spion, min_dense_epochs=1, max_dense_epochs=2))
+    tr = Trainer(cfg, seq_len=SCAN_S, batch=SCAN_BATCH,
+                 steps_per_epoch=SCAN_STEPS_PER_EPOCH,
+                 data_fn=lm_data_fn(cfg, SCAN_BATCH, SCAN_S), seed=SEED + 22,
+                 device=DEVICE, mesh=mesh, sentinel=False)
+    check(tr.mesh is mesh, f"rank {rank}: the trainer's mesh is {tr.mesh}")
+    steps, undo = record_steps(tr)
+    caps = []
+    inner_capture = tr.capture
+
+    def capture(batch):
+        g0 = dict(secs)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_capture(batch)
+        torch.cuda.synchronize()
+        rec = {"ms": 1e3 * (time.perf_counter() - t),
+               "gather_ms": 1e3 * sum(v - g0.get(k, 0.0)
+                                      for k, v in secs.items())}
+        with torch.no_grad():
+            full = {k: gather_seq(v, 1, mesh) for k, v in batch.items()}
+            if rank == 0:
+                cap = tr.spion_ctl.capture_kwargs(tr.spion_state)
+                pc = compute_params(tr.params, getattr(torch, cfg.dtype))
+                with mesh_context(None):
+                    want = tr.bundle.forward(pc, full, capture=cap)[1]
+                want = want["captured"][0].float()
+                rec["gap"] = float((out[0].float() - want).abs().max() /
+                                   want.abs().max())
+                del pc
+        rec["digest"] = grads_hash({"p": out[0]})
+        caps.append(rec)
+        return out
+    tr.capture = capture
+    torch.cuda.reset_peak_memory_stats()
+    tr.train(SCAN_TRAIN_STEPS, ckpt_every=0, log_every=10**9,
+             log=lambda m: None)
+    undo()
+    st = tr.spion_state
+    check(st.phase == "sparse", f"rank {rank}: zamba2's 'seq' Trainer never "
+          f"went sparse")
+    axis, reason = kernel_seq_axis(mesh, SCAN_S // cfg.spion.block_size,
+                                   st.plan_stats["halo"])
+    out = {"losses": [r["loss"] for r in steps],
+           "phases": [r["phase"] for r in steps],
+           "launches": [r["launches"] for r in steps],
+           "step_ms": [1e3 * r["s"] for r in steps],
+           "captures": caps, "digest": plan_digest_of(st),
+           "halo": st.plan_stats["halo"],
+           "density": st.plan_stats.get("density"),
+           "masters": masters_digest(tr),
+           "branch": "halo exchange" if axis else "gathered fallback",
+           "reason": reason,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_want": scan_sparse_launches(cfg)}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(out["losses"])), "zamba2's 'seq' losses not finite")
+    return out
+
+
+def seqscan_worker(d, stages):
+    """A rank of phase 12e (`--seqscan-worker DIR`, the SPION_* environment
+    of a job of SCAN_RANKS): on a 'seq' mesh of SCAN_RANKS, zamba2's fp32
+    steps, its bf16 Trainer, rwkv6's fp32 steps, whisper's fp32 steps and
+    bf16 sparse steps; writes DIR/seqscan_<rank>.json."""
+    import torch
+    from repro_torch.distributed import runtime
+    from repro_torch.kernels.block_sparse_attn import load_library
+    from repro_torch.launch.mesh import make_seq_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(runtime.initialize(), "the 12e worker did not join its job")
+    stages["joined"] = time.time()
+    rank = runtime.process_index()
+    torch.zeros(1, device=DEVICE)
+    torch.cuda.synchronize()
+    stages["cuda"] = time.time()
+    load_library()
+    stages["library"] = time.time()
+    mesh = make_seq_mesh(SCAN_RANKS, 1)
+    secs = labelled_gather_timer()
+    out = {"rank": rank, "coords": mesh.coords()}
+    out["zamba2"] = scan_steps("zamba2", mesh, rank, secs)
+    stages["zamba2"] = time.time()
+    out["trainer"] = scan_trainer(mesh, rank, secs)
+    stages["trainer"] = time.time()
+    out["rwkv6"] = scan_steps("rwkv6", mesh, rank, secs)
+    stages["rwkv6"] = time.time()
+    out["whisper"] = scan_steps("whisper", mesh, rank, secs)
+    out["whisper_bf16"] = scan_bf16_steps(mesh, secs)
+    stages["whisper"] = time.time()
+    out["stages"] = stages
+    with open(os.path.join(d, f"seqscan_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    runtime.shutdown(0)   # ends the process
+    return 0
+
+
+CARRY_RANKS = 4             # 12e's carry check: a 'seq' line of 4
+TOL_SCAN_CARRY = 3e-5       # its output, of the whole sequence's largest
+
+
+def carry_case(name):
+    """One layer's scan at full width over SCAN_BATCH x SCAN_S, made on the
+    card from a seed (equal on every rank): (the scan as a function of its
+    inputs, the inputs, the names of those split over 'seq'). "ssd":
+    `mamba.ssd_chunked` at zamba2-1.2b's widths, the heads' dt scales
+    spaced evenly in log over [1e-3, 1e-1] and their A over [-1, -16]
+    (Mamba2's init ranges); "wkv": `rwkv.wkv6_chunked` at rwkv6-7b's, log
+    decays -exp(w), the channels' w spaced evenly over [-6, -1]. The
+    tokens vary each around its head's or channel's scale (x 1.13 on
+    average), as the models' data-dependent dt and decay do around their
+    biases. The slowest heads and channels keep their state past two
+    whole shards."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba, rwkv
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    B, S = SCAN_BATCH, SCAN_S
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE)
+    if name == "ssd":
+        cfg = get_config("zamba2-1.2b")
+        _, H, P, N, _ = mamba._widths(cfg)
+        dt = torch.logspace(-3.0, -1.0, H, device=DEVICE)
+        t = {"x": normal(B, S, H, P),
+             "dt": dt * torch.exp(0.5 * normal(B, S, H)),
+             "A": -torch.linspace(1.0, 16.0, H, device=DEVICE),
+             "B": normal(B, S, 1, N),
+             "C": normal(B, S, 1, N), "D": torch.ones(H, device=DEVICE)}
+        return (lambda t: mamba.ssd_chunked(t["x"], t["dt"], t["A"], t["B"],
+                                            t["C"], t["D"], cfg.ssm.chunk),
+                t, {"x", "dt", "B", "C"})
+    cfg = get_config("rwkv6-7b")
+    H, K = cfg.num_heads, cfg.resolved_head_dim
+    t = {"r": normal(B, S, H, K), "k": normal(B, S, H, K) / math.sqrt(K),
+         "v": normal(B, S, H, K),
+         "a": -torch.exp(torch.linspace(-6.0, -1.0, H * K, device=DEVICE)
+                         .reshape(H, K) + 0.5 * normal(B, S, H, K)),
+         "u": 0.1 * normal(H, K)}
+    return (lambda t: rwkv.wkv6_chunked(t["r"], t["k"], t["v"], t["a"],
+                                        t["u"], cfg.ssm.chunk),
+            t, {"r", "k", "v", "a"})
+
+
+def carry_worker(d):
+    """A rank of 12e's carry check (`--carry-worker DIR`, the SPION_*
+    environment of a job of CARRY_RANKS): each carry_case on its shard of
+    a 'seq' mesh of CARRY_RANKS, right and with each planted carry fault
+    (none, no_carry, last_shard_carry), the shards gathered; rank 0 holds
+    them against the scan on the whole sequence. Writes
+    DIR/carry_<rank>.json."""
+    import torch
+    from repro_torch.distributed import runtime, sharding
+    from repro_torch.distributed.sharding import gather_seq, mesh_context
+    from repro_torch.launch.mesh import make_seq_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(runtime.initialize(), "the 12e carry worker did not join its job")
+    rank = runtime.process_index()
+    mesh = make_seq_mesh(CARRY_RANKS, 1)
+    L = SCAN_S // CARRY_RANKS
+    out = {"rank": rank}
+    right = sharding.seq_carry
+    for name in ("ssd", "wkv"):
+        fn, t, split = carry_case(name)
+        loc = {k: v[:, rank * L:(rank + 1) * L] if k in split else v
+               for k, v in t.items()}
+        ref = None
+        if rank == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                ref = fn(t)
+            torch.cuda.synchronize()
+            out[f"{name}/whole_ms"] = 1e3 * (time.perf_counter() - t0)
+        for fault, carry in (("right", right), ("dropped", no_carry),
+                             ("last_only", last_shard_carry)):
+            sharding.seq_carry = carry
+            try:
+                with mesh_context(mesh), torch.no_grad():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    y = fn(loc)
+                    torch.cuda.synchronize()
+                    ms = 1e3 * (time.perf_counter() - t0)
+                    whole = gather_seq(y, 1)
+            finally:
+                sharding.seq_carry = right
+            out[f"{name}/{fault}/ms"] = ms
+            if rank == 0:
+                err = (whole - ref).abs()
+                scale = ref.abs().max().item()
+                out[f"{name}/{fault}/gap"] = err.max().item() / scale
+                out[f"{name}/{fault}/shard_gaps"] = [
+                    err[:, i * L:(i + 1) * L].max().item() / scale
+                    for i in range(CARRY_RANKS)]
+        del t, loc, ref, y, whole
+    with open(os.path.join(d, f"carry_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    runtime.shutdown(0)   # ends the process
+    return 0
+
+
+def check_carry(d):
+    """12e's carry check on CARRY_RANKS ranks: the right carry within
+    TOL_SCAN_CARRY of the whole sequence's scan on every shard; the
+    dropped carry right on the first shard only, the previous shard's
+    state alone on the first two only, each past the gate after them."""
+    t0 = time.perf_counter()
+    wait_ranks(spawn_ranks(["--carry-worker", d], CARRY_RANKS),
+               "the 12e carry ranks")
+    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(CARRY_RANKS):
+        with open(os.path.join(d, f"carry_{r}.json")) as f:
+            recs.append(json.load(f))
+    r0 = recs[0]
+    for name, what in (("ssd", "Mamba2's ssd_chunked at zamba2-1.2b's "
+                        "widths"), ("wkv", "WKV6's wkv6_chunked at "
+                                    "rwkv6-7b's widths")):
+        gaps = {f: r0[f"{name}/{f}/shard_gaps"]
+                for f in ("right", "dropped", "last_only")}
+        check(max(gaps["right"]) <= TOL_SCAN_CARRY,
+              f"12e carry: {name} on {CARRY_RANKS} shards misses the whole "
+              f"sequence's scan: {gaps['right']}; gate {TOL_SCAN_CARRY}")
+        for fault, good in (("dropped", 1), ("last_only", 2)):
+            g = gaps[fault]
+            check(max(g[:good]) <= TOL_SCAN_CARRY and
+                  min(g[good:]) > TOL_SCAN_CARRY,
+                  f"12e carry: the planted {fault} carry of {name} is not "
+                  f"right on the first {good} shard(s) and past the gate "
+                  f"after them: {g}")
+        log(f"seq-scan carry, {what}, {SCAN_BATCH} x {SCAN_S} on "
+            f"{CARRY_RANKS} 'seq' ranks, fp32: shards' gaps to the whole "
+            f"sequence's scan {', '.join('%.3e' % x for x in gaps['right'])}"
+            f" of its largest (gate {TOL_SCAN_CARRY}); planted dropped "
+            f"carry {', '.join('%.3e' % x for x in gaps['dropped'])}; the "
+            f"previous shard's state alone "
+            f"{', '.join('%.3e' % x for x in gaps['last_only'])}; a shard "
+            + ", ".join("%.2f" % rec[f"{name}/right/ms"] for rec in recs)
+            + f" ms a rank, the whole sequence {r0[f'{name}/whole_ms']:.2f}"
+            f" ms on one")
+    log(f"seq-scan carry check: {wall:.1f} s")
+    return wall
+
+
+def fmt_gathers(run):
+    g = run["gather_ms"]
+    return (f"carry {g.get('carry', 0.0):.2f}, halo rows "
+            f"{g.get('halo', 0.0):.2f}, K/V {g.get('kv', 0.0):.2f}, encoder "
+            f"{g.get('enc', 0.0):.2f}, kernels' halo exchange "
+            f"{run['halo_ms']:.2f} ms; gradient all-reduce "
+            f"{g.get('grads', 0.0):.2f} ms")
+
+
+def phase_seq_scan():
+    """12e: the hybrid, ssm and encdec families over a 'seq' axis, SCAN_RANKS
+    ranks of this script on the card (`--seqscan-worker DIR`, a 'seq' mesh
+    of SCAN_RANKS). zamba2-1.2b (SCAN_ZAMBA_LAYERS layers), rwkv6-7b
+    (SCAN_RWKV_LAYERS layers) and whisper-tiny at full width, fp32: dense
+    and (zamba2, whisper) sparse steps within TOL_SEQ_LOSS and TOL_SEQ_GRAD
+    of one process on rank 0, gradients bitwise equal across the ranks,
+    the sparse steps' launches scan_sparse_launches'; each planted fault of
+    SCAN_FAULTS past a gate. zamba2's bf16 Trainer through the transition:
+    captures within TOL_CAPTURE of one process's, one plan digest, sparse
+    steps at scan_sparse_launches on every rank, masters equal. whisper's
+    bf16 sparse steps: finite, launches as stated, gradients equal across
+    the ranks."""
+    import shutil
+    d = os.path.join(DP_DIR, "seqscan")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    carry_s = check_carry(d)
+    t0, t_spawn = time.perf_counter(), time.time()
+    wait_ranks(spawn_ranks(["--seqscan-worker", d], SCAN_RANKS),
+               "the 12e ranks")
+    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(SCAN_RANKS):
+        with open(os.path.join(d, f"seqscan_{r}.json")) as f:
+            recs.append(json.load(f))
+    card = card_line()
+    launches = {k: 0 for k in KERNELS}
+    faults = {}
+    for name in ("zamba2", "rwkv6", "whisper"):
+        legs = [rec[name] for rec in recs]
+        r0 = legs[0]["runs"]
+        for r, leg in enumerate(legs):
+            for kind, run in leg["runs"].items():
+                check(run["grads"] == r0[kind]["grads"],
+                      f"12e {name} {kind}: rank {r}'s gradients differ from "
+                      f"rank 0's")
+                want = leg["launches_want"] if kind == "sparse" else \
+                    {k: 0 for k in KERNELS}
+                if ":" not in kind:
+                    check(run["launches"] == want, f"12e {name}: rank {r}'s "
+                          f"{kind} step launched {run['launches']}, not "
+                          f"{want}")
+            if "sparse" in leg["runs"]:
+                for k in KERNELS:
+                    launches[k] += leg["runs"]["sparse"]["launches"][k]
+        for kind, run in r0.items():
+            if ":" in kind:
+                faults[f"{name} {kind}"] = run
+                continue
+            check(run["loss_gap"] <= TOL_SEQ_LOSS and
+                  run["grad_rel"] <= TOL_SEQ_GRAD,
+                  f"12e {name}'s {kind} step misses one process's: "
+                  f"{ {k: v for k, v in run.items() if k != 'launches'} }")
+        log(f"seq-scan {name}: {SCAN_RANKS} ranks on 'seq', fp32; "
+            + "; ".join(
+                f"{kind} loss {run['loss']:.6f} vs one process "
+                f"{run['ref_loss']:.6f} (rel {run['loss_gap']:.3e}), worst "
+                f"gradient leaf {run['worst_leaf']} {run['grad_rel']:.3e} of "
+                f"its largest" for kind, run in r0.items() if ":" not in kind)
+            + f" (gates {TOL_SEQ_LOSS}, {TOL_SEQ_GRAD})")
+        for r, leg in enumerate(legs):
+            log(f"seq-scan {name} rank {r}: "
+                + "; ".join(f"{kind} {run['ms']:.1f} ms ("
+                            f"{fmt_gathers(run)})"
+                            for kind, run in leg["runs"].items()
+                            if ":" not in kind)
+                + f"; dense again untimed (no synchronize around the "
+                f"gathers) {leg['runs']['dense']['untimed_ms']:.1f} ms"
+                + f"; sparse launches "
+                f"{leg['runs'].get('sparse', {}).get('launches')}; peak "
+                f"{leg['peak_gb']:.2f} GB ({card})")
+    for what, run in faults.items():
+        missed = run["loss_gap"] > TOL_SEQ_LOSS or \
+            run["grad_rel"] > TOL_SEQ_GRAD
+        log(f"seq-scan planted {what}: loss rel {run['loss_gap']:.3e}, worst "
+            f"gradient leaf {run['worst_leaf']} {run['grad_rel']:.3e} -> "
+            f"{'misses' if missed else 'PASSES'} the gate")
+        check(missed, f"12e: the planted {what} passes the gates: {run}")
+    # zamba2's Trainer
+    trs = [rec["trainer"] for rec in recs]
+    t0_ = trs[0]
+    check(all(x["losses"] == t0_["losses"] for x in trs),
+          "12e: the Trainer ranks' losses differ")
+    check(len({x["digest"] for x in trs}) == 1,
+          f"12e: the ranks' plan digests differ: "
+          f"{[x['digest'] for x in trs]}")
+    check(len({x["masters"] for x in trs}) == 1,
+          "12e: the ranks' masters differ after the Trainer")
+    for r, x in enumerate(trs):
+        check([c["digest"] for c in x["captures"]] ==
+              [c["digest"] for c in t0_["captures"]],
+              f"12e: rank {r}'s captures differ from rank 0's")
+        for ph, ln in zip(x["phases"], x["launches"]):
+            check(ln == x["launches_want"] if ph == "sparse"
+                  else not any(ln.values()),
+                  f"12e: rank {r}'s {ph} Trainer step launched {ln}")
+            for k in KERNELS:
+                launches[k] += ln[k]
+    cap_gap = max((c["gap"] for c in t0_["captures"]), default=math.inf)
+    check(cap_gap <= TOL_CAPTURE,
+          f"12e: zamba2's captures on the shards miss one process's: "
+          f"{cap_gap}; gate {TOL_CAPTURE}")
+    log(f"seq-scan zamba2 Trainer: bf16, {SCAN_ZAMBA_LAYERS} layers, "
+        f"{SCAN_BATCH} x {SCAN_S} on {SCAN_RANKS} 'seq' ranks, "
+        f"{SCAN_TRAIN_STEPS} steps ({t0_['phases'].count('dense')} dense, "
+        f"then sparse at {t0_['launches_want']} a step a rank); captures vs "
+        f"one process {', '.join('%.3e' % c['gap'] for c in t0_['captures'])} "
+        f"of the map's largest (gate {TOL_CAPTURE}); one plan digest "
+        f"({t0_['digest']}, halo {t0_['halo']}, density {t0_['density']}) "
+        f"through the {t0_['branch']} ({t0_['reason']}); masters equal")
+    for r, x in enumerate(trs):
+        def med(ph):
+            xs = [ms for ms, p in zip(x["step_ms"][1:], x["phases"][1:])
+                  if p == ph]
+            return sorted(xs)[len(xs) // 2] if xs else float("nan")
+        log(f"seq-scan zamba2 Trainer rank {r}: step median dense "
+            f"{med('dense'):.1f} ms, sparse {med('sparse'):.1f} ms; captures "
+            f"{', '.join('%.1f' % c['ms'] for c in x['captures'])} ms (their "
+            f"gathers {', '.join('%.1f' % c['gather_ms'] for c in x['captures'])}"
+            f" ms); peak {x['peak_gb']:.2f} GB ({card})")
+    # whisper in bf16
+    bf = [rec["whisper_bf16"] for rec in recs]
+    for r, x in enumerate(bf):
+        for i, s in enumerate(x["steps"]):
+            check(s["finite"] and s["launches"] == x["launches_want"],
+                  f"12e whisper bf16 rank {r} step {i}: {s}")
+            check(s["grads"] == bf[0]["steps"][i]["grads"],
+                  f"12e whisper bf16: rank {r}'s gradients differ")
+            for k in KERNELS:
+                launches[k] += s["launches"][k]
+    log(f"seq-scan whisper bf16 sparse steps: losses "
+        f"{', '.join('%.6f' % s['loss'] for s in bf[0]['steps'])}; per rank "
+        + "; ".join(f"rank {r} " + ", ".join("%.1f" % s["ms"]
+                                            for s in x["steps"]) + " ms"
+                    for r, x in enumerate(bf))
+        + f"; launches a step a rank {bf[0]['launches_want']}")
+    clock = stage_split(t_spawn, recs[0]["stages"], (
+        ("zamba2", "zamba2 fp32 steps"), ("trainer", "zamba2 Trainer"),
+        ("rwkv6", "rwkv6 fp32 steps"), ("whisper", "whisper steps")),
+        start=START_STAGES[:5])
+    clock["exit"] = wall - sum(clock.values())
+    log(f"seq-scan wall clock, rank 0, s: {fmt_split(clock)}; phase 12e "
+        f"{wall:.1f} s")
+    return dict(seconds=wall + carry_s, launches=launches, cap_gap=cap_gap,
+                branch=t0_["branch"], faults={k: v["loss_gap"]
+                                              for k, v in faults.items()},
+                gaps={name: {kind: run["loss_gap"]
+                             for kind, run in recs[0][name]["runs"].items()
+                             if ":" not in kind}
+                      for name in ("zamba2", "rwkv6", "whisper")})
+
+
 def sum_launches(per_step):
     """The kernels' launches summed over a run's steps."""
     return {k: sum(ln[k] for ln in per_step) for k in KERNELS}
 
 
 def phase_multiprocess(train):
-    """Phase 12: 12a, 12b, 12c and 12d, after the parent frees its cached
-    memory for the ranks."""
+    """Phase 12: 12a, 12b, 12c, 12d and 12e, after the parent frees its
+    cached memory for the ranks."""
     import gc
     import shutil
     import torch
@@ -4943,7 +5785,9 @@ def phase_multiprocess(train):
     dp = phase_data_parallel(train)
     fleet = phase_fleet(dp)
     seqtrain = phase_seq_train(train)
-    return dict(seq=seq, dp=dp, fleet=fleet, seqtrain=seqtrain)
+    seqscan = phase_seq_scan()
+    return dict(seq=seq, dp=dp, fleet=fleet, seqtrain=seqtrain,
+                seqscan=seqscan)
 
 
 def main(argv):
@@ -4968,6 +5812,12 @@ def main(argv):
     parser.add_argument("--seqtrain-worker", metavar="DIR", help="run as a "
                         "rank of phase 12d's training over a 'seq' axis; "
                         "records go to DIR")
+    parser.add_argument("--seqscan-worker", metavar="DIR", help="run as a "
+                        "rank of phase 12e (the hybrid, ssm and encdec "
+                        "families over a 'seq' axis); records go to DIR")
+    parser.add_argument("--carry-worker", metavar="DIR", help="run as a "
+                        "rank of phase 12e's 4-rank check of the scans' "
+                        "state carry; records go to DIR")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4983,6 +5833,11 @@ def main(argv):
     if args.seqtrain_worker:
         return seqtrain_worker(args.seqtrain_worker,
                                {"main": t_main, "torch": t_torch})
+    if args.seqscan_worker:
+        return seqscan_worker(args.seqscan_worker,
+                              {"main": t_main, "torch": t_torch})
+    if args.carry_worker:
+        return carry_worker(args.carry_worker)
     import shutil
     import numpy as np
     # every exec of this run (and of the respawn phase's worker, which
@@ -5063,11 +5918,13 @@ def main(argv):
     respawn = phase_respawn(train, resume)
     multi = phase_multiprocess(train)
     dp, fleet, seqtrain = multi["dp"], multi["fleet"], multi["seqtrain"]
+    seqscan = multi["seqscan"]
 
     fwd = {"launches": serve["launches"] + shared["launches"]
            + mixtral["launches"]
            + sum(run["launches"]["block_sparse_fwd"]
-                 for run in (zamba, whisper, internvl, train, dp, seqtrain)),
+                 for run in (zamba, whisper, internvl, train, dp, seqtrain,
+                             seqscan)),
            "launches_serve": serve["launches"],
            "launches_serve_shared": shared["launches"],
            "launches_mixtral": mixtral["launches"],
@@ -5089,7 +5946,7 @@ def main(argv):
         t = train_timing[name]
         rows[name] = {"launches": sum(run["launches"][name] for run in
                                       (train, zamba, whisper, internvl, dp,
-                                       seqtrain)),
+                                       seqtrain, seqscan)),
                       "launches_zamba2": zamba["launches"][name],
                       "launches_whisper": whisper["launches"][name],
                       "launches_internvl2": internvl["launches"][name],
@@ -5106,7 +5963,8 @@ def main(argv):
         row["tuned"] = tuned[name]
         for path, run in (("resume", resume), ("rollback", rollback),
                           ("respawn", respawn), ("dp", dp),
-                          ("fleet", fleet), ("seqtrain", seqtrain)):
+                          ("fleet", fleet), ("seqtrain", seqtrain),
+                          ("seqscan", seqscan)):
             row[f"launches_{path}"] = run["launches"][name]
         row["seq_parallel"] = multi["seq"]["runs"]
     record = {"kernels": [
@@ -5173,6 +6031,15 @@ def main(argv):
         f"internvl2-2b dense / sparse rel loss gap "
         f"{seqtrain['decoder']['dense']['loss_gap']:.3e} / "
         f"{seqtrain['decoder']['sparse']['loss_gap']:.3e} ({card})")
+    log(f"the scan families over 'seq' (phase 12e, "
+        f"{seqscan['seconds']:.1f} s): fp32 rel loss gaps to one process "
+        + "; ".join(f"{name} " + ", ".join(f"{k} {v:.3e}"
+                                          for k, v in gaps.items())
+                    for name, gaps in seqscan["gaps"].items())
+        + f"; planted faults " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                           seqscan["faults"].items())
+        + f"; zamba2's Trainer captures {seqscan['cap_gap']:.3e}, the "
+        f"trained plan through the {seqscan['branch']} ({card})")
     log(f"recovery: supervisor {respawn['wall']:.2f} s in all; a sparse step "
         f"run twice is {'' if resume['bitwise'] else 'NOT '}bitwise "
         f"reproducible; max rel gap to the uninterrupted run's losses (gate "

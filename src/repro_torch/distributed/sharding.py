@@ -5,10 +5,16 @@ kernels need).
 `mesh_context(mesh)` makes a mesh current, so model code reaches the
 sharded kernels without carrying a mesh argument. On a mesh with a 'seq'
 axis every rank holds a contiguous shard of the sequence: `seq_start` is
-its first row's global position, `gather_seq` the differentiable gather
+its first row's global position (`seq_positions` its rows' and the whole
+sequence's positions), `gather_seq` the differentiable gather
 of the whole sequence (the dense attention's, the gather path's and the
-capture's K/V: `gather_kv`; the MoE's rows; the kernels' too-wide
-fallback), `sum_over_seq` the sum of a statistic over the shards.
+capture's K/V: `gather_kv`; the MoE's rows; whisper's encoder output; the
+kernels' too-wide fallback), `sum_over_seq` the sum of a statistic over
+the shards. The recurrent families cross a shard boundary in two ways:
+`seq_left_rows` hands a shard the previous shard's last rows (Mamba2's
+causal conv, RWKV6's token shift) and `carried_combine` runs the chunked
+scans' state combine (Mamba2's and WKV6's) from the state that enters it
+(`seq_carry`), both differentiable.
 `kernel_shard_axes` and
 `kernel_seq_axis` decide, exactly as the reference does and with its
 reasons, which mesh axes the kernels' batch, KV heads and query rows split
@@ -60,21 +66,6 @@ def seq_size(mesh) -> int:
     return 1 if mesh is None else int(mesh.shape.get("seq", 1))
 
 
-SEQ_FAMILY_REFUSAL = (
-    "waits in ROADMAP.md item A12b: its recurrence or encoder scans the "
-    "whole sequence, which a 'seq' shard does not hold")
-
-
-def refuse_seq(what: str, mesh=None):
-    """Raise NotImplementedError naming A12b when `mesh` (default: the
-    active one) has a 'seq' axis: `what` (the hybrid, ssm or encdec family)
-    would run each shard as if it were the whole sequence."""
-    mesh = active_mesh() if mesh is None else mesh
-    if seq_size(mesh) > 1:
-        raise NotImplementedError(f"{what} under a 'seq' axis ({mesh}) "
-                                  f"{SEQ_FAMILY_REFUSAL}")
-
-
 # ---------------------------------------------------------------------------
 # sequence shards
 # ---------------------------------------------------------------------------
@@ -85,6 +76,16 @@ def seq_start(rows: int) -> int:
     a 'seq' axis)."""
     mesh = active_mesh()
     return mesh.axis_index("seq") * rows if seq_size(mesh) > 1 else 0
+
+
+def seq_positions(rows: int, device):
+    """(this shard's first row's global position, its `rows` rows' global
+    positions, the whole sequence's positions) on the active mesh's 'seq'
+    line; 0 and one tensor twice without a 'seq' axis."""
+    start, n = seq_start(rows), seq_size(active_mesh())
+    positions = torch.arange(start, start + rows, device=device)
+    return start, positions, (positions if n == 1 else
+                              torch.arange(n * rows, device=device))
 
 
 class GatherSeq(torch.autograd.Function):
@@ -135,6 +136,73 @@ def gather_kv(k, v):
         return k, v
     kv = gather_seq(torch.stack([k, v]), 2)
     return kv[0], kv[1]
+
+
+def seq_left_rows(x, rows: int):
+    """The `rows` rows that precede this 'seq' shard along dim 1 of x (B,
+    S_loc, ...): the previous shard's last rows, zeros on the first shard
+    (the reference's zero padding at the sequence start). None without a
+    'seq' axis. One differentiable gather of every shard's last rows, whose
+    backward sums their gradient over the line."""
+    mesh = active_mesh()
+    n = seq_size(mesh)
+    if n == 1:
+        return None
+    if rows > x.shape[1]:
+        raise ValueError(f"a left halo of {rows} rows reaches past the "
+                         f"previous shard of {x.shape[1]} rows")
+    i = mesh.axis_index("seq")
+    tails = gather_seq(x[:, x.shape[1] - rows:][None], 0)   # (n, B, rows, ..)
+    # every rank reads the gather, so every rank's backward runs its
+    # all-reduce; the first shard's rows are zeros
+    first = torch.tensor(i == 0, device=x.device)
+    return torch.where(first, 0.0, tails[max(i - 1, 0)])
+
+
+def seq_carry(decay, final):
+    """The state entering this 'seq' shard of a linear recurrence
+    S_{t+1} = decay_t * S_t + delta_t whose shards each ran it from zero:
+    `final` (B, ...) is this shard's final state from a zero start, `decay`
+    (B, ...) the product of its steps' decays, broadcastable to `final`. Both go over the line in one gather; the earlier
+    shards' summaries combine in rank order, S = S * decay_s + final_s,
+    from zeros (the first shard gets zeros). fp32, differentiable: the
+    gather's backward sums the summaries' gradients over the line."""
+    mesh = active_mesh()
+    n = seq_size(mesh)
+    B = final.shape[0]
+    kd = decay[0].numel()
+    summary = torch.cat([decay.reshape(B, -1), final.reshape(B, -1)], dim=1)
+    lines = gather_seq(summary[None], 0)                    # (n, B, kd + kf)
+    dec = lines[..., :kd].reshape(
+        n, *decay.shape, *(1,) * (final.dim() - decay.dim()))
+    fin = lines[..., kd:].reshape(n, *final.shape)
+    i = mesh.axis_index("seq")
+    before = torch.arange(n, device=final.device) < i
+    state = torch.zeros_like(final)
+    for s in range(n):
+        # where, not a Python branch: every rank's state reads the whole
+        # gather, so every rank's backward runs its all-reduce
+        state = torch.where(before[s], state * dec[s] + fin[s], state)
+    return state
+
+
+def carried_combine(decay, delta):
+    """The state entering each chunk, (B, n, ...), of the chunked linear
+    recurrence S_{j+1} = decay_j * S_j + delta_j over this shard's n chunks:
+    delta (B, n, ...) fp32, decay (B, n, ...) broadcast over delta's
+    trailing dims. A sequential combine from zeros; on a 'seq' shard the
+    combine runs again from the state the earlier shards hand on
+    (`seq_carry` of this shard's total decay and final state)."""
+    def combine(state):
+        incoming = []
+        for j in range(decay.shape[1]):
+            incoming.append(state)
+            state = state * decay[:, j] + delta[:, j]
+        return torch.stack(incoming, dim=1), state
+    S_in, final = combine(torch.zeros_like(delta[:, 0]))
+    if seq_size(active_mesh()) > 1:
+        S_in, _ = combine(seq_carry(decay.prod(dim=1), final))
+    return S_in
 
 
 def sum_over_seq(x):

@@ -22,7 +22,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.sparse_attention import PLAN_TABLE_KEYS
-from repro_torch.distributed.sharding import mesh_context, refuse_seq
+from repro_torch.distributed.sharding import mesh_context
 from repro_torch.models.layers import tree_map
 from repro_torch.models.registry import build
 from repro_torch.optim import (adamw_update, clip_by_global_norm,
@@ -158,9 +158,10 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
     payloads (an exec carries its own): with it a 'seq' axis shards the
     sparse attention's rows. Under a 'seq' axis the loss is still the
     global mean (the sums and counts all-reduced over 'seq' too) and the
-    gradients are summed over the whole mesh; the hybrid, ssm and encdec
-    families raise there (ROADMAP.md item A12b), here, before any
-    collective."""
+    gradients are summed over the whole mesh, for every family: the
+    recurrent ones carry their scan state and conv / token-shift rows
+    across the shards, whisper gathers its encoder output for the
+    cross-attention."""
     if sparse_kernel is not None:
         cfg = cfg.replace(spion=dataclasses.replace(cfg.spion,
                                                     kernel=sparse_kernel))
@@ -174,8 +175,6 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
         if mesh.shape.get("model", 1) > 1:
             raise NotImplementedError(f"train step on {mesh}: "
                                       f"{MODEL_AXIS_REFUSAL}")
-        if cfg.family not in ("dense", "moe", "vlm", "encoder"):
-            refuse_seq(f"a train step of the {cfg.family!r} family", mesh)
         all_reduce_sum = runtime.all_reduce_sum      # bound when made
 
     def loss_and_grads(params, batch, tables=None):

@@ -44,10 +44,12 @@ process has its heartbeat file hb_{process_index}.
 
 A 'seq' job passes `mesh=make_seq_mesh(seq, data)` or
 `make_distributed_mesh(seq=, data=)`: each rank holds its data shard's
-sequences cut into |seq| contiguous shards of the sequence, the dense and
-sparse steps and the capture run on the shards (every rank ends the
-capture with the whole pooled map), and the rest is as above. A 'model'
-axis, and the hybrid, ssm and encdec families under 'seq', wait in
+sequences cut into |seq| contiguous shards of the sequence (whisper: of
+the frames and of the decoder tokens), the dense and sparse steps and the
+capture run on the shards (every rank ends the capture with the whole
+pooled map), and the rest is as above. Every family trains so: the
+recurrent ones (hybrid, ssm) carry their scan state across the shards,
+which must then hold whole chunks of the scan. A 'model' axis waits in
 ROADMAP.md item A12b.
 """
 from __future__ import annotations
@@ -128,6 +130,12 @@ class Trainer:
                 raise ValueError(f"seq_len {seq_len} does not split over "
                                  f"|seq| = {nseq} shards of whole blocks of "
                                  f"{blk}")
+            chunk = min(cfg.ssm.chunk, seq_len) if cfg.ssm else 1
+            if nseq > 1 and seq_len % (nseq * chunk):
+                raise ValueError(f"seq_len {seq_len} does not split over "
+                                 f"|seq| = {nseq} shards of whole chunks of "
+                                 f"{chunk} (the scan's chunks must be the "
+                                 f"whole sequence's)")
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.cfg = cfg
         if device is None and self.mesh is not None:

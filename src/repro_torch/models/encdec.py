@@ -9,8 +9,16 @@ decoder's causal self-attention, through `ex.attend` on the layer's tables
 encoder output is dense and non-causal, with no RoPE, and stays the plain
 `dense_attention`. With cfg.remat each encoder and decoder layer is
 recomputed in the backward (torch.utils.checkpoint), as the JAX package's
-jax.checkpoint of the scanned layer. Under a mesh with a 'seq' axis
-`forward` raises (ROADMAP.md item A12b).
+jax.checkpoint of the scanned layer.
+
+Under a mesh with a 'seq' axis each rank holds a contiguous shard of the
+frames and one of the decoder tokens: positions (sinusoidal and learned)
+are the shard's global ones, the encoder's and the decoder's dense
+attention and the capture read the whole sequence's K/V (distributed.
+sharding.gather_kv), the decoder's sparse attention shards over 'seq'
+(kernels/sharded.py, or the gather path on CPU tensors), and the
+cross-attention reads the whole encoder output, gathered once over the
+line.
 """
 from __future__ import annotations
 
@@ -21,7 +29,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.kv_pool import PagedKVCache, scatter_token, write_target
-from repro_torch.distributed.sharding import refuse_seq
+from repro_torch.distributed.sharding import (current_mesh, gather_kv,
+                                              gather_seq, mesh_context,
+                                              seq_positions)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as Lyr
 from repro_torch.models.layers import ParamTree
@@ -79,27 +89,35 @@ def init(cfg, generator, device):
     })
 
 
-def _enc_block(cfg, lp, positions, h):
+def _enc_block(cfg, lp, positions, kv_pos, mesh, h):
+    """One encoder layer under the forward's `mesh` (the remat backward
+    runs it again on autograd's device thread, where the forward's mesh
+    context is not set)."""
     ecfg = _enc_cfg(cfg)
-    q, k, v = A.qkv(ecfg, lp["attn"], _ln(lp["attn_norm"], h), positions)
-    ctx = A.dense_attention(ecfg, q, k, v, positions, positions)
-    h = h + A.attn_out(ecfg, lp["attn"], ctx)
-    return h + Lyr.mlp(cfg, lp["mlp"], _ln(lp["mlp_norm"], h))
+    with mesh_context(mesh):
+        q, k, v = A.qkv(ecfg, lp["attn"], _ln(lp["attn_norm"], h), positions)
+        kg, vg = gather_kv(k, v)
+        ctx = A.dense_attention(ecfg, q, kg, vg, positions, kv_pos)
+        h = h + A.attn_out(ecfg, lp["attn"], ctx)
+        return h + Lyr.mlp(cfg, lp["mlp"], _ln(lp["mlp_norm"], h))
 
 
 def encode(params, cfg, frames):
     """frames (B, S_enc, d) -> the encoder output (B, S_enc, d) in
-    cfg.dtype: sinusoidal positions, dense non-causal layers."""
+    cfg.dtype: sinusoidal positions, dense non-causal layers. On a 'seq'
+    shard the frames and the output are the shard's rows."""
     dtype = _dtype(cfg)
     h = frames.to(dtype)
     S = h.shape[1]
-    h = h + Lyr.sinusoidal_positions(S, cfg.d_model, h.device).to(dtype)[None]
-    positions = torch.arange(S, device=h.device)
+    start, positions, kv_pos = seq_positions(S, h.device)
+    # the whole sequence's table, cut at this shard's rows
+    table = Lyr.sinusoidal_positions(kv_pos.shape[0], cfg.d_model, h.device)
+    h = h + table[start:start + S].to(dtype)[None]
     remat = cfg.remat and torch.is_grad_enabled()
     for li in range(cfg.encoder_layers):
         block = functools.partial(
             _enc_block, cfg, Lyr.layer_view(params["enc_layers"], li),
-            positions)
+            positions, kv_pos, current_mesh())
         h = checkpoint(block, h, use_reentrant=False) if remat else block(h)
     return _ln(params["enc_norm"], h)
 
@@ -111,18 +129,20 @@ def _cross_kv(cfg, p, enc):
     return kc, vc
 
 
-def _dec_block(cfg, lp, positions, ex, sp, capture, h, enc):
-    """One decoder layer; returns (h, captured (pooled, frob_sq) or
-    None)."""
+def _dec_block(cfg, lp, positions, kv_pos, ex, sp, capture, h, enc):
+    """One decoder layer over the whole encoder output `enc`; `positions`
+    are h's rows' global positions, `kv_pos` the whole sequence's. Returns
+    (h, captured (pooled, frob_sq) or None)."""
     q, k, v = A.qkv(cfg, lp["attn"], _ln(lp["attn_norm"], h), positions)
     cap = None
     if capture is not None:
-        cap = A.capture_pooled_scores(cfg, q, k, positions, positions,
+        cap = A.capture_pooled_scores(cfg, q, k, positions, kv_pos,
                                       capture["filt"], capture["block"])
     if sp is not None:
         ctx = ex.attend(cfg, q, k, v, sp)
     else:
-        ctx = A.dense_attention(cfg, q, k, v, positions, positions)
+        kg, vg = gather_kv(k, v)
+        ctx = A.dense_attention(cfg, q, kg, vg, positions, kv_pos)
     h = h + A.attn_out(cfg, lp["attn"], ctx)
     ccfg = _enc_cfg(cfg)
     qc, _, _ = A.qkv(ccfg, lp["cross"], _ln(lp["cross_norm"], h), positions)
@@ -133,8 +153,12 @@ def _dec_block(cfg, lp, positions, ex, sp, capture, h, enc):
     return h + Lyr.mlp(cfg, lp["mlp"], _ln(lp["mlp_norm"], h)), cap
 
 
-def _dec_block_h(cfg, lp, positions, ex, sp, h, enc):
-    return _dec_block(cfg, lp, positions, ex, sp, None, h, enc)[0]
+def _dec_block_h(cfg, lp, positions, kv_pos, ex, sp, mesh, h, enc):
+    """The remat form of `_dec_block` under the forward's `mesh` (the
+    backward runs it again on autograd's device thread)."""
+    with mesh_context(mesh):
+        return _dec_block(cfg, lp, positions, kv_pos, ex, sp, None, h,
+                          enc)[0]
 
 
 def forward(params, cfg, batch, *, spion=None, capture=None):
@@ -143,16 +167,17 @@ def forward(params, cfg, batch, *, spion=None, capture=None):
     over the decoder layers) makes the decoder's self-attention
     block-sparse; cross-attention stays dense. capture: aux["captured"] is
     ((L, S/B, S/B) pooled scores, (L,) Frobenius terms), one per decoder
-    layer."""
-    refuse_seq("the encdec family")
+    layer. On a 'seq' shard `frames` and `tokens` are the shard's rows,
+    the cross-attention reads the whole encoder output (one gather over
+    the line) and every rank returns the whole capture."""
     dtype = _dtype(cfg)
     ex = SparseAttentionExec.coerce(spion)
-    enc = encode(params, cfg, batch["frames"])
+    enc = gather_seq(encode(params, cfg, batch["frames"]), 1)
     tokens = batch["tokens"]
     S = tokens.shape[1]
+    start, positions, kv_pos = seq_positions(S, tokens.device)
     h = Lyr.embed(params["tok_embed"], tokens, dtype)
-    h = h + params["pos_embed"]["w"][:S].to(dtype)[None]
-    positions = torch.arange(S, device=h.device)
+    h = h + params["pos_embed"]["w"][start:start + S].to(dtype)[None]
     remat = cfg.remat and torch.is_grad_enabled() and capture is None
     caps = []
     for li in range(cfg.num_layers):
@@ -162,10 +187,12 @@ def forward(params, cfg, batch, *, spion=None, capture=None):
             # the layer is run again in the backward: bind this layer's
             # arguments now, not the loop variables
             h = checkpoint(functools.partial(_dec_block_h, cfg, lp,
-                                             positions, ex, sp),
+                                             positions, kv_pos, ex, sp,
+                                             current_mesh()),
                            h, enc, use_reentrant=False)
             continue
-        h, cap = _dec_block(cfg, lp, positions, ex, sp, capture, h, enc)
+        h, cap = _dec_block(cfg, lp, positions, kv_pos, ex, sp, capture, h,
+                            enc)
         if capture is not None:
             caps.append(cap)
     h = _ln(params["final_norm"], h)

@@ -7,8 +7,15 @@ layer-wise pattern, so the plan's tables are stacked over applications
 The reference's lax.cond on `idx % every == every - 1` is a Python branch
 here, with an application counter. With cfg.remat only the Mamba part of a
 layer is recomputed in the backward, as in the reference; the shared block
-is not. Under a mesh with a 'seq' axis `forward` raises (ROADMAP.md item
-A12b): a shard would start its Mamba recurrence at zero.
+is not.
+
+Under a mesh with a 'seq' axis each rank holds a contiguous shard of the
+sequence: the Mamba layers carry their conv rows and scan state across the
+shards (models/mamba.py), positions are the shard's global ones, the
+shared block's dense attention and the capture read the whole sequence's
+K/V (distributed.sharding.gather_kv, models/attention.
+capture_pooled_scores) and its sparse attention shards over 'seq'
+(kernels/sharded.py, or the gather path on CPU tensors).
 """
 from __future__ import annotations
 
@@ -19,7 +26,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.kv_pool import PagedKVCache, scatter_token, write_target
-from repro_torch.distributed.sharding import refuse_seq
+from repro_torch.distributed.sharding import (current_mesh, gather_kv,
+                                              mesh_context, seq_positions)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as Lyr
 from repro_torch.models import mamba as M
@@ -81,24 +89,35 @@ def _mamba_layer(cfg, lp, h):
     return h + y
 
 
+def _mamba_layer_h(cfg, lp, mesh, h):
+    """The remat form of `_mamba_layer` under the forward's `mesh`: the
+    backward runs it again, on autograd's device thread for CUDA tensors,
+    where the forward's mesh context is not set."""
+    with mesh_context(mesh):
+        return _mamba_layer(cfg, lp, h)
+
+
 def _mlp_tail(cfg, sp, h):
     return h + Lyr.mlp(cfg, sp["mlp"], _rms(sp["mlp_norm"], h))
 
 
-def _shared_attn_block(cfg, sp, h, positions, ex, app_idx, capture):
+def _shared_attn_block(cfg, sp, h, positions, kv_pos, ex, app_idx,
+                       capture):
     """`ex` is the SparseAttentionExec (None -> dense); the shared block's
-    tables are those of application `app_idx`. Returns (h, captured
+    tables are those of application `app_idx`. `positions` are h's rows'
+    global positions, `kv_pos` the whole sequence's. Returns (h, captured
     (pooled, frob_sq) or None)."""
     x = _rms(sp["attn_norm"], h)
     q, k, v = A.qkv(cfg, sp["attn"], x, positions)
     cap = None
     if capture is not None:
-        cap = A.capture_pooled_scores(cfg, q, k, positions, positions,
+        cap = A.capture_pooled_scores(cfg, q, k, positions, kv_pos,
                                       capture["filt"], capture["block"])
     if ex is not None:
         ctx = ex.attend_app(cfg, q, k, v, app_idx)
     else:
-        ctx = A.dense_attention(cfg, q, k, v, positions, positions)
+        kg, vg = gather_kv(k, v)
+        ctx = A.dense_attention(cfg, q, kg, vg, positions, kv_pos)
     h = h + A.attn_out(cfg, sp["attn"], ctx)
     return _mlp_tail(cfg, sp, h), cap
 
@@ -108,31 +127,34 @@ def forward(params, cfg, batch, *, spion=None, capture=None):
     | tables payload stacked over the n_attn_apps applications. capture:
     aux["captured"] is ((L, S/B, S/B) pooled scores, (L,) Frobenius
     terms), one per LAYER as in the reference, zeros where a layer has no
-    attention."""
-    refuse_seq("the hybrid family")
+    attention. Application i reads row i of the stacked tables, and the
+    plan the controller stacks over the captured layers is indexed so, as
+    in the reference. On a 'seq' shard `tokens` is the shard's rows and
+    every rank returns the whole (L, S/B, S/B) capture."""
     dtype = _dtype(cfg)
     ex = SparseAttentionExec.coerce(spion)
     h = Lyr.embed(params["tok_embed"], batch["tokens"], dtype)
-    S = h.shape[1]
-    positions = torch.arange(S, device=h.device)
+    _, positions, kv_pos = seq_positions(h.shape[1], h.device)
     shared = params["shared_attn"]
     remat = cfg.remat and torch.is_grad_enabled()
     caps, app = [], 0
     for idx in range(cfg.num_layers):
         lp = Lyr.layer_view(params["layers"], idx)
         if remat:
-            h = checkpoint(functools.partial(_mamba_layer, cfg, lp), h,
+            h = checkpoint(functools.partial(_mamba_layer_h, cfg, lp,
+                                             current_mesh()), h,
                            use_reentrant=False)
         else:
             h = _mamba_layer(cfg, lp, h)
         cap = None
         if _is_attn(cfg, idx):
-            h, cap = _shared_attn_block(cfg, shared, h, positions, ex, app,
-                                        capture)
+            h, cap = _shared_attn_block(cfg, shared, h, positions, kv_pos,
+                                        ex, app, capture)
             app += 1
         if capture is not None:
             if cap is None:
-                nb = S // capture["block"]
+                # the whole sequence's map, as the captured layers'
+                nb = kv_pos.shape[0] // capture["block"]
                 cap = (torch.zeros((nb, nb), device=h.device),
                        torch.zeros((), device=h.device))
             caps.append(cap)

@@ -8,12 +8,20 @@ conv (width 4) on the xBC stream, gated output, as in the reference model.
 
 The JAX package computes all of this in plain jnp (no Pallas kernel), so
 these are PyTorch ops too; its lax.scan over chunks is a loop here.
+
+Under a mesh with a 'seq' axis each rank holds a contiguous shard of whole
+chunks: the conv reads the previous shard's last CONV_W - 1 rows
+(`distributed.sharding.seq_left_rows`) and the state combine starts from
+the state that the earlier shards hand on (`carried_combine`), as the
+reference's scan over the whole sequence does.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (active_mesh, carried_combine,
+                                              seq_left_rows, seq_size)
 from repro_torch.models import layers as Lyr
 from repro_torch.models.layers import he_init, normal_init
 
@@ -72,10 +80,15 @@ def ssd_chunked(x, dt, A, B, C, D, chunk):
     """x (b,S,H,P); dt (b,S,H) (>0); A (H,) (<0); B,C (b,S,G,N); D (H,).
     Returns y (b,S,H,P). S must be a multiple of min(chunk, S): the
     reference reshapes S into whole chunks and fails otherwise; nothing is
-    padded here either."""
+    padded here either.
+
+    On a 'seq' shard S is this shard's rows and the chunk is the whole
+    sequence's, min(chunk, |seq| * S); the state combine starts from the
+    state the earlier shards hand on (`carried_combine`). The einsums run
+    once."""
     b, S, H, P = x.shape
     N = B.shape[-1]
-    Ch = min(chunk, S)
+    Ch = min(chunk, S * seq_size(active_mesh()))
     if S % Ch:
         raise ValueError(f"ssd_chunked: sequence length {S} is not a "
                          f"multiple of the chunk {Ch}")
@@ -94,14 +107,9 @@ def ssd_chunked(x, dt, A, B, C, D, chunk):
     delta = torch.einsum("bnsq,bnshp->bnhqp", Br, xr * dec_k[..., None])
     decay = torch.exp(last)                         # (b,n,H)
 
-    # the sequential state combine: S_{j+1} = decay_j S_j + delta_j, each
-    # chunk reading the state that enters it
-    state = torch.zeros((b, H, N, P), dtype=torch.float32, device=x.device)
-    incoming = []
-    for j in range(n):
-        incoming.append(state)
-        state = state * decay[:, j, :, None, None] + delta[:, j]
-    S_in = torch.stack(incoming, dim=1)             # (b,n,H,N,P)
+    # the sequential state combine, each chunk reading the state that
+    # enters it
+    S_in = carried_combine(decay[..., None, None], delta)   # (b,n,H,N,P)
 
     # inter-chunk: y_t += exp(cum_t) C_t @ S_in
     y_inter = torch.einsum("bntq,bnhqp->bnthp", Cr, S_in) * \
@@ -132,7 +140,9 @@ def mamba_apply(cfg, p, x, state=None):
     xBC = zxbcdt[..., inner:inner + inner + 2 * NGROUPS * N]
     dt_raw = zxbcdt[..., -H:]
 
-    conv_state = None if state is None else state["conv"]
+    # decode: the cached rows; a 'seq' shard: the previous shard's last rows
+    conv_state = seq_left_rows(xBC, CONV_W - 1) if state is None \
+        else state["conv"]
     xBC, new_conv = _causal_conv(xBC, p["conv_w"].to(x.dtype),
                                  p["conv_b"].to(x.dtype), conv_state)
     xs = xBC[..., :inner].reshape(Bsz, S, H, P)

@@ -10,8 +10,11 @@ family without sparse decode and without a paged cache.
 
 The JAX package computes all of this in plain jnp (no Pallas kernel), so
 these are PyTorch ops too; its lax.scans are loops here. Under a mesh with
-a 'seq' axis `forward` raises (ROADMAP.md item A12b): a shard would start
-its recurrence at zero.
+a 'seq' axis each rank holds a contiguous shard of whole chunks: every
+token shift reads the previous shard's last row (`distributed.sharding.
+seq_left_rows`) and the WKV state combine starts from the state the
+earlier shards hand on (`carried_combine`), as the reference's scan over the
+whole sequence does.
 """
 from __future__ import annotations
 
@@ -21,7 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import refuse_seq
+from repro_torch.distributed.sharding import (active_mesh, carried_combine,
+                                              current_mesh, mesh_context,
+                                              seq_left_rows, seq_size)
 from repro_torch.models import layers as Lyr
 from repro_torch.models.layers import ParamTree, he_init, normal_init
 
@@ -75,9 +80,12 @@ def channelmix_init(gen, cfg, dtype, device, layers=None):
     }
 
 
-def token_shift(x):
-    """previous token along seq (zero for t=0): (B,S,d) -> (B,S,d)."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def token_shift(x, prev=None):
+    """previous token along seq: (B,S,d) -> (B,S,d). The row before the
+    first is `prev` (B,1,d) (a 'seq' shard's left halo), else zero."""
+    if prev is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([prev, x[:, :-1]], dim=1)
 
 
 def _mix(x, xs, m):
@@ -93,10 +101,14 @@ def wkv6_chunked(r, k, v, a, u, chunk):
     once. The intra-chunk term, whose exp(D) is (B, C, C, H, K) a chunk,
     runs one chunk at a time so that no more than one chunk's exp(D) is
     held (the reference batches it over the n chunks, the same arithmetic).
-    The casts of exp(...) to the inputs' dtype are the reference's."""
+    The casts of exp(...) to the inputs' dtype are the reference's.
+
+    On a 'seq' shard S is this shard's rows and the chunk is the whole
+    sequence's, min(chunk, |seq| * S); the state combine starts from the
+    state the earlier shards hand on (`carried_combine`)."""
     B, S, H, K = r.shape
     V = v.shape[-1]
-    C = min(chunk, S)
+    C = min(chunk, S * seq_size(active_mesh()))
     if S % C:
         raise ValueError(f"wkv6_chunked: sequence length {S} is not a "
                          f"multiple of the chunk {C}")
@@ -115,14 +127,9 @@ def wkv6_chunked(r, k, v, a, u, chunk):
     delta = torch.einsum("bnshk,bnshv->bnhkv", k_dec, vc).float()
     decay = torch.exp(last)                            # (B,n,H,K)
 
-    # sequential state combine: S_{j+1} = decay_j * S_j + delta_j, each
-    # chunk reading the state that enters it
-    state = torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
-    incoming = []
-    for j in range(n):
-        incoming.append(state)
-        state = state * decay[:, j, ..., None] + delta[:, j]
-    S_in = torch.stack(incoming, dim=1)                # (B,n,H,K,V)
+    # sequential state combine, each chunk reading the state that enters
+    # it
+    S_in = carried_combine(decay[..., None], delta)    # (B,n,H,K,V)
 
     # parallel: inter-chunk contribution
     r_dec = rc * torch.exp(excl).to(rc.dtype)
@@ -153,7 +160,7 @@ def timemix_apply(cfg, p, x, state=None):
     H = cfg.num_heads
     hd = cfg.resolved_head_dim
     if state is None:
-        xs = token_shift(x)
+        xs = token_shift(x, seq_left_rows(x, 1))
     else:
         xs = state["prev"][:, None, :].to(x.dtype)
     m = p["mix"].to(x.dtype)
@@ -186,7 +193,7 @@ def timemix_apply(cfg, p, x, state=None):
 
 
 def channelmix_apply(cfg, p, x, state=None):
-    xs = token_shift(x) if state is None \
+    xs = token_shift(x, seq_left_rows(x, 1)) if state is None \
         else state["prev"][:, None, :].to(x.dtype)
     xk = _mix(x, xs, p["mix"][0].to(x.dtype))
     h = torch.square(F.relu(xk @ p["w_in"].to(x.dtype)))
@@ -231,10 +238,18 @@ def _layer(cfg, lp, h):
     return h2 + y2
 
 
+def _layer_h(cfg, lp, mesh, h):
+    """The remat form of `_layer` under the forward's `mesh`: the backward
+    runs it again, on autograd's device thread for CUDA tensors, where the
+    forward's mesh context is not set."""
+    with mesh_context(mesh):
+        return _layer(cfg, lp, h)
+
+
 def forward(params, cfg, batch, *, spion=None, capture=None):
     """batch {'tokens': (B,S)} -> (logits (B,S,V), {}). With cfg.remat
-    each layer is recomputed in the backward."""
-    refuse_seq("the ssm family")
+    each layer is recomputed in the backward. On a 'seq' shard `tokens` is
+    the shard's rows (module docstring)."""
     dtype = _dtype(cfg)
     h = Lyr.embed(params["tok_embed"], batch["tokens"], dtype)
     h = _ln(params["in_norm"], h)
@@ -242,7 +257,8 @@ def forward(params, cfg, batch, *, spion=None, capture=None):
     for li in range(cfg.num_layers):
         lp = Lyr.layer_view(params["layers"], li)
         if remat:
-            h = checkpoint(functools.partial(_layer, cfg, lp), h,
+            h = checkpoint(functools.partial(_layer_h, cfg, lp,
+                                             current_mesh()), h,
                            use_reentrant=False)
         else:
             h = _layer(cfg, lp, h)

@@ -28,9 +28,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.kv_pool import PagedKVCache, scatter_token, write_target
-from repro_torch.distributed.sharding import (active_mesh, current_mesh,
-                                              gather_kv, mesh_context,
-                                              seq_size, seq_start)
+from repro_torch.distributed.sharding import (current_mesh, gather_kv,
+                                              mesh_context, seq_positions)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as Lyr
 from repro_torch.models.moe import moe_apply, moe_init
@@ -130,13 +129,9 @@ def _embed_inputs(cfg, params, batch, dtype):
         # vlm: the frontend's patch embeddings precede the text
         h = torch.cat([batch["patch_embeds"].to(dtype), h], dim=1)
     S = h.shape[1]
-    start = seq_start(S)
-    positions = torch.arange(start, start + S, device=h.device)
+    start, positions, kv_pos = seq_positions(S, h.device)
     if not cfg.rope_theta and "pos_embed" in params:
         h = h + params["pos_embed"]["w"][start:start + S].to(dtype)
-    n = seq_size(active_mesh())
-    kv_pos = positions if n == 1 else \
-        torch.arange(n * S, device=h.device)
     return h, positions, kv_pos
 
 

@@ -357,45 +357,30 @@ def test_supervisor_respawns_a_port_worker(tmp_path):
 
 def test_trainer_refuses_several_processes(monkeypatch):
     """Several processes are ported (test_torch_multiprocess), and so is a
-    'seq' axis for the encoder and decoder families (test_torch_seq_train).
-    What still raises: a worker the supervisor announced as one of several
-    that has not joined the job (it would train and checkpoint alone), and,
-    under a 'seq' axis, the families whose recurrence or encoder scans the
-    whole sequence (hybrid, encdec, ssm: ROADMAP.md item A12b), in their
-    forward and capture and at the step's construction, before any
-    collective."""
+    'seq' axis for every family (test_torch_seq_train,
+    test_torch_seq_scan). What still raises: a worker the supervisor
+    announced as one of several that has not joined the job (it would
+    train and checkpoint alone), and a 'model' axis (ROADMAP.md item A12b),
+    at the step's construction, before any collective. The hybrid, encdec
+    and ssm families' steps build on a 'seq' mesh (C2's refusal is gone)."""
     import dataclasses
-    import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.spion import SpionController, SpionState
-    from repro_torch.distributed.sharding import mesh_context
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.steps import make_loss_and_grads
     from repro_torch.launch.train import Trainer
-    from repro_torch.models.registry import build
     cfg = get_config("spion-lra").reduced()
     monkeypatch.setenv("SPION_NUM_PROCESSES", "2")
     with pytest.raises(RuntimeError, match="has not joined the job"):
         Trainer(cfg, seq_len=64, batch=1, device="cpu")
     monkeypatch.setenv("SPION_NUM_PROCESSES", "1")
     seq = Mesh([[0], [1]], ("seq", "data"))
+    model = Mesh([[0, 1]], ("data", "model"))
     for arch in ("zamba2-1.2b", "whisper-tiny", "rwkv6-7b"):
         c = get_config(arch).reduced()
         c = c.replace(spion=dataclasses.replace(c.spion, block_size=16))
+        assert callable(make_loss_and_grads(c, mesh=seq))
         with pytest.raises(NotImplementedError, match="A12b"):
-            make_loss_and_grads(c, mesh=seq)
-        bundle = build(c)
-        params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
-        batch = {"tokens": torch.zeros((1, 32), dtype=torch.int64),
-                 "labels": torch.zeros((1, 32), dtype=torch.int64)}
-        if c.family == "audio":
-            batch["frames"] = torch.zeros((1, 32, c.d_model))
-        cap = SpionController(c.spion, causal=c.causal,
-                              seq_len=64).capture_kwargs(SpionState())
-        with mesh_context(seq):
-            for kw in ({}, {"capture": cap}):
-                with pytest.raises(NotImplementedError, match="A12b"):
-                    bundle.forward(params, batch, **kw)
+            make_loss_and_grads(c, mesh=model)
 
 
 def test_supervise_cli(tmp_path):

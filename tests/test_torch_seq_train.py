@@ -22,9 +22,6 @@ two processes) runs every case; the tests read its records:
   - planted faults that the gates must see: the K/V gather's backward
     keeping only this shard's gradient, and a capture whose last panel
     reads zero rows in place of the next shard's;
-  - the hybrid, encdec and ssm families under 'seq' (C2) raise
-    NotImplementedError naming A12b, dense and sparse, before any
-    collective;
   - a 2-rank 'seq' Trainer through the transition: one plan (digests
     equal), dense losses within 3e-5 of the one-process Trainer's, process
     0 the only writer, and the port's one-process Trainer and the JAX
@@ -72,7 +69,6 @@ CASES = {
     "mixtral_data": (("mixtral-8x7b", {}), 4, 512, "data", False),
 }
 HALF_GROUP = (("mixtral-8x7b", {}), 2, 512, "data", False)
-SCAN_FAMILIES = ("zamba2-1.2b", "whisper-tiny", "rwkv6-7b")
 
 
 def case_cfg(case):
@@ -211,32 +207,6 @@ for name, rows in (("capture", sound), ("planted_capture", zero_rows)):
     out[f"{name}/pooled"], out[f"{name}/frob"] = pooled.numpy(), frob.numpy()
 A.next_shard_rows = sound
 
-# the families whose scans need the whole sequence (C2)
-info["scan"] = {}
-for arch in SCAN_FAMILIES:
-    c = get_config(arch).reduced().replace(dtype="float32")
-    c = c.replace(spion=dataclasses.replace(c.spion, block_size=16,
-                                            kernel="fused"))
-    from repro_torch.launch.steps import spion_dryrun_tables
-    for kind in ("dense", "sparse"):
-        try:
-            tables = spion_dryrun_tables(c, 64, max_extent=1) \\
-                if kind == "sparse" and c.family != "ssm" else None
-            f = make_loss_and_grads(
-                c, mesh=meshes["seq"],
-                halo=None if tables is None else tables["halo"])
-            rng = np.random.default_rng(1)
-            toks = rng.integers(0, c.vocab_size, size=(2, 65)).astype(np.int32)
-            gb = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-            if c.family == "audio":
-                gb["frames"] = rng.standard_normal(
-                    (2, 64, c.d_model)).astype(np.float32)
-            loss, _ = f(masters(c), local_batch(meshes["seq"], gb, "cpu"),
-                        tables)
-            got = f"loss {float(loss)}"
-        except NotImplementedError as e:
-            got = f"NotImplementedError: {e}"
-        info["scan"][f"{arch}/{kind}"] = got
 np.savez(os.path.join(OUT, f"steps{pid}.npz"), **out)
 json.dump(info, open(os.path.join(OUT, f"info{pid}.json"), "w"))
 
@@ -399,18 +369,6 @@ def test_capture_on_seq_shards_matches_one_process(seq_job):
         np.testing.assert_array_equal(np.asarray(jst.tables[k]), v,
                                       err_msg=k)
     assert tst.plan_stats == jst.plan_stats
-
-
-@pytest.mark.parametrize("kind", ["dense", "sparse"])
-@pytest.mark.parametrize("arch", SCAN_FAMILIES)
-def test_scan_families_refuse_seq(seq_job, arch, kind):
-    """The hybrid, encdec and ssm families under 'seq' (ROADMAP §C, C2):
-    their recurrence or encoder would run on each shard as if it were the
-    whole sequence, so a dense or sparse step raises NotImplementedError
-    naming A12b, before any collective."""
-    for info in seq_job["info"]:
-        got = info["scan"][f"{arch}/{kind}"]
-        assert got.startswith("NotImplementedError") and "A12b" in got, got
 
 
 def test_seq_trainer_one_plan_one_writer(seq_job):
