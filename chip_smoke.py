@@ -218,6 +218,33 @@ Phases (each one fails the run; nothing falls back to the CPU):
      ms (a dense step also without the gather timer's synchronizes), the
      carry's, halo rows', K/V and encoder gathers' ms, capture ms and peak
      memory per rank.
+     12f. tensor, expert and vocabulary parallelism over a 'model' axis:
+     four ranks (`--model-worker DIR`) on a mesh of data 2 x model 2 train
+     spion-lra through phase 5's 20 steps (its configuration, data and
+     seed; each rank 64 sequences, 2 of the 4 heads, half of d_ff and of
+     the vocabulary): dense losses within TOL_DP of phase 5's, captures
+     within TOL_CAPTURE of phase 5's (a capture averaging the rank's own
+     heads alone past it), one plan digest (phase 5's when the maps are
+     bitwise, else this process's controller's on the ranks' map), 8 + 4
+     + 4 launches a sparse step on each rank's 2 KV heads, shards equal
+     across each data line and replicated leaves across the ranks; its
+     step-14 checkpoint (every sharded leaf gathered before process 0
+     writes) restored in this process, whose next loss is within
+     TOL_RESUME of the ranks'; the three kernels against their plain
+     versions and timed at a rank's shard of the training shape (N 128).
+     Then ranks 0 and 1, a model line of 2: qwen2-7b at full width, 2 of
+     28 layers (14 q and 2 KV heads a rank, the vocab-parallel loss over
+     152,064), and mixtral-8x7b at full width, 1 of 32 layers (4 experts
+     a rank), fp32, 2 x 2048 tokens, a sparse step on a random causal
+     plan within TOL_SEQ_LOSS and TOL_SEQ_GRAD of one process on the card
+     (each rank runs it in turn and keeps its slice of the gradients),
+     the global norm within TOL_SEQ_LOSS of one process's; planted faults
+     past a gate: the gradients summed over the whole mesh, attn_out
+     without its model-line sum, the vocab-parallel loss without the
+     line's max and sums, the MoE's partial combine without its sum, a
+     norm of the rank's shards alone. Step ms, the model line's all-reduce
+     ms, capture ms and peak memory per rank; the row-parallel partial
+     product at qwen2-7b's w_out shard, bf16 against fp32 operands.
 The line before the last is the kernels' JSON record (launches_serve,
 launches_serve_shared, launches_mixtral, launches_zamba2,
 launches_whisper, launches_internvl2, launches_train, launches_resume,
@@ -225,7 +252,9 @@ launches_rollback, launches_respawn, launches_dp (both ranks of 12b),
 launches_fleet (both ranks of 12c's generation 1), launches_seqtrain
 (12d's four ranks, training and the decoder's sparse step) and
 launches_seqscan (12e's two ranks: the fp32 sparse steps, the Trainer and
-whisper's bf16 steps) count each
+whisper's bf16 steps) and launches_model (12f's four ranks' training
+and the legs' sound sparse steps; not the planted faults' steps nor the
+restored step in this process) count each
 kernel's launches in phases 4, 4a, 4b, 4c, 4e, 4f (their sparse forward
 and train step), 5, 9-11 and 12, each read from zero; `seq_parallel` holds phase
 12a's worst differences and per-rank times; the forward's mixtral_shape
@@ -233,7 +262,8 @@ holds its check
 and timing at phase 4b's shape and its qwen2_5_14b_shape,
 command_r_35b_shape and mistral_large_123b_shape at phase 4g's, and every
 kernel's zamba2_shape, whisper_shape and internvl2_shape its check and
-timing at phases 4c, 4e and 4f; `tuned`
+timing at phases 4c, 4e and 4f, and model_shard_shape at 12f's shard of
+the training shape; `tuned`
 holds each kernel's phase 8a winner and its time beside the default's at
 each shape); the last line is
 {"ok": true, "device": {...}}.
@@ -2247,19 +2277,21 @@ def zamba2_kernels(cfg, col, nvalid, before=None):
                         "application 0's", SEED + 9, before)
 
 
-def path_kernels(label, shape, tables, which, seed, before=None):
-    """The three kernels at a path's causal `shape` on `tables` = (col_idx,
-    nvalid) numpy (`which` names them): against their plain versions in
-    fp32 and bf16, then timed (bf16) beside their bounds and PyTorch's
-    SDPA. Returns {kernel: record}."""
+def path_kernels(label, shape, tables, which, seed, before=None,
+                 causal=True):
+    """The three kernels at a path's `shape` (causal unless `causal` is
+    False) on `tables` = (col_idx, nvalid) numpy (`which` names them):
+    against their plain versions in fp32 and bf16, then timed (bf16) beside
+    their bounds and PyTorch's SDPA. Returns {kernel: record}."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     err = {}
+    mask = "causal" if causal else "non-causal"
     for dtype in ("float32", "bfloat16"):
-        case = dict(dtype=dtype, causal=True, **shape)
+        case = dict(dtype=dtype, causal=causal, **shape)
         o_err, tol, share, typical, lerr, _ = compare_kernel(
             case, gen, None, tables=tables)
-        log(f"kernel at {label}'s shape {shape} {dtype} causal, {which} "
+        log(f"kernel at {label}'s shape {shape} {dtype} {mask}, {which} "
             f"tables ({int(tables[1].sum())} listed tiles): |o - plain| "
             f"= {o_err:.3e} (that element's limit {tol:.3e}; no element past "
             f"{share:.3f} of its limit; mean |o| {typical:.3e}); |lse - "
@@ -2277,7 +2309,7 @@ def path_kernels(label, shape, tables, which, seed, before=None):
     out = {}
     for name, t in timing.items():
         out[name] = dict(
-            shape=dict(shape, causal=True),
+            shape=dict(shape, causal=causal),
             max_abs_err=max(err["bfloat16"][g] for g in checks[name]),
             max_abs_err_fp32=max(err["float32"][g] for g in checks[name]),
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -5765,14 +5797,561 @@ def phase_seq_scan():
                       for name in ("zamba2", "rwkv6", "whisper")})
 
 
+# -- phase 12f: the 'model' axis -------------------------------------------------
+
+MODEL_MESH = (2, 2)         # 12f: 'data' x 'model', four ranks on the card
+MODEL_LEG_RANKS = 2         # 12f's qwen2-7b and mixtral legs: a model line
+MODEL_QWEN_LAYERS = 2       # qwen2-7b's 28 layers cut to 2 (reduced)
+MODEL_MIXTRAL_LAYERS = 1    # mixtral-8x7b's 32 layers cut to 1 (reduced)
+MODEL_BATCH = 2             # sequences of those legs' steps
+MODEL_S = 2048              # tokens a sequence (16 blocks of 128)
+# the planted step faults of each leg (a norm of the rank's shards alone
+# is read from the sound step's gradients)
+MODEL_FAULTS = {"qwen2-7b": ("whole_mesh", "attn_out", "vocab_loss"),
+                "mixtral-8x7b": ("moe_combine",)}
+
+
+@contextlib.contextmanager
+def planted_model_fault(kind):
+    """Phase 12f's planted faults, by replacing an entry point for the
+    duration; None plants nothing:
+      - whole_mesh: the loss terms and gradients summed over the whole mesh
+        instead of its data line;
+      - attn_out: the output projection's partial products kept without
+        their sum over the model line;
+      - vocab_loss: the vocab-parallel loss without the line's max and sums;
+      - moe_combine: the MoE's partial combine without its sum;
+      - local_heads: the capture averaging the rank's own heads only."""
+    from repro_torch.launch import steps
+    from repro_torch.models import attention, moe, registry
+    saved = []
+
+    def put(mod, name, fn):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+    if kind == "whole_mesh":
+        put(steps, "reduce_axes", lambda mesh: mesh.axis_names)
+    if kind == "attn_out":
+        put(attention, "row_parallel", lambda x, w: x @ w.to(x.dtype))
+    if kind == "vocab_loss":
+        put(registry, "model_max", lambda x: x)
+        put(registry, "reduce_from_model", lambda x, dtype=None: x)
+    if kind == "moe_combine":
+        put(moe, "reduce_from_model",
+            lambda x, dtype=None: x.to(dtype or x.dtype))
+    if kind == "local_heads":
+        put(attention, "model_mean", lambda x: x)
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def model_line_timer():
+    """Host seconds of the model line's sums (the fp32 all-reduces of
+    reduce_from_model's forward and copy_to_model's backward), a
+    synchronize on each side; returns a one-element list."""
+    import torch
+    from repro_torch.distributed import sharding
+    secs, inner = [0.0], sharding._sum_fp32
+
+    def timed(x, group):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(x, group)
+        torch.cuda.synchronize()
+        secs[0] += time.perf_counter() - t
+        return out
+    sharding._sum_fp32 = timed
+    return secs
+
+
+def leaves_digest(tr, replicated):
+    """Digest of a trainer's masters, of the leaves 'model' leaves whole
+    (`replicated`) or of its shards (the others)."""
+    import hashlib
+    from repro_torch.distributed.sharding import sharded_dim
+    h = hashlib.sha256()
+    for n, p in tr.params.named_parameters():
+        if (sharded_dim(tr._specs[n]) is None) == replicated:
+            h.update(n.encode())
+            h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:32]
+
+
+def model_lra(mesh, d, rank, secs):
+    """12f's main path on one rank: spion-lra at ListOps size through phase
+    5's TRAIN_STEPS steps on (data 2, model 2), checkpoints at RESUME_AT
+    and at the end, every capture timed and kept; the first capture also
+    run averaging the rank's own heads only. `secs`: model_line_timer's."""
+    import numpy as np
+    import torch
+    tr, cfg, _ = lra_trainer(mesh=mesh, ckpt_dir=os.path.join(d, "ckpt"))
+    check(tr.mesh is mesh and tr._specs is not None,
+          f"rank {rank}: the trainer's mesh is {tr.mesh}")
+    steps, undo = record_steps(tr)
+    caps, pooled, planted = [], [], []
+    in_captures = [0.0]
+    inner_capture = tr.capture
+
+    def capture(batch):
+        s0 = secs[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_capture(batch)
+        torch.cuda.synchronize()
+        caps.append({"ms": 1e3 * (time.perf_counter() - t)})
+        pooled.append(out[0].float().cpu().numpy())
+        if not planted:
+            with planted_model_fault("local_heads"):
+                planted.append(inner_capture(batch)[0].float().cpu().numpy())
+        in_captures[0] += secs[0] - s0
+        return out
+    tr.capture = capture
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    sums = []
+    tr.step_callback = lambda step, loss: sums.append(
+        1e3 * (secs[0] - in_captures[0]))
+    tr.train(TRAIN_STEPS, ckpt_every=RESUME_AT, log_every=10**9,
+             log=lambda m: None)
+    undo()
+    st = tr.spion_state
+    np.savez(os.path.join(d, f"pooled_{rank}.npz"),
+             **{f"p{i}": p for i, p in enumerate(pooled)},
+             local_heads=planted[0])
+    if rank == 0:
+        np.savez(os.path.join(d, "plan_layer0.npz"),
+                 col=st.tables["col_idx"][0].cpu().numpy(),
+                 nvalid=st.tables["nvalid"][0].cpu().numpy())
+    out = {"losses": [r["loss"] for r in steps],
+           "phases": [r["phase"] for r in steps],
+           "launches": [r["launches"] for r in steps],
+           "step_ms": [1e3 * r["s"] for r in steps],
+           "sum_ms": np.diff([0.0] + sums).tolist(), "captures": caps,
+           "digest": plan_digest_of(st), "stats": st.plan_stats,
+           "shards": leaves_digest(tr, replicated=False),
+           "replicated": leaves_digest(tr, replicated=True),
+           "wq": list(tr.params["layers"]["attn"]["wq"].shape),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del tr
+    return out
+
+
+def row_parallel_cost():
+    """A bf16 row-parallel partial product at qwen2-7b's full-width w_out
+    shard on a model line of MODEL_LEG_RANKS (MODEL_BATCH x MODEL_S tokens,
+    d_ff / 2 of the contraction, d_model out): the port's GEMM in bf16
+    (fp32 accumulation, its output upcast for the fp32 sum) against both
+    operands upcast to fp32 (TF32 off), by CUDA events, and the two
+    results' worst difference over the largest entry."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-7b")
+    ff = cfg.d_ff // MODEL_LEG_RANKS
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 25)
+    h = torch.randn(MODEL_BATCH * MODEL_S, ff, generator=gen,
+                    device=DEVICE).bfloat16()
+    w = (torch.randn(ff, cfg.d_model, generator=gen, device=DEVICE)
+         / math.sqrt(ff)).bfloat16()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        bf16_ms = cuda_ms(lambda: (h @ w).float(), 20)
+        fp32_ms = cuda_ms(lambda: h.float() @ w.float(), 20)
+        a, b = (h @ w).float(), h.float() @ w.float()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    diff = float((a - b).abs().max() / b.abs().max())
+    del h, w, a, b
+    torch.cuda.empty_cache()
+    return {"shape": [MODEL_BATCH * MODEL_S, ff, cfg.d_model],
+            "bf16_ms": bf16_ms, "fp32_ms": fp32_ms, "rel_diff": diff}
+
+
+def model_leg_config(name):
+    """qwen2-7b or mixtral-8x7b at full width, cut to 12f's depth, fp32."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if name == "qwen2-7b":
+        check(cfg.d_model == 3584 and cfg.num_heads == 28 and
+              cfg.num_kv_heads == 4 and cfg.vocab_size == 152_064,
+              "qwen2-7b config changed")
+        return cfg.replace(num_layers=MODEL_QWEN_LAYERS, dtype="float32")
+    check(cfg.d_model == 4096 and cfg.d_ff == 14_336 and
+          cfg.moe.num_experts == 8 and cfg.num_kv_heads == 8,
+          "mixtral-8x7b config changed")
+    return cfg.replace(num_layers=MODEL_MIXTRAL_LAYERS, dtype="float32")
+
+
+def model_leg(name, mesh, rank, secs):
+    """12f's leg (ii) or (iii) on one rank of the model line `mesh`: the
+    sparse make_loss_and_grads on a random causal plan, sound and with
+    each MODEL_FAULTS fault; every rank also runs the step in one process
+    on the global batch (one rank at a time: the card is shared) and keeps
+    its slice of those gradients, so each leaf's worst difference is read
+    over the line without gathering the shards."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import local_batch
+    from repro_torch.distributed.sharding import (local_slices, param_pspecs,
+                                                  shard_params, sharded_dim)
+    from repro_torch.launch.steps import make_loss_and_grads
+    from repro_torch.launch.train import masters_of, nest
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.models.registry import build
+    from repro_torch.optim import global_norm
+    cfg = model_leg_config(name)
+    line = mesh.group("model")
+    block = cfg.spion.block_size
+    rng = np.random.default_rng(SEED + 23)
+    toks = rng.integers(0, cfg.vocab_size,
+                        size=(MODEL_BATCH, MODEL_S + 1)).astype(np.int64)
+    gb = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    col, nvalid, _ = random_plan(rng, cfg.num_layers, MODEL_S // block, block)
+    tables = {"col_idx": torch.as_tensor(col, device=DEVICE),
+              "nvalid": torch.as_tensor(nvalid, device=DEVICE),
+              "block": block}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    full = masters_of(build(cfg).init(gen, device=DEVICE))
+    specs = param_pspecs(full, mesh)
+    params = ParamTree(nest(shard_params(full, mesh, specs)), trainable=True)
+    ref = None
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(mesh.size):
+        if r == rank:
+            batch1 = {k: torch.as_tensor(v, device=DEVICE)
+                      for k, v in gb.items()}
+            loss1, g1 = make_loss_and_grads(cfg)(full, batch1, tables)
+            ref = {"loss": float(loss1), "norm": float(global_norm(g1)),
+                   "max": {n: g.abs().max().item() for n, g in g1.items()},
+                   "slices": {n: g[local_slices(mesh, specs[n], g.shape)]
+                              .contiguous() for n, g in g1.items()}}
+            del loss1, g1, batch1
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier(group=line)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = {n for n, spec in specs.items()
+               if sharded_dim(spec) is not None}
+    batch = local_batch(mesh, gb, DEVICE)
+    runs = {}
+    for kind in ("sound",) + MODEL_FAULTS[name]:
+        with planted_model_fault(None if kind == "sound" else kind):
+            # built inside: the step reads its reduction axes when made
+            f = make_loss_and_grads(cfg, mesh=mesh)
+            reset_launch_counts()
+            s0 = secs[0]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, grads = f(params, batch, tables)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+        names = sorted(grads)
+        worst = torch.tensor([(grads[n] - ref["slices"][n]).abs().max()
+                              .item() for n in names], dtype=torch.float64)
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX, group=line)
+        rel = {n: float(w) / max(ref["max"][n], 1e-30)
+               for n, w in zip(names, worst)}
+        leaf = max(rel, key=rel.get)
+        runs[kind] = {"loss": float(loss), "ref_loss": ref["loss"],
+                      "loss_gap": loss_gap([float(loss)], [ref["loss"]]),
+                      "grad_rel": rel[leaf], "worst_leaf": leaf, "ms": ms,
+                      "sum_ms": 1e3 * (secs[0] - s0),
+                      "launches": launch_counts()}
+        if kind == "sound":
+            runs[kind]["gnorm"] = float(global_norm(grads, sharded, line))
+            runs[kind]["gnorm_local"] = float(global_norm(grads))
+            runs[kind]["gnorm_ref"] = ref["norm"]
+        del loss, grads
+    out = {"runs": runs, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "wq": list(params["layers"]["attn"]["wq"].shape),
+           "launches_want": sparse_launches(cfg)}
+    if cfg.moe is not None:
+        out["experts"] = list(params["layers"]["moe"]["experts"]["w_in"]
+                              .shape)
+    del params, ref, f
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier(group=line)
+    return out
+
+
+def model_worker(d, stages):
+    """A rank of phase 12f (`--model-worker DIR`, the SPION_* environment of
+    a job of 4): `model_lra` on (data 2, model 2), then ranks 0 and 1 run
+    `model_leg` for qwen2-7b and mixtral-8x7b on a model line of 2; writes
+    DIR/model_<rank>.json and its start-up stages."""
+    import gc
+    import torch
+    from repro_torch.distributed import runtime
+    from repro_torch.kernels.block_sparse_attn import load_library
+    from repro_torch.launch.mesh import make_distributed_mesh, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(runtime.initialize(), "the 'model' worker did not join its job")
+    stages["joined"] = time.time()
+    rank = runtime.process_index()
+    torch.zeros(1, device=DEVICE)
+    torch.cuda.synchronize()
+    stages["cuda"] = time.time()
+    load_library()
+    stages["library"] = time.time()
+    mesh = make_distributed_mesh(data=MODEL_MESH[0], model=MODEL_MESH[1])
+    check(mesh.shape == {"pod": 1, "data": MODEL_MESH[0],
+                         "model": MODEL_MESH[1]}, f"12f mesh {mesh}")
+    # every process builds the legs' groups; ranks 0 and 1 use them
+    line = make_mesh((1, MODEL_LEG_RANKS), ("data", "model"),
+                     ranks=list(range(MODEL_LEG_RANKS)))
+    out = {"rank": rank, "coords": mesh.coords()}
+    secs = model_line_timer()
+    out["lra"] = model_lra(mesh, d, rank, secs)
+    stages["trained"] = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["legs"] = {}
+    if rank < MODEL_LEG_RANKS:
+        for name in MODEL_FAULTS:
+            out["legs"][name] = model_leg(name, line, rank, secs)
+    runtime.barrier("12f legs")
+    stages["legs"] = time.time()
+    out["stages"] = stages
+    with open(os.path.join(d, f"model_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    runtime.shutdown(0)   # ends the process
+    return 0
+
+
+def phase_model_parallel(train):
+    """12f: tensor, expert and vocabulary parallelism over a 'model' axis,
+    four ranks of this script on the card (`--model-worker DIR`).
+    (i) spion-lra at phase 5's configuration, data and seed on (data 2,
+    model 2): dense losses within TOL_DP of phase 5's, captures within
+    TOL_CAPTURE of phase 5's (the rank's own heads alone past it), plan
+    digests equal across the ranks (phase 5's plan when the maps are
+    bitwise, else this process's controller's on the ranks' map), 8 + 4 +
+    4 launches a sparse step on each rank's 2 KV heads, shards equal
+    across each data line and replicated leaves across all ranks; its
+    step-14 checkpoint restored in this process, whose next loss is within
+    TOL_RESUME of the ranks'; the three kernels against their plain
+    versions at a rank's shard of the training shape. (ii) qwen2-7b and
+    (iii) mixtral-8x7b at full width (2 and 1 layers, fp32) on a model
+    line of 2: the sparse step within TOL_SEQ_LOSS and TOL_SEQ_GRAD of one
+    process, the global norm within TOL_SEQ_LOSS of it, and each planted
+    fault (MODEL_FAULTS, and a norm of the rank's shards alone) past a
+    gate."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core.spion import SpionState
+    d = os.path.join(DP_DIR, "model")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    n = MODEL_MESH[0] * MODEL_MESH[1]
+    t0, t_spawn = time.perf_counter(), time.time()
+    wait_ranks(spawn_ranks(["--model-worker", d], n),
+               "the 'model' ranks")
+    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(n):
+        with open(os.path.join(d, f"model_{r}.json")) as f:
+            recs.append(json.load(f))
+    pooled = [dict(np.load(os.path.join(d, f"pooled_{r}.npz")))
+              for r in range(n)]
+    cfg, ref = train["cfg"], train["losses"]
+    want = sparse_launches(cfg)
+    lra = [rec["lra"] for rec in recs]
+    got = lra[0]["losses"]
+    check(all(x["losses"] == got for x in lra), "the ranks' losses differ")
+    for r, x in enumerate(lra):
+        for ph, ln in zip(x["phases"], x["launches"]):
+            check(ln == want if ph == "sparse" else not any(ln.values()),
+                  f"rank {r}: a {ph} step launched {ln}")
+        check(x["wq"] == [cfg.num_layers, cfg.d_model,
+                          cfg.num_heads * cfg.resolved_head_dim // 2],
+              f"rank {r} holds wq {x['wq']}")
+    check("sparse" in lra[0]["phases"], "the 'model' run never went sparse")
+    dense_n = min(train["dense_steps"], lra[0]["phases"].count("dense"))
+    gap = loss_gap(got[:dense_n], ref[:dense_n])
+    check(len({x["digest"] for x in lra}) == 1,
+          f"the ranks' plan digests differ: {[x['digest'] for x in lra]}")
+    check(len({x["replicated"] for x in lra}) == 1,
+          "the replicated masters differ across the ranks")
+    by_model = {}
+    for rec, x in zip(recs, lra):
+        by_model.setdefault(rec["coords"]["model"], set()).add(x["shards"])
+    check(all(len(v) == 1 for v in by_model.values()) and
+          len(by_model) == MODEL_MESH[1],
+          f"the shards differ across a data line: {by_model}")
+    caps = [k for k in pooled[0] if k != "local_heads"]
+    check(len(caps) == len(train["pooled"]), f"{len(caps)} captures, phase "
+          f"5 made {len(train['pooled'])}")
+    bitwise = True
+    for r in range(n):
+        for i, want_map in enumerate(train["pooled"]):
+            m = pooled[r][f"p{i}"]
+            check(np.array_equal(m, pooled[0][f"p{i}"]),
+                  f"rank {r}'s capture {i} differs from rank 0's")
+            bitwise &= bool(np.array_equal(m, want_map))
+    cap_gaps = [float(np.abs(pooled[0][f"p{i}"] - w).max() / np.abs(w).max())
+                for i, w in enumerate(train["pooled"])]
+    cap_gap = max(cap_gaps)
+    planted = float(np.abs(pooled[0]["local_heads"] - train["pooled"][0])
+                    .max() / np.abs(train["pooled"][0]).max())
+    tr5 = train["trainer"]
+    if bitwise:
+        plan_ref, which = plan_digest_of(tr5.spion_state), "phase 5's"
+    else:
+        st = tr5.spion_ctl.generate(SpionState(),
+                                    pooled[0][f"p{len(caps) - 1}"])
+        plan_ref = plan_digest_of(st)
+        which = "the controller's on the ranks' map"
+    same_plan = lra[0]["digest"] == plan_ref
+    phase5_plan = lra[0]["digest"] == plan_digest_of(tr5.spion_state)
+    # the sharded checkpoint in one process: step RESUME_AT + 1 again
+    one, _, _ = lra_trainer(ckpt_dir=os.path.join(d, "ckpt"))
+    check(one._restore_latest(step=RESUME_AT) and one.step == RESUME_AT,
+          "the 'model' checkpoint did not restore in one process")
+    check(plan_digest_of(one.spion_state) == lra[0]["digest"],
+          "the restored plan differs from the ranks'")
+    reset_launch_counts()
+    next_loss = one.train(1, ckpt_every=0, log_every=10**9,
+                          log=lambda m: None)[0]
+    resume_launches = launch_counts()
+    resume_gap = loss_gap([next_loss], [got[RESUME_AT]])
+    del one
+    torch.cuda.empty_cache()
+    # the kernels at a rank's shard of the training shape
+    with np.load(os.path.join(d, "plan_layer0.npz")) as z:
+        tables = (z["col"], z["nvalid"])
+    shard_shape = dict(TRAIN_PATH, N=TRAIN_PATH["N"] // n)
+    kernels = path_kernels("model-shard", shard_shape, tables,
+                           "12f's trained layer-0", SEED + 24, causal=False)
+    legs = recs[0]["legs"]
+    card = card_line()
+    cost = row_parallel_cost()
+    log(f"model-parallel row-parallel partial product (qwen2-7b's w_out "
+        f"shard, {cost['shape']}): bf16 GEMM {cost['bf16_ms']:.4f} ms, both "
+        f"operands in fp32 {cost['fp32_ms']:.4f} ms (TF32 off), rel diff "
+        f"{cost['rel_diff']:.3e} ({card})")
+    log(f"model-parallel: {n} ranks on the card (gloo), mesh data "
+        f"{MODEL_MESH[0]} x model {MODEL_MESH[1]}, spion-lra at ListOps size "
+        f"({lra_config()[1]['batch'] // MODEL_MESH[0]} sequences a rank, "
+        f"{cfg.num_heads // MODEL_MESH[1]} heads and "
+        f"{cfg.d_ff // MODEL_MESH[1]} of d_ff a rank): {TRAIN_STEPS} steps, "
+        f"{dense_n} dense, then sparse at {want} a step on every rank; "
+        f"dense losses vs phase 5's max rel {gap:.3e} (gate {TOL_DP}); "
+        f"captures vs phase 5's {', '.join('%.3e' % g for g in cap_gaps)} "
+        f"of the map's largest entry ({'bitwise' if bitwise else 'not bitwise'}"
+        f"; gate {TOL_CAPTURE}), the rank's own heads alone {planted:.3e}; "
+        f"plan digests equal ({lra[0]['digest']}), "
+        f"{'equal to' if same_plan else 'DIFFERENT from'} {which}, "
+        f"{'equal to' if phase5_plan else 'not'} phase 5's; shards equal "
+        f"across each data line, replicated leaves across the ranks; the "
+        f"step-{RESUME_AT} checkpoint's next loss in one process vs the "
+        f"ranks' rel {resume_gap:.3e} (gate {TOL_RESUME}; launches "
+        f"{resume_launches})")
+    for r, x in enumerate(lra):
+        def med(ph, key="step_ms"):
+            xs = [ms for ms, p in zip(x[key][1:], x["phases"][1:])
+                  if p == ph]
+            return float(np.median(xs)) if xs else float("nan")
+        log(f"model-parallel rank {r} {recs[r]['coords']}: step median dense "
+            f"{med('dense'):.2f} ms, sparse {med('sparse'):.2f} ms; "
+            f"model-line all-reduces a step median dense "
+            f"{med('dense', 'sum_ms'):.2f} ms, sparse "
+            f"{med('sparse', 'sum_ms'):.2f} ms; captures "
+            f"{', '.join('%.2f' % c['ms'] for c in x['captures'])} ms; "
+            f"launches {sum_launches(x['launches'])}; peak "
+            f"{x['peak_gb']:.2f} GB (ranks share the card: not a time on "
+            f"{n} cards; {card})")
+    for name in MODEL_FAULTS:
+        runs = [rec["legs"][name]["runs"] for rec in recs[:MODEL_LEG_RANKS]]
+        s = runs[0]["sound"]
+        log(f"model-parallel {name} ({legs[name]['wq']} wq a rank"
+            + (f", experts {legs[name]['experts']}" if "experts" in legs[name]
+               else "") + f"), fp32, {MODEL_BATCH} x {MODEL_S} tokens, a "
+            f"random causal plan, on a model line of {MODEL_LEG_RANKS}: "
+            + "; ".join(f"{kind} loss {r['loss']:.6f} vs one process "
+                        f"{r['ref_loss']:.6f} (rel {r['loss_gap']:.3e}), "
+                        f"worst gradient leaf {r['worst_leaf']} "
+                        f"{r['grad_rel']:.3e} of its largest"
+                        for kind, r in runs[0].items())
+            + f" (gates {TOL_SEQ_LOSS}, {TOL_SEQ_GRAD}); global norm "
+            f"{s['gnorm']:.6f} vs one process {s['gnorm_ref']:.6f}, the "
+            f"rank's shards alone {s['gnorm_local']:.6f}; per rank: "
+            + "; ".join(f"rank {r} step {x['sound']['ms']:.1f} ms (model-line "
+                        f"all-reduces {x['sound']['sum_ms']:.1f} ms), "
+                        f"launches {x['sound']['launches']}, peak "
+                        f"{rec['legs'][name]['peak_gb']:.2f} GB"
+                        for r, (x, rec) in enumerate(zip(runs, recs)))
+            + f" ({card})")
+    clock = stage_split(t_spawn, recs[0]["stages"], (
+        ("trained", f"trainer and {TRAIN_STEPS} steps"),
+        ("legs", "qwen2-7b and mixtral legs")), start=START_STAGES[:5])
+    clock["exit"] = wall - sum(clock.values())
+    log(f"model-parallel wall clock, rank 0, s: {fmt_split(clock)}; phase "
+        f"12f {wall:.1f} s")
+    check(gap <= TOL_DP, f"the 'model' dense losses differ from phase 5's by "
+          f"{gap}; gate {TOL_DP}")
+    check(cap_gap <= TOL_CAPTURE < planted, f"captures {cap_gap}, the "
+          f"rank's own heads {planted}; gate {TOL_CAPTURE}")
+    check(same_plan, f"the ranks' plan differs from {which}")
+    check(resume_gap <= TOL_RESUME, f"the 'model' checkpoint's next loss in "
+          f"one process differs by {resume_gap}; gate {TOL_RESUME}")
+    check(resume_launches == want, f"the resumed step launched "
+          f"{resume_launches}")
+    for name in MODEL_FAULTS:
+        for r in range(MODEL_LEG_RANKS):
+            leg = recs[r]["legs"][name]
+            runs = leg["runs"]
+            s = runs["sound"]
+            check(s["loss_gap"] <= TOL_SEQ_LOSS and
+                  s["grad_rel"] <= TOL_SEQ_GRAD,
+                  f"rank {r}: {name}'s step misses one process's: {s}")
+            check(s["launches"] == leg["launches_want"],
+                  f"rank {r}: {name}'s sparse step launched {s['launches']}")
+            check(abs(s["gnorm"] - s["gnorm_ref"]) <=
+                  TOL_SEQ_LOSS * s["gnorm_ref"] and abs(
+                      s["gnorm_local"] - s["gnorm_ref"]) >
+                  TOL_SEQ_LOSS * s["gnorm_ref"],
+                  f"rank {r}: {name}'s global norm {s['gnorm']}, the "
+                  f"shards alone {s['gnorm_local']}, one process "
+                  f"{s['gnorm_ref']}")
+            for kind in MODEL_FAULTS[name]:
+                x = runs[kind]
+                check(x["loss_gap"] > TOL_SEQ_LOSS or
+                      x["grad_rel"] > TOL_SEQ_GRAD,
+                      f"rank {r}: the planted {kind} fault passes the "
+                      f"gates: {x}")
+    # the main path's own runs only: the four ranks' training and the legs'
+    # sound steps (not the planted faults, nor the restored step here)
+    launches = {k: sum(sum(ln[k] for ln in x["launches"]) for x in lra)
+                + sum(rec["legs"][nm]["runs"]["sound"]["launches"][k]
+                      for rec in recs[:MODEL_LEG_RANKS]
+                      for nm in MODEL_FAULTS)
+                for k in KERNELS}
+    return dict(seconds=wall, launches=launches, gap=gap, cap_gap=cap_gap,
+                planted=planted, resume_gap=resume_gap, kernels=kernels,
+                row_parallel=cost,
+                legs={name: recs[0]["legs"][name]["runs"]["sound"]
+                      for name in MODEL_FAULTS},
+                peak_gb=[x["peak_gb"] for x in lra])
+
+
 def sum_launches(per_step):
     """The kernels' launches summed over a run's steps."""
     return {k: sum(ln[k] for ln in per_step) for k in KERNELS}
 
 
 def phase_multiprocess(train):
-    """Phase 12: 12a, 12b, 12c, 12d and 12e, after the parent frees its
-    cached memory for the ranks."""
+    """Phase 12: 12a, 12b, 12c, 12d, 12e and 12f, after the parent frees
+    its cached memory for the ranks."""
     import gc
     import shutil
     import torch
@@ -5786,8 +6365,11 @@ def phase_multiprocess(train):
     fleet = phase_fleet(dp)
     seqtrain = phase_seq_train(train)
     seqscan = phase_seq_scan()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = phase_model_parallel(train)
     return dict(seq=seq, dp=dp, fleet=fleet, seqtrain=seqtrain,
-                seqscan=seqscan)
+                seqscan=seqscan, model=model)
 
 
 def main(argv):
@@ -5818,6 +6400,10 @@ def main(argv):
     parser.add_argument("--carry-worker", metavar="DIR", help="run as a "
                         "rank of phase 12e's 4-rank check of the scans' "
                         "state carry; records go to DIR")
+    parser.add_argument("--model-worker", metavar="DIR", help="run as a "
+                        "rank of phase 12f (tensor, expert and vocabulary "
+                        "parallelism over a 'model' axis); records go to "
+                        "DIR")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5838,6 +6424,9 @@ def main(argv):
                               {"main": t_main, "torch": t_torch})
     if args.carry_worker:
         return carry_worker(args.carry_worker)
+    if args.model_worker:
+        return model_worker(args.model_worker,
+                            {"main": t_main, "torch": t_torch})
     import shutil
     import numpy as np
     # every exec of this run (and of the respawn phase's worker, which
@@ -5918,13 +6507,13 @@ def main(argv):
     respawn = phase_respawn(train, resume)
     multi = phase_multiprocess(train)
     dp, fleet, seqtrain = multi["dp"], multi["fleet"], multi["seqtrain"]
-    seqscan = multi["seqscan"]
+    seqscan, model = multi["seqscan"], multi["model"]
 
     fwd = {"launches": serve["launches"] + shared["launches"]
            + mixtral["launches"]
            + sum(run["launches"]["block_sparse_fwd"]
                  for run in (zamba, whisper, internvl, train, dp, seqtrain,
-                             seqscan)),
+                             seqscan, model)),
            "launches_serve": serve["launches"],
            "launches_serve_shared": shared["launches"],
            "launches_mixtral": mixtral["launches"],
@@ -5946,7 +6535,7 @@ def main(argv):
         t = train_timing[name]
         rows[name] = {"launches": sum(run["launches"][name] for run in
                                       (train, zamba, whisper, internvl, dp,
-                                       seqtrain, seqscan)),
+                                       seqtrain, seqscan, model)),
                       "launches_zamba2": zamba["launches"][name],
                       "launches_whisper": whisper["launches"][name],
                       "launches_internvl2": internvl["launches"][name],
@@ -5964,8 +6553,9 @@ def main(argv):
         for path, run in (("resume", resume), ("rollback", rollback),
                           ("respawn", respawn), ("dp", dp),
                           ("fleet", fleet), ("seqtrain", seqtrain),
-                          ("seqscan", seqscan)):
+                          ("seqscan", seqscan), ("model", model)):
             row[f"launches_{path}"] = run["launches"][name]
+        row["model_shard_shape"] = model["kernels"][name]
         row["seq_parallel"] = multi["seq"]["runs"]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -6040,6 +6630,16 @@ def main(argv):
                                            seqscan["faults"].items())
         + f"; zamba2's Trainer captures {seqscan['cap_gap']:.3e}, the "
         f"trained plan through the {seqscan['branch']} ({card})")
+    log(f"tensor parallelism over 'model' (phase 12f, "
+        f"{model['seconds']:.1f} s): spion-lra on data {MODEL_MESH[0]} x "
+        f"model {MODEL_MESH[1]} ranks sharing the card, dense gap "
+        f"{model['gap']:.3e}, captures {model['cap_gap']:.3e} (the rank's "
+        f"own heads {model['planted']:.3e}), the checkpoint's next loss in "
+        f"one process {model['resume_gap']:.3e}; peak per rank "
+        f"{', '.join(f'{g:.2f}' for g in model['peak_gb'])} GB; "
+        + "; ".join(f"{name} rel loss gap {r['loss_gap']:.3e}, worst "
+                    f"gradient leaf {r['grad_rel']:.3e}"
+                    for name, r in model["legs"].items()) + f" ({card})")
     log(f"recovery: supervisor {respawn['wall']:.2f} s in all; a sparse step "
         f"run twice is {'' if resume['bitwise'] else 'NOT '}bitwise "
         f"reproducible; max rel gap to the uninterrupted run's losses (gate "

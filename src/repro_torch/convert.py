@@ -5,6 +5,9 @@
 ParamTree: the same keys, shapes and dtypes, identity per leaf. numpy has no
 bfloat16 of its own; JAX's bf16 leaves come out as `ml_dtypes.bfloat16`,
 which `torch.from_numpy` refuses, so they cross as their uint16 bit pattern.
+With `mesh=` (a mesh with a 'model' axis) each leaf is cut to this rank's
+shard first (distributed/sharding.param_pspecs and local_slices), so no
+rank holds more than its shard on its device.
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import (best_spec, check_model_layout,
+                                              local_slices, model_size)
 from repro_torch.models.layers import ParamTree
 
 
@@ -24,13 +29,21 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
-def params_from_numpy(tree, cfg, device=None) -> ParamTree:
+def params_from_numpy(tree, cfg, device=None, mesh=None) -> ParamTree:
     """The JAX package's parameter tree (numpy leaves) of a `cfg` model as
-    the port's ParamTree on `device` (None: the first CUDA card)."""
+    the port's ParamTree on `device` (None: the first CUDA card); with
+    `mesh`, this rank's shard of it."""
     dev = resolve_device(device)
+    split = mesh is not None and model_size(mesh) > 1
+    if split:
+        check_model_layout(cfg, mesh)
 
-    def conv(node):
+    def conv(node, path=()):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return tensor_from_numpy(node, dev)
+            return {k: conv(v, path + (k,)) for k, v in node.items()}
+        a = np.asarray(node)
+        if split:
+            spec = best_spec(mesh, "/".join(path), a)
+            a = a[local_slices(mesh, spec, a.shape)]
+        return tensor_from_numpy(a, dev)
     return ParamTree(conv(tree))

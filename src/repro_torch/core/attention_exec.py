@@ -161,7 +161,11 @@ class SparseAttentionExec:
         that the kernel's dK/dV backward streams. Both paths are
         differentiable. On a 'seq' shard the kernels shard themselves
         (kernels/sharded.py); the gather gathers the whole sequence's K/V
-        and runs this shard's rows against the global tables."""
+        and runs this shard's rows against the global tables. On a
+        'model' axis q, k and v hold the rank's H/|model| and KV/|model|
+        heads (models/attention.qkv): the kernels run on its B_loc *
+        KV/|model| rows, one launch a layer as in one process, over the
+        replicated tables."""
         tabs = {k_: t.to(q.device) for k_, t in layer_tables.items()}
         bcsr = BCSR(tabs["col_idx"], tabs["nvalid"], self.block, q.shape[1])
         if resolve_kernel(cfg, q) == "fused":

@@ -21,14 +21,49 @@ reasons, which mesh axes the kernels' batch, KV heads and query rows split
 over; `kernel_pspecs_from_axes` states that layout per tensor dimension,
 as tuples where the reference has PartitionSpecs.
 
-The parameter rules (`_RULES`, `best_spec`, `param_pspecs`,
-`zero1_pspecs`) belong to the 'model' axis and wait in ROADMAP.md item
-A12b: parameters are replicated on every rank here.
+The 'model' axis (tensor, expert and vocabulary parallelism) is GSPMD
+layout in the reference; PyTorch has none, so the port writes out what the
+compiler inserts (Megatron-style). The layout contract:
+
+  - **Which shard each rank holds.** Of every parameter a rank holds
+    exactly the slice that `param_pspecs(params, mesh)` gives it
+    (`local_slices`; the reference's `_RULES`, `_FALLBACKS`, `sanitize_spec`
+    and `best_spec`, bitwise, with specs as tuples and paths the
+    `named_parameters()` names joined by '/'). Its AdamW moments have the
+    same spec, as the reference's Trainer keeps mu and nu under the
+    parameter spec (`launch/train.py` `_restore_shardings`). `zero1_pspecs`
+    states the ZeRO-1 specs for the dry run; no trainer path runs them.
+    `shard_params` and `gather_params` go between the whole tree and the
+    rank's shard.
+  - **Whole heads only.** The port runs a rule only where its shard falls
+    on whole heads: H % |model| == 0 and KV % |model| == 0, else
+    `check_model_layout` raises ValueError (ROADMAP.md item A12b), where
+    GSPMD would split mid-head (`sanitize_spec` allows it) or keep KV
+    replicated (`kernel_shard_axes`). Where `sanitize_spec` drops a rule
+    because the dimension does not divide, the leaf is replicated, as in
+    the reference (internvl2-2b's vocabulary of 92,553 keeps `tok_embed`
+    and `lm_head` whole). The scan families (hybrid, ssm), encdec and
+    'seq' together with 'model' raise NotImplementedError (A12b).
+  - **The collectives are explicit.** `copy_to_model` (identity forward,
+    all-reduce backward) enters every region whose work differs across
+    the model line, `reduce_from_model` (all-reduce forward, identity
+    backward) leaves it, `model_mean` averages a statistic over the line.
+    Every model-line sum runs in fp32 and is cast afterwards (the
+    row-parallel partial outputs, the MoE's partial combine, the
+    vocab-parallel embedding and loss); the partial products themselves
+    are GEMMs in the activation dtype (fp32 accumulation, bf16 out on a
+    bf16 model). The reference leaves the reduction dtype to XLA.
+  - **One decision.** Whether a layer runs split is `model_split(dim)` of
+    the config's full dimension on the active mesh: the same divisibility
+    that `sanitize_spec` applies to the leaf's rule, so a layer's code and
+    its leaves' shards agree. `constrain` has no counterpart: the layout
+    is explicit.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import re
 from typing import Optional
 
 import torch
@@ -322,3 +357,335 @@ def mean_over_data(x):
         return x
     dist.all_reduce(x, group=mesh.group(data_axes(mesh)))
     return x.div_(n)
+
+
+# ---------------------------------------------------------------------------
+# parameter rules (path-name driven): the reference's, specs as tuples
+# ---------------------------------------------------------------------------
+
+def sanitize_spec(mesh, spec, shape) -> tuple:
+    """Drop (or shrink) spec entries whose mesh-axis product does not divide
+    the corresponding dim; axis names the mesh does not have are dropped
+    first. Trailing None entries go, as the reference's do."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for d, e in zip(shape, entries):
+        if isinstance(e, str) and e not in mesh.shape:
+            e = None
+        elif isinstance(e, (tuple, list)):
+            e = tuple(a for a in e if a in mesh.shape) or None
+        if e is None:
+            out.append(None)
+            continue
+        if d % mesh.axis_size(e) == 0:
+            out.append(e)
+            continue
+        if isinstance(e, tuple):
+            kept = None
+            for k in range(len(e) - 1, 0, -1):
+                if d % mesh.axis_size(e[:k]) == 0:
+                    kept = e[:k]
+                    break
+            out.append(kept)
+        else:
+            out.append(None)
+    while out and out[-1] is None:
+        out.pop()
+    # a one-axis tuple is that axis, as PartitionSpec normalises it
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in out)
+
+
+# (regex over the '/'-joined parameter path, the spec as a function of
+# ndim), for the unstacked tensor; a leading layer dim is padded with None
+# (`_pad`)
+_RULES = [
+    # attention projections
+    (r"(wq|wk|wv|wqkv)$", lambda nd: (None, "model")),
+    (r"wo$", lambda nd: ("model", None)),
+    (r"(bq|bk|bv)$", lambda nd: ("model",)),
+    # MoE expert weights (experts, d, ff) / (experts, ff, d), before the
+    # generic mlp rules (first match wins)
+    (r"experts/(w_in|w_gate)$", lambda nd: ("model", None, None)),
+    (r"experts/w_out$", lambda nd: ("model", None, None)),
+    (r"router/w$", lambda nd: (None, None)),
+    # gated mlp
+    (r"(w_in|w_gate)$", lambda nd: (None, "model")),
+    (r"w_out$", lambda nd: ("model", None)),
+    # embeddings and head
+    (r"(tok_embed|lm_head)/w$",
+     lambda nd: ("model", None) if nd == 2 else ("model",)),
+    (r"pos_embed/w$", lambda nd: (None, None)),
+    # ssm (rwkv / mamba) projections: the inner dim over model
+    (r"(w_r|w_k|w_v|w_g|w_xbc|w_dt|in_proj)$", lambda nd: (None, "model")),
+    (r"(out_proj)$", lambda nd: ("model", None)),
+    # patch projector (vlm)
+    (r"patch_proj/w$", lambda nd: (None, "model") if nd == 2 else ()),
+]
+
+# fallbacks when the primary rule does not divide (mixtral's 8 experts on a
+# 16-way model axis: d_ff split within each expert instead)
+_FALLBACKS = [
+    (r"experts/(w_in|w_gate)$", lambda nd: (None, None, "model")),
+    (r"experts/w_out$", lambda nd: (None, "model", None)),
+]
+
+
+def _pad(spec, ndim: int) -> tuple:
+    extra = ndim - len(spec)
+    if extra > 0:
+        return (None,) * extra + tuple(spec)
+    if extra < 0:      # a rule wider than the tensor: replicate
+        return ()
+    return tuple(spec)
+
+
+def spec_for_path(path: str, ndim: int) -> tuple:
+    for pat, fn in _RULES:
+        if re.search(pat, path):
+            return _pad(fn(ndim), ndim)
+    return ()      # replicated (norm scales, small biases, decay params, ...)
+
+
+def spec_candidates(path: str, ndim: int):
+    """The primary spec followed by the divisibility fallbacks."""
+    out = [spec_for_path(path, ndim)]
+    for pat, fn in _FALLBACKS:
+        if re.search(pat, path):
+            out.append(_pad(fn(ndim), ndim))
+    return out
+
+
+def best_spec(mesh, path: str, leaf) -> tuple:
+    """The first candidate whose sanitised form still carries a sharding."""
+    cands = spec_candidates(path, getattr(leaf, "ndim", 0))
+    best = sanitize_spec(mesh, cands[0], leaf.shape)
+    for c in cands:
+        s = sanitize_spec(mesh, c, leaf.shape)
+        if any(e is not None for e in s):
+            return s
+    return best
+
+
+def named_leaves(params) -> list:
+    """[(dotted name, leaf)] of a ParamTree (`named_parameters()`), a nested
+    dict, or a flat {dotted name: leaf} dict."""
+    if hasattr(params, "named_parameters"):
+        return list(params.named_parameters())
+    out = []
+    for k, v in params.items():
+        if isinstance(v, dict) or hasattr(v, "named_parameters"):
+            out += [(f"{k}.{n}", x) for n, x in named_leaves(v)]
+        else:
+            out.append((k, v))
+    return out
+
+
+def _path(name: str) -> str:
+    return name.replace(".", "/")
+
+
+def param_pspecs(params, mesh=None) -> dict:
+    """{dotted name: spec} of `params` (leaves need only .shape and .ndim:
+    meta tensors, numpy arrays). With `mesh` the specs are sanitised
+    against the leaves' shapes."""
+    def one(name, leaf):
+        if mesh is not None:
+            return best_spec(mesh, _path(name), leaf)
+        return spec_for_path(_path(name), getattr(leaf, "ndim", 0))
+    return {n: one(n, x) for n, x in named_leaves(params)}
+
+
+def zero1_pspecs(params, mesh) -> dict:
+    """ZeRO-1 optimizer-state specs: the parameter spec plus the largest
+    still-unsharded dim over the data axes (falls back to the parameter
+    spec). Specs only: the port's trainers keep the moments under the
+    parameter spec, as the reference's Trainer does."""
+    daxes = data_axes(mesh)
+
+    def one(name, leaf):
+        spec = best_spec(mesh, _path(name), leaf)
+        entries = list(spec) + [None] * (leaf.ndim - len(spec))
+        cand, size = None, 0
+        for i, (e, d) in enumerate(zip(entries, leaf.shape)):
+            if e is None and d > size and daxes and \
+                    d % mesh.axis_size(daxes) == 0:
+                cand, size = i, d
+        if cand is not None:
+            entries[cand] = daxes if len(daxes) > 1 else daxes[0]
+        return sanitize_spec(mesh, tuple(entries), leaf.shape)
+    return {n: one(n, x) for n, x in named_leaves(params)}
+
+
+# ---------------------------------------------------------------------------
+# the 'model' axis: layout checks, shards, collectives
+# ---------------------------------------------------------------------------
+
+MODEL_FAMILIES = ("encoder", "dense", "moe", "vlm")
+SEQ_MODEL_REFUSAL = ("'seq' together with 'model' is not ported yet; it "
+                     "waits in ROADMAP.md item A12b (12b.2b)")
+
+
+def model_size(mesh=None) -> int:
+    """|model| of `mesh` (default: the active mesh); 1 without one."""
+    mesh = active_mesh() if mesh is None else mesh
+    return 1 if mesh is None else int(mesh.shape.get("model", 1))
+
+
+def model_split(dim: int) -> bool:
+    """Whether the active mesh's 'model' axis splits a dimension of full
+    size `dim` (heads, d_ff, experts, vocabulary): |model| > 1 and divides
+    it, as `sanitize_spec` keeps a rule's 'model' entry. The one test every
+    layer makes; False without a mesh."""
+    m = model_size()
+    return m > 1 and dim % m == 0
+
+
+def model_offset(local: int) -> int:
+    """First global index of this rank's shard of a dimension split over
+    the active mesh's 'model' axis into shards of `local`."""
+    return active_mesh().axis_index("model") * local
+
+
+def check_model_layout(cfg, mesh):
+    """Refuse what the port cannot split on `mesh`'s 'model' axis: the
+    families outside MODEL_FAMILIES and 'seq' together with 'model'
+    (NotImplementedError), a head count |model| does not divide
+    (ValueError). All name ROADMAP.md item A12b. A no-op without a 'model'
+    axis larger than 1."""
+    m = model_size(mesh)
+    if m <= 1:
+        return
+    if seq_size(mesh) > 1:
+        raise NotImplementedError(f"{mesh}: {SEQ_MODEL_REFUSAL}")
+    if cfg.family not in MODEL_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name} (family {cfg.family!r}) on a 'model' axis of {m}: "
+            f"the {cfg.family} family's tensor parallelism is not ported "
+            f"yet; it waits in ROADMAP.md item A12b (12b.2b)")
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if H % m or KV % m:
+        raise ValueError(
+            f"{cfg.name}: num_heads {H} and num_kv_heads {KV} must both "
+            f"divide over |model| = {m} (shards of whole heads); the "
+            f"reference's mid-head split and replicated-KV fallback wait in "
+            f"ROADMAP.md item A12b (12b.2b)")
+
+
+def shard_params(params, mesh, specs=None):
+    """The whole tree `params` -> this rank's shard of every leaf (`specs`
+    default: `param_pspecs(params, mesh)`), as {dotted name: tensor}
+    (contiguous copies of the slices)."""
+    specs = param_pspecs(params, mesh) if specs is None else specs
+    return {n: x.detach()[local_slices(mesh, specs[n], x.shape)].clone(
+                memory_format=torch.contiguous_format)
+            for n, x in named_leaves(params)}
+
+
+def sharded_dim(spec):
+    """The dimension a parameter spec splits over 'model', or None."""
+    for i, e in enumerate(spec):
+        if e == "model" or (isinstance(e, tuple) and "model" in e):
+            return i
+    return None
+
+
+def gather_params(local, specs, mesh) -> dict:
+    """{dotted name: this rank's shard} -> {dotted name: the whole leaf}:
+    each leaf that `specs` splits over 'model' is gathered over the model
+    line (host-staged on gloo, as GatherSeq is); the others are returned
+    as they are. A collective of the model line."""
+    out = {}
+    for n, x in local.items():
+        dim = sharded_dim(specs[n])
+        if dim is None or model_size(mesh) == 1:
+            out[n] = x
+            continue
+        out[n] = _all_gather(x.detach(), mesh.group("model"),
+                             model_size(mesh), dim)
+    return out
+
+
+def _all_gather(x, group, n, dim):
+    staged = x.is_cuda and dist.get_backend(group) == "gloo"
+    src = (x.to("cpu") if staged else x).contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    return out.to(x.device) if staged else out
+
+
+def _sum_fp32(x, group):
+    """x summed over `group` in fp32 (a new tensor)."""
+    total = x.float().contiguous()
+    if total is x:
+        total = x.clone()
+    dist.all_reduce(total, group=group)
+    return total
+
+
+class CopyToModel(torch.autograd.Function):
+    """Enters a region whose work differs across the model line: identity
+    forward, the gradient summed over the line (fp32) backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_fp32(g, ctx.group).to(g.dtype), None
+
+
+class ReduceFromModel(torch.autograd.Function):
+    """Leaves such a region: the ranks' partial results summed over the
+    line in fp32 forward (cast to `dtype`), identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dtype):
+        ctx.dtype = x.dtype
+        return _sum_fp32(x, group).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None
+
+
+def copy_to_model(x):
+    """`CopyToModel` on the active mesh's model line; `x` without one."""
+    mesh = active_mesh()
+    if model_size(mesh) == 1:
+        return x
+    return CopyToModel.apply(x, mesh.group("model"))
+
+
+def reduce_from_model(x, dtype=None):
+    """`ReduceFromModel` on the active mesh's model line, cast to `dtype`
+    (default x's); `x` without one."""
+    mesh = active_mesh()
+    dtype = x.dtype if dtype is None else dtype
+    if model_size(mesh) == 1:
+        return x.to(dtype)
+    return ReduceFromModel.apply(x, mesh.group("model"), dtype)
+
+
+def model_max(x):
+    """Elementwise max of `x` over the active mesh's model line (in place;
+    no gradient): the vocab-parallel loss's shift."""
+    mesh = active_mesh()
+    if model_size(mesh) > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.group("model"))
+    return x
+
+
+def model_mean(x):
+    """Mean of `x` over the active mesh's model line (in place; statistics
+    only, no gradient): the capture's average over the heads when each
+    rank holds |model|-th of them."""
+    mesh = active_mesh()
+    m = model_size(mesh)
+    if m == 1:
+        return x
+    dist.all_reduce(x, group=mesh.group("model"))
+    return x.div_(m)

@@ -2,14 +2,16 @@
 package's `kernels/sharded.py` for ranks that each hold their shard.
 
 `sharded_fused_attention(mesh, q, k, v, ...)` takes THIS rank's shards,
-q (B_loc, KV, G, S_loc, hd) and k, v (B_loc, KV, S_loc, hd), with the
-batch split over the data axes ('pod', 'data') and, on a mesh with a 'seq'
-axis, the sequence split over 'seq' (`distributed.sharding.
-kernel_pspecs_from_axes` states the layout). The tables are replicated:
-they index the global sequence.
+q (B_loc, KV_loc, G, S_loc, hd) and k, v (B_loc, KV_loc, S_loc, hd), with
+the batch split over the data axes ('pod', 'data'), the KV heads over
+'model' (KV_loc = KV / |model|) and, on a mesh with a 'seq' axis, the
+sequence split over 'seq' (`distributed.sharding.kernel_pspecs_from_axes`
+states the layout). The tables are replicated: they index the global
+sequence.
 
-  - **Batch sharding.** Every (batch*kv-head) row of the kernels' grid is
-    independent, so a rank's shard runs the unchanged op on its rows.
+  - **Batch and KV-head sharding.** Every (batch*kv-head) row of the
+    kernels' grid is independent, so a rank's shard runs the unchanged op
+    on its N = B_loc * KV_loc rows.
   - **Sequence sharding** (DESIGN.md §10), when the pattern's column extent
     fits (`kernel_seq_axis`): a rank's rows read K/V blocks at most h_l
     blocks to the left of its shard and h_r to the right, so only the
@@ -48,12 +50,10 @@ import torch.distributed as dist
 from repro_torch.distributed import runtime
 from repro_torch.distributed.sharding import (data_axes, gather_seq,
                                               kernel_seq_axis,
-                                              kernel_shard_axes, seq_size)
+                                              kernel_shard_axes, model_size,
+                                              seq_size)
 from repro_torch.kernels.block_sparse_attn import (
     _config, block_sparse_fwd, fused_backward, fused_block_sparse_attention)
-
-KV_AXIS_REFUSAL = ("KV heads over a 'model' axis are not ported yet; they "
-                   "wait in ROADMAP.md item A12b")
 
 _warned = set()
 halo_seconds = 0.0     # host seconds in halo exchanges (forward + backward)
@@ -285,10 +285,10 @@ def sharded_fused_attention(mesh, q, k, v, col_idx, nvalid, *, block,
     Differentiable in q, k and v."""
     B_loc, KV, G, S_loc, hd = q.shape
     daxes = data_axes(mesh)
-    baxes, kv_ax = kernel_shard_axes(mesh, B_loc * mesh.axis_size(daxes), KV)
-    if kv_ax is not None:
-        raise NotImplementedError(f"sharded_fused_attention: "
-                                  f"{KV_AXIS_REFUSAL}")
+    # on a 'model' axis q, k and v are this rank's KV/|model| heads
+    # (models/attention.qkv): the reference's decision on the global count
+    baxes, kv_ax = kernel_shard_axes(mesh, B_loc * mesh.axis_size(daxes),
+                                     KV * model_size(mesh))
     seq, reason = seq_plan(mesh, S_loc, block, halo)
     kw = dict(block=block, causal=causal, sliding_window=sliding_window,
               config=config)
@@ -322,20 +322,22 @@ def sharded_fused_attention(mesh, q, k, v, col_idx, nvalid, *, block,
             nvalid_t=nvalid_t, **kw)
         return o.reshape(B_loc, KV, G, S, hd).narrow(3, idx * S_loc, S_loc)
     if seq is None:
-        if baxes is None:
+        if baxes is None and kv_ax is None:
             raise RuntimeError(
                 f"sharded_fused_attention: no mesh axis shards the kernel on "
                 f"mesh {dict(mesh.shape)} — batch="
                 f"{B_loc * mesh.axis_size(daxes)} is indivisible by the data "
-                f"axes and kv_heads={KV} by 'model'. The shard_map would run "
+                f"axes and kv_heads={KV * model_size(mesh)} by 'model'. "
+                f"The shard_map would run "
                 f"the full kernel replicated on every device; use "
                 f"kernel='jnp' (the GSPMD path) or fix the batch/head "
                 f"divisibility.")
         N = B_loc * KV
         o = fused_block_sparse_attention(
-            q.reshape(N, G, S_loc, hd), k.reshape(N, S_loc, hd),
-            v.reshape(N, S_loc, hd), col_idx, nvalid, row_idx=row_idx,
-            nvalid_t=nvalid_t, **kw)
+            q.reshape(N, G, S_loc, hd).contiguous(),
+            k.reshape(N, S_loc, hd).contiguous(),
+            v.reshape(N, S_loc, hd).contiguous(), col_idx, nvalid,
+            row_idx=row_idx, nvalid_t=nvalid_t, **kw)
         return o.reshape(B_loc, KV, G, S_loc, hd)
 
     n, h_l, h_r = seq

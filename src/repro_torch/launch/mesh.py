@@ -12,8 +12,12 @@ axis is the slowest, so `make_distributed_mesh`'s 'pod' axis is the
 process-major axis of the reference (`src/repro/launch/mesh.py:60-100`)
 and the ranks of one 'seq' line are adjacent.
 
-A 'model' axis larger than 1 (tensor parallelism: the parameter rules,
-KV-head sharding, experts) waits in ROADMAP.md item A12b and raises.
+A 'model' axis larger than 1 holds tensor, expert and vocabulary
+parallelism for the encoder, dense, moe and vlm families (distributed/
+sharding.py states the layout). What still raises, naming ROADMAP.md item
+A12b: 'seq' together with 'model' (here, at the mesh), and the other
+families or a head count |model| does not divide (where a step or a
+trainer is built: `sharding.check_model_layout`).
 """
 from __future__ import annotations
 
@@ -21,9 +25,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-MODEL_AXIS_REFUSAL = ("a 'model' axis larger than 1 (tensor parallelism: "
-                      "parameter sharding, KV heads, experts) is not ported "
-                      "yet; it waits in ROADMAP.md item A12b")
+from repro_torch.distributed.sharding import SEQ_MODEL_REFUSAL
 
 
 class Mesh:
@@ -152,9 +154,10 @@ def _with_groups(mesh: Mesh) -> Mesh:
     return mesh
 
 
-def _refuse_model(model: int):
-    if model > 1:
-        raise NotImplementedError(f"model={model}: {MODEL_AXIS_REFUSAL}")
+def _refuse_seq_model(seq: int, model: int):
+    if seq > 1 and model > 1:
+        raise NotImplementedError(f"seq={seq}, model={model}: "
+                                  f"{SEQ_MODEL_REFUSAL}")
 
 
 def make_mesh(shape, axes, ranks=None) -> Mesh:
@@ -162,7 +165,8 @@ def make_mesh(shape, axes, ranks=None) -> Mesh:
     process groups are built when a process group is up (every process of
     the job must call this together then)."""
     shape = tuple(int(s) for s in shape)
-    _refuse_model(dict(zip(axes, shape)).get("model", 1))
+    sizes = dict(zip(axes, shape))
+    _refuse_seq_model(sizes.get("seq", 1), sizes.get("model", 1))
     n = int(np.prod(shape))
     ranks = np.arange(n) if ranks is None else np.asarray(ranks)
     if ranks.size != n:
@@ -172,8 +176,11 @@ def make_mesh(shape, axes, ranks=None) -> Mesh:
 
 def make_seq_mesh(seq: int, data: int = 1, model: int = 1) -> Mesh:
     """Explicit (seq, data) mesh over ranks 0..seq*data-1, for tests and
-    sequence-parallel runs; seq ranks adjacent."""
-    _refuse_model(model)
+    sequence-parallel runs; seq ranks adjacent. With `model` > 1 the
+    reference's (seq, data, model) mesh, which raises (A12b) when seq > 1
+    too."""
+    if model > 1:
+        return make_mesh((seq, data, model), ("seq", "data", "model"))
     return make_mesh((seq, data), ("seq", "data"))
 
 
@@ -193,7 +200,7 @@ def make_distributed_mesh(*, model: int = 1, seq: int = 1,
     data * model) must be whole. One process gives the same axis names at
     size 1."""
     from repro_torch.distributed import runtime
-    _refuse_model(model)
+    _refuse_seq_model(seq, model)
     nproc = runtime.process_count()
     data = 1 if data is None else int(data)
     per = seq * data * model

@@ -6,8 +6,11 @@ the JAX package's jit, shardings and donation have no counterpart here (the
 port updates parameters, optimizer state and caches in place instead of
 donating them). Under a mesh (`mesh=`) each rank runs the step on its
 shard of the batch, and of the sequence on a 'seq' axis: the loss is the
-global mean and the gradients are summed over the mesh, so every rank
-applies the same update to its replicated parameters.
+global mean and the gradients are summed over the mesh's data (and 'seq')
+lines, so every rank applies the same update to its parameters. On a
+'model' axis those are the rank's shards (distributed/sharding.py): the
+ranks of a model line hold the same batch and compute the same loss, so
+neither the loss nor the gradients are summed over it.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.sparse_attention import PLAN_TABLE_KEYS
-from repro_torch.distributed.sharding import mesh_context
+from repro_torch.distributed.sharding import (check_model_layout,
+                                              mesh_context, model_size,
+                                              sharded_dim)
 from repro_torch.models.layers import tree_map
 from repro_torch.models.registry import build
 from repro_torch.optim import (adamw_update, clip_by_global_norm,
@@ -131,6 +136,12 @@ def compute_params(params, dtype):
                     if x.dtype == torch.float32 and x.ndim >= 2 else x, params)
 
 
+def reduce_axes(mesh):
+    """The axes the loss terms and the gradients are summed over: every
+    axis but 'model', whose ranks hold the same batch."""
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
 def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
                         sparse_kernel=None, kernel_config=None, mesh=None,
                         halo=None):
@@ -153,10 +164,13 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
     shard (batch over the data axes, the sequence over 'seq'); the loss is
     the global mean (the nll sums and token counts, masked ones too,
     all-reduced: not a mean of the ranks' means) and the gradients are
-    summed over the mesh in buckets, so they are the global batch's on
-    every rank. `halo` is the plan's (left, right) column extent for dict
-    payloads (an exec carries its own): with it a 'seq' axis shards the
-    sparse attention's rows. Under a 'seq' axis the loss is still the
+    summed over the mesh's data (and 'seq') lines in buckets, so they are
+    the global batch's on every rank. On a 'model' axis `params` holds the
+    rank's shards (`distributed.sharding.shard_params`) and the gradients
+    are the shards'; the families and head counts the port cannot split
+    raise here (`check_model_layout`). `halo` is the plan's (left, right)
+    column extent for dict payloads (an exec carries its own): with it a
+    'seq' axis shards the sparse attention's rows. Under a 'seq' axis the loss is still the
     global mean (the sums and counts all-reduced over 'seq' too) and the
     gradients are summed over the whole mesh, for every family: the
     recurrent ones carry their scan state and conv / token-shift rows
@@ -169,19 +183,19 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
     compute_dtype = getattr(torch, cfg.dtype)
     static_block = block or cfg.spion.block_size
     nranks = 1 if mesh is None else mesh.size
+    nred = 1
     if nranks > 1:
         from repro_torch.distributed import runtime
-        from repro_torch.launch.mesh import MODEL_AXIS_REFUSAL
-        if mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(f"train step on {mesh}: "
-                                      f"{MODEL_AXIS_REFUSAL}")
+        check_model_layout(cfg, mesh)
         all_reduce_sum = runtime.all_reduce_sum      # bound when made
+        axes = reduce_axes(mesh)
+        nred = mesh.axis_size(axes)
 
     def loss_and_grads(params, batch, tables=None):
         ex = _coerce_step_tables(tables, block=static_block, phase="train",
                                  halo=halo, kernel_config=kernel_config,
                                  dtype=cfg.dtype)
-        group = mesh.group(mesh.axis_names) if nranks > 1 else None
+        group = mesh.group(axes) if nred > 1 else None
         named = list(params.named_parameters())
         leaves = [p for _, p in named]
         mbs = [batch] if n_micro == 1 else [
@@ -203,13 +217,13 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
                 if group is not None:
                     dist.all_reduce(tot, group=group)
                 denom = tot[1].clamp(min=1.0)
-                share = nll / denom + extra / nranks
+                share = nll / denom + extra / nred
                 gs = torch.autograd.grad(share, leaves, allow_unused=True)
                 gs = [torch.zeros_like(p) if g is None else g.float()
                       for p, g in zip(leaves, gs)]
                 grads = gs if grads is None else \
                     [a + b for a, b in zip(grads, gs)]
-                loss = loss + tot[0] / denom + tot[2] / nranks
+                loss = loss + tot[0] / denom + tot[2] / nred
         if group is not None:
             # the ranks' shares sum to the global batch's gradient
             all_reduce_sum(grads, group=group)
@@ -224,7 +238,7 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
 def make_train_step(cfg: ModelConfig, *, spion=False, lr=3e-4,
                     total_steps=10_000, n_micro=1, block=None,
                     sparse_kernel=None, kernel_config=None, mesh=None,
-                    halo=None):
+                    halo=None, specs=None):
     """Returns f(params, opt_state, batch, step[, tables]) -> (params,
     opt_state, metrics) for one device.
 
@@ -238,15 +252,27 @@ def make_train_step(cfg: ModelConfig, *, spion=False, lr=3e-4,
     `spion=True` adds the sparse-tables argument (see `make_loss_and_grads`
     for it and for `block`, `sparse_kernel`, `kernel_config`, `mesh` and
     `halo`). Under a mesh every rank clips and updates with the same
-    global gradients."""
+    global gradients. On a 'model' axis `specs` is the whole tree's
+    `param_pspecs` (the ones `params` was cut by): the norm sums the
+    shards' squares over the model line and counts the replicated leaves
+    once."""
     loss_and_grads = make_loss_and_grads(cfg, n_micro=n_micro, block=block,
                                          sparse_kernel=sparse_kernel,
                                          kernel_config=kernel_config,
                                          mesh=mesh, halo=halo)
+    sharded = frozenset()
+    if mesh is not None and model_size(mesh) > 1:
+        if specs is None:
+            raise ValueError("make_train_step on a 'model' mesh needs the "
+                             "parameters' specs (param_pspecs of the whole "
+                             "tree)")
+        sharded = frozenset(n for n, spec in specs.items()
+                            if sharded_dim(spec) is not None)
 
     def step_fn(params, opt_state, batch, step, tables=None):
         loss, grads = loss_and_grads(params, batch, tables)
-        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        grads, gnorm = clip_by_global_norm(
+            grads, 1.0, sharded, mesh.group("model") if sharded else None)
         lr_t = cosine_schedule(step, peak=lr, warmup_steps=200,
                                total_steps=total_steps)
         params, opt_state = adamw_update(params, grads, opt_state, lr=lr_t)

@@ -49,8 +49,21 @@ the frames and of the decoder tokens), the dense and sparse steps and the
 capture run on the shards (every rank ends the capture with the whole
 pooled map), and the rest is as above. Every family trains so: the
 recurrent ones (hybrid, ssm) carry their scan state across the shards,
-which must then hold whole chunks of the scan. A 'model' axis waits in
-ROADMAP.md item A12b.
+which must then hold whole chunks of the scan.
+
+A 'model' job passes `mesh=make_distributed_mesh(model=, data=)` (or
+`--model N` on the command line) for the encoder, dense, moe and vlm
+families: every rank starts from the same masters (process 0's, broadcast)
+and keeps its shard of each leaf (distributed/sharding.param_pspecs), its
+AdamW moments under the same spec; the steps run tensor, expert and
+vocabulary parallelism (launch/steps.py), the capture averages its heads
+over the model line, and the checkpoint stays mesh-agnostic: process 0's
+model line gathers every sharded leaf and its moments before process 0
+writes, and a restore cuts the whole leaves by the current mesh, so a
+checkpoint moves between one process and a 'model' job both ways. What
+raises (ROADMAP.md item A12b): the hybrid, ssm and encdec families on a
+'model' axis, 'seq' together with 'model', and head counts |model| does
+not divide.
 """
 from __future__ import annotations
 
@@ -74,8 +87,12 @@ from repro_torch.distributed import runtime
 from repro_torch.distributed.chaos import ChaosMonkey
 from repro_torch.distributed.fault import (DivergenceSentinel, Heartbeat,
                                            StepSupervisor, StragglerMonitor)
-from repro_torch.distributed.sharding import data_axes, mesh_context, seq_size
-from repro_torch.launch.mesh import MODEL_AXIS_REFUSAL, make_distributed_mesh
+from repro_torch.distributed.sharding import (check_model_layout, data_axes,
+                                              gather_params, local_slices,
+                                              mesh_context, model_size,
+                                              param_pspecs, seq_size,
+                                              shard_params)
+from repro_torch.launch.mesh import make_distributed_mesh
 from repro_torch.launch.steps import compute_params, make_train_step
 from repro_torch.models.layers import ParamTree, tree_map
 from repro_torch.models.registry import build
@@ -118,9 +135,7 @@ class Trainer:
         if mesh is None and runtime.process_count() > 1:
             mesh = make_distributed_mesh()
         if mesh is not None:
-            if mesh.shape.get("model", 1) > 1:
-                raise NotImplementedError(f"Trainer on {mesh}: "
-                                          f"{MODEL_AXIS_REFUSAL}")
+            check_model_layout(cfg, mesh)
             ndata = mesh.axis_size(data_axes(mesh))
             if batch % ndata:
                 raise ValueError(f"global batch {batch} does not split over "
@@ -199,14 +214,23 @@ class Trainer:
                 runtime.broadcast_tensors(list(self.params.parameters()),
                                           group=self.mesh.group(
                                               self.mesh.axis_names))
+        # on a 'model' axis: the specs of the whole leaves, and each rank
+        # keeps its shard of them (bitwise the one-process masters' slice)
+        self._specs = self._full = None
+        if self.mesh is not None and model_size(self.mesh) > 1:
+            self._specs = param_pspecs(self.params, self.mesh)
+            self._full = {n: (tuple(p.shape), p.dtype)
+                          for n, p in self.params.named_parameters()}
+            self.params = ParamTree(nest(shard_params(
+                self.params, self.mesh, self._specs)), trainable=True)
         self.opt = adamw_init(self.params)
         self._dense_step = make_train_step(cfg, spion=False, lr=lr,
                                            total_steps=total_steps,
-                                           mesh=self.mesh)
+                                           mesh=self.mesh, specs=self._specs)
         self._sparse_step = make_train_step(cfg, spion=True, lr=lr,
                                             total_steps=total_steps,
                                             sparse_kernel=sparse_kernel,
-                                            mesh=self.mesh)
+                                            mesh=self.mesh, specs=self._specs)
         self._exec = None            # the plan's exec, tables on the device
         self._exec_tables = None
         # maybe_resume is False without a checkpoint: then no retry
@@ -246,6 +270,41 @@ class Trainer:
                         "mu": nest(self.opt["mu"]),
                         "nu": nest(self.opt["nu"])}}
 
+    def _checkpoint_tree(self):
+        """The state tree a checkpoint holds: `_state_tree()`, with every
+        leaf that 'model' splits (and its moments) gathered over the model
+        line on process 0's line, the one whose tree is written."""
+        tree = self._state_tree()
+        if self._specs is None or 0 not in self.mesh.line("model"):
+            return tree
+
+        def whole(named):
+            return nest(gather_params(named, self._specs, self.mesh))
+        return {"params": whole(dict(self.params.named_parameters())),
+                "opt": {"count": self.opt["count"],
+                        "mu": whole(self.opt["mu"]),
+                        "nu": whole(self.opt["nu"])}}
+
+    def _restore_target(self):
+        """The restore's target: the live tree, or on a 'model' axis host
+        tensors of the whole leaves' shapes (the checkpoint is
+        mesh-agnostic)."""
+        if self._specs is None:
+            return self._state_tree()
+
+        def whole():
+            return nest({n: torch.empty(shape, dtype=dtype)
+                         for n, (shape, dtype) in self._full.items()})
+        return {"params": whole(),
+                "opt": {"count": self.opt["count"], "mu": whole(),
+                        "nu": whole()}}
+
+    def _local(self, name, x):
+        """A restored leaf -> this rank's shard of it on the device."""
+        if self._specs is not None:
+            x = x[local_slices(self.mesh, self._specs[name], x.shape)]
+        return x.to(self.device).contiguous()
+
     def save(self):
         if not self.ckpt:
             return
@@ -260,7 +319,7 @@ class Trainer:
             self.ckpt.pin(self.step)
         arrays = self.spion_state.table_arrays()
         self.ckpt.save(
-            self.step, self._state_tree(),
+            self.step, self._checkpoint_tree(),
             extra={"spion": self.spion_state.to_py(include_tables=False),
                    "step": self.step, "data_offset": self.data_offset},
             extra_arrays=None if arrays is None else
@@ -280,7 +339,7 @@ class Trainer:
         if not self.ckpt:
             return False
         tree, got, extra = self.ckpt.restore(step=step,
-                                             target=self._state_tree())
+                                             target=self._restore_target())
         if tree is None:
             return False
         # into the live tensors: the masters in place (the step's autograd
@@ -291,9 +350,9 @@ class Trainer:
                 tree["opt"]["nu"]
             for k in head:
                 node, mu, nu = node[k], mu[k], nu[k]
-            p.copy_(node[last])
-            self.opt["mu"][name] = mu[last]
-            self.opt["nu"][name] = nu[last]
+            p.copy_(self._local(name, node[last]))
+            self.opt["mu"][name] = self._local(name, mu[last])
+            self.opt["nu"][name] = self._local(name, nu[last])
         self.opt["count"] = tree["opt"]["count"]
         self.step = int(extra.get("step", got or 0))
         self.data_offset = int(extra.get("data_offset", 0))
@@ -547,13 +606,16 @@ def main(argv=None):
                          "--process-id this process joins a job")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--model", type=int, default=1,
+                    help="ranks of the mesh's 'model' axis (tensor, expert "
+                         "and vocabulary parallelism) in a joined job")
     args = ap.parse_args(argv)
     distributed = runtime.initialize(args.coordinator, args.num_processes,
                                      args.process_id)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    mesh = make_distributed_mesh() if distributed else None
+    mesh = make_distributed_mesh(model=args.model) if distributed else None
     tr = Trainer(cfg, seq_len=args.seq_len, batch=args.batch,
                  steps_per_epoch=args.steps_per_epoch, ckpt_dir=args.ckpt_dir,
                  mesh=mesh, sparse_kernel=args.sparse_kernel,

@@ -11,6 +11,11 @@ sequence's K/V (`distributed.sharding.gather_kv`), and the capture
 gathers K, reads the next shard's first rows for its last panel's filter
 (`next_shard_rows`) and gathers the pooled rows, so every rank ends with
 the whole map.
+
+Under a mesh with a 'model' axis each rank holds H/|model| query heads and
+KV/|model| KV heads (a contiguous split keeps query head h with KV head
+h // G): the projections are column-parallel, the output projection
+row-parallel, and the capture averages its heads over the model line.
 """
 from __future__ import annotations
 
@@ -21,10 +26,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import (active_mesh, gather_seq,
-                                              mean_over_data, seq_size,
-                                              seq_start, sum_over_seq)
-from repro_torch.models.layers import he_init, rope
+from repro_torch.distributed.sharding import (active_mesh, copy_to_model,
+                                              gather_seq, mean_over_data,
+                                              model_mean, model_split,
+                                              seq_size, seq_start,
+                                              sum_over_seq)
+from repro_torch.models.layers import he_init, rope, row_parallel
 
 
 def attn_init(gen, cfg, dtype, device, layers=None):
@@ -45,9 +52,12 @@ def attn_init(gen, cfg, dtype, device, layers=None):
 
 
 def qkv(cfg, p, x, positions):
-    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd), RoPE applied."""
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd), RoPE applied; on a
+    'model' axis this rank's H/|model| and KV/|model| heads."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
+    if model_split(cfg.num_heads):
+        x = copy_to_model(x)
     q = x @ p["wq"].to(x.dtype)
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
@@ -55,9 +65,9 @@ def qkv(cfg, p, x, positions):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, cfg.num_heads, hd)
-    k = k.reshape(B, S, cfg.num_kv_heads, hd)
-    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if cfg.rope_theta:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -118,7 +128,11 @@ def dense_attention(cfg, q, k, v, q_pos, k_pos):
 
 
 def attn_out(cfg, p, ctx):
+    """ctx (B,S,H,hd) @ wo; on a 'model' axis row-parallel over the rank's
+    heads."""
     B, S = ctx.shape[:2]
+    if model_split(cfg.num_heads):
+        return row_parallel(ctx.reshape(B, S, -1), p["wo"])
     return ctx.reshape(B, S, -1) @ p["wo"].to(ctx.dtype)
 
 
@@ -266,7 +280,8 @@ def capture_pooled_scores(cfg, q, k, q_pos, k_pos, filt, block: int):
     Under a data-parallel mesh each rank holds a shard of the batch: each
     panel of the averaged scores is averaged over the ranks (one all-reduce
     a panel), so every rank gets the whole batch's statistics, as the
-    reference's replicated capture does. Under a 'seq' axis q is this
+    reference's replicated capture does; on a 'model' axis the rank's
+    heads' average is averaged over the model line first. Under a 'seq' axis q is this
     rank's shard of the rows (global `q_pos`) and k its shard too, with
     `k_pos` the whole sequence's positions: K is gathered, the last panel
     reads the next shard's first rows, the pooled rows are gathered and
@@ -302,9 +317,10 @@ def capture_pooled_scores(cfg, q, k, q_pos, k_pos, filt, block: int):
         s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() / math.sqrt(hd)
         s = s + _mask_bias(cfg, qpos_[r0:r0 + rows], k_pos)
         a = torch.softmax(s, dim=-1).mean(dim=(0, 1, 2))        # (rows, L)
-        # data-parallel ranks: the average over the whole batch, before the
-        # square of the Frobenius term
-        a = mean_over_data(a)
+        # model ranks: the average over every head; data-parallel ranks:
+        # over the whole batch; both before the square of the Frobenius
+        # term
+        a = mean_over_data(model_mean(a))
         valid = (row0 + r0 + torch.arange(rows, device=q.device)) < Sq_all
         a = torch.where(valid[:, None], a, 0.0)
         frob = frob + (a[:panel] ** 2).sum()

@@ -3,6 +3,12 @@
 package's: linear weights are (d_in, d_out) and applied as `x @ W`, and
 per-layer tensors are stacked on a leading layer axis. Compute dtype follows
 the input; norm statistics and softmax run in fp32.
+
+On a mesh with a 'model' axis a leaf may be this rank's shard
+(distributed/sharding.py): where `model_split` of the config's full
+dimension says so, a layer runs column-parallel (`copy_to_model` on its
+input), row-parallel (`row_parallel`: partial products in the activation
+dtype, summed over the line in fp32) or vocab-parallel.
 """
 from __future__ import annotations
 
@@ -12,6 +18,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed.sharding import (copy_to_model, model_offset,
+                                              model_split, reduce_from_model)
 
 
 class ParamTree(nn.Module):
@@ -131,16 +140,38 @@ def linear(p, x):
     return y
 
 
-def embed(p, tokens, dtype):
+def row_parallel(x, w):
+    """x @ w where x's last dim and w's first are this rank's shard of the
+    contraction over the model line: the partial product a GEMM in x's
+    dtype (fp32 accumulation), summed over the line in fp32, cast to x's
+    dtype."""
+    return reduce_from_model(x @ w.to(x.dtype))
+
+
+def embed(p, tokens, dtype, vocab=None):
+    """Token embeddings. Where 'model' splits the `vocab` rows, the table
+    is this rank's shard of them: tokens outside it read zeros, and the
+    rows are summed over the model line (one rank holds each)."""
     # F.embedding, not p["w"][tokens]: the indexed read's backward on CUDA
     # walks each run of equal tokens serially, and ListOps puts most of a
     # batch on the PAD row; embedding's backward splits long runs
-    return F.embedding(tokens, p["w"]).to(dtype)
+    w = p["w"]
+    if vocab is None or not model_split(vocab):
+        return F.embedding(tokens, w).to(dtype)
+    local = tokens - model_offset(w.shape[0])
+    inside = (local >= 0) & (local < w.shape[0])
+    e = F.embedding(torch.where(inside, local, 0), w)
+    return reduce_from_model(torch.where(inside[..., None], e, 0), dtype)
 
 
-def unembed(p, x):
-    """Tied or standalone LM head: x (.., d) @ w.T (vocab, d)."""
-    return x @ p["w"].to(x.dtype).T
+def unembed(p, x, vocab=None):
+    """Tied or standalone LM head: x (.., d) @ w.T (vocab, d). Where 'model'
+    splits the `vocab` rows, this rank's shard of the logits
+    (vocab-parallel: the loss never gathers them)."""
+    w = p["w"]
+    if vocab is not None and model_split(vocab):
+        x = copy_to_model(x)
+    return x @ w.to(x.dtype).T
 
 
 # -- positions ---------------------------------------------------------------
@@ -181,7 +212,13 @@ def mlp_init(gen, cfg, dtype, device, layers=None, ff=None):
     return p
 
 
-def mlp(cfg, p, x):
+def mlp(cfg, p, x, ff=None):
+    """The MLP of hidden width `ff` (default cfg.d_ff); where 'model'
+    splits it, on this rank's d_ff shard: column-parallel w_in and w_gate,
+    row-parallel w_out."""
+    split = model_split(ff or cfg.d_ff)
+    if split:
+        x = copy_to_model(x)
     h = x @ p["w_in"].to(x.dtype)
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"].to(x.dtype)) * h
@@ -189,4 +226,6 @@ def mlp(cfg, p, x):
         h = F.relu(h)
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+    if split:
+        return row_parallel(h, p["w_out"])
     return h @ p["w_out"].to(x.dtype)

@@ -20,14 +20,26 @@ rows over the 'seq' line, routes the whole rows and keeps its shard of the
 output. The ranks of a 'seq' line thus do the MoE's work redundantly
 (ROADMAP.md item 12b.1); their aux losses are identical, and the step's
 mean over the ranks is the global batch's.
+
+On a 'model' axis the experts split over the line when |model| divides E,
+else d_ff splits within each expert (the reference's `_FALLBACKS`): the
+router and the routing are replicated, each rank runs its experts (or its
+d_ff slice of every expert) on its slice of the dispatch, and the partial
+outputs (in the activation dtype) are summed over the line in fp32. The
+aux losses are identical on every model rank. The gate values and the
+expert input enter the rank's region through `copy_to_model`, so the
+router and x get the whole gradient on every rank.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import (active_mesh, data_axes,
-                                              gather_seq, seq_size, seq_start)
+from repro_torch.distributed.sharding import (active_mesh, copy_to_model,
+                                              data_axes, gather_seq,
+                                              model_offset, model_split,
+                                              reduce_from_model, seq_size,
+                                              seq_start)
 from repro_torch.models.layers import he_init, mlp, mlp_init
 
 GROUP = 1024            # tokens per dispatch group
@@ -109,6 +121,15 @@ def moe_apply(cfg, p, x):
     # top-k routing with per-expert capacity via cumulative position
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1)          # (g, sg, k)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    w = p["experts"]
+    # 'model' splits the experts, else d_ff within each expert (the
+    # reference's _FALLBACKS), else neither
+    by_expert = model_split(E)
+    split = by_expert or model_split(cfg.d_ff)
+    if split:
+        # the gate values enter this rank's region (its experts' slice of
+        # the combine, or its d_ff slice of every expert's output)
+        gate_vals = copy_to_model(gate_vals)
 
     dispatch = torch.zeros((g, sg, E, C), dtype=x.dtype, device=x.device)
     combine = torch.zeros((g, sg, E, C), dtype=torch.float32,
@@ -129,13 +150,24 @@ def moe_apply(cfg, p, x):
         dispatch = dispatch + d_oh.to(x.dtype)
         combine = combine + d_oh * gate_vals[..., slot][..., None, None]
 
+    if split:
+        # this rank's experts (or all of them, each its d_ff slice), on the
+        # input that enters the rank's region; the output is partial
+        if by_expert:
+            E_loc = w["w_out"].shape[-3]
+            e0 = model_offset(E_loc)
+            dispatch = dispatch[:, :, e0:e0 + E_loc]
+            combine = combine[:, :, e0:e0 + E_loc]
+        xt = copy_to_model(xt)
     xe = torch.einsum("gsec,gsd->gecd", dispatch, xt)            # (g,E,C,d)
-    w = p["experts"]
     h = torch.einsum("gecd,edf->gecf", xe, w["w_in"].to(x.dtype))
     h = h * F.silu(torch.einsum("gecd,edf->gecf", xe,
                                 w["w_gate"].to(x.dtype)))
     ye = torch.einsum("gecf,efd->gecd", h, w["w_out"].to(x.dtype))
     y = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), ye)
+    if split:
+        # the rank's partial output, summed over the model line in fp32
+        y = reduce_from_model(y)
 
     # aux losses
     me = probs.mean(dim=1)                                       # (g,E)
@@ -148,5 +180,6 @@ def moe_apply(cfg, p, x):
         S_loc = x_loc.shape[1]
         y = y.narrow(1, seq_start(S_loc), S_loc)
     if "dense_residual" in p:
-        y = y + mlp(cfg, p["dense_residual"], x_loc)
+        y = y + mlp(cfg, p["dense_residual"], x_loc,
+                    ff=cfg.moe.dense_residual_ff)
     return y, {"lb_loss": lb_loss, "z_loss": z_loss}

@@ -9,7 +9,8 @@ build(cfg) -> ModelBundle with:
     loss_parts(params, batch, *, spion=None, capture=None) -> (nll_sum,
         count, extra, aux): the loss before its division, for a mean over
         ranks (loss = nll_sum / count + extra); on a vlm 'seq' shard the
-        nll of the text it holds (0 and 0 when it holds none)
+        nll of the text it holds (0 and 0 when it holds none); the same
+        three on every rank of a 'model' line (the vocab-parallel loss)
     init_cache(batch_size, max_len, *, device=None) -> cache
     decode_step(params, cache, tokens, pos, *, spion=None) -> (logits, cache)
     prefill_kv(params, batch, *, spion=None) -> (logits, ks, vs) — the fused
@@ -28,7 +29,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import active_mesh, seq_size
+from repro_torch.distributed.sharding import (active_mesh, model_max,
+                                              model_offset, model_split,
+                                              reduce_from_model, seq_size)
 from repro_torch.models import encdec, hybrid, rwkv, transformer
 
 MOE_LB_WEIGHT = 0.01
@@ -70,7 +73,28 @@ def nll_terms(logits, labels, mask=None):
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    return _summed(logz - gold, mask)
+
+
+def vocab_parallel_nll_terms(logits, labels, mask=None):
+    """`nll_terms` of logits of which this rank holds a shard of the
+    vocabulary (the model line's ranks in order): the max and the sum of
+    exp over the line, the target's logit from the rank that holds it, all
+    in fp32. The logits are never gathered; every rank of the line gets
+    the same terms."""
+    logits = logits.float()
+    V = logits.shape[-1]
+    m = model_max(logits.detach().amax(dim=-1))
+    sumexp = reduce_from_model(torch.exp(logits - m[..., None]).sum(dim=-1))
+    local = labels.long() - model_offset(V)
+    inside = (local >= 0) & (local < V)
+    gold = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])
+    gold = reduce_from_model(torch.where(inside, gold[..., 0], 0.0))
+    return _summed(torch.log(sumexp) + m - gold, mask)
+
+
+def _summed(nll, mask):
+    """(sum of the token nll over `mask`, the tokens it sums over)."""
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum(), mask.sum()
@@ -106,8 +130,11 @@ def build(cfg: ModelConfig) -> ModelBundle:
 
     def loss_parts(params, batch, *, spion=None, capture=None):
         logits, aux = forward(params, batch, spion=spion, capture=capture)
-        nll_sum, count = nll_terms(text_logits(logits, batch),
-                                   batch["labels"], batch.get("loss_mask"))
+        # a head split over 'model' gives this rank's vocabulary shard
+        terms = vocab_parallel_nll_terms if model_split(cfg.vocab_size) \
+            else nll_terms
+        nll_sum, count = terms(text_logits(logits, batch), batch["labels"],
+                               batch.get("loss_mask"))
         extra = 0.0
         if cfg.moe is not None and "lb_loss" in aux:
             extra = MOE_LB_WEIGHT * aux["lb_loss"] + \

@@ -18,6 +18,13 @@ K/V (distributed.sharding.gather_kv, models/attention.
 capture_pooled_scores), the sparse
 attention shards over 'seq' (kernels/sharded.py, or the gather path on
 CPU tensors) and the MoE routes whole rows (models/moe.moe_apply).
+
+Under a mesh with a 'model' axis each rank holds its shard of the leaves
+that distributed/sharding.param_pspecs splits: the layers run on local
+heads, d_ff and experts, the embedding and the head on the rank's slice of
+the vocabulary when |model| divides it (then `forward` returns this
+rank's shard of the logits, which registry.loss_parts takes as such), and
+the norms, learned positions and the vlm's patch embeddings enter whole.
 """
 from __future__ import annotations
 
@@ -124,7 +131,8 @@ def _embed_inputs(cfg, params, batch, dtype):
     """Embeddings, their global positions and the whole sequence's
     positions. Under a 'seq' axis the batch is this rank's shard, whose
     first row sits at `seq_start` (vlm: counting the patches)."""
-    h = Lyr.embed(params["tok_embed"], batch["tokens"], dtype)
+    h = Lyr.embed(params["tok_embed"], batch["tokens"], dtype,
+                  vocab=cfg.vocab_size)
     if cfg.num_patch_tokens and "patch_embeds" in batch:
         # vlm: the frontend's patch embeddings precede the text
         h = torch.cat([batch["patch_embeds"].to(dtype), h], dim=1)
@@ -176,7 +184,7 @@ def forward(params, cfg, batch, *, spion=None, capture=None,
         if capture is not None:
             caps.append(cap)
     h = Lyr.norm(cfg, params["final_norm"], h)
-    logits = Lyr.unembed(_head(params), h)
+    logits = Lyr.unembed(_head(params), h, vocab=cfg.vocab_size)
     if auxs:     # the MoE's, averaged over layers
         lb, z = (torch.stack(a).mean() for a in zip(*auxs))
     else:

@@ -130,7 +130,8 @@ def test_single_process_helpers_are_identities(monkeypatch):
             runtime.local_device(0)
 
 
-def test_mesh_of_ranks():
+def test_mesh_of_ranks(monkeypatch):
+    from repro_torch.distributed import runtime
     from repro_torch.launch.mesh import (Mesh, make_distributed_mesh,
                                          make_host_mesh, make_mesh,
                                          make_seq_mesh)
@@ -147,13 +148,22 @@ def test_mesh_of_ranks():
     assert make_distributed_mesh().shape == {"pod": 1, "data": 1, "model": 1}
     assert make_host_mesh().shape == {"data": 1, "model": 1}
     assert make_mesh((1, 1), ("seq", "data")).size == 1
-    for f in (lambda: make_seq_mesh(2, 1, model=2),
-              lambda: make_distributed_mesh(model=2),
-              lambda: make_mesh((1, 2), ("data", "model"))):
-        with pytest.raises(NotImplementedError, match="A12b"):
-            f()
+    # a 'model' axis builds (tensor parallelism, item 12b.2); 'seq' together
+    # with 'model' still raises (A12b)
+    assert make_mesh((1, 2), ("data", "model")).shape == {"data": 1,
+                                                          "model": 2}
+    with pytest.raises(NotImplementedError, match="A12b"):
+        make_seq_mesh(2, 1, model=2)
+    with pytest.raises(NotImplementedError, match="A12b"):
+        make_mesh((2, 1, 2), ("seq", "data", "model"))
     with pytest.raises(ValueError, match="divide"):
         make_distributed_mesh(seq=2)
+    # a job of 4 processes (the groups wait for a joined job)
+    monkeypatch.setattr(runtime, "process_count", lambda: 4)
+    assert make_distributed_mesh(model=2).shape == {"pod": 2, "data": 1,
+                                                    "model": 2}
+    m = make_distributed_mesh(model=2, data=2)
+    assert m.line("model", 2) == [2, 3] and m.line("data", 2) == [0, 2]
 
 
 def test_batch_shards_and_batcher():
