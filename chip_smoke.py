@@ -245,6 +245,37 @@ Phases (each one fails the run; nothing falls back to the CPU):
      norm of the rank's shards alone. Step ms, the model line's all-reduce
      ms, capture ms and peak memory per rank; the row-parallel partial
      product at qwen2-7b's w_out shard, bf16 against fp32 operands.
+     12g. the hybrid, ssm and encdec families over a 'model' axis: two
+     ranks (`--modelscan-worker DIR`) on a model line of 2. zamba2-1.2b at
+     full width with 12 of 38 layers (two applications of the shared
+     block, 16 q and 16 KV heads and 32 SSM heads a rank, in_proj by
+     segment and head, the vocab-parallel loss over 32,000), rwkv6-7b at
+     full width with 2 of 32 layers (32 heads and half of d_ff a rank,
+     vocab-parallel over 65,536) and whisper-tiny whole (1500 frames, 448
+     decoder tokens, 3 heads a rank, the vocabulary of 51,865 replicated),
+     fp32, 2 x 2048 tokens (whisper 4 x 448): a dense step and (zamba2,
+     whisper) a sparse step on a random causal plan through the three
+     kernels within TOL_SEQ_LOSS and TOL_SEQ_GRAD of one process on the
+     card (each rank runs it in turn and keeps its shard of the
+     gradients), the replicated leaves' gradients bitwise equal across the
+     line, the global norm within TOL_SEQ_LOSS of one process's, 2 + 2 +
+     2 (zamba2) and 8 + 4 + 4 (whisper) launches a sparse step a rank;
+     planted faults past a gate: in_proj cut contiguously, out_norm's and
+     ln_x's statistic of the rank's slice alone or summed in the forward
+     only, conv_w / A_log (and RWKV6's w0, u, ...) used without
+     copy_to_model. zamba2's bf16 Trainer through the transition on the
+     line (6 steps, saved at the end, then a seventh): captures within
+     TOL_CAPTURE of one process's on the gathered masters, one plan
+     digest, sparse steps on the kernels at the rank's shard, the
+     replicated masters equal; its checkpoint (every sharded leaf
+     gathered before process 0 writes) restored in this process, every
+     rank's shards of it bitwise the rank's own, its next loss within
+     TOL_RESUME of one process's on the line's gathered masters; the line
+     resumed from it within TOL_RESUME of its uninterrupted seventh step,
+     and a restore that cuts in_proj contiguously past it. The three
+     kernels against their plain versions and timed at both shard shapes
+     (zamba2 N 32, whisper N 12). Step ms, the model line's sums and the
+     B‖C gather ms, capture ms and peak memory per rank.
 The line before the last is the kernels' JSON record (launches_serve,
 launches_serve_shared, launches_mixtral, launches_zamba2,
 launches_whisper, launches_internvl2, launches_train, launches_resume,
@@ -254,7 +285,8 @@ launches_fleet (both ranks of 12c's generation 1), launches_seqtrain
 launches_seqscan (12e's two ranks: the fp32 sparse steps, the Trainer and
 whisper's bf16 steps) and launches_model (12f's four ranks' training
 and the legs' sound sparse steps; not the planted faults' steps nor the
-restored step in this process) count each
+restored step in this process) and launches_modelscan (12g's two ranks:
+the sound sparse steps and the Trainer's seven) count each
 kernel's launches in phases 4, 4a, 4b, 4c, 4e, 4f (their sparse forward
 and train step), 5, 9-11 and 12, each read from zero; `seq_parallel` holds phase
 12a's worst differences and per-rank times; the forward's mixtral_shape
@@ -262,8 +294,9 @@ holds its check
 and timing at phase 4b's shape and its qwen2_5_14b_shape,
 command_r_35b_shape and mistral_large_123b_shape at phase 4g's, and every
 kernel's zamba2_shape, whisper_shape and internvl2_shape its check and
-timing at phases 4c, 4e and 4f, and model_shard_shape at 12f's shard of
-the training shape; `tuned`
+timing at phases 4c, 4e and 4f, model_shard_shape at 12f's shard of
+the training shape, and modelscan_zamba2_shape and modelscan_whisper_shape
+at 12g's shard shapes; `tuned`
 holds each kernel's phase 8a winner and its time beside the default's at
 each shape); the last line is
 {"ok": true, "device": {...}}.
@@ -5152,10 +5185,11 @@ def scan_sparse_launches(cfg):
     return sparse_launches(cfg)
 
 
-def scan_config(name, dtype="float32"):
+def scan_config(name, dtype="float32", whisper_s=SCAN_WHISPER_S):
     """Phase 12e's configurations at full width: zamba2-1.2b at
     SCAN_ZAMBA_LAYERS layers, rwkv6-7b at SCAN_RWKV_LAYERS, whisper-tiny
-    whole; and the global batch each leg runs on (seeded)."""
+    whole (`whisper_s` decoder tokens); and the global batch each leg runs
+    on (seeded)."""
     import numpy as np
     from repro_torch.configs import get_config
     rng = np.random.default_rng(SEED + 22)
@@ -5179,7 +5213,7 @@ def scan_config(name, dtype="float32"):
               cfg.num_layers == 4 and cfg.spion.block_size == 64 and
               cfg.remat, "whisper-tiny config changed")
         cfg = cfg.replace(dtype=dtype)
-        B, S = SCAN_WHISPER_BATCH, SCAN_WHISPER_S
+        B, S = SCAN_WHISPER_BATCH, whisper_s
     toks = rng.integers(0, cfg.vocab_size, size=(B, S + 1)).astype(np.int64)
     gb = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     if cfg.family == "audio":
@@ -6344,14 +6378,614 @@ def phase_model_parallel(train):
                 peak_gb=[x["peak_gb"] for x in lra])
 
 
+# -- phase 12g: the 'model' axis for the scan families -----------------------
+
+MODELSCAN_RANKS = 2         # 12g: a model line of 2, both ranks on the card
+MODELSCAN_WHISPER_S = 448   # whisper's decoder tokens: 7 blocks of 64
+MODELSCAN_RESUME_AT = 6     # zamba2's Trainer saves here, then steps on
+# 12g's planted step faults, each on the dense step (a restore that cuts
+# in_proj contiguously is planted on the Trainer's checkpoint)
+MODELSCAN_FAULTS = {"zamba2": ("in_proj_contiguous", "norm_local",
+                               "norm_forward_only", "leaf_no_copy"),
+                    "rwkv6": ("norm_local", "norm_forward_only"),
+                    "whisper": ()}
+
+
+@contextlib.contextmanager
+def planted_modelscan_fault(kind):
+    """Phase 12g's planted faults, by replacing an entry point for the
+    duration; None plants nothing:
+      - in_proj_contiguous: Mamba2's packed in_proj cut as the reference's
+        contiguous shard and read as segments;
+      - norm_local: out_norm's and ln_x's statistic of the rank's slice
+        alone;
+      - norm_forward_only: that statistic summed over the line in the
+        forward only (each rank's gradient its own share);
+      - leaf_no_copy: conv_w, conv_b, A_log, D, dt_bias and the out_norm
+        scale (RWKV6's w0, w_lora_b, u, ln_x) used in part without
+        copy_to_model;
+      - restore_contiguous: the Trainer's restore cutting in_proj
+        contiguously."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train
+    from repro_torch.models import layers, mamba, rwkv
+    saved = []
+
+    def put(mod, name, fn):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+    if kind == "in_proj_contiguous":
+        put(sharding, "packed_segments", lambda name, cfg: None)
+    if kind == "norm_local":
+        put(layers, "model_line_sum", lambda x: x * sharding.model_size())
+    if kind == "norm_forward_only":
+        put(layers, "model_line_sum", sharding.reduce_from_model)
+    if kind == "leaf_no_copy":
+        for mod in (mamba, rwkv):
+            put(mod, "model_part", lambda leaf, idx: leaf[idx])
+    if kind == "restore_contiguous":
+        put(train, "local_index", lambda mesh, name, spec, shape, cfg=None,
+            rank=None: sharding.local_slices(mesh, spec, shape, rank))
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def modelscan_plan(cfg, S):
+    """12g's random causal plan of `cfg` over S positions: one block mask
+    per application of zamba2's shared block, per decoder layer of
+    whisper; (col_idx, nvalid) numpy, seeded."""
+    import numpy as np
+    from repro_torch.models.hybrid import n_attn_apps
+    block = cfg.spion.block_size
+    layers = n_attn_apps(cfg) if cfg.family == "hybrid" else cfg.num_layers
+    rng = np.random.default_rng(SEED + 24)
+    col, nvalid, _ = random_plan(rng, layers, S // block, block)
+    return col, nvalid
+
+
+def modelscan_leg(name, mesh, rank, secs, gsecs):
+    """12g's fp32 leg of one family on one rank of the model line `mesh`:
+    make_loss_and_grads dense and (zamba2, whisper) sparse on a random
+    causal plan, and each MODELSCAN_FAULTS fault on the dense step. Every
+    rank also runs the steps in one process on the global batch (one rank
+    at a time: the card is shared) and keeps its shard of those gradients
+    (`local_index`: in_proj by segment and head), so each leaf's worst
+    difference is read over the line without gathering the shards; the
+    replicated leaves' gradients are digested for the bitwise check across
+    the line. `secs`: model_line_timer's; `gsecs`: labelled_gather_timer's
+    (the B‖C gather is its "other")."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import local_batch
+    from repro_torch.distributed.sharding import (local_index, param_pspecs,
+                                                  shard_params, sharded_dim)
+    from repro_torch.launch.steps import make_loss_and_grads
+    from repro_torch.launch.train import masters_of, nest
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.models.registry import build
+    from repro_torch.optim import global_norm
+    cfg, gb = scan_config(name, whisper_s=MODELSCAN_WHISPER_S)
+    line = mesh.group("model")
+    S = gb["tokens"].shape[1]
+    tables = None
+    if cfg.spion.enabled:
+        col, nvalid = modelscan_plan(cfg, S)
+        tables = {"col_idx": torch.as_tensor(col, device=DEVICE),
+                  "nvalid": torch.as_tensor(nvalid, device=DEVICE),
+                  "block": cfg.spion.block_size}
+    kinds = ["dense"] + (["sparse"] if tables else [])
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
+    full = masters_of(build(cfg).init(gen, device=DEVICE))
+    specs = param_pspecs(full, mesh)
+    sharded = {n for n, spec in specs.items()
+               if sharded_dim(spec) is not None}
+    refs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(mesh.size):
+        if r == rank:
+            batch1 = {k: torch.as_tensor(v, device=DEVICE)
+                      for k, v in gb.items()}
+            one = make_loss_and_grads(cfg)
+            for kind in kinds:
+                loss1, g1 = one(full, batch1,
+                                tables if kind == "sparse" else None)
+                refs[kind] = {
+                    "loss": float(loss1), "norm": float(global_norm(g1)),
+                    "max": {n: g.abs().max().item() for n, g in g1.items()},
+                    "slices": {n: g[local_index(mesh, n, specs[n],
+                                                g.shape, cfg)].contiguous()
+                               for n, g in g1.items()}}
+                del loss1, g1
+            del batch1
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier(group=line)
+    batch = local_batch(mesh, gb, DEVICE)
+    runs = {}
+    # the planted faults first: they take the first steps' one-off costs
+    for kind, fault in [(f"{f}:dense", f) for f in MODELSCAN_FAULTS[name]] \
+            + [(k, None) for k in kinds]:
+        sparse = kind.split(":")[-1] == "sparse"
+        with planted_modelscan_fault(fault):
+            params = ParamTree(nest(shard_params(full, mesh, specs, cfg)),
+                               trainable=True)
+            f = make_loss_and_grads(cfg, mesh=mesh)
+            reset_launch_counts()
+            s0, g0 = secs[0], gsecs.get("other", 0.0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, grads = f(params, batch, tables if sparse else None)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+        ref = refs[kind.split(":")[-1]]
+        names = sorted(grads)
+        worst = torch.tensor([(grads[n] - ref["slices"][n]).abs().max()
+                              .item() for n in names], dtype=torch.float64)
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX, group=line)
+        rel = {n: float(w) / max(ref["max"][n], 1e-30)
+               for n, w in zip(names, worst)}
+        leaf = max(rel, key=rel.get)
+        runs[kind] = {"loss": float(loss), "ref_loss": ref["loss"],
+                      "loss_gap": loss_gap([float(loss)], [ref["loss"]]),
+                      "grad_rel": rel[leaf], "worst_leaf": leaf, "ms": ms,
+                      "sum_ms": 1e3 * (secs[0] - s0),
+                      "gather_ms": 1e3 * (gsecs.get("other", 0.0) - g0),
+                      "launches": launch_counts(),
+                      "replicated": grads_hash({n: g for n, g in
+                                                grads.items()
+                                                if n not in sharded})}
+        if fault is None:
+            runs[kind]["gnorm"] = float(global_norm(grads, sharded, line))
+            runs[kind]["gnorm_local"] = float(global_norm(grads))
+            runs[kind]["gnorm_ref"] = ref["norm"]
+        del params, loss, grads, f
+    out = {"runs": runs, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_want": scan_sparse_launches(cfg) if tables else None}
+    if cfg.family == "hybrid":
+        out["in_proj"] = [int(x) for x in
+                          full["layers"]["mamba"]["in_proj"].shape]
+    del full, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier(group=line)
+    return out
+
+
+def modelscan_config():
+    """12g's Trainer configuration: zamba2-1.2b as 12e's Trainer (bf16,
+    SCAN_ZAMBA_LAYERS layers), dense for two epochs at most."""
+    import dataclasses
+    cfg, _ = scan_config("zamba2", dtype="bfloat16")
+    return cfg.replace(spion=dataclasses.replace(
+        cfg.spion, min_dense_epochs=1, max_dense_epochs=2))
+
+
+def modelscan_trainer_of(cfg, **kw):
+    """A Trainer of 12g's configuration on SCAN_BATCH x SCAN_S."""
+    from repro_torch.launch.train import Trainer
+    return Trainer(cfg, seq_len=SCAN_S, batch=SCAN_BATCH,
+                   steps_per_epoch=SCAN_STEPS_PER_EPOCH,
+                   data_fn=lm_data_fn(cfg, SCAN_BATCH, SCAN_S),
+                   seed=SEED + 22, device=DEVICE, sentinel=False, **kw)
+
+
+def trainer_state(tr):
+    """{kind/name: tensor} of a Trainer's masters and AdamW moments."""
+    return {**{f"p/{n}": p for n, p in tr.params.named_parameters()},
+            **{f"mu/{n}": v for n, v in tr.opt["mu"].items()},
+            **{f"nu/{n}": v for n, v in tr.opt["nu"].items()}}
+
+
+def shard_digests(state, mesh=None, specs=None, cfg=None, rank=None):
+    """The digest of a `trainer_state`: as it is (this rank's shards), or
+    with `specs`, `rank`'s shards of its whole leaves (`local_index`)."""
+    from repro_torch.distributed.sharding import local_index
+    if specs is not None:
+        state = {k: x[local_index(mesh, k.split("/", 1)[1],
+                                  specs[k.split("/", 1)[1]], x.shape, cfg,
+                                  rank)]
+                 for k, x in state.items()}
+    return grads_hash({k: x.detach() for k, x in state.items()})
+
+
+def modelscan_trainer(mesh, d, rank, secs):
+    """12g's zamba2 Trainer on one rank of the model line `mesh`: bf16,
+    SCAN_ZAMBA_LAYERS layers, SCAN_BATCH x SCAN_S through
+    MODELSCAN_RESUME_AT steps (dense steps, the capture at each epoch
+    boundary, the flood fill on process 0 and its broadcast, sparse steps
+    on the trained plan at the rank's KV-head shard), saved at the end
+    under DIR/ckpt (every sharded leaf gathered before process 0 writes).
+    Each capture is timed and, on rank 0, held against one process's
+    capture on the gathered masters. Then the digest of the rank's shards
+    of the masters and moments (what the checkpoint must give back), and
+    on rank 0 the next step's loss in one process on the gathered
+    masters; then the next step on the line, uninterrupted, and again
+    after restoring the checkpoint, soundly and with the restore cutting
+    in_proj contiguously."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.distributed.sharding import (gather_params,
+                                                  mesh_context)
+    from repro_torch.launch.steps import compute_params
+    from repro_torch.launch.train import nest
+    cfg = modelscan_config()
+    clock = [("start", time.perf_counter())]
+    tr = modelscan_trainer_of(cfg, mesh=mesh,
+                              ckpt_dir=os.path.join(d, "ckpt"))
+    clock.append(("trainer", time.perf_counter()))
+    check(tr.mesh is mesh and tr._specs is not None,
+          f"rank {rank}: the trainer's mesh is {tr.mesh}")
+    steps, undo = record_steps(tr)
+    caps = []
+    inner_capture = tr.capture
+
+    def masters():
+        return gather_params(dict(tr.params.named_parameters()), tr._specs,
+                             mesh, cfg)
+
+    def capture(batch):
+        s0 = secs[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_capture(batch)
+        torch.cuda.synchronize()
+        rec = {"ms": 1e3 * (time.perf_counter() - t),
+               "sum_ms": 1e3 * (secs[0] - s0),
+               "digest": grads_hash({"p": out[0]})}
+        full = masters()
+        if rank == 0:
+            with torch.no_grad(), mesh_context(None):
+                pc = compute_params(nest(full), getattr(torch, cfg.dtype))
+                want = tr.bundle.forward(
+                    pc, batch, capture=tr.spion_ctl.capture_kwargs(
+                        tr.spion_state))[1]["captured"][0].float()
+            rec["gap"] = float((out[0].float() - want).abs().max() /
+                               want.abs().max())
+            del pc, want
+        del full
+        caps.append(rec)
+        return out
+    tr.capture = capture
+    torch.cuda.reset_peak_memory_stats()
+    tr.train(MODELSCAN_RESUME_AT, ckpt_every=0, log_every=10**9,
+             log=lambda m: None)
+    clock.append(("steps, captures and the save", time.perf_counter()))
+    st = tr.spion_state
+    check(st.phase == "sparse", f"rank {rank}: zamba2's 'model' Trainer "
+          f"never went sparse")
+    # what the checkpoint holds: this rank's shards, and on rank 0 the
+    # next step's loss in one process on the gathered masters
+    out = {"shards": shard_digests(trainer_state(tr))}
+    full = masters()
+    if rank == 0:
+        with torch.no_grad(), mesh_context(None):
+            b = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+                 tr.data_fn(MODELSCAN_RESUME_AT).items()}
+            pc = compute_params(nest(full), getattr(torch, cfg.dtype))
+            out["one_next"] = float(tr.bundle.loss(
+                pc, b, spion=tr._attention_exec())[0])
+        del pc, b
+    del full
+    clock.append(("digests and one process's next loss", time.perf_counter()))
+    # the next step on the line (recorded with the others), then twice
+    # more from the checkpoint: soundly, and with in_proj cut contiguously
+    out["next"] = float(tr._fetch_and_step()[1]["loss"])
+    undo()
+    clock.append(("the next step", time.perf_counter()))
+    for kind in ("resumed", "restore_contiguous"):
+        with planted_modelscan_fault(None if kind == "resumed" else kind):
+            check(tr._restore_latest(step=MODELSCAN_RESUME_AT),
+                  f"rank {rank}: the line did not restore its checkpoint")
+        clock.append((f"{kind}: restore", time.perf_counter()))
+        out[kind] = float(tr._fetch_and_step()[1]["loss"])
+        clock.append((f"{kind}: step", time.perf_counter()))
+    out.update({"losses": [r["loss"] for r in steps],
+                "phases": [r["phase"] for r in steps],
+                "launches": [r["launches"] for r in steps],
+                "step_ms": [1e3 * r["s"] for r in steps],
+                "captures": caps, "digest": plan_digest_of(st),
+                "replicated": leaves_digest(tr, replicated=True),
+                "in_proj": list(tr.params["layers"]["mamba"]["in_proj"]
+                                .shape),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches_want": scan_sparse_launches(cfg),
+                "clock": {k: t - clock[i][1]
+                          for i, (k, t) in enumerate(clock[1:])}})
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(out["losses"])), "zamba2's 'model' losses not "
+          "finite")
+    return out
+
+
+def modelscan_worker(d, stages):
+    """A rank of phase 12g (`--modelscan-worker DIR`, the SPION_*
+    environment of a job of MODELSCAN_RANKS): on a model line of
+    MODELSCAN_RANKS, zamba2's fp32 steps, its bf16 Trainer, rwkv6's and
+    whisper's fp32 steps; writes DIR/modelscan_<rank>.json."""
+    import gc
+    import torch
+    from repro_torch.distributed import runtime
+    from repro_torch.kernels.block_sparse_attn import load_library
+    from repro_torch.launch.mesh import make_distributed_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(runtime.initialize(), "the 12g worker did not join its job")
+    stages["joined"] = time.time()
+    rank = runtime.process_index()
+    torch.zeros(1, device=DEVICE)
+    torch.cuda.synchronize()
+    stages["cuda"] = time.time()
+    load_library()
+    stages["library"] = time.time()
+    mesh = make_distributed_mesh(model=MODELSCAN_RANKS)
+    check(mesh.shape == {"pod": 1, "data": 1, "model": MODELSCAN_RANKS},
+          f"12g mesh {mesh}")
+    out = {"rank": rank, "coords": mesh.coords()}
+    secs, gsecs = model_line_timer(), labelled_gather_timer()
+    for name in ("zamba2", "trainer", "rwkv6", "whisper"):
+        if name == "trainer":
+            out[name] = modelscan_trainer(mesh, d, rank, secs)
+        else:
+            out[name] = modelscan_leg(name, mesh, rank, secs, gsecs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        stages[name] = time.time()
+    runtime.barrier("12g done")
+    out["stages"] = stages
+    with open(os.path.join(d, f"modelscan_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    runtime.shutdown(0)   # ends the process
+    return 0
+
+
+def phase_model_scan():
+    """12g: the hybrid, ssm and encdec families over a 'model' axis,
+    MODELSCAN_RANKS ranks of this script on the card
+    (`--modelscan-worker DIR`, a model line). zamba2-1.2b
+    (SCAN_ZAMBA_LAYERS layers), rwkv6-7b (SCAN_RWKV_LAYERS layers) and
+    whisper-tiny (MODELSCAN_WHISPER_S decoder tokens) at full width, fp32:
+    dense and (zamba2, whisper) sparse steps on a random causal plan within
+    TOL_SEQ_LOSS and TOL_SEQ_GRAD of one process on the card, the
+    replicated leaves' gradients bitwise equal across the line, the global
+    norm within TOL_SEQ_LOSS of one process's, the sparse steps'
+    launches scan_sparse_launches'; each planted fault of MODELSCAN_FAULTS
+    past a gate. zamba2's bf16 Trainer through the transition: captures
+    within TOL_CAPTURE of one process's on the gathered masters, one plan
+    digest, sparse steps at scan_sparse_launches on every rank, the
+    replicated masters equal; its checkpoint at MODELSCAN_RESUME_AT
+    restored in this process: every rank's shards of it bitwise the
+    rank's own, its next loss within TOL_RESUME of one process's on the
+    line's gathered masters; the line's own resume within TOL_RESUME of
+    its uninterrupted next step, and a restore that cuts in_proj
+    contiguously past it. The three kernels against their plain versions
+    and timed at both shard shapes."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import param_pspecs
+    from repro_torch.launch.mesh import Mesh
+    d = os.path.join(DP_DIR, "modelscan")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0, t_spawn = time.perf_counter(), time.time()
+    wait_ranks(spawn_ranks(["--modelscan-worker", d], MODELSCAN_RANKS),
+               "the 12g ranks")
+    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(MODELSCAN_RANKS):
+        with open(os.path.join(d, f"modelscan_{r}.json")) as f:
+            recs.append(json.load(f))
+    card = card_line()
+    launches = {k: 0 for k in KERNELS}
+    faults, gaps = {}, {}
+    for name in ("zamba2", "rwkv6", "whisper"):
+        legs = [rec[name] for rec in recs]
+        r0 = legs[0]["runs"]
+        for r, leg in enumerate(legs):
+            for kind, run in leg["runs"].items():
+                want = leg["launches_want"] if kind == "sparse" else \
+                    {k: 0 for k in KERNELS}
+                check(run["launches"] == want, f"12g {name}: rank {r}'s "
+                      f"{kind} step launched {run['launches']}, not {want}")
+                if ":" in kind:
+                    continue
+                check(run["replicated"] == r0[kind]["replicated"],
+                      f"12g {name} {kind}: rank {r}'s replicated leaves' "
+                      f"gradients differ from rank 0's")
+                check(run["loss_gap"] <= TOL_SEQ_LOSS and
+                      run["grad_rel"] <= TOL_SEQ_GRAD,
+                      f"12g {name}'s {kind} step on rank {r} misses one "
+                      f"process's: "
+                      f"{ {k: v for k, v in run.items() if k != 'launches'} }")
+                check(abs(run["gnorm"] - run["gnorm_ref"]) <=
+                      TOL_SEQ_LOSS * run["gnorm_ref"],
+                      f"12g {name}'s {kind} global norm {run['gnorm']} vs "
+                      f"one process {run['gnorm_ref']}")
+            if "sparse" in leg["runs"]:
+                for k in KERNELS:
+                    launches[k] += leg["runs"]["sparse"]["launches"][k]
+        for kind, run in r0.items():
+            if ":" in kind:
+                apart = legs[1]["runs"][kind]["replicated"] != \
+                    run["replicated"]
+                faults[f"{name} {kind.split(':')[0]}"] = dict(run,
+                                                              apart=apart)
+            else:
+                gaps[f"{name} {kind}"] = (run["loss_gap"], run["grad_rel"])
+        log(f"model-scan {name}: {MODELSCAN_RANKS} ranks on 'model', fp32"
+            + (f", in_proj {legs[0]['in_proj']} (a rank's columns: the "
+               f"r-th half of z, x, B‖C and dt)" if "in_proj" in legs[0]
+               else "") + "; "
+            + "; ".join(
+                f"{kind} loss {run['loss']:.6f} vs one process "
+                f"{run['ref_loss']:.6f} (rel {run['loss_gap']:.3e}), worst "
+                f"gradient leaf {run['worst_leaf']} {run['grad_rel']:.3e} of "
+                f"its largest, global norm {run['gnorm']:.6f} vs "
+                f"{run['gnorm_ref']:.6f} (the rank's shards alone "
+                f"{run['gnorm_local']:.6f})"
+                for kind, run in r0.items() if ":" not in kind)
+            + f" (gates {TOL_SEQ_LOSS}, {TOL_SEQ_GRAD}); replicated "
+            f"leaves' gradients bitwise equal across the line")
+        for r, leg in enumerate(legs):
+            log(f"model-scan {name} rank {r}: "
+                + "; ".join(f"{kind} {run['ms']:.1f} ms (model-line sums "
+                            f"{run['sum_ms']:.1f} ms, B‖C gather "
+                            f"{run['gather_ms']:.1f} ms)"
+                            for kind, run in leg["runs"].items()
+                            if ":" not in kind)
+                + f"; sparse launches "
+                f"{leg['runs'].get('sparse', {}).get('launches')}; peak "
+                f"{leg['peak_gb']:.2f} GB ({card})")
+    for what, run in faults.items():
+        missed = run["loss_gap"] > TOL_SEQ_LOSS or \
+            run["grad_rel"] > TOL_SEQ_GRAD or run["apart"]
+        log(f"model-scan planted {what}: loss rel {run['loss_gap']:.3e}, "
+            f"worst gradient leaf {run['worst_leaf']} {run['grad_rel']:.3e}"
+            f"{', replicated leaves apart' if run['apart'] else ''} -> "
+            f"{'misses' if missed else 'PASSES'} the gate")
+        check(missed, f"12g: the planted {what} passes the gates: {run}")
+    # zamba2's Trainer on the line
+    trs = [rec["trainer"] for rec in recs]
+    t0_ = trs[0]
+    check(all(x["losses"] == t0_["losses"] for x in trs),
+          "12g: the Trainer ranks' losses differ")
+    check(len({x["digest"] for x in trs}) == 1,
+          f"12g: the ranks' plan digests differ: "
+          f"{[x['digest'] for x in trs]}")
+    check(len({x["replicated"] for x in trs}) == 1,
+          "12g: the ranks' replicated masters differ after the Trainer")
+    for r, x in enumerate(trs):
+        check([c["digest"] for c in x["captures"]] ==
+              [c["digest"] for c in t0_["captures"]],
+              f"12g: rank {r}'s captures differ from rank 0's")
+        for ph, ln in zip(x["phases"], x["launches"]):
+            check(ln == x["launches_want"] if ph == "sparse"
+                  else not any(ln.values()),
+                  f"12g: rank {r}'s {ph} Trainer step launched {ln}")
+            for k in KERNELS:
+                launches[k] += ln[k]
+    check(t0_["phases"][-1] == "sparse", f"12g: the Trainer's step "
+          f"{MODELSCAN_RESUME_AT + 1} is not sparse")
+    cap_gap = max((c["gap"] for c in t0_["captures"]), default=math.inf)
+    check(cap_gap <= TOL_CAPTURE,
+          f"12g: zamba2's captures on the line miss one process's: "
+          f"{cap_gap}; gate {TOL_CAPTURE}")
+    line_resume = loss_gap([t0_["resumed"]], [t0_["next"]])
+    planted_resume = loss_gap([t0_["restore_contiguous"]], [t0_["next"]])
+    # the line's checkpoint in this process: each rank's shards of the
+    # restored state bitwise the rank's own, and the next loss against one
+    # process's on the line's gathered masters
+    cfg = modelscan_config()
+    t_one = time.perf_counter()
+    one = modelscan_trainer_of(cfg, ckpt_dir=os.path.join(d, "ckpt"))
+    check(one._restore_latest(step=MODELSCAN_RESUME_AT) and
+          one.step == MODELSCAN_RESUME_AT,
+          "12g: the line's checkpoint did not restore in one process")
+    check(plan_digest_of(one.spion_state) == t0_["digest"],
+          "12g: the restored plan differs from the line's")
+    line = Mesh(np.arange(MODELSCAN_RANKS).reshape(1, 1, MODELSCAN_RANKS),
+                ("pod", "data", "model"))
+    specs = param_pspecs(one.params, line)
+    restored = trainer_state(one)
+    for r, x in enumerate(trs):
+        check(shard_digests(restored, line, specs, cfg, rank=r) ==
+              x["shards"], f"12g: rank {r}'s shards of the state restored "
+              f"in one process differ from the rank's own")
+    del restored
+    reset_launch_counts()
+    next_loss = float(one._fetch_and_step()[1]["loss"])
+    resume_launches = launch_counts()
+    del one
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t_one
+    one_resume = loss_gap([next_loss], [t0_["one_next"]])
+    # beside the line's: bf16 partial products round before the line's sums
+    line_vs_one = loss_gap([next_loss], [t0_["next"]])
+    log(f"model-scan zamba2 Trainer: bf16, {SCAN_ZAMBA_LAYERS} layers, "
+        f"{SCAN_BATCH} x {SCAN_S} on a model line of {MODELSCAN_RANKS} "
+        f"(in_proj {t0_['in_proj']} a rank), {len(t0_['phases'])} steps "
+        f"({t0_['phases'].count('dense')} dense, then sparse at "
+        f"{t0_['launches_want']} a step a rank); captures vs one process on "
+        f"the gathered masters "
+        f"{', '.join('%.3e' % c['gap'] for c in t0_['captures'])} of the "
+        f"map's largest (gate {TOL_CAPTURE}); one plan digest "
+        f"({t0_['digest']}); replicated masters equal; the step-"
+        f"{MODELSCAN_RESUME_AT} checkpoint restored in one process: every "
+        f"rank's shards of it bitwise the rank's own, its next loss "
+        f"{next_loss:.6f} vs one process's on the line's masters "
+        f"{t0_['one_next']:.6f} (rel {one_resume:.3e}; gate {TOL_RESUME}; "
+        f"launches {resume_launches}) and vs the line's {t0_['next']:.6f} "
+        f"(rel {line_vs_one:.3e}: bf16 partial products round before the "
+        f"line's sums); the line resumed from it {line_resume:.3e} from "
+        f"its uninterrupted step (gate {TOL_RESUME}), a restore cutting "
+        f"in_proj contiguously {planted_resume:.3e}")
+    for r, x in enumerate(trs):
+        def med(ph):
+            xs = [ms for ms, p in zip(x["step_ms"][1:], x["phases"][1:])
+                  if p == ph]
+            return sorted(xs)[len(xs) // 2] if xs else float("nan")
+        log(f"model-scan zamba2 Trainer rank {r}: step median dense "
+            f"{med('dense'):.1f} ms, sparse {med('sparse'):.1f} ms; captures "
+            f"{', '.join('%.1f' % c['ms'] for c in x['captures'])} ms (their "
+            f"model-line sums "
+            f"{', '.join('%.1f' % c['sum_ms'] for c in x['captures'])} ms); "
+            f"peak {x['peak_gb']:.2f} GB; wall clock, s: {fmt_split(x['clock'])}"
+            f" ({card})")
+    check(line_resume <= TOL_RESUME < planted_resume,
+          f"12g: the line resumed {line_resume}, a restore cutting in_proj "
+          f"contiguously {planted_resume}; gate {TOL_RESUME}")
+    check(one_resume <= TOL_RESUME, f"12g: the checkpoint's next loss in "
+          f"one process differs from one process's on the line's masters by "
+          f"{one_resume}; gate {TOL_RESUME}")
+    check(resume_launches == t0_["launches_want"],
+          f"12g: the resumed step launched {resume_launches}")
+    # the kernels at both shard shapes
+    t_kernels = time.perf_counter()
+    kernels = {}
+    for name, arch in (("zamba2", "zamba2-1.2b"), ("whisper", "whisper-tiny")):
+        c = get_config(arch)
+        S = SCAN_S if name == "zamba2" else MODELSCAN_WHISPER_S
+        batch = SCAN_BATCH if name == "zamba2" else SCAN_WHISPER_BATCH
+        col, nvalid = modelscan_plan(c, S)
+        shape = dict(N=batch * c.num_kv_heads // MODELSCAN_RANKS,
+                     G=c.num_heads // c.num_kv_heads, S=S,
+                     hd=c.resolved_head_dim, block=c.spion.block_size)
+        kernels[name] = path_kernels(f"modelscan-{name}", shape,
+                                     (col[0], nvalid[0]),
+                                     "12g's random layer-0", SEED + 25)
+    clock = stage_split(t_spawn, recs[0]["stages"], (
+        ("zamba2", "zamba2 fp32 steps"), ("trainer", "zamba2 Trainer"),
+        ("rwkv6", "rwkv6 fp32 steps"), ("whisper", "whisper steps")),
+        start=START_STAGES[:5])
+    clock["exit"] = wall - sum(clock.values())
+    t_kernels = time.perf_counter() - t_kernels
+    log(f"model-scan wall clock, rank 0, s: {fmt_split(clock)}; phase 12g "
+        f"{wall:.1f} s, then in this process the restore and its step "
+        f"{t_one:.1f} s, the kernels at both shard shapes {t_kernels:.1f} s")
+    return dict(seconds=wall + t_one + t_kernels, launches=launches,
+                cap_gap=cap_gap, gaps=gaps,
+                faults={k: (v["loss_gap"], v["grad_rel"])
+                                   for k, v in faults.items()},
+                line_resume=line_resume, one_resume=one_resume,
+                planted_resume=planted_resume, kernels=kernels)
+
+
 def sum_launches(per_step):
     """The kernels' launches summed over a run's steps."""
     return {k: sum(ln[k] for ln in per_step) for k in KERNELS}
 
 
 def phase_multiprocess(train):
-    """Phase 12: 12a, 12b, 12c, 12d, 12e and 12f, after the parent frees
-    its cached memory for the ranks."""
+    """Phase 12: 12a, 12b, 12c, 12d, 12e, 12f and 12g, after the parent
+    frees its cached memory for the ranks."""
     import gc
     import shutil
     import torch
@@ -6368,8 +7002,11 @@ def phase_multiprocess(train):
     gc.collect()
     torch.cuda.empty_cache()
     model = phase_model_parallel(train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    modelscan = phase_model_scan()
     return dict(seq=seq, dp=dp, fleet=fleet, seqtrain=seqtrain,
-                seqscan=seqscan, model=model)
+                seqscan=seqscan, model=model, modelscan=modelscan)
 
 
 def main(argv):
@@ -6404,6 +7041,9 @@ def main(argv):
                         "rank of phase 12f (tensor, expert and vocabulary "
                         "parallelism over a 'model' axis); records go to "
                         "DIR")
+    parser.add_argument("--modelscan-worker", metavar="DIR", help="run as "
+                        "a rank of phase 12g (the hybrid, ssm and encdec "
+                        "families over a 'model' axis); records go to DIR")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -6427,6 +7067,9 @@ def main(argv):
     if args.model_worker:
         return model_worker(args.model_worker,
                             {"main": t_main, "torch": t_torch})
+    if args.modelscan_worker:
+        return modelscan_worker(args.modelscan_worker,
+                                {"main": t_main, "torch": t_torch})
     import shutil
     import numpy as np
     # every exec of this run (and of the respawn phase's worker, which
@@ -6508,12 +7151,13 @@ def main(argv):
     multi = phase_multiprocess(train)
     dp, fleet, seqtrain = multi["dp"], multi["fleet"], multi["seqtrain"]
     seqscan, model = multi["seqscan"], multi["model"]
+    modelscan = multi["modelscan"]
 
     fwd = {"launches": serve["launches"] + shared["launches"]
            + mixtral["launches"]
            + sum(run["launches"]["block_sparse_fwd"]
                  for run in (zamba, whisper, internvl, train, dp, seqtrain,
-                             seqscan, model)),
+                             seqscan, model, modelscan)),
            "launches_serve": serve["launches"],
            "launches_serve_shared": shared["launches"],
            "launches_mixtral": mixtral["launches"],
@@ -6535,7 +7179,7 @@ def main(argv):
         t = train_timing[name]
         rows[name] = {"launches": sum(run["launches"][name] for run in
                                       (train, zamba, whisper, internvl, dp,
-                                       seqtrain, seqscan, model)),
+                                       seqtrain, seqscan, model, modelscan)),
                       "launches_zamba2": zamba["launches"][name],
                       "launches_whisper": whisper["launches"][name],
                       "launches_internvl2": internvl["launches"][name],
@@ -6553,9 +7197,13 @@ def main(argv):
         for path, run in (("resume", resume), ("rollback", rollback),
                           ("respawn", respawn), ("dp", dp),
                           ("fleet", fleet), ("seqtrain", seqtrain),
-                          ("seqscan", seqscan), ("model", model)):
+                          ("seqscan", seqscan), ("model", model),
+                          ("modelscan", modelscan)):
             row[f"launches_{path}"] = run["launches"][name]
         row["model_shard_shape"] = model["kernels"][name]
+        row["modelscan_zamba2_shape"] = modelscan["kernels"]["zamba2"][name]
+        row["modelscan_whisper_shape"] = \
+            modelscan["kernels"]["whisper"][name]
         row["seq_parallel"] = multi["seq"]["runs"]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -6640,6 +7288,18 @@ def main(argv):
         + "; ".join(f"{name} rel loss gap {r['loss_gap']:.3e}, worst "
                     f"gradient leaf {r['grad_rel']:.3e}"
                     for name, r in model["legs"].items()) + f" ({card})")
+    log(f"the scan families over 'model' (phase 12g, "
+        f"{modelscan['seconds']:.1f} s): fp32 rel loss gap and worst "
+        f"gradient leaf to one process "
+        + "; ".join(f"{k} {a:.3e} / {b:.3e}"
+                    for k, (a, b) in modelscan["gaps"].items())
+        + "; planted faults " + ", ".join(
+            f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in
+            modelscan["faults"].items())
+        + f"; zamba2's Trainer captures {modelscan['cap_gap']:.3e}, resumed "
+        f"on the line {modelscan['line_resume']:.3e}, in one process "
+        f"{modelscan['one_resume']:.3e}, in_proj restored contiguously "
+        f"{modelscan['planted_resume']:.3e} ({card})")
     log(f"recovery: supervisor {respawn['wall']:.2f} s in all; a sparse step "
         f"run twice is {'' if resume['bitwise'] else 'NOT '}bitwise "
         f"reproducible; max rel gap to the uninterrupted run's losses (gate "

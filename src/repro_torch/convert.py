@@ -6,8 +6,9 @@ ParamTree: the same keys, shapes and dtypes, identity per leaf. numpy has no
 bfloat16 of its own; JAX's bf16 leaves come out as `ml_dtypes.bfloat16`,
 which `torch.from_numpy` refuses, so they cross as their uint16 bit pattern.
 With `mesh=` (a mesh with a 'model' axis) each leaf is cut to this rank's
-shard first (distributed/sharding.param_pspecs and local_slices), so no
-rank holds more than its shard on its device.
+shard first (distributed/sharding.param_pspecs and local_index: Mamba2's
+packed in_proj by segment and head), so no rank holds more than its shard
+on its device.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.distributed.sharding import (best_spec, check_model_layout,
-                                              local_slices, model_size)
+                                              local_index, model_size)
 from repro_torch.models.layers import ParamTree
 
 
@@ -44,6 +45,6 @@ def params_from_numpy(tree, cfg, device=None, mesh=None) -> ParamTree:
         a = np.asarray(node)
         if split:
             spec = best_spec(mesh, "/".join(path), a)
-            a = a[local_slices(mesh, spec, a.shape)]
+            a = a[local_index(mesh, ".".join(path), spec, a.shape, cfg)]
         return tensor_from_numpy(a, dev)
     return ParamTree(conv(tree))

@@ -35,15 +35,43 @@ compiler inserts (Megatron-style). The layout contract:
     states the ZeRO-1 specs for the dry run; no trainer path runs them.
     `shard_params` and `gather_params` go between the whole tree and the
     rank's shard.
-  - **Whole heads only.** The port runs a rule only where its shard falls
-    on whole heads: H % |model| == 0 and KV % |model| == 0, else
-    `check_model_layout` raises ValueError (ROADMAP.md item A12b), where
-    GSPMD would split mid-head (`sanitize_spec` allows it) or keep KV
-    replicated (`kernel_shard_axes`). Where `sanitize_spec` drops a rule
-    because the dimension does not divide, the leaf is replicated, as in
-    the reference (internvl2-2b's vocabulary of 92,553 keeps `tok_embed`
-    and `lm_head` whole). The scan families (hybrid, ssm), encdec and
-    'seq' together with 'model' raise NotImplementedError (A12b).
+  - **Whole heads only.** The port runs a layer split only where its
+    shards fall on whole heads, so `check_model_layout` asks |model| to
+    divide every width a family's layers split (`model_widths`): the
+    attention heads and KV heads of every family with attention, the
+    hybrid family's SSM heads, inner width and B and C columns (2N), the
+    ssm family's heads and d_ff, the encdec family's d_ff. Else ValueError
+    (ROADMAP.md item A12b, the fallbacks waiting in 12b.2c), where GSPMD
+    would split mid-head (`sanitize_spec` allows it) or keep KV replicated
+    (`kernel_shard_axes`): a layer never falls back to replicated work.
+    Where `sanitize_spec` drops a rule because the dimension does not
+    divide, the leaf is replicated, as in the reference (internvl2-2b's
+    vocabulary of 92,553 keeps `tok_embed` and `lm_head` whole, whisper's
+    51,865 its tied `tok_embed`). 'seq' together with 'model' raises
+    NotImplementedError (A12b, 12b.2c).
+  - **Packed leaves.** Mamba2's `in_proj` packs z (inner), x (inner), B
+    and C (N each) and dt (H) in its columns. The rule splits the columns
+    over 'model' as the reference's does, with the reference's shard
+    shape, but a contiguous cut would not fall on heads (zamba2 on
+    |model| 2: rank 0 would hold all of z), so rank r holds the r-th
+    |model|-th of each segment, in order: [z heads r | x heads r | the
+    r-th part of B‖C | dt heads r] (`packed_segments`). That is a fixed
+    permutation of the reference's shard (a departure of layout, not of
+    arithmetic): still a partition, so the moments, the global norm and
+    the specs need no special case. `local_index` gives a leaf's shard
+    index (a slice, or those columns) and is the one function that every
+    site cutting or joining a leaf calls: `shard_params`, `gather_params`
+    (which puts the columns back), the Trainer's restore and
+    `convert.params_from_numpy(mesh=)`.
+  - **Replicated leaves used in part.** A leaf the rules keep whole but
+    that each rank uses only in part (Mamba2's `conv_w`, `conv_b`,
+    `A_log`, `D`, `dt_bias` and `out_norm` scale; RWKV6's `w0`,
+    `w_lora_b`, `u` and `ln_x`) enters through `model_part`: its
+    gradient is summed over the line, so it is whole and equal on every
+    rank. A norm over the whole inner width (Mamba2's `out_norm`, RWKV6's
+    `ln_x`) sums the rank's statistic over the line in fp32 forward and
+    backward (`model_line_sum`); the B‖C stream that every head reads is
+    gathered over the line (`gather_model`), its backward summed.
   - **The collectives are explicit.** `copy_to_model` (identity forward,
     all-reduce backward) enters every region whose work differs across
     the model line, `reduce_from_model` (all-reduce forward, identity
@@ -66,6 +94,7 @@ import contextvars
 import re
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -124,8 +153,9 @@ def seq_positions(rows: int, device):
 
 
 class GatherSeq(torch.autograd.Function):
-    """x (..., S_loc, ...) -> (..., n * S_loc, ...) along `dim`: the 'seq'
-    line's shards in order. The backward sums the gradient over the line in
+    """x (..., S_loc, ...) -> (..., n * S_loc, ...) along `dim`: the
+    shards of a line (the 'seq' line's, or the model line's B‖C columns:
+    `gather_model`) in order. The backward sums the gradient over the line in
     fp32 (a bf16 sum would round each partial sum) and keeps this shard's
     rows (gloo has no reduce-scatter). CUDA tensors on a gloo group cross
     through the host, since gloo gathers only CPU tensors."""
@@ -521,9 +551,10 @@ def zero1_pspecs(params, mesh) -> dict:
 # the 'model' axis: layout checks, shards, collectives
 # ---------------------------------------------------------------------------
 
-MODEL_FAMILIES = ("encoder", "dense", "moe", "vlm")
 SEQ_MODEL_REFUSAL = ("'seq' together with 'model' is not ported yet; it "
-                     "waits in ROADMAP.md item A12b (12b.2b)")
+                     "waits in ROADMAP.md item A12b (12b.2c)")
+# the hybrid family's packed leaf: Mamba2's in_proj (z, x, B‖C, dt)
+_PACKED = re.compile(r"mamba/in_proj$")
 
 
 def model_size(mesh=None) -> int:
@@ -547,38 +578,94 @@ def model_offset(local: int) -> int:
     return active_mesh().axis_index("model") * local
 
 
+def model_widths(cfg) -> dict:
+    """{name: full width} of every dimension a 'model' axis splits in
+    `cfg`'s layers: the attention heads and KV heads (every family with
+    attention), the hybrid family's Mamba2 SSM heads, inner width and B
+    and C columns (2N, one group), the ssm family's heads and d_ff, the
+    encdec family's d_ff."""
+    out = {}
+    if cfg.family != "ssm":
+        out.update(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads)
+    if cfg.family == "hybrid":
+        inner = cfg.ssm.expand * cfg.d_model
+        out.update({"ssm heads": inner // cfg.ssm.head_dim, "inner": inner,
+                    "2N (B and C)": 2 * cfg.ssm.state_size})
+    if cfg.family == "ssm":
+        out.update(num_heads=cfg.num_heads, d_ff=cfg.d_ff)
+    if cfg.family in ("audio", "encdec"):
+        out["d_ff"] = cfg.d_ff
+    return out
+
+
 def check_model_layout(cfg, mesh):
-    """Refuse what the port cannot split on `mesh`'s 'model' axis: the
-    families outside MODEL_FAMILIES and 'seq' together with 'model'
-    (NotImplementedError), a head count |model| does not divide
-    (ValueError). All name ROADMAP.md item A12b. A no-op without a 'model'
-    axis larger than 1."""
+    """Refuse what the port cannot split on `mesh`'s 'model' axis: 'seq'
+    together with 'model' (NotImplementedError), a width of
+    `model_widths` that |model| does not divide (ValueError). Both name
+    ROADMAP.md item A12b (12b.2c). A no-op without a 'model' axis larger
+    than 1."""
     m = model_size(mesh)
     if m <= 1:
         return
     if seq_size(mesh) > 1:
         raise NotImplementedError(f"{mesh}: {SEQ_MODEL_REFUSAL}")
-    if cfg.family not in MODEL_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}) on a 'model' axis of {m}: "
-            f"the {cfg.family} family's tensor parallelism is not ported "
-            f"yet; it waits in ROADMAP.md item A12b (12b.2b)")
-    H, KV = cfg.num_heads, cfg.num_kv_heads
-    if H % m or KV % m:
+    bad = [f"{k} {w}" for k, w in model_widths(cfg).items() if w % m]
+    if bad:
         raise ValueError(
-            f"{cfg.name}: num_heads {H} and num_kv_heads {KV} must both "
+            f"{cfg.name} (family {cfg.family!r}): {', '.join(bad)} must "
             f"divide over |model| = {m} (shards of whole heads); the "
             f"reference's mid-head split and replicated-KV fallback wait in "
-            f"ROADMAP.md item A12b (12b.2b)")
+            f"ROADMAP.md item A12b (12b.2c)")
 
 
-def shard_params(params, mesh, specs=None):
+def packed_segments(name: str, cfg):
+    """The widths of the segments that leaf `name` packs in its sharded
+    dimension, in order (Mamba2's in_proj: z, x, B‖C, dt), or None for a
+    leaf that packs nothing. A packed leaf without `cfg` raises: its cut
+    depends on the widths."""
+    if not _PACKED.search(_path(name)):
+        return None
+    if cfg is None:
+        raise ValueError(f"{name} packs several segments in its columns; "
+                         f"cutting or joining it needs the model's config")
+    inner = cfg.ssm.expand * cfg.d_model
+    return (inner, inner, 2 * cfg.ssm.state_size, inner // cfg.ssm.head_dim)
+
+
+def local_index(mesh, name: str, spec, shape, cfg=None,
+                rank: Optional[int] = None):
+    """The index of `rank`'s shard (default: this process's) of the whole
+    leaf `name` of `shape` under `spec`: `local_slices`, except for a
+    packed leaf (`packed_segments`), whose sharded dimension takes the
+    rank-th |model|-th of each segment (an int64 numpy array of columns,
+    which indexes numpy arrays and tensors on any device alike). Every
+    site that cuts a leaf, or joins its shards, uses this."""
+    sl = local_slices(mesh, spec, shape, rank)
+    dim = sharded_dim(spec)
+    seg = None if dim is None else packed_segments(name, cfg)
+    if seg is None:
+        return sl
+    if sum(seg) != shape[dim]:
+        raise ValueError(f"{name}: segments {seg} do not make up its "
+                         f"{shape[dim]} columns")
+    n, i = mesh.axis_size(spec[dim]), mesh.flat_index(spec[dim], rank)
+    cols, at = [], 0
+    for w in seg:
+        if w % n:
+            raise ValueError(f"{name}: a segment of {w} columns does not "
+                             f"split over {n} ranks")
+        cols.append(np.arange(at + i * (w // n), at + (i + 1) * (w // n)))
+        at += w
+    return sl[:dim] + (np.concatenate(cols),)
+
+
+def shard_params(params, mesh, specs=None, cfg=None):
     """The whole tree `params` -> this rank's shard of every leaf (`specs`
-    default: `param_pspecs(params, mesh)`), as {dotted name: tensor}
-    (contiguous copies of the slices)."""
+    default: `param_pspecs(params, mesh)`; `local_index`, so a packed leaf
+    needs `cfg`), as {dotted name: tensor} (contiguous copies)."""
     specs = param_pspecs(params, mesh) if specs is None else specs
-    return {n: x.detach()[local_slices(mesh, specs[n], x.shape)].clone(
-                memory_format=torch.contiguous_format)
+    return {n: x.detach()[local_index(mesh, n, specs[n], x.shape, cfg)]
+            .clone(memory_format=torch.contiguous_format)
             for n, x in named_leaves(params)}
 
 
@@ -590,19 +677,29 @@ def sharded_dim(spec):
     return None
 
 
-def gather_params(local, specs, mesh) -> dict:
+def gather_params(local, specs, mesh, cfg=None) -> dict:
     """{dotted name: this rank's shard} -> {dotted name: the whole leaf}:
     each leaf that `specs` splits over 'model' is gathered over the model
-    line (host-staged on gloo, as GatherSeq is); the others are returned
-    as they are. A collective of the model line."""
+    line (host-staged on gloo, as GatherSeq is) and a packed leaf's
+    columns put back in order (`local_index` of each rank of the line; it
+    needs `cfg`); the others are returned as they are. A collective of the
+    model line."""
     out = {}
+    m = model_size(mesh)
     for n, x in local.items():
         dim = sharded_dim(specs[n])
-        if dim is None or model_size(mesh) == 1:
+        if dim is None or m == 1:
             out[n] = x
             continue
-        out[n] = _all_gather(x.detach(), mesh.group("model"),
-                             model_size(mesh), dim)
+        whole = _all_gather(x.detach(), mesh.group("model"), m, dim)
+        shape = whole.shape
+        if packed_segments(n, cfg) is not None:
+            order = np.concatenate([local_index(mesh, n, specs[n], shape,
+                                                cfg, rank=r)[dim]
+                                    for r in mesh.line("model")])
+            whole = whole.index_select(
+                dim, torch.as_tensor(np.argsort(order), device=whole.device))
+        out[n] = whole
     return out
 
 
@@ -689,3 +786,35 @@ def model_mean(x):
         return x
     dist.all_reduce(x, group=mesh.group("model"))
     return x.div_(m)
+
+
+def gather_model(x, dim: int):
+    """The whole of a dimension split over the active mesh's model line,
+    from every rank's part of `x` along `dim` (the rank-th part is this
+    rank's; differentiable: `GatherSeq`, whose backward sums the gradient
+    over the line in fp32 and keeps this rank's part); `x` without a
+    'model' axis."""
+    mesh = active_mesh()
+    m = model_size(mesh)
+    if m == 1:
+        return x
+    return GatherSeq.apply(x, mesh.group("model"), m,
+                           mesh.axis_index("model"), dim)
+
+
+def model_line_sum(x):
+    """A statistic summed over the active mesh's model line in fp32 that
+    every rank then reads for its own part of the work (a norm over the
+    whole width): the sum forward (`reduce_from_model`) and, since each
+    rank's use adds to its gradient, the gradient summed backward too
+    (`copy_to_model`). `x` without a 'model' axis."""
+    return copy_to_model(reduce_from_model(x))
+
+
+def model_part(leaf, index):
+    """This rank's part, `leaf[index]`, of a leaf that the rules keep whole
+    but that the rank uses only in part (its heads' slice, its conv
+    channels): the leaf enters through `copy_to_model`, so its gradient is
+    summed over the line and whole on every rank. `leaf[index]` without a
+    'model' axis."""
+    return copy_to_model(leaf)[index]

@@ -13,11 +13,11 @@ process-major axis of the reference (`src/repro/launch/mesh.py:60-100`)
 and the ranks of one 'seq' line are adjacent.
 
 A 'model' axis larger than 1 holds tensor, expert and vocabulary
-parallelism for the encoder, dense, moe and vlm families (distributed/
-sharding.py states the layout). What still raises, naming ROADMAP.md item
-A12b: 'seq' together with 'model' (here, at the mesh), and the other
-families or a head count |model| does not divide (where a step or a
-trainer is built: `sharding.check_model_layout`).
+parallelism for every family (distributed/sharding.py states the
+layout). What still raises, naming ROADMAP.md item A12b (12b.2c): 'seq'
+together with 'model' (here, at the mesh), and a width the family splits
+that |model| does not divide (where a step or a trainer is built:
+`sharding.check_model_layout`).
 """
 from __future__ import annotations
 

@@ -167,8 +167,9 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
     summed over the mesh's data (and 'seq') lines in buckets, so they are
     the global batch's on every rank. On a 'model' axis `params` holds the
     rank's shards (`distributed.sharding.shard_params`) and the gradients
-    are the shards'; the families and head counts the port cannot split
-    raise here (`check_model_layout`). `halo` is the plan's (left, right)
+    are the shards'; the widths the port cannot split (a head count, an
+    SSM width or d_ff |model| does not divide) and 'seq' with 'model'
+    raise here, before any collective (`check_model_layout`). `halo` is the plan's (left, right)
     column extent for dict payloads (an exec carries its own): with it a
     'seq' axis shards the sparse attention's rows. Under a 'seq' axis the loss is still the
     global mean (the sums and counts all-reduced over 'seq' too) and the

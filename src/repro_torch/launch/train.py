@@ -52,18 +52,19 @@ recurrent ones (hybrid, ssm) carry their scan state across the shards,
 which must then hold whole chunks of the scan.
 
 A 'model' job passes `mesh=make_distributed_mesh(model=, data=)` (or
-`--model N` on the command line) for the encoder, dense, moe and vlm
-families: every rank starts from the same masters (process 0's, broadcast)
-and keeps its shard of each leaf (distributed/sharding.param_pspecs), its
-AdamW moments under the same spec; the steps run tensor, expert and
-vocabulary parallelism (launch/steps.py), the capture averages its heads
-over the model line, and the checkpoint stays mesh-agnostic: process 0's
-model line gathers every sharded leaf and its moments before process 0
-writes, and a restore cuts the whole leaves by the current mesh, so a
-checkpoint moves between one process and a 'model' job both ways. What
-raises (ROADMAP.md item A12b): the hybrid, ssm and encdec families on a
-'model' axis, 'seq' together with 'model', and head counts |model| does
-not divide.
+`--model N` on the command line), for every family: every rank starts
+from the same masters (process 0's, broadcast) and keeps its shard of each
+leaf (distributed/sharding.param_pspecs; Mamba2's packed in_proj by
+segment and head, `sharding.local_index`), its AdamW moments under the
+same spec; the steps run tensor, expert and vocabulary parallelism
+(launch/steps.py), the capture averages its heads over the model line, and
+the checkpoint stays mesh-agnostic: process 0's model line gathers every
+sharded leaf and its moments before process 0 writes, and a restore cuts
+the whole leaves by the current mesh, so a checkpoint moves between one
+process and a 'model' job both ways. What raises (ROADMAP.md item A12b,
+12b.2c): 'seq' together with 'model', and a width the family splits
+(heads, KV heads, SSM heads, inner, 2N, d_ff: `sharding.model_widths`)
+that |model| does not divide.
 """
 from __future__ import annotations
 
@@ -88,7 +89,7 @@ from repro_torch.distributed.chaos import ChaosMonkey
 from repro_torch.distributed.fault import (DivergenceSentinel, Heartbeat,
                                            StepSupervisor, StragglerMonitor)
 from repro_torch.distributed.sharding import (check_model_layout, data_axes,
-                                              gather_params, local_slices,
+                                              gather_params, local_index,
                                               mesh_context, model_size,
                                               param_pspecs, seq_size,
                                               shard_params)
@@ -169,13 +170,18 @@ class Trainer:
         # step-indexed, so a resume replays the exact batch sequence the
         # uninterrupted run would have seen (a bare iterator restarts from
         # its beginning after a crash); otherwise batches come from
-        # `data_iter` or a seeded synthetic LM stream
+        # `data_iter` or a seeded synthetic LM stream (the encdec family's
+        # with `seq_len` frames of standard normal embeddings a sequence)
         self.data_fn = data_fn
         if data_fn is None:
             rng = np.random.default_rng(seed)
             self.data = data_iter if data_iter is not None else \
                 lm_batch_iterator(rng, batch=batch, seq_len=seq_len + 1,
                                   vocab=cfg.vocab_size)
+            if data_iter is None and cfg.family in ("audio", "encdec"):
+                self.data = ({**b, "frames": rng.standard_normal(
+                    (batch, seq_len, cfg.d_model)).astype(np.float32)}
+                    for b in self.data)
         # fault machinery: chaos is env-armed by default (inert when the
         # launcher sets no SPION_CHAOS_* vars); the SIGTERM handler
         # (install_preemption_handler) sets the preemption flag
@@ -222,7 +228,7 @@ class Trainer:
             self._full = {n: (tuple(p.shape), p.dtype)
                           for n, p in self.params.named_parameters()}
             self.params = ParamTree(nest(shard_params(
-                self.params, self.mesh, self._specs)), trainable=True)
+                self.params, self.mesh, self._specs, cfg)), trainable=True)
         self.opt = adamw_init(self.params)
         self._dense_step = make_train_step(cfg, spion=False, lr=lr,
                                            total_steps=total_steps,
@@ -279,7 +285,8 @@ class Trainer:
             return tree
 
         def whole(named):
-            return nest(gather_params(named, self._specs, self.mesh))
+            return nest(gather_params(named, self._specs, self.mesh,
+                                      self.cfg))
         return {"params": whole(dict(self.params.named_parameters())),
                 "opt": {"count": self.opt["count"],
                         "mu": whole(self.opt["mu"]),
@@ -302,7 +309,8 @@ class Trainer:
     def _local(self, name, x):
         """A restored leaf -> this rank's shard of it on the device."""
         if self._specs is not None:
-            x = x[local_slices(self.mesh, self._specs[name], x.shape)]
+            x = x[local_index(self.mesh, name, self._specs[name], x.shape,
+                              self.cfg)]
         return x.to(self.device).contiguous()
 
     def save(self):

@@ -19,6 +19,14 @@ sharding.gather_kv), the decoder's sparse attention shards over 'seq'
 (kernels/sharded.py, or the gather path on CPU tensors), and the
 cross-attention reads the whole encoder output, gathered once over the
 line.
+
+Under a mesh with a 'model' axis each rank runs its heads of every
+attention (the encoder's, the decoder's and the cross-attention, whose
+K/V projections read the encoder output through `copy_to_model` in
+`attention.qkv`, so its gradient is whole) and its d_ff shard of every
+MLP; the tied embedding and head are vocab-parallel where |model| divides
+the vocabulary (whisper-tiny's 51,865 does not: replicated, as the
+reference's `sanitize_spec` leaves it).
 """
 from __future__ import annotations
 
@@ -176,7 +184,7 @@ def forward(params, cfg, batch, *, spion=None, capture=None):
     tokens = batch["tokens"]
     S = tokens.shape[1]
     start, positions, kv_pos = seq_positions(S, tokens.device)
-    h = Lyr.embed(params["tok_embed"], tokens, dtype)
+    h = Lyr.embed(params["tok_embed"], tokens, dtype, vocab=cfg.vocab_size)
     h = h + params["pos_embed"]["w"][start:start + S].to(dtype)[None]
     remat = cfg.remat and torch.is_grad_enabled() and capture is None
     caps = []
@@ -196,7 +204,7 @@ def forward(params, cfg, batch, *, spion=None, capture=None):
         if capture is not None:
             caps.append(cap)
     h = _ln(params["final_norm"], h)
-    logits = Lyr.unembed(params["tok_embed"], h)
+    logits = Lyr.unembed(params["tok_embed"], h, vocab=cfg.vocab_size)
     aux = {}
     if capture is not None:
         aux["captured"] = (torch.stack([c[0] for c in caps]),

@@ -16,6 +16,13 @@ shared block's dense attention and the capture read the whole sequence's
 K/V (distributed.sharding.gather_kv, models/attention.
 capture_pooled_scores) and its sparse attention shards over 'seq'
 (kernels/sharded.py, or the gather path on CPU tensors).
+
+Under a mesh with a 'model' axis each rank runs its share of every layer:
+the Mamba2 layers on their SSM heads (models/mamba.py), the shared block's
+attention on its q and KV heads and its MLP on its d_ff shard
+(models/attention.py, layers.mlp), the embedding and head on its
+vocabulary shard (the vocab-parallel loss); the capture averages the
+heads over the line.
 """
 from __future__ import annotations
 
@@ -130,10 +137,12 @@ def forward(params, cfg, batch, *, spion=None, capture=None):
     attention. Application i reads row i of the stacked tables, and the
     plan the controller stacks over the captured layers is indexed so, as
     in the reference. On a 'seq' shard `tokens` is the shard's rows and
-    every rank returns the whole (L, S/B, S/B) capture."""
+    every rank returns the whole (L, S/B, S/B) capture; on a 'model' axis
+    that splits the vocabulary the logits are this rank's shard of it."""
     dtype = _dtype(cfg)
     ex = SparseAttentionExec.coerce(spion)
-    h = Lyr.embed(params["tok_embed"], batch["tokens"], dtype)
+    h = Lyr.embed(params["tok_embed"], batch["tokens"], dtype,
+                  vocab=cfg.vocab_size)
     _, positions, kv_pos = seq_positions(h.shape[1], h.device)
     shared = params["shared_attn"]
     remat = cfg.remat and torch.is_grad_enabled()
@@ -159,7 +168,7 @@ def forward(params, cfg, batch, *, spion=None, capture=None):
                        torch.zeros((), device=h.device))
             caps.append(cap)
     h = _rms(params["final_norm"], h)
-    logits = Lyr.unembed(params["lm_head"], h)
+    logits = Lyr.unembed(params["lm_head"], h, vocab=cfg.vocab_size)
     aux = {}
     if capture is not None:
         aux["captured"] = (torch.stack([c[0] for c in caps]),

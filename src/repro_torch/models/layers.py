@@ -8,7 +8,9 @@ On a mesh with a 'model' axis a leaf may be this rank's shard
 (distributed/sharding.py): where `model_split` of the config's full
 dimension says so, a layer runs column-parallel (`copy_to_model` on its
 input), row-parallel (`row_parallel`: partial products in the activation
-dtype, summed over the line in fp32) or vocab-parallel.
+dtype, summed over the line in fp32) or vocab-parallel. A norm over a
+width the rank holds only part of (`rmsnorm` and `layernorm` with
+`width=`) sums its statistic over the line.
 """
 from __future__ import annotations
 
@@ -19,8 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.sharding import (copy_to_model, model_offset,
-                                              model_split, reduce_from_model)
+from repro_torch.distributed.sharding import (copy_to_model, model_line_sum,
+                                              model_offset, model_split,
+                                              reduce_from_model)
 
 
 class ParamTree(nn.Module):
@@ -100,16 +103,32 @@ def normal_init(gen, shape, scale, dtype, device, layers=None):
 
 # -- norms -------------------------------------------------------------------
 
-def rmsnorm(p, x, eps=1e-5):
+def rmsnorm(p, x, eps=1e-5, width=None):
+    """RMSNorm with fp32 statistics. `width`: the whole width when x holds
+    this rank's part of it on a 'model' axis (p's scale the same slice):
+    the mean square is then the whole width's, the rank's sum of squares
+    summed over the model line in fp32, forward and backward
+    (`model_line_sum`)."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    if width is None or width == x.shape[-1]:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+    else:
+        var = model_line_sum((xf * xf).sum(dim=-1, keepdim=True)) / width
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"].to(x.dtype)
 
 
-def layernorm(p, x, eps=1e-5):
+def layernorm(p, x, eps=1e-5, width=None):
+    """LayerNorm with fp32 statistics (jnp.var's). `width` as in `rmsnorm`:
+    the mean and then the variance are the whole width's, each summed over
+    the model line."""
     xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)   # jnp.var
+    if width is None or width == x.shape[-1]:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    else:
+        mu = model_line_sum(xf.sum(dim=-1, keepdim=True)) / width
+        var = model_line_sum(((xf - mu) ** 2).sum(dim=-1, keepdim=True)) \
+            / width
     y = (xf - mu) * torch.rsqrt(var + eps)
     return y.to(x.dtype) * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
 

@@ -14,6 +14,15 @@ chunks: the conv reads the previous shard's last CONV_W - 1 rows
 (`distributed.sharding.seq_left_rows`) and the state combine starts from
 the state that the earlier shards hand on (`carried_combine`), as the
 reference's scan over the whole sequence does.
+
+Under a mesh with a 'model' axis each rank runs H/|model| of the SSM heads
+(distributed/sharding.py states the layout): its shard of the packed
+in_proj gives [z heads r | x heads r | its part of B‖C | dt heads r], the
+B‖C columns are gathered over the line (every head reads all of B and C),
+the conv runs on the rank's x channels and all of B and C, the out_norm's
+mean square is the whole inner width's (`model_line_sum`), and out_proj
+is row-parallel. The replicated leaves the rank uses in part enter through
+`model_part`. The decode form stays one-device.
 """
 from __future__ import annotations
 
@@ -21,9 +30,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (active_mesh, carried_combine,
-                                              seq_left_rows, seq_size)
+                                              copy_to_model, gather_model,
+                                              model_part, model_size,
+                                              model_split, seq_left_rows,
+                                              seq_size)
 from repro_torch.models import layers as Lyr
-from repro_torch.models.layers import he_init, normal_init
+from repro_torch.models.layers import he_init, normal_init, row_parallel
 
 CONV_W = 4
 NGROUPS = 1
@@ -130,29 +142,52 @@ def ssd_chunked(x, dt, A, B, C, D, chunk):
 
 def mamba_apply(cfg, p, x, state=None):
     """x (B,S,d). state None | dict(conv (B,W-1,convdim), ssm (B,H,N,P)),
-    the decode form (S = 1). Returns (out, new state or None)."""
+    the decode form (S = 1). Returns (out, new state or None). On a
+    'model' axis (no state) this rank's heads (module docstring)."""
     Bsz, S, d = x.shape
     inner, H, P, N, _ = _widths(cfg)
+    m = model_size() if state is None and model_split(H) else 1
+    r = active_mesh().axis_index("model") if m > 1 else 0
+    il, Hl, nbc = inner // m, H // m, 2 * NGROUPS * N // m
+    if m > 1:
+        x = copy_to_model(x)
 
     zxbcdt = x @ p["in_proj"].to(x.dtype)
-    # split: z (inner), xBC (inner + 2GN), dt (H)
-    z = zxbcdt[..., :inner]
-    xBC = zxbcdt[..., inner:inner + inner + 2 * NGROUPS * N]
-    dt_raw = zxbcdt[..., -H:]
+    # split: z (inner), xBC (inner + 2GN), dt (H); on a 'model' axis each
+    # segment is this rank's part (sharding.packed_segments)
+    z = zxbcdt[..., :il]
+    xBC = zxbcdt[..., il:2 * il + nbc]
+    dt_raw = zxbcdt[..., 2 * il + nbc:]
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    A_log, Dp, dt_bias = p["A_log"], p["D"], p["dt_bias"]
+    out_norm = p["out_norm"]
+    if m > 1:
+        # every head reads all of B and C
+        xBC = torch.cat([xBC[..., :il], gather_model(xBC[..., il:], -1)], -1)
+        ch = torch.cat([torch.arange(r * il, (r + 1) * il),
+                        torch.arange(inner, inner + 2 * NGROUPS * N)]) \
+            .to(x.device)
+        heads = slice(r * Hl, (r + 1) * Hl)
+        conv_w = model_part(conv_w, (Ellipsis, ch))
+        conv_b = model_part(conv_b, ch)
+        A_log, Dp, dt_bias = (model_part(t, heads)
+                              for t in (A_log, Dp, dt_bias))
+        out_norm = {"scale": model_part(out_norm["scale"],
+                                        slice(r * il, (r + 1) * il))}
 
     # decode: the cached rows; a 'seq' shard: the previous shard's last rows
     conv_state = seq_left_rows(xBC, CONV_W - 1) if state is None \
         else state["conv"]
-    xBC, new_conv = _causal_conv(xBC, p["conv_w"].to(x.dtype),
-                                 p["conv_b"].to(x.dtype), conv_state)
-    xs = xBC[..., :inner].reshape(Bsz, S, H, P)
-    Bmat = xBC[..., inner:inner + NGROUPS * N].reshape(Bsz, S, NGROUPS, N)
-    Cmat = xBC[..., inner + NGROUPS * N:].reshape(Bsz, S, NGROUPS, N)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    xBC, new_conv = _causal_conv(xBC, conv_w.to(x.dtype),
+                                 conv_b.to(x.dtype), conv_state)
+    xs = xBC[..., :il].reshape(Bsz, S, Hl, P)
+    Bmat = xBC[..., il:il + NGROUPS * N].reshape(Bsz, S, NGROUPS, N)
+    Cmat = xBC[..., il + NGROUPS * N:].reshape(Bsz, S, NGROUPS, N)
+    dt = F.softplus(dt_raw.float() + dt_bias)
+    A = -torch.exp(A_log)
 
     if state is None:
-        y = ssd_chunked(xs, dt, A, Bmat, Cmat, p["D"], cfg.ssm.chunk)
+        y = ssd_chunked(xs, dt, A, Bmat, Cmat, Dp, cfg.ssm.chunk)
         new_ssm = None
     else:
         S_in = state["ssm"]                          # (B,H,N,P)
@@ -163,14 +198,16 @@ def mamba_apply(cfg, p, x, state=None):
         S_new = S_in * torch.exp(a)[..., None, None] + \
             torch.einsum("bn,bhp,bh->bhnp", B1, x1, dt[:, 0])
         y = torch.einsum("bn,bhnp->bhp", C1, S_new) + \
-            x1 * p["D"][None, :, None]
+            x1 * Dp[None, :, None]
         y = y[:, None].to(x.dtype)
         new_ssm = S_new
 
-    y = y.reshape(Bsz, S, inner)
-    y = Lyr.rmsnorm(p["out_norm"], y.float()).to(x.dtype)
+    y = y.reshape(Bsz, S, il)
+    # the gated norm's mean square is the whole inner width's
+    y = Lyr.rmsnorm(out_norm, y.float(), width=inner).to(x.dtype)
     y = y * F.silu(z)
-    out = y @ p["out_proj"].to(x.dtype)
+    out = row_parallel(y, p["out_proj"]) if m > 1 else \
+        y @ p["out_proj"].to(x.dtype)
     new_state = None if state is None else {"conv": new_conv, "ssm": new_ssm}
     return out, new_state
 

@@ -15,6 +15,16 @@ token shift reads the previous shard's last row (`distributed.sharding.
 seq_left_rows`) and the WKV state combine starts from the state the
 earlier shards hand on (`carried_combine`), as the reference's scan over the
 whole sequence does.
+
+Under a mesh with a 'model' axis each rank runs H/|model| of the WKV heads
+(distributed/sharding.py states the layout): the token-shift mixes are
+computed whole and enter through `copy_to_model`, w_r, w_k, w_v and w_g are
+column-parallel on whole heads, the LoRA hidden enters through
+`copy_to_model`, w0, w_lora_b, u and ln_x are cut to the rank's heads
+through `model_part`, ln_x's mean and variance are the whole inner
+width's (`model_line_sum`), out_proj is row-parallel; the channel mix
+splits d_ff as the MLP does (column-parallel w_in, row-parallel w_out).
+The decode form stays one-device.
 """
 from __future__ import annotations
 
@@ -25,10 +35,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (active_mesh, carried_combine,
-                                              current_mesh, mesh_context,
+                                              copy_to_model, current_mesh,
+                                              mesh_context, model_part,
+                                              model_size, model_split,
                                               seq_left_rows, seq_size)
 from repro_torch.models import layers as Lyr
-from repro_torch.models.layers import ParamTree, he_init, normal_init
+from repro_torch.models.layers import (ParamTree, he_init, normal_init,
+                                       row_parallel)
 
 LORA_R = 64
 
@@ -155,26 +168,43 @@ def wkv6_chunked(r, k, v, a, u, chunk):
 
 def timemix_apply(cfg, p, x, state=None):
     """x (B,S,d). state: None (train) or dict(prev (B,d), S (B,H,K,V)) for
-    decode (S=1). Returns (y, new_state)."""
+    decode (S=1). Returns (y, new_state). On a 'model' axis (no state)
+    this rank's heads (module docstring)."""
     B, S, d = x.shape
     H = cfg.num_heads
     hd = cfg.resolved_head_dim
+    m = model_size() if state is None and model_split(H) else 1
+    Hl = H // m
     if state is None:
         xs = token_shift(x, seq_left_rows(x, 1))
     else:
         xs = state["prev"][:, None, :].to(x.dtype)
-    m = p["mix"].to(x.dtype)
-    xr, xk, xv, xw = (_mix(x, xs, m[i]) for i in range(4))
-    r = (xr @ p["w_r"].to(x.dtype)).reshape(B, S, H, hd)
-    k = (xk @ p["w_k"].to(x.dtype)).reshape(B, S, H, hd)
-    v = (xv @ p["w_v"].to(x.dtype)).reshape(B, S, H, hd)
-    g = F.silu(_mix(x, xs, m[0]) @ p["w_g"].to(x.dtype))
-    # data-dependent decay (lora), a = -exp(.) clamped to [-8, -1e-6]
-    wlog = p["w0"] + (torch.tanh(xw.float() @ p["w_lora_a"])
-                      @ p["w_lora_b"])
-    a = -torch.exp(wlog).reshape(B, S, H, hd)
+    mix = p["mix"].to(x.dtype)
+    xr, xk, xv, xw = (_mix(x, xs, mix[i]) for i in range(4))
+    w0, lora_b, u, ln_x = p["w0"], p["w_lora_b"], p["u"], p["ln_x"]
+    if m > 1:
+        xr, xk, xv = (copy_to_model(t) for t in (xr, xk, xv))
+        r0 = active_mesh().axis_index("model")
+        heads, cols = slice(r0 * Hl, (r0 + 1) * Hl), \
+            slice(r0 * Hl * hd, (r0 + 1) * Hl * hd)
+        w0 = model_part(w0, cols)
+        lora_b = model_part(lora_b, (Ellipsis, cols))
+        u = model_part(u, heads)
+        ln_x = {k: model_part(v, cols) for k, v in ln_x.items()}
+    r = (xr @ p["w_r"].to(x.dtype)).reshape(B, S, Hl, hd)
+    k = (xk @ p["w_k"].to(x.dtype)).reshape(B, S, Hl, hd)
+    v = (xv @ p["w_v"].to(x.dtype)).reshape(B, S, Hl, hd)
+    # the gate's mix is r's (the reference mixes with mix[0] again)
+    g = F.silu(xr @ p["w_g"].to(x.dtype))
+    # data-dependent decay (lora), a = -exp(.) clamped to [-8, -1e-6], in
+    # fp32: the train step's cast leaves w_lora_* in cfg.dtype, which the
+    # reference's fp32 @ bf16 promotes
+    hidden = torch.tanh(xw.float() @ p["w_lora_a"].float())
+    if m > 1:
+        hidden = copy_to_model(hidden)
+    wlog = w0 + hidden @ lora_b.float()
+    a = -torch.exp(wlog).reshape(B, S, Hl, hd)
     a = a.clamp(-8.0, -1e-6)
-    u = p["u"]
     if state is None:
         y = wkv6_chunked(r, k, v, a, u, cfg.ssm.chunk)
         new_state = None
@@ -187,17 +217,25 @@ def timemix_apply(cfg, p, x, state=None):
         S_new = S_in * torch.exp(a1)[..., None] + \
             torch.einsum("bhk,bhv->bhkv", k1, v1)
         new_state = {"prev": x[:, -1].float(), "S": S_new}
-    y = y.reshape(B, S, H * hd)
-    y = Lyr.layernorm(p["ln_x"], y.float()).to(x.dtype) * g
+    y = y.reshape(B, S, Hl * hd)
+    # ln_x's mean and variance are the whole inner width's
+    y = Lyr.layernorm(ln_x, y.float(), width=H * hd).to(x.dtype) * g
+    if m > 1:
+        return row_parallel(y, p["out_proj"]), new_state
     return y @ p["out_proj"].to(x.dtype), new_state
 
 
 def channelmix_apply(cfg, p, x, state=None):
+    """The channel mix; on a 'model' axis (no state) this rank's d_ff shard:
+    column-parallel w_in, row-parallel w_out, as `layers.mlp`."""
+    split = state is None and model_split(cfg.d_ff)
     xs = token_shift(x, seq_left_rows(x, 1)) if state is None \
         else state["prev"][:, None, :].to(x.dtype)
     xk = _mix(x, xs, p["mix"][0].to(x.dtype))
+    if split:
+        xk = copy_to_model(xk)
     h = torch.square(F.relu(xk @ p["w_in"].to(x.dtype)))
-    y = h @ p["w_out"].to(x.dtype)
+    y = row_parallel(h, p["w_out"]) if split else h @ p["w_out"].to(x.dtype)
     new_state = None if state is None else {"prev": x[:, -1].float()}
     return y, new_state
 
@@ -249,9 +287,11 @@ def _layer_h(cfg, lp, mesh, h):
 def forward(params, cfg, batch, *, spion=None, capture=None):
     """batch {'tokens': (B,S)} -> (logits (B,S,V), {}). With cfg.remat
     each layer is recomputed in the backward. On a 'seq' shard `tokens` is
-    the shard's rows (module docstring)."""
+    the shard's rows; on a 'model' axis that splits the vocabulary the
+    logits are this rank's shard of it (module docstring)."""
     dtype = _dtype(cfg)
-    h = Lyr.embed(params["tok_embed"], batch["tokens"], dtype)
+    h = Lyr.embed(params["tok_embed"], batch["tokens"], dtype,
+                  vocab=cfg.vocab_size)
     h = _ln(params["in_norm"], h)
     remat = cfg.remat and torch.is_grad_enabled()
     for li in range(cfg.num_layers):
@@ -263,7 +303,7 @@ def forward(params, cfg, batch, *, spion=None, capture=None):
         else:
             h = _layer(cfg, lp, h)
     h = _ln(params["final_norm"], h)
-    return Lyr.unembed(params["lm_head"], h), {}
+    return Lyr.unembed(params["lm_head"], h, vocab=cfg.vocab_size), {}
 
 
 def init_cache(cfg, batch_size, max_len, dtype=None, device="cpu"):

@@ -24,8 +24,10 @@ for the encoder, dense, moe and vlm families.
     `params_from_numpy(mesh=)`): qwen2-7b dense and sparse (the
     reference's jnp gather path), mixtral's experts over 'model' and its
     d_ff fallback, internvl2-2b's replicated vocabulary.
-  - What still raises names ROADMAP.md item A12b: KV heads |model| does not
-    divide, 'seq' with 'model', the hybrid, ssm and encdec families.
+  - What still raises names ROADMAP.md item A12b (12b.2c): KV heads, an
+    SSM width or whisper's heads |model| does not divide, 'seq' with
+    'model'. The hybrid, ssm and encdec families step on a 'model' axis in
+    test_torch_model_scan.py.
 """
 import dataclasses
 import json
@@ -658,37 +660,57 @@ REFUSALS = {
                  ((1, 4), ("data", "model"))),
     "seq_with_model": (NotImplementedError, "spion-lra", {},
                        ((2, 1, 2), ("seq", "data", "model"))),
-    "hybrid": (NotImplementedError, "zamba2-1.2b", {},
-               ((1, 2), ("data", "model"))),
-    "ssm": (NotImplementedError, "rwkv6-7b", {}, ((1, 2), ("data", "model"))),
-    "encdec": (NotImplementedError, "whisper-tiny", {},
-               ((1, 2), ("data", "model"))),
+    # the scan families build on a 'model' axis (test_torch_model_scan);
+    # what still raises is a width |model| does not divide: zamba2's B and
+    # C columns (2N = 10 on 4 ranks), rwkv6's heads (6 on 4), whisper's
+    # heads (6 on 4, the full config's)
+    "hybrid": (ValueError, "zamba2-1.2b", {"ssm_state": 5},
+               ((1, 4), ("data", "model"))),
+    "ssm": (ValueError, "rwkv6-7b", {"num_heads": 6, "num_kv_heads": 6},
+            ((1, 4), ("data", "model"))),
+    "encdec": (ValueError, "whisper-tiny", {"num_heads": 6,
+                                            "num_kv_heads": 6},
+               ((1, 4), ("data", "model"))),
 }
+# the width each refusal names
+REFUSAL_WIDTH = {"kv_heads": "num_kv_heads 2", "seq_with_model": "12b.2c",
+                 "hybrid": r"2N \(B and C\) 10", "ssm": "num_heads 6",
+                 "encdec": "num_heads 6"}
 
 
 @pytest.mark.parametrize("what", list(REFUSALS))
 def test_refusals_name_the_item(what):
     """What the port cannot split on a 'model' axis raises at the step's
     and the trainer's construction, before any collective, and names
-    ROADMAP.md item A12b: KV heads |model| does not divide (ValueError),
-    'seq' with 'model', and the hybrid, ssm and encdec families
-    (NotImplementedError). make_seq_mesh refuses 'seq' with 'model' too."""
+    ROADMAP.md item A12b (12b.2c): KV heads |model| does not divide, an SSM
+    width (zamba2's 2N, rwkv6's heads) or whisper's heads |model| does not
+    divide (ValueError, naming the width), 'seq' with 'model'
+    (NotImplementedError). make_seq_mesh refuses 'seq' with 'model' too.
+    The same family with widths that divide builds on the same mesh."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import SSMConfig
     from repro_torch.launch.mesh import Mesh, make_seq_mesh
     from repro_torch.launch.steps import make_loss_and_grads
     from repro_torch.launch.train import Trainer
     err, arch, kw, (shape, axes) = REFUSALS[what]
-    cfg = get_config(arch).reduced().replace(**kw)
-    cfg = cfg.replace(spion=dataclasses.replace(cfg.spion, block_size=16))
+    sound = get_config(arch).reduced()
+    sound = sound.replace(spion=dataclasses.replace(sound.spion,
+                                                    block_size=16))
+    kw = dict(kw)
+    if "ssm_state" in kw:
+        kw["ssm"] = dataclasses.replace(sound.ssm,
+                                        state_size=kw.pop("ssm_state"))
+        assert isinstance(kw["ssm"], SSMConfig)
+    cfg = sound.replace(**kw)
     mesh = Mesh(np.arange(int(np.prod(shape))).reshape(shape), axes)
     with pytest.raises(err, match="A12b"):
         make_loss_and_grads(cfg, mesh=mesh)
     with pytest.raises(err, match="A12b"):
         Trainer(cfg, seq_len=64, batch=2, mesh=mesh, device="cpu")
+    with pytest.raises(err, match=REFUSAL_WIDTH[what]):
+        make_loss_and_grads(cfg, mesh=mesh)
     if what == "seq_with_model":
         with pytest.raises(NotImplementedError, match="A12b"):
             make_seq_mesh(2, 1, model=2)
-    if what == "kv_heads":
-        with pytest.raises(ValueError, match="num_kv_heads 2"):
-            make_loss_and_grads(cfg, mesh=mesh)
-
+    else:
+        assert callable(make_loss_and_grads(sound, mesh=mesh))

@@ -148,13 +148,13 @@ def test_mesh_of_ranks(monkeypatch):
     assert make_distributed_mesh().shape == {"pod": 1, "data": 1, "model": 1}
     assert make_host_mesh().shape == {"data": 1, "model": 1}
     assert make_mesh((1, 1), ("seq", "data")).size == 1
-    # a 'model' axis builds (tensor parallelism, item 12b.2); 'seq' together
-    # with 'model' still raises (A12b)
+    # a 'model' axis builds (tensor parallelism, items 12b.2 and 12b.2b);
+    # 'seq' together with 'model' still raises (A12b, 12b.2c)
     assert make_mesh((1, 2), ("data", "model")).shape == {"data": 1,
                                                           "model": 2}
-    with pytest.raises(NotImplementedError, match="A12b"):
+    with pytest.raises(NotImplementedError, match=r"A12b \(12b\.2c\)"):
         make_seq_mesh(2, 1, model=2)
-    with pytest.raises(NotImplementedError, match="A12b"):
+    with pytest.raises(NotImplementedError, match=r"A12b \(12b\.2c\)"):
         make_mesh((2, 1, 2), ("seq", "data", "model"))
     with pytest.raises(ValueError, match="divide"):
         make_distributed_mesh(seq=2)

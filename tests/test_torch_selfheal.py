@@ -358,13 +358,15 @@ def test_supervisor_respawns_a_port_worker(tmp_path):
 def test_trainer_refuses_several_processes(monkeypatch):
     """Several processes are ported (test_torch_multiprocess), and so is a
     'seq' axis for every family (test_torch_seq_train,
-    test_torch_seq_scan) and a 'model' axis for the encoder, dense, moe and
-    vlm families (test_torch_model_parallel). What still raises: a worker
-    the supervisor announced as one of several that has not joined the job
-    (it would train and checkpoint alone), and the hybrid, encdec and ssm
-    families on a 'model' axis (ROADMAP.md item A12b), at the step's
-    construction, before any collective. Those families' steps build on a
-    'seq' mesh (C2's refusal is gone), and the others' on a 'model' one."""
+    test_torch_seq_scan) and a 'model' axis for every family
+    (test_torch_model_parallel, test_torch_model_scan). What still raises:
+    a worker the supervisor announced as one of several that has not
+    joined the job (it would train and checkpoint alone), and a width
+    |model| does not divide (ROADMAP.md item A12b, 12b.2c: whisper-tiny's
+    6 heads on 4 ranks), at the step's construction, before any
+    collective. The hybrid, encdec and ssm families' steps build on a
+    'seq' mesh (C2's refusal is gone) and on a 'model' one, as the
+    others' do."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import Mesh
@@ -381,8 +383,10 @@ def test_trainer_refuses_several_processes(monkeypatch):
         c = get_config(arch).reduced()
         c = c.replace(spion=dataclasses.replace(c.spion, block_size=16))
         assert callable(make_loss_and_grads(c, mesh=seq))
-        with pytest.raises(NotImplementedError, match="A12b"):
-            make_loss_and_grads(c, mesh=model)
+        assert callable(make_loss_and_grads(c, mesh=model))
+    with pytest.raises(ValueError, match=r"A12b \(12b\.2c\)"):
+        make_loss_and_grads(get_config("whisper-tiny"), mesh=Mesh(
+            [[0, 1, 2, 3]], ("data", "model")))
     for arch in ("spion-lra", "qwen2-7b", "mixtral-8x7b", "internvl2-2b"):
         c = get_config(arch).reduced()
         c = c.replace(spion=dataclasses.replace(c.spion, block_size=16))
