@@ -276,6 +276,38 @@ Phases (each one fails the run; nothing falls back to the CPU):
      kernels against their plain versions and timed at both shard shapes
      (zamba2 N 32, whisper N 12). Step ms, the model line's sums and the
      B‖C gather ms, capture ms and peak memory per rank.
+     12h. 'seq' together with 'model', and the reference's fallback for
+     head counts |model| does not divide: four ranks
+     (`--seqmodel-worker DIR`). First this process computes the fp32
+     legs' one-process references once (the ranks share the card) and
+     writes each model index's shard of the gradients to DIR. (a) On
+     (seq 2, model 2) (`make_distributed_mesh(seq=2, model=2)`: model
+     lines {0, 1}, {2, 3}): spion-lra at ListOps size (2 of 4 heads and
+     1024 positions a rank) through 14 of phase 5's steps: dense losses
+     within TOL_DP of phase 5's, captures within TOL_CAPTURE of phase 5's,
+     one plan digest (phase 5's, or the controller's on the ranks' map),
+     8 + 4 + 4 launches a sparse step a rank, the shards equal across
+     each 'seq' line and the replicated masters across all; zamba2-1.2b
+     (12 of 38 layers, 2 x 2048) and whisper-tiny (4 x (1500 frames, 512
+     tokens)) fp32 dense and sparse steps, the plan banded to halo (1, 0)
+     (the halo exchange on a rank's KV-head shard). (b) On model 4 (data
+     1), the fallback: whisper-tiny's 6 heads (wq's 96 columns a rank, 1.5
+     heads; 4 x 448 tokens) dense and sparse (its kernels on every head on
+     every rank: 8 + 4 + 4 a rank, as one process), and qwen2-7b with 2 KV
+     heads at 1 of 28 layers (wk's 64 columns a rank, half a head; RoPE
+     after the gather; 1 x 512) dense. Every fp32 step within TOL_SEQ_LOSS
+     (loss and global norm) and TOL_SEQ_GRAD (each leaf) of one process,
+     the replicated leaves' gradients bitwise equal across each model
+     line and every leaf's across each 'seq' line; planted faults past a
+     gate: the gradient all-reduce over the data axes only, the halo
+     neighbours from the global rank order, RoPE before the fallback's
+     gather, its backward without the sum or summed twice, the global
+     norm summed over 'seq' as well. The three kernels against their
+     plain versions and timed at the new shapes (spion-lra's as its
+     trained plan runs, zamba2's and whisper's halo storage, whisper's 6
+     heads whole). Step ms, the model-line sums, the 'seq' gathers, the
+     halo exchange and the gradient all-reduce ms, capture ms and peak
+     memory per rank. rwkv6-7b is not stepped here (PERF.md).
 The line before the last is the kernels' JSON record (launches_serve,
 launches_serve_shared, launches_mixtral, launches_zamba2,
 launches_whisper, launches_internvl2, launches_train, launches_resume,
@@ -286,7 +318,9 @@ launches_seqscan (12e's two ranks: the fp32 sparse steps, the Trainer and
 whisper's bf16 steps) and launches_model (12f's four ranks' training
 and the legs' sound sparse steps; not the planted faults' steps nor the
 restored step in this process) and launches_modelscan (12g's two ranks:
-the sound sparse steps and the Trainer's seven) count each
+the sound sparse steps and the Trainer's seven) and launches_seqmodel
+(12h's four ranks: spion-lra's steps and the legs' sound sparse steps)
+count each
 kernel's launches in phases 4, 4a, 4b, 4c, 4e, 4f (their sparse forward
 and train step), 5, 9-11 and 12, each read from zero; `seq_parallel` holds phase
 12a's worst differences and per-rank times; the forward's mixtral_shape
@@ -295,8 +329,9 @@ and timing at phase 4b's shape and its qwen2_5_14b_shape,
 command_r_35b_shape and mistral_large_123b_shape at phase 4g's, and every
 kernel's zamba2_shape, whisper_shape and internvl2_shape its check and
 timing at phases 4c, 4e and 4f, model_shard_shape at 12f's shard of
-the training shape, and modelscan_zamba2_shape and modelscan_whisper_shape
-at 12g's shard shapes; `tuned`
+the training shape, modelscan_zamba2_shape and modelscan_whisper_shape
+at 12g's shard shapes, and seqmodel_lra_shape, seqmodel_zamba2_shape,
+seqmodel_whisper_shape and seqmodel_whisper6_shape at 12h's; `tuned`
 holds each kernel's phase 8a winner and its time beside the default's at
 each shape); the last line is
 {"ok": true, "device": {...}}.
@@ -1013,8 +1048,8 @@ def kernel_timing(inputs, label, before=None):
         lambda: fused_forward_reference(q, k, v, col, nvalid, **kw), 5)
     # yardstick only: PyTorch's fused attention over the same rows, dense
     # (what the kernel computes when the plan covers everything)
-    kx = k[:, None].expand(N, G, S, hd).contiguous()
-    vx = v[:, None].expand(N, G, S, hd).contiguous()
+    kx = k[:, None].expand(N, G, k.shape[1], hd).contiguous()
+    vx = v[:, None].expand(N, G, k.shape[1], hd).contiguous()
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, kx, vx, is_causal=kw["causal"]), 20)
     pairs, listed, distinct = masked_pairs(col, nvalid, block, kw)
@@ -6978,14 +7013,858 @@ def phase_model_scan():
                 planted_resume=planted_resume, kernels=kernels)
 
 
+# -- phase 12h: 'seq' together with 'model', and the head fallback ---------
+
+SEQMODEL_MESH = (2, 2)      # 12h (a): 'seq' x 'model' (data 1), four ranks
+SEQMODEL_FALLBACK = 4       # 12h (b): a model line of 4 (data 1)
+SEQMODEL_RANKS = 4
+SEQMODEL_LRA_STEPS = 14     # spion-lra: phase 5's 12 dense steps, 2 sparse
+SEQMODEL_WHISPER_S = 448    # (b): whisper's decoder tokens, as 12g's
+SEQMODEL_QWEN_LAYERS = 1    # (b): qwen2-7b with 2 KV heads, 1 of 28 layers
+SEQMODEL_QWEN_BATCH = 1
+SEQMODEL_QWEN_S = 512
+# 12h's fp32 legs: leg -> (the mesh it runs on, its step kinds, its planted
+# faults as fault:kind). Under the fallback whisper-tiny's 6 heads are 1.5
+# a rank (wq's 384 columns, 96 a rank) and qwen2-7b's 2 KV heads half a
+# head a rank (wk's 256 columns, 64 a rank)
+SEQMODEL_LEGS = {
+    "zamba2": ("seq_model", ("dense", "sparse"), ()),
+    "whisper": ("seq_model", ("dense", "sparse"),
+                ("grads_data_only:dense", "halo_global:sparse")),
+    "whisper6": ("fallback", ("dense", "sparse"),
+                 ("gather_no_sum:dense", "gather_sum_twice:dense")),
+    "qwen2kv2": ("fallback", ("dense",), ("rope_before_gather:dense",)),
+}
+
+
+class _GatherBackward:
+    """12h's planted fallback-gather faults: `gather_model` whose backward
+    keeps the rank's part of its own gradient without the sum over the
+    line (times 0), or sums it twice (times 2)."""
+
+    @staticmethod
+    def make(times):
+        import torch
+        import torch.distributed as dist
+        from repro_torch.distributed import sharding
+
+        class Gather(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, dim):
+                # the backward runs on autograd's device thread, outside
+                # the forward's mesh context: keep the line here
+                mesh = sharding.active_mesh()
+                ctx.dim, ctx.rows = dim, x.shape[dim]
+                ctx.group = mesh.group("model")
+                ctx.idx = mesh.axis_index("model")
+                return sharding.gather_model(x.detach(), dim)
+
+            @staticmethod
+            def backward(ctx, g):
+                g = g.float().clone()
+                for _ in range(times):
+                    dist.all_reduce(g, group=ctx.group)
+                return g.narrow(ctx.dim, ctx.idx * ctx.rows,
+                                ctx.rows), None
+        return lambda x, dim: Gather.apply(x, dim)
+
+
+@contextlib.contextmanager
+def planted_seqmodel_fault(kind):
+    """Phase 12h's planted faults, by replacing an entry point for the
+    duration; None plants nothing:
+      - grads_data_only: the loss terms and gradients summed over the data
+        axes only (not over 'seq');
+      - halo_global: the halo exchange's neighbours taken from the global
+        rank order (the next rank holds the same shard's other KV heads)
+        instead of the rank's 'seq' line;
+      - rope_before_gather: RoPE on each rank's columns of q and k before
+        the fallback's gather (blocks of up to head_dim columns taken as
+        heads: mid-head columns rotate the wrong pairs), none after it;
+      - gather_no_sum / gather_sum_twice: the fallback gather's backward
+        without its sum over the line, or summed twice."""
+    import torch
+    from repro_torch.distributed import runtime, sharding
+    from repro_torch.kernels import sharded
+    from repro_torch.launch import steps
+    from repro_torch.models import attention
+    from repro_torch.models.layers import rope
+    saved = []
+
+    def put(mod, name, fn):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+    if kind == "grads_data_only":
+        put(steps, "reduce_axes", lambda mesh: sharding.data_axes(mesh))
+    if kind == "halo_global":
+        def global_order(mesh):
+            r, n = runtime.process_index(), mesh.size
+            return mesh.group(mesh.axis_names), (r - 1) % n, (r + 1) % n
+        put(sharded, "halo_peers", global_order)
+    if kind == "rope_before_gather":
+        sound = attention.gather_columns
+        cfg = seqmodel_config("qwen2kv2")[0]
+
+        def rope_first(parts):
+            hd, out = cfg.resolved_head_dim, []
+            for i, t in enumerate(parts):
+                if t is not None and i < 2:
+                    w = min(hd, t.shape[-1])
+                    pos = torch.arange(t.shape[1], device=t.device)
+                    t = rope(t.reshape(*t.shape[:2], -1, w), pos,
+                             cfg.rope_theta).reshape(t.shape)
+                out.append(t)
+            return sound(out)
+        put(attention, "gather_columns", rope_first)
+        put(attention, "rope_heads", lambda cfg, q, k, positions: (q, k))
+    if kind in ("gather_no_sum", "gather_sum_twice"):
+        put(attention, "gather_model",
+            _GatherBackward.make(0 if kind == "gather_no_sum" else 2))
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def seqmodel_config(name):
+    """12h's fp32 legs at full width, and the global batch of each (seeded):
+    zamba2-1.2b at SCAN_ZAMBA_LAYERS layers and whisper-tiny whole with
+    SCAN_WHISPER_S decoder tokens on (seq 2, model 2), as 12e's; on model 4
+    whisper-tiny with SEQMODEL_WHISPER_S tokens (6 heads) and qwen2-7b at
+    SEQMODEL_QWEN_LAYERS layer with 2 KV heads (RoPE; a head count of no
+    repo config: the fallback's KV-only case with RoPE at full width)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    if name == "zamba2":
+        return scan_config("zamba2")
+    if name == "whisper":
+        return scan_config("whisper")
+    if name == "whisper6":
+        cfg, gb = scan_config("whisper", whisper_s=SEQMODEL_WHISPER_S)
+        check(cfg.num_heads == cfg.num_kv_heads == 6, "whisper-tiny's heads")
+        return cfg, gb
+    cfg = get_config("qwen2-7b")
+    check(cfg.d_model == 3584 and cfg.num_heads == 28 and
+          cfg.num_kv_heads == 4 and cfg.resolved_head_dim == 128 and
+          cfg.qkv_bias and cfg.rope_theta, "qwen2-7b config changed")
+    cfg = cfg.replace(num_layers=SEQMODEL_QWEN_LAYERS, num_kv_heads=2,
+                      dtype="float32")
+    rng = np.random.default_rng(SEED + 26)
+    toks = rng.integers(0, cfg.vocab_size, size=(
+        SEQMODEL_QWEN_BATCH, SEQMODEL_QWEN_S + 1)).astype(np.int64)
+    return cfg, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def seqmodel_meshes():
+    """(a) and (b) as Meshes without groups, laid out as the workers'
+    make_distributed_mesh(seq=2, model=2) and make_distributed_mesh(
+    model=4): the parent cuts the references by them."""
+    import numpy as np
+    from repro_torch.launch.mesh import Mesh
+    s, m = SEQMODEL_MESH
+    return {"seq_model": Mesh(np.arange(s * m).reshape(1, s, 1, m),
+                              ("pod", "seq", "data", "model")),
+            "fallback": Mesh(np.arange(SEQMODEL_FALLBACK).reshape(
+                1, 1, SEQMODEL_FALLBACK), ("pod", "data", "model"))}
+
+
+def seqmodel_tables(name, cfg, S):
+    """A leg's sparse tables on the card: on (seq 2, model 2) the dry-run
+    plan banded to halo (1, 0) (the halo exchange on the rank's KV-head
+    shard), on model 4 12g's random causal plan; None for qwen2kv2."""
+    import torch
+    from repro_torch.launch.steps import spion_dryrun_tables
+    if name == "qwen2kv2":
+        return None
+    if SEQMODEL_LEGS[name][0] == "fallback":
+        col, nvalid = modelscan_plan(cfg, S)
+        return {"col_idx": torch.as_tensor(col, device=DEVICE),
+                "nvalid": torch.as_tensor(nvalid, device=DEVICE),
+                "block": cfg.spion.block_size, "halo": None}
+    layers = None
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import n_attn_apps
+        layers = n_attn_apps(cfg)
+    tables = spion_dryrun_tables(cfg, S, layers=layers, max_extent=1)
+    return {k: v.to(DEVICE) if torch.is_tensor(v) else v
+            for k, v in tables.items()}
+
+
+def seqmodel_masters(cfg):
+    """A leg's fp32 masters on the card from the leg's seed: the same on
+    every rank and in the parent."""
+    import torch
+    from repro_torch.launch.train import masters_of
+    from repro_torch.models.registry import build
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 25)
+    return masters_of(build(cfg).init(gen, device=DEVICE))
+
+
+def seqmodel_references(d):
+    """12h's one-process references, computed once in this process before
+    the ranks start (the card is shared: four one-process steps at once
+    would not fit): per leg and step kind the loss, the global norm and
+    each leaf's largest |gradient| in DIR/ref_<leg>.json, and each rank's
+    shard of every gradient (`local_index` under the leg's mesh) in
+    DIR/ref_<leg>_<kind>_<rank>.pt. Returns {leg: seconds}."""
+    import gc
+    import torch
+    from repro_torch.distributed.sharding import local_index, param_pspecs
+    from repro_torch.launch.steps import make_loss_and_grads
+    from repro_torch.optim import global_norm
+    meshes = seqmodel_meshes()
+    secs = {}
+    for name, (mesh_name, kinds, _) in SEQMODEL_LEGS.items():
+        t0 = time.perf_counter()
+        cfg, gb = seqmodel_config(name)
+        mesh = meshes[mesh_name]
+        full = seqmodel_masters(cfg)
+        specs = param_pspecs(full, mesh)
+        batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in gb.items()}
+        tables = seqmodel_tables(name, cfg, gb["tokens"].shape[1])
+        one = make_loss_and_grads(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        rec = {}
+        for kind in kinds:
+            loss, grads = one(full, batch, tables if kind == "sparse"
+                              else None)
+            rec[kind] = {"loss": float(loss),
+                         "norm": float(global_norm(grads)),
+                         "max": {n: g.abs().max().item()
+                                 for n, g in grads.items()}}
+            # a shard depends on the model index alone: ranks 0..|model|-1
+            # are the first model line of both meshes
+            for i in range(mesh.shape["model"]):
+                torch.save({n: g[local_index(mesh, n, specs[n], g.shape, cfg,
+                                             rank=i)].cpu().contiguous()
+                            for n, g in grads.items()},
+                           os.path.join(d, f"ref_{name}_{kind}_m{i}.pt"))
+            del loss, grads
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(d, f"ref_{name}.json"), "w") as f:
+            json.dump(rec, f)
+        del full, batch, tables, one
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+    return secs
+
+
+def seqmodel_lra(mesh, d, rank, secs, gsecs):
+    """12h's main path on one rank of (seq 2, model 2): spion-lra at
+    ListOps size (2 of 4 heads, half the sequence a rank) through
+    SEQMODEL_LRA_STEPS of phase 5's steps, every capture timed and kept.
+    `secs`: model_line_timer's; `gsecs`: labelled_gather_timer's."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.sharding import kernel_seq_axis
+    from repro_torch.kernels import sharded
+    tr, cfg, _ = lra_trainer(mesh=mesh)
+    check(tr.mesh is mesh and tr._specs is not None,
+          f"rank {rank}: the trainer's mesh is {tr.mesh}")
+    steps, undo = record_steps(tr)
+    caps, pooled = [], []
+    in_captures = [0.0, 0.0]       # model-line sums and gathers in captures
+    inner_capture = tr.capture
+
+    def gathers():
+        return sum(v for k, v in gsecs.items() if k != "grads")
+
+    def capture(batch):
+        s0, g0 = secs[0], gathers()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_capture(batch)
+        torch.cuda.synchronize()
+        caps.append({"ms": 1e3 * (time.perf_counter() - t),
+                     "sum_ms": 1e3 * (secs[0] - s0),
+                     "gather_ms": 1e3 * (gathers() - g0)})
+        in_captures[0] += secs[0] - s0
+        in_captures[1] += gathers() - g0
+        pooled.append(out[0].float().cpu().numpy())
+        return out
+    tr.capture = capture
+    split = []
+
+    def on_step(step, loss):
+        split.append((secs[0] - in_captures[0], gathers() - in_captures[1],
+                      gsecs.get("grads", 0.0), sharded.halo_seconds))
+    tr.step_callback = on_step
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    tr.train(SEQMODEL_LRA_STEPS, ckpt_every=0, log_every=10**9,
+             log=lambda m: None)
+    undo()
+    st = tr.spion_state
+    axis, reason = kernel_seq_axis(mesh, tr.seq_len // cfg.spion.block_size,
+                                   st.plan_stats["halo"])
+    np.savez(os.path.join(d, f"pooled_{rank}.npz"),
+             **{f"p{i}": p for i, p in enumerate(pooled)})
+    if rank == 0:
+        np.savez(os.path.join(d, "plan_layer0.npz"),
+                 col=st.tables["col_idx"][0].cpu().numpy(),
+                 nvalid=st.tables["nvalid"][0].cpu().numpy())
+    deltas = np.diff(np.array([(0.0, 0.0, 0.0, 0.0)] + split), axis=0)
+    out = {"losses": [r["loss"] for r in steps],
+           "phases": [r["phase"] for r in steps],
+           "launches": [r["launches"] for r in steps],
+           "step_ms": [1e3 * r["s"] for r in steps],
+           "sum_ms": (1e3 * deltas[:, 0]).tolist(),
+           "gather_ms": (1e3 * deltas[:, 1]).tolist(),
+           "allreduce_ms": (1e3 * deltas[:, 2]).tolist(),
+           "halo_ms": (1e3 * deltas[:, 3]).tolist(),
+           "captures": caps, "digest": plan_digest_of(st),
+           "stats": st.plan_stats,
+           "shards": leaves_digest(tr, replicated=False),
+           "replicated": leaves_digest(tr, replicated=True),
+           "wq": list(tr.params["layers"]["attn"]["wq"].shape),
+           "branch": "halo" if axis else "gathered fallback",
+           "reason": reason,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del tr
+    return out
+
+
+def seqmodel_leg(name, meshes, rank, d, secs, gsecs):
+    """12h's fp32 leg of one configuration on one rank: make_loss_and_grads
+    on the leg's mesh, the planted faults first, then the sound dense and
+    (but qwen2kv2) sparse steps, each against the parent's one-process
+    reference (the rank's shard of each gradient from DIR: each leaf's
+    worst difference is read over the mesh without gathering the shards).
+    The replicated leaves' gradients are digested for the check across the
+    model line, every leaf's for the check across the 'seq' line; the
+    global norm as the step computes it and, on (seq 2, model 2), summed
+    over 'seq' as well (planted)."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import local_batch
+    from repro_torch.distributed.sharding import (kernel_seq_axis,
+                                                  param_pspecs, shard_params,
+                                                  sharded_dim)
+    from repro_torch.kernels import sharded as sharded_mod
+    from repro_torch.launch.steps import make_loss_and_grads
+    from repro_torch.launch.train import nest
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.optim import global_norm
+    mesh_name, kinds, faults = SEQMODEL_LEGS[name]
+    mesh = meshes[mesh_name]
+    cfg, gb = seqmodel_config(name)
+    with open(os.path.join(d, f"ref_{name}.json")) as f:
+        refs = json.load(f)
+    tables = seqmodel_tables(name, cfg, gb["tokens"].shape[1])
+    if tables is not None and mesh_name == "seq_model":
+        S, block = gb["tokens"].shape[1], cfg.spion.block_size
+        axis, reason = kernel_seq_axis(mesh, S // block, tables["halo"])
+        check(axis == "seq", f"12h {name}: the plan does not take the halo "
+              f"path: {reason}")
+    full = seqmodel_masters(cfg)
+    specs = param_pspecs(full, mesh)
+    sharded = {n for n, spec in specs.items()
+               if sharded_dim(spec) is not None}
+    batch = local_batch(mesh, gb, DEVICE)
+    whole = mesh.group(mesh.axis_names)
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for kind, fault in [(f, f.split(":")[0]) for f in faults] + \
+            [(k, None) for k in kinds]:
+        sparse = kind.split(":")[-1] == "sparse"
+        with planted_seqmodel_fault(fault):
+            params = ParamTree(nest(shard_params(full, mesh, specs, cfg)),
+                               trainable=True)
+            f = make_loss_and_grads(
+                cfg, mesh=mesh,
+                halo=tables["halo"] if sparse and tables else None)
+            reset_launch_counts()
+            s0, g0 = secs[0], dict(gsecs)
+            h0 = sharded_mod.halo_seconds
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, grads = f(params, batch, tables if sparse else None)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+        ref = refs[kind.split(":")[-1]]
+        mine = torch.load(os.path.join(
+            d, f"ref_{name}_{kind.split(':')[-1]}_m"
+            f"{mesh.axis_index('model')}.pt"))
+        names = sorted(grads)
+        worst = torch.tensor([(grads[n] - mine[n].to(DEVICE)).abs().max()
+                              .item() for n in names], dtype=torch.float64)
+        del mine
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX, group=whole)
+        rel = {n: float(w) / max(ref["max"][n], 1e-30)
+               for n, w in zip(names, worst)}
+        leaf = max(rel, key=rel.get)
+        run = {"loss": float(loss), "ref_loss": ref["loss"],
+               "loss_gap": loss_gap([float(loss)], [ref["loss"]]),
+               "grad_rel": rel[leaf], "worst_leaf": leaf, "ms": ms,
+               "sum_ms": 1e3 * (secs[0] - s0),
+               "gather_ms": {k: 1e3 * (v - g0.get(k, 0.0))
+                             for k, v in gsecs.items()
+                             if v - g0.get(k, 0.0) > 0},
+               "halo_ms": 1e3 * (sharded_mod.halo_seconds - h0),
+               "launches": launch_counts(),
+               "replicated": grads_hash({n: g for n, g in grads.items()
+                                         if n not in sharded}),
+               "all": grads_hash(grads)}
+        if fault is None:
+            line = mesh.group("model")
+            run["gnorm"] = float(global_norm(grads, sharded, line))
+            run["gnorm_ref"] = ref["norm"]
+            if mesh_name == "seq_model":
+                # planted: the sharded leaves' squares summed over 'seq' too
+                sq = sum(((grads[n].float() ** 2).sum() for n in sharded),
+                         torch.zeros((), device=DEVICE))
+                dist.all_reduce(sq, group=line)
+                dist.all_reduce(sq, group=mesh.group("seq"))
+                rep = sum(((g.float() ** 2).sum() for n, g in grads.items()
+                           if n not in sharded),
+                          torch.zeros((), device=DEVICE))
+                run["gnorm_over_seq"] = float(torch.sqrt(sq + rep))
+        runs[kind] = run
+        if fault is None and name in ("whisper6", "qwen2kv2"):
+            lp = params["dec_layers" if cfg.family == "audio"
+                        else "layers"]["attn"]
+            attn = {k: [int(x) for x in lp[k].shape[1:]]
+                    for k in ("wq", "wk", "wo")}
+        del params, loss, grads, f
+    out = {"runs": runs, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "ref_peak_gb": refs["peak_gb"],
+           "launches_want": scan_sparse_launches(cfg) if tables else None,
+           "halo": None if tables is None else tables["halo"]}
+    if name in ("whisper6", "qwen2kv2"):
+        out["attn_shards"] = attn
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier(group=whole)
+    return out
+
+
+def seqmodel_worker(d, stages):
+    """A rank of phase 12h (`--seqmodel-worker DIR`, the SPION_* environment
+    of a job of SEQMODEL_RANKS): spion-lra's Trainer, zamba2's and
+    whisper's fp32 steps on (seq 2, model 2), then whisper's (6 heads) and
+    qwen2-7b's (2 KV heads) on model 4; writes DIR/seqmodel_<rank>.json."""
+    import gc
+    import torch
+    from repro_torch.distributed import runtime
+    from repro_torch.kernels.block_sparse_attn import load_library
+    from repro_torch.launch.mesh import make_distributed_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(runtime.initialize(), "the 12h worker did not join its job")
+    stages["joined"] = time.time()
+    rank = runtime.process_index()
+    torch.zeros(1, device=DEVICE)
+    torch.cuda.synchronize()
+    stages["cuda"] = time.time()
+    load_library()
+    stages["library"] = time.time()
+    s, m = SEQMODEL_MESH
+    meshes = {"seq_model": make_distributed_mesh(seq=s, model=m),
+              "fallback": make_distributed_mesh(model=SEQMODEL_FALLBACK)}
+    check(meshes["seq_model"].shape == {"pod": 1, "seq": s, "data": 1,
+                                        "model": m},
+          f"12h mesh {meshes['seq_model']}")
+    out = {"rank": rank,
+           "coords": {k: v.coords() for k, v in meshes.items()},
+           "lines": {k: {a: v.line(a) for a in ("seq", "model")
+                         if a in v.shape}
+                     for k, v in meshes.items()}}
+    secs, gsecs = model_line_timer(), labelled_gather_timer()
+    out["lra"] = seqmodel_lra(meshes["seq_model"], d, rank, secs, gsecs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stages["lra"] = time.time()
+    for name in SEQMODEL_LEGS:
+        out[name] = seqmodel_leg(name, meshes, rank, d, secs, gsecs)
+        stages[name] = time.time()
+    runtime.barrier("12h done")
+    out["stages"] = stages
+    with open(os.path.join(d, f"seqmodel_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    runtime.shutdown(0)   # ends the process
+    return 0
+
+
+def halo_kernels(label, shape, tables, halo, seed, causal=True):
+    """The three kernels as the halo exchange runs them on the last shard of
+    a 'seq' line of 2 (`kernels/sharded`: the shard's rows of the
+    replicated tables rebased into halo storage by `local_tables`, K/V of
+    the halo-extended rows, global offsets and sequence length), against
+    their plain versions in fp32 and bf16, then timed (bf16) beside their
+    bounds and SDPA. `shape` = N, G, S (the shard's rows), hd, block;
+    `tables` = (col_idx, nvalid) numpy of the whole sequence; `halo` (left,
+    right) in blocks. Returns {kernel: record}."""
+    import torch
+    from repro_torch.kernels.block_sparse_attn import (
+        block_sparse_dkv, block_sparse_dq, block_sparse_fwd,
+        fused_dkv_reference, fused_dq_reference, fused_forward_reference)
+    from repro_torch.kernels.sharded import local_tables
+    N, G, S, hd, block = (shape[k] for k in ("N", "G", "S", "hd", "block"))
+    W, (h_l, h_r) = S // block, halo
+    r0 = W                              # the second shard of two
+    col, nvalid = (torch.as_tensor(t, device=DEVICE) for t in tables)
+    col_l, nv_l, row_l, nvt_l = local_tables(col, nvalid, None, None,
+                                             r0=r0, W=W, h_l=h_l, h_r=h_r)
+    M = h_l + W + h_r
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    err, x = {}, None
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q, do = (torch.randn((N, G, S, hd), generator=gen, device=DEVICE)
+                 .to(dt) for _ in range(2))
+        k, v = (torch.randn((N, M * block, hd), generator=gen,
+                            device=DEVICE).to(dt) for _ in range(2))
+        kw = dict(block=block, causal=causal, sliding_window=None,
+                  offsets=(r0, r0 - h_l))
+        fkw = dict(kw, seq_len=2 * S)
+        o, lse = block_sparse_fwd(q, k, v, col_l, nv_l, **fkw)
+        torch.cuda.synchronize()
+        ro, rlse = fused_forward_reference(q, k, v, col_l, nv_l, **fkw)
+        diff = (o.float() - ro.float()).abs()
+        share = (diff / o_limit(dtype, o, ro)).max().item()
+        check(share <= 1.0, f"kernel o at {label}'s halo shape {shape} "
+              f"{dtype}: {share:.3g} of the limit")
+        check(torch.equal(torch.isinf(lse), torch.isinf(rlse)) and
+              (lse - rlse).nan_to_num(0.0, 0.0, 0.0).abs().max().item()
+              <= TOL_LSE, f"lse at {label}'s halo shape {dtype}")
+        delta = (do.float() * o.float()).sum(dim=-1)
+        args = (q, k, v, do, lse, delta)
+        dq = block_sparse_dq(*args, col_l, nv_l, **kw)
+        dk, dv = block_sparse_dkv(*args, row_l, nvt_l, **kw)
+        torch.cuda.synchronize()
+        rdq = fused_dq_reference(*args, col_l, nv_l, **kw)
+        rdk, rdv = fused_dkv_reference(*args, row_l, nvt_l, **kw)
+        res = {n: hold_grad(n, dtype, g, r, shape) for n, g, r in
+               (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv))}
+        log_backward_path(f"{label} halo", shape, dtype, res)
+        err[dtype] = dict(o=diff.max().item(),
+                          **{n: res[n][0] for n in res})
+        x = dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, col=col_l,
+                 nvalid=nv_l, row=row_l, nvalid_t=nvt_l, kw=kw)
+    log(f"kernels at {label}'s halo shape {shape} halo ({h_l}, {h_r}) "
+        f"blocks: the shard's {int(nv_l.sum())} listed tiles over {M} "
+        f"stored column blocks")
+    timing = backward_timing(x)
+    timing["block_sparse_fwd"] = kernel_timing(
+        (x["q"], x["k"], x["v"], x["col"], x["nvalid"],
+         dict(x["kw"], seq_len=2 * S)), f"{label}'s halo shape")
+    checks = {"block_sparse_fwd": ("o",), "block_sparse_dq": ("dq",),
+              "block_sparse_dkv": ("dk", "dv")}
+    return {name: dict(shape=dict(shape, causal=causal, halo=list(halo)),
+                       max_abs_err=max(err["bfloat16"][g]
+                                       for g in checks[name]),
+                       max_abs_err_fp32=max(err["float32"][g]
+                                            for g in checks[name]),
+                       **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")})
+            for name, t in timing.items()}
+
+
+def phase_seq_model(train):
+    """12h: 'seq' together with 'model', and the reference's fallback for
+    head counts |model| does not divide; SEQMODEL_RANKS ranks of this
+    script on the card (`--seqmodel-worker DIR`). First, in this process,
+    the fp32 legs' one-process references (seqmodel_references). (a) On
+    (seq 2, model 2): spion-lra at phase 5's configuration, data and seed
+    through SEQMODEL_LRA_STEPS steps (2 of 4 heads and half the sequence a
+    rank): dense losses within TOL_DP of phase 5's, captures within
+    TOL_CAPTURE of phase 5's, one plan digest equal to phase 5's (or the
+    controller's on the ranks' map), every sparse step 8 + 4 + 4 on every
+    rank, the shards equal across each 'seq' line and the replicated
+    leaves across all; zamba2-1.2b (SCAN_ZAMBA_LAYERS layers) and
+    whisper-tiny (SCAN_WHISPER_S tokens) fp32 dense and sparse steps (a
+    plan banded to halo (1, 0): the halo exchange on a rank's KV-head
+    shard). (b) On model 4, the fallback: whisper-tiny's 6 heads (1.5 a
+    rank) dense and sparse, qwen2-7b with 2 KV heads (half a head a rank,
+    RoPE) dense. Every fp32 step within TOL_SEQ_LOSS (loss and global
+    norm) and TOL_SEQ_GRAD (each leaf) of one process, the replicated
+    leaves' gradients bitwise equal across each model line and every
+    leaf's across each 'seq' line, launches scan_sparse_launches' (the
+    fallback's kernels on whole heads: as one process's); each planted
+    fault of SEQMODEL_LEGS past a gate, and the global norm summed over
+    'seq' as well past TOL_SEQ_LOSS. Then the three kernels against their
+    plain versions and timed at the new shapes."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.spion import SpionState
+    d = os.path.join(DP_DIR, "seqmodel")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter()
+    ref_secs = seqmodel_references(d)
+    t_ref = time.perf_counter() - t_ref
+    t0, t_spawn = time.perf_counter(), time.time()
+    wait_ranks(spawn_ranks(["--seqmodel-worker", d], SEQMODEL_RANKS),
+               "the 12h ranks")
+    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(SEQMODEL_RANKS):
+        with open(os.path.join(d, f"seqmodel_{r}.json")) as f:
+            recs.append(json.load(f))
+    card = card_line()
+    launches = {k: 0 for k in KERNELS}
+    # (a) spion-lra's Trainer against phase 5
+    cfg, ref = train["cfg"], train["losses"]
+    want = sparse_launches(cfg)
+    lra = [rec["lra"] for rec in recs]
+    got = lra[0]["losses"]
+    check(all(x["losses"] == got for x in lra),
+          "12h: the ranks' losses differ")
+    for r, x in enumerate(lra):
+        for ph, ln in zip(x["phases"], x["launches"]):
+            check(ln == want if ph == "sparse" else not any(ln.values()),
+                  f"12h: rank {r}'s {ph} step launched {ln}")
+            for k in KERNELS:
+                launches[k] += ln[k]
+    check("sparse" in lra[0]["phases"], "12h: spion-lra never went sparse")
+    dense_n = min(train["dense_steps"], lra[0]["phases"].count("dense"))
+    gap = loss_gap(got[:dense_n], ref[:dense_n])
+    check(len({x["digest"] for x in lra}) == 1,
+          f"12h: the ranks' plan digests differ: {[x['digest'] for x in lra]}")
+    check(len({x["replicated"] for x in lra}) == 1,
+          "12h: the replicated masters differ across the ranks")
+    for line in {tuple(rec["lines"]["seq_model"]["seq"]) for rec in recs}:
+        check(len({lra[r]["shards"] for r in line}) == 1,
+              f"12h: the masters' shards differ across the 'seq' line {line}")
+    check(lra[0]["shards"] != lra[1]["shards"],
+          "12h: a model line's two ranks hold the same shards")
+    pooled = [dict(np.load(os.path.join(d, f"pooled_{r}.npz")))
+              for r in range(SEQMODEL_RANKS)]
+    n_caps = len(pooled[0])
+    check(n_caps == len(train["pooled"]), f"12h: {n_caps} captures, phase 5 "
+          f"made {len(train['pooled'])}")
+    bitwise = True
+    for r in range(SEQMODEL_RANKS):
+        for i, w in enumerate(train["pooled"]):
+            check(np.array_equal(pooled[r][f"p{i}"], pooled[0][f"p{i}"]),
+                  f"12h: rank {r}'s capture {i} differs from rank 0's")
+            bitwise &= bool(np.array_equal(pooled[r][f"p{i}"], w))
+    cap_gaps = [float(np.abs(pooled[0][f"p{i}"] - w).max() / np.abs(w).max())
+                for i, w in enumerate(train["pooled"])]
+    cap_gap = max(cap_gaps)
+    if bitwise:
+        plan_ref, which = plan_digest_of(train["trainer"].spion_state), \
+            "phase 5's"
+    else:
+        st = train["trainer"].spion_ctl.generate(
+            SpionState(), pooled[0][f"p{n_caps - 1}"])
+        plan_ref, which = plan_digest_of(st), \
+            "the controller's on the ranks' map"
+    same_plan = lra[0]["digest"] == plan_ref
+    phase5_plan = lra[0]["digest"] == plan_digest_of(
+        train["trainer"].spion_state)
+    log(f"seq-model lra: {SEQMODEL_RANKS} ranks on the card (gloo), mesh "
+        f"seq {SEQMODEL_MESH[0]} x model {SEQMODEL_MESH[1]} (model lines "
+        f"{sorted({tuple(rec['lines']['seq_model']['model']) for rec in recs})}"
+        f", 'seq' lines "
+        f"{sorted({tuple(rec['lines']['seq_model']['seq']) for rec in recs})}"
+        f"), spion-lra at ListOps size ({lra_config()[1]['batch']} sequences "
+        f"x {lra_config()[1]['seq_len'] // SEQMODEL_MESH[0]} positions, wq "
+        f"{lra[0]['wq']} a rank): {len(got)} steps, {dense_n} dense, then "
+        f"sparse at {want} a step on every rank; dense losses vs phase 5's "
+        f"max rel {gap:.3e} (gate {TOL_DP}); captures vs phase 5's "
+        f"{', '.join('%.3e' % g for g in cap_gaps)} of the map's largest "
+        f"({'bitwise' if bitwise else 'not bitwise'}; gate {TOL_CAPTURE}); "
+        f"plan digests equal ({lra[0]['digest']}), "
+        f"{'equal to' if same_plan else 'DIFFERENT from'} {which}, "
+        f"{'equal to' if phase5_plan else 'not'} phase 5's; the trained plan "
+        f"(halo {lra[0]['stats']['halo']}) takes the {lra[0]['branch']} "
+        f"({lra[0]['reason']}); shards equal across each 'seq' line, "
+        f"replicated masters across all")
+    for r, x in enumerate(lra):
+        def med(key, ph):
+            xs = [v for v, p in zip(x[key][1:], x["phases"][1:]) if p == ph]
+            return float(np.median(xs)) if xs else float("nan")
+        log(f"seq-model lra rank {r} {recs[r]['coords']['seq_model']}: step "
+            f"median dense {med('step_ms', 'dense'):.2f} ms (model-line sums "
+            f"{med('sum_ms', 'dense'):.2f}, 'seq' gathers "
+            f"{med('gather_ms', 'dense'):.2f}, gradient all-reduce "
+            f"{med('allreduce_ms', 'dense'):.2f}), sparse "
+            f"{med('step_ms', 'sparse'):.2f} ms (sums "
+            f"{med('sum_ms', 'sparse'):.2f}, gathers "
+            f"{med('gather_ms', 'sparse'):.2f}, halo "
+            f"{med('halo_ms', 'sparse'):.2f}, all-reduce "
+            f"{med('allreduce_ms', 'sparse'):.2f}); captures "
+            f"{', '.join('%.1f' % c['ms'] for c in x['captures'])} ms (their "
+            f"sums {', '.join('%.1f' % c['sum_ms'] for c in x['captures'])}, "
+            f"gathers "
+            f"{', '.join('%.1f' % c['gather_ms'] for c in x['captures'])}); "
+            f"peak {x['peak_gb']:.2f} GB ({card})")
+    check(gap <= TOL_DP, f"12h: spion-lra's dense losses differ from phase "
+          f"5's by {gap}; gate {TOL_DP}")
+    check(cap_gap <= TOL_CAPTURE, f"12h: captures {cap_gap}; gate "
+          f"{TOL_CAPTURE}")
+    check(same_plan, f"12h: the ranks' plan differs from {which}")
+    # the fp32 legs
+    faults, gaps = {}, {}
+    for name, (mesh_name, kinds, _) in SEQMODEL_LEGS.items():
+        legs = [rec[name] for rec in recs]
+        r0 = legs[0]["runs"]
+        model_lines = {tuple(rec["lines"][mesh_name]["model"])
+                       for rec in recs}
+        seq_lines = {tuple(rec["lines"][mesh_name]["seq"]) for rec in recs
+                     if "seq" in rec["lines"][mesh_name]}
+        for r, leg in enumerate(legs):
+            for kind, run in leg["runs"].items():
+                if ":" in kind:
+                    continue
+                want_l = leg["launches_want"] if kind == "sparse" else \
+                    {k: 0 for k in KERNELS}
+                check(run["launches"] == want_l, f"12h {name}: rank {r}'s "
+                      f"{kind} step launched {run['launches']}, not {want_l}")
+                check(run["loss_gap"] <= TOL_SEQ_LOSS and
+                      run["grad_rel"] <= TOL_SEQ_GRAD,
+                      f"12h {name}'s {kind} step on rank {r} misses one "
+                      f"process's: "
+                      f"{ {k: v for k, v in run.items() if k != 'launches'} }")
+                check(abs(run["gnorm"] - run["gnorm_ref"]) <=
+                      TOL_SEQ_LOSS * run["gnorm_ref"],
+                      f"12h {name}'s {kind} global norm {run['gnorm']} vs "
+                      f"one process {run['gnorm_ref']}")
+            if "sparse" in leg["runs"]:
+                for k in KERNELS:
+                    launches[k] += leg["runs"]["sparse"]["launches"][k]
+        for kind in kinds:
+            for line in model_lines:
+                check(len({legs[r]["runs"][kind]["replicated"]
+                           for r in line}) == 1,
+                      f"12h {name} {kind}: the replicated leaves' gradients "
+                      f"differ across the model line {line}")
+            for line in seq_lines:
+                check(len({legs[r]["runs"][kind]["all"] for r in line}) == 1,
+                      f"12h {name} {kind}: the gradients differ across the "
+                      f"'seq' line {line}")
+            gaps[f"{name} {kind}"] = (r0[kind]["loss_gap"],
+                                      r0[kind]["grad_rel"])
+        for kind, run in r0.items():
+            if ":" in kind:
+                worst = max((leg["runs"][kind] for leg in legs),
+                            key=lambda x: (x["loss_gap"], x["grad_rel"]))
+                apart = any(len({legs[r]["runs"][kind]["replicated"]
+                                 for r in line}) > 1 for line in model_lines)
+                faults[f"{name} {kind.split(':')[0]}"] = dict(worst,
+                                                              apart=apart)
+        if "gnorm_over_seq" in r0.get("dense", {}):
+            run = r0["dense"]
+            faults[f"{name} norm_over_seq"] = dict(
+                run, loss_gap=abs(run["gnorm_over_seq"] - run["gnorm_ref"])
+                / run["gnorm_ref"], grad_rel=0.0, apart=False,
+                worst_leaf="(the global norm)")
+        log(f"seq-model {name}: {mesh_name} "
+            f"({'seq %d x model %d' % SEQMODEL_MESH if mesh_name == 'seq_model' else 'model %d' % SEQMODEL_FALLBACK}), "
+            f"fp32"
+            + (f", attention shards a rank {legs[0]['attn_shards']}"
+               if "attn_shards" in legs[0] else "")
+            + (f", plan halo {legs[0]['halo']}" if legs[0]["halo"] else "")
+            + "; " + "; ".join(
+                f"{kind} loss {run['loss']:.6f} vs one process "
+                f"{run['ref_loss']:.6f} (rel {run['loss_gap']:.3e}), worst "
+                f"gradient leaf {run['worst_leaf']} {run['grad_rel']:.3e} of "
+                f"its largest, global norm {run['gnorm']:.6f} vs "
+                f"{run['gnorm_ref']:.6f}"
+                for kind, run in r0.items() if ":" not in kind)
+            + f" (gates {TOL_SEQ_LOSS}, {TOL_SEQ_GRAD}); replicated leaves' "
+            f"gradients bitwise equal across each model line"
+            + (", every leaf's across each 'seq' line" if seq_lines else "")
+            + f"; one-process reference peak {legs[0]['ref_peak_gb']:.2f} GB"
+            f" in {ref_secs[name]:.1f} s")
+        for r, leg in enumerate(legs):
+            log(f"seq-model {name} rank {r}: " + "; ".join(
+                f"{kind} {run['ms']:.1f} ms (model-line sums "
+                f"{run['sum_ms']:.1f} ms, gathers "
+                + (", ".join(f"{k} {v:.1f}" for k, v in
+                             sorted(run["gather_ms"].items())) or "none")
+                + f" ms, halo {run['halo_ms']:.1f} ms)"
+                for kind, run in leg["runs"].items() if ":" not in kind)
+                + f"; sparse launches "
+                f"{leg['runs'].get('sparse', {}).get('launches')}; peak "
+                f"{leg['peak_gb']:.2f} GB ({card})")
+    for what, run in faults.items():
+        missed = run["loss_gap"] > TOL_SEQ_LOSS or \
+            run["grad_rel"] > TOL_SEQ_GRAD or run["apart"]
+        log(f"seq-model planted {what}: loss (or norm) rel "
+            f"{run['loss_gap']:.3e}, worst gradient leaf {run['worst_leaf']} "
+            f"{run['grad_rel']:.3e}"
+            f"{', replicated leaves apart' if run['apart'] else ''} -> "
+            f"{'misses' if missed else 'PASSES'} the gate")
+        check(missed, f"12h: the planted {what} passes the gates: {run}")
+    # the kernels at the new shapes
+    t_kernels = time.perf_counter()
+    kernels = {}
+    lra_cfg, task = lra_config()
+    B, S = task["batch"], task["seq_len"]
+    plan = np.load(os.path.join(d, "plan_layer0.npz"))
+    kv = lra_cfg.num_kv_heads // SEQMODEL_MESH[1]
+    if lra[0]["branch"] == "halo":
+        kernels["lra"] = halo_kernels(
+            "seqmodel-lra", dict(N=B * kv, G=1, S=S // SEQMODEL_MESH[0],
+                                 hd=lra_cfg.resolved_head_dim,
+                                 block=lra_cfg.spion.block_size),
+            (plan["col"], plan["nvalid"]), lra[0]["stats"]["halo"], SEED + 27,
+            causal=False)
+    else:
+        kernels["lra"] = path_kernels(
+            "seqmodel-lra", dict(N=B * kv, G=1, S=S,
+                                 hd=lra_cfg.resolved_head_dim,
+                                 block=lra_cfg.spion.block_size),
+            (plan["col"], plan["nvalid"]), "the trained plan's layer-0",
+            SEED + 27, causal=False)
+    for name, arch, batch, s_all in (
+            ("zamba2", "zamba2-1.2b", SCAN_BATCH, SCAN_S),
+            ("whisper", "whisper-tiny", SCAN_WHISPER_BATCH, SCAN_WHISPER_S)):
+        c = get_config(arch)
+        leg_cfg = seqmodel_config(name)[0]
+        tables = seqmodel_tables(name, leg_cfg, s_all)
+        kernels[name] = halo_kernels(
+            f"seqmodel-{name}",
+            dict(N=batch * c.num_kv_heads // SEQMODEL_MESH[1],
+                 G=c.num_heads // c.num_kv_heads, S=s_all // SEQMODEL_MESH[0],
+                 hd=c.resolved_head_dim, block=c.spion.block_size),
+            (tables["col_idx"][0].cpu().numpy(),
+             tables["nvalid"][0].cpu().numpy()), tables["halo"], SEED + 28)
+    c = get_config("whisper-tiny")
+    col, nvalid = modelscan_plan(c, SEQMODEL_WHISPER_S)
+    kernels["whisper6"] = path_kernels(
+        "seqmodel-whisper6", dict(N=SCAN_WHISPER_BATCH * c.num_kv_heads,
+                                  G=1, S=SEQMODEL_WHISPER_S,
+                                  hd=c.resolved_head_dim,
+                                  block=c.spion.block_size),
+        (col[0], nvalid[0]), "12g's random layer-0", SEED + 29)
+    t_kernels = time.perf_counter() - t_kernels
+    clock = stage_split(t_spawn, recs[0]["stages"], (
+        ("lra", f"spion-lra's {SEQMODEL_LRA_STEPS} steps"),
+        *((name, f"{name} fp32 steps") for name in SEQMODEL_LEGS)),
+        start=START_STAGES[:5])
+    clock["exit"] = wall - sum(clock.values())
+    log(f"seq-model wall clock, rank 0, s: {fmt_split(clock)}; phase 12h "
+        f"{wall:.1f} s, before it the one-process references in this "
+        f"process {t_ref:.1f} s, after it the kernels at the new shapes "
+        f"{t_kernels:.1f} s")
+    return dict(seconds=t_ref + wall + t_kernels, launches=launches,
+                gap=gap, cap_gap=cap_gap, gaps=gaps,
+                branch=lra[0]["branch"],
+                faults={k: (v["loss_gap"], v["grad_rel"])
+                        for k, v in faults.items()},
+                peak_gb=[x["peak_gb"] for x in lra], kernels=kernels)
+
+
 def sum_launches(per_step):
     """The kernels' launches summed over a run's steps."""
     return {k: sum(ln[k] for ln in per_step) for k in KERNELS}
 
 
 def phase_multiprocess(train):
-    """Phase 12: 12a, 12b, 12c, 12d, 12e, 12f and 12g, after the parent
-    frees its cached memory for the ranks."""
+    """Phase 12: 12a, 12b, 12c, 12d, 12e, 12f, 12g and 12h, after the
+    parent frees its cached memory for the ranks."""
     import gc
     import shutil
     import torch
@@ -7005,8 +7884,12 @@ def phase_multiprocess(train):
     gc.collect()
     torch.cuda.empty_cache()
     modelscan = phase_model_scan()
+    gc.collect()
+    torch.cuda.empty_cache()
+    seqmodel = phase_seq_model(train)
     return dict(seq=seq, dp=dp, fleet=fleet, seqtrain=seqtrain,
-                seqscan=seqscan, model=model, modelscan=modelscan)
+                seqscan=seqscan, model=model, modelscan=modelscan,
+                seqmodel=seqmodel)
 
 
 def main(argv):
@@ -7044,6 +7927,10 @@ def main(argv):
     parser.add_argument("--modelscan-worker", metavar="DIR", help="run as "
                         "a rank of phase 12g (the hybrid, ssm and encdec "
                         "families over a 'model' axis); records go to DIR")
+    parser.add_argument("--seqmodel-worker", metavar="DIR", help="run as a "
+                        "rank of phase 12h ('seq' together with 'model', "
+                        "and the head fallback on 'model'); records and the "
+                        "one-process references are in DIR")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -7070,6 +7957,9 @@ def main(argv):
     if args.modelscan_worker:
         return modelscan_worker(args.modelscan_worker,
                                 {"main": t_main, "torch": t_torch})
+    if args.seqmodel_worker:
+        return seqmodel_worker(args.seqmodel_worker,
+                               {"main": t_main, "torch": t_torch})
     import shutil
     import numpy as np
     # every exec of this run (and of the respawn phase's worker, which
@@ -7151,13 +8041,13 @@ def main(argv):
     multi = phase_multiprocess(train)
     dp, fleet, seqtrain = multi["dp"], multi["fleet"], multi["seqtrain"]
     seqscan, model = multi["seqscan"], multi["model"]
-    modelscan = multi["modelscan"]
+    modelscan, seqmodel = multi["modelscan"], multi["seqmodel"]
 
     fwd = {"launches": serve["launches"] + shared["launches"]
            + mixtral["launches"]
            + sum(run["launches"]["block_sparse_fwd"]
                  for run in (zamba, whisper, internvl, train, dp, seqtrain,
-                             seqscan, model, modelscan)),
+                             seqscan, model, modelscan, seqmodel)),
            "launches_serve": serve["launches"],
            "launches_serve_shared": shared["launches"],
            "launches_mixtral": mixtral["launches"],
@@ -7179,7 +8069,8 @@ def main(argv):
         t = train_timing[name]
         rows[name] = {"launches": sum(run["launches"][name] for run in
                                       (train, zamba, whisper, internvl, dp,
-                                       seqtrain, seqscan, model, modelscan)),
+                                       seqtrain, seqscan, model, modelscan,
+                                       seqmodel)),
                       "launches_zamba2": zamba["launches"][name],
                       "launches_whisper": whisper["launches"][name],
                       "launches_internvl2": internvl["launches"][name],
@@ -7198,12 +8089,14 @@ def main(argv):
                           ("respawn", respawn), ("dp", dp),
                           ("fleet", fleet), ("seqtrain", seqtrain),
                           ("seqscan", seqscan), ("model", model),
-                          ("modelscan", modelscan)):
+                          ("modelscan", modelscan), ("seqmodel", seqmodel)):
             row[f"launches_{path}"] = run["launches"][name]
         row["model_shard_shape"] = model["kernels"][name]
         row["modelscan_zamba2_shape"] = modelscan["kernels"]["zamba2"][name]
         row["modelscan_whisper_shape"] = \
             modelscan["kernels"]["whisper"][name]
+        for leg, rec in seqmodel["kernels"].items():
+            row[f"seqmodel_{leg}_shape"] = rec[name]
         row["seq_parallel"] = multi["seq"]["runs"]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -7300,6 +8193,17 @@ def main(argv):
         f"on the line {modelscan['line_resume']:.3e}, in one process "
         f"{modelscan['one_resume']:.3e}, in_proj restored contiguously "
         f"{modelscan['planted_resume']:.3e} ({card})")
+    log(f"'seq' together with 'model' and the head fallback (phase 12h, "
+        f"{seqmodel['seconds']:.1f} s): spion-lra on seq {SEQMODEL_MESH[0]} x "
+        f"model {SEQMODEL_MESH[1]} dense gap {seqmodel['gap']:.3e}, captures "
+        f"{seqmodel['cap_gap']:.3e}, the trained plan through the "
+        f"{seqmodel['branch']}; fp32 rel loss gap and worst gradient leaf to "
+        f"one process "
+        + "; ".join(f"{k} {a:.3e} / {b:.3e}"
+                    for k, (a, b) in seqmodel["gaps"].items())
+        + "; planted faults " + ", ".join(
+            f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in
+            seqmodel["faults"].items()) + f" ({card})")
     log(f"recovery: supervisor {respawn['wall']:.2f} s in all; a sparse step "
         f"run twice is {'' if resume['bitwise'] else 'NOT '}bitwise "
         f"reproducible; max rel gap to the uninterrupted run's losses (gate "

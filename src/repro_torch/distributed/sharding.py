@@ -35,20 +35,30 @@ compiler inserts (Megatron-style). The layout contract:
     states the ZeRO-1 specs for the dry run; no trainer path runs them.
     `shard_params` and `gather_params` go between the whole tree and the
     rank's shard.
-  - **Whole heads only.** The port runs a layer split only where its
-    shards fall on whole heads, so `check_model_layout` asks |model| to
-    divide every width a family's layers split (`model_widths`): the
-    attention heads and KV heads of every family with attention, the
-    hybrid family's SSM heads, inner width and B and C columns (2N), the
-    ssm family's heads and d_ff, the encdec family's d_ff. Else ValueError
-    (ROADMAP.md item A12b, the fallbacks waiting in 12b.2c), where GSPMD
-    would split mid-head (`sanitize_spec` allows it) or keep KV replicated
-    (`kernel_shard_axes`): a layer never falls back to replicated work.
-    Where `sanitize_spec` drops a rule because the dimension does not
-    divide, the leaf is replicated, as in the reference (internvl2-2b's
-    vocabulary of 92,553 keeps `tok_embed` and `lm_head` whole, whisper's
-    51,865 its tied `tok_embed`). 'seq' together with 'model' raises
-    NotImplementedError (A12b, 12b.2c).
+  - **Heads.** Where |model| divides both the attention heads and the
+    KV heads (`heads_split`), each rank runs its H/|model| query heads and
+    KV/|model| KV heads: column-parallel projections, the attention on the
+    rank's heads, a row-parallel output projection. Where it does not
+    (whisper-tiny's 6 heads on |model| 4, 2 KV heads on 4), the leaves keep
+    the reference's spec shards all the same (`sanitize_spec` keeps a
+    column rule wherever the merged width divides: 384 columns of wq on 4
+    ranks are 96 a rank, 1.5 heads) and the layer takes the reference's
+    fallback (`kernel_shard_axes` with `kv_ax` None): each rank computes
+    its columns of q, k and v, `gather_model` joins them into the whole
+    merged widths, RoPE follows, the attention runs on every head on every
+    rank of the line, and the output projection takes the rank's rows of
+    the context (models/attention.py). A merged width |model| does not
+    divide keeps its leaf whole, as `sanitize_spec` does. What still
+    raises is a width of a scan family that |model| does not divide
+    (`check_model_layout`: the hybrid's SSM heads, inner width and B and C
+    columns, the ssm family's heads and d_ff; ValueError naming ROADMAP.md
+    item A12b, 12b.4b). Where `sanitize_spec` drops a rule because the
+    dimension does not divide, the leaf is replicated, as in the reference
+    (internvl2-2b's vocabulary of 92,553 keeps `tok_embed` and `lm_head`
+    whole, whisper's 51,865 its tied `tok_embed`). 'seq' and 'model'
+    compose: the 'seq' collectives run on this rank's 'seq' line (the
+    ranks of its data and model index), the model-line ones on its model
+    line.
   - **Packed leaves.** Mamba2's `in_proj` packs z (inner), x (inner), B
     and C (N each) and dt (H) in its columns. The rule splits the columns
     over 'model' as the reference's does, with the reference's shard
@@ -84,8 +94,10 @@ compiler inserts (Megatron-style). The layout contract:
   - **One decision.** Whether a layer runs split is `model_split(dim)` of
     the config's full dimension on the active mesh: the same divisibility
     that `sanitize_spec` applies to the leaf's rule, so a layer's code and
-    its leaves' shards agree. `constrain` has no counterpart: the layout
-    is explicit.
+    its leaves' shards agree; for the attention heads it is `heads_split`
+    (both head counts), which every site asks: the projections, the
+    output projection, the capture's line mean and the kernels' KV count.
+    `constrain` has no counterpart: the layout is explicit.
 """
 from __future__ import annotations
 
@@ -551,8 +563,6 @@ def zero1_pspecs(params, mesh) -> dict:
 # the 'model' axis: layout checks, shards, collectives
 # ---------------------------------------------------------------------------
 
-SEQ_MODEL_REFUSAL = ("'seq' together with 'model' is not ported yet; it "
-                     "waits in ROADMAP.md item A12b (12b.2c)")
 # the hybrid family's packed leaf: Mamba2's in_proj (z, x, B‖C, dt)
 _PACKED = re.compile(r"mamba/in_proj$")
 
@@ -598,24 +608,43 @@ def model_widths(cfg) -> dict:
     return out
 
 
+def heads_split(cfg) -> bool:
+    """Whether the active mesh's 'model' axis splits `cfg`'s attention
+    heads: |model| > 1 divides both the query heads and the KV heads, so
+    each rank holds whole heads of both (a contiguous split keeps query
+    head h with KV head h // G). False under the reference's fallback
+    (either count indivisible: every rank computes every head) and
+    without a 'model' axis."""
+    m = model_size()
+    return m > 1 and cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+
+
+# the widths of `model_widths` that only a scan family's layers split
+# (no fallback ported for them)
+_SCAN_WIDTHS = {"hybrid": ("ssm heads", "inner", "2N (B and C)"),
+                "ssm": ("num_heads", "d_ff")}
+
+
 def check_model_layout(cfg, mesh):
-    """Refuse what the port cannot split on `mesh`'s 'model' axis: 'seq'
-    together with 'model' (NotImplementedError), a width of
-    `model_widths` that |model| does not divide (ValueError). Both name
-    ROADMAP.md item A12b (12b.2c). A no-op without a 'model' axis larger
+    """Refuse what the port cannot split on `mesh`'s 'model' axis: a width
+    of a scan family that |model| does not divide (the hybrid family's SSM
+    heads, inner width and B and C columns, the ssm family's heads and
+    d_ff; ValueError naming ROADMAP.md item A12b, 12b.4b). The attention
+    heads need not divide (the reference's fallback, `heads_split`), and
+    'seq' composes with 'model'. A no-op without a 'model' axis larger
     than 1."""
     m = model_size(mesh)
     if m <= 1:
         return
-    if seq_size(mesh) > 1:
-        raise NotImplementedError(f"{mesh}: {SEQ_MODEL_REFUSAL}")
-    bad = [f"{k} {w}" for k, w in model_widths(cfg).items() if w % m]
+    widths = model_widths(cfg)
+    bad = [f"{k} {widths[k]}" for k in _SCAN_WIDTHS.get(cfg.family, ())
+           if widths[k] % m]
     if bad:
         raise ValueError(
             f"{cfg.name} (family {cfg.family!r}): {', '.join(bad)} must "
-            f"divide over |model| = {m} (shards of whole heads); the "
-            f"reference's mid-head split and replicated-KV fallback wait in "
-            f"ROADMAP.md item A12b (12b.2c)")
+            f"divide over |model| = {m} (the scan runs on shards of whole "
+            f"heads); a fallback for scan widths |model| does not divide "
+            f"waits in ROADMAP.md item A12b (12b.4b)")
 
 
 def packed_segments(name: str, cfg):

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding import active_mesh
+from repro_torch.distributed.sharding import active_mesh, heads_split
 from repro_torch.kernels.block_sparse_attn import fused_block_sparse_attention
 from repro_torch.kernels.sharded import sharded_fused_attention
 
@@ -67,7 +67,8 @@ def spion_attention_kernel(cfg, q, k, v, bcsr, *, row_idx=None,
         o = sharded_fused_attention(
             mesh, qh, kh, vh, col, nvalid, block=bcsr.block,
             causal=cfg.causal, sliding_window=cfg.sliding_window,
-            row_idx=row_idx, nvalid_t=nvalid_t, halo=halo, config=config)
+            row_idx=row_idx, nvalid_t=nvalid_t, halo=halo, config=config,
+            heads_split=heads_split(cfg))
         return _merge_heads(o, dims)
     qf, kf, vf = _flatten_bk(qh, kh, vh, dims)
     o = fused_block_sparse_attention(qf, kf, vf, col, nvalid,

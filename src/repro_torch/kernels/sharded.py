@@ -4,7 +4,7 @@ package's `kernels/sharded.py` for ranks that each hold their shard.
 `sharded_fused_attention(mesh, q, k, v, ...)` takes THIS rank's shards,
 q (B_loc, KV_loc, G, S_loc, hd) and k, v (B_loc, KV_loc, S_loc, hd), with
 the batch split over the data axes ('pod', 'data'), the KV heads over
-'model' (KV_loc = KV / |model|) and, on a mesh with a 'seq' axis, the
+'model' where it divides them (KV_loc = KV / |model|) and, on a mesh with a 'seq' axis, the
 sequence split over 'seq' (`distributed.sharding.kernel_pspecs_from_axes`
 states the layout). The tables are replicated: they index the global
 sequence.
@@ -29,8 +29,13 @@ sequence.
     with a 'seq' axis gathers the sequence over 'seq' (`distributed.
     sharding.gather_seq`) and runs the kernels on it, replicated |seq|
     times, with the reference's warning (once, on
-    the coordinator); with no data axis to fall back to it raises, as the
-    reference does.
+    the coordinator); with no data or KV axis to fall back to it raises, as
+    the reference does.
+  - **Whole heads on a model line.** Under the reference's head fallback
+    (`heads_split=False`: |model| does not divide the heads) every rank
+    of a model line holds every head, and the kernels run on them on each
+    rank of the line, with whatever data and 'seq' split the mesh still
+    gives.
 
 Transport (`transport`): each rank sends its packed edge blocks to its
 two neighbours with `dist.batch_isend_irecv` on the 'seq' group, one
@@ -129,17 +134,24 @@ def _swap(halo, to_right, to_left):
     return parts[:len(to_right)], parts[len(to_right):]
 
 
+def halo_peers(mesh):
+    """(group, left, right) of this rank's halo exchange: its 'seq' line
+    (the ranks of its data and model index: their K/V are the same heads
+    of the neighbouring shards of the sequence) and its neighbours on that
+    ring, as global ranks."""
+    line = mesh.line("seq")
+    i = mesh.axis_index("seq")
+    n = len(line)
+    return mesh.group("seq"), line[(i - 1) % n], line[(i + 1) % n]
+
+
 class Halo:
     """The halo exchange of one rank: its 'seq' group, its left and right
-    neighbours on the ring (global ranks), the halo widths in rows and the
-    transport."""
+    neighbours on the ring (global ranks: `halo_peers`), the halo widths in
+    rows and the transport."""
 
     def __init__(self, mesh, h_l_rows, h_r_rows, like):
-        line = mesh.line("seq")
-        i = mesh.axis_index("seq")
-        n = len(line)
-        self.group = mesh.group("seq")
-        self.left, self.right = line[(i - 1) % n], line[(i + 1) % n]
+        self.group, self.left, self.right = halo_peers(mesh)
         self.h_l, self.h_r = int(h_l_rows), int(h_r_rows)
         self.transport = transport(self.group, like)
 
@@ -274,7 +286,8 @@ def seq_plan(mesh, S_loc, block, halo):
 
 def sharded_fused_attention(mesh, q, k, v, col_idx, nvalid, *, block,
                             causal=False, sliding_window=None, row_idx=None,
-                            nvalid_t=None, halo=None, config=None):
+                            nvalid_t=None, halo=None, config=None,
+                            heads_split=True):
     """`fused_block_sparse_attention` over `mesh`, on this rank's shards:
     q (B_loc, KV, G, S_loc, hd), k / v (B_loc, KV, S_loc, hd) -> o of q's
     shape. The tables are one layer's, replicated (col_idx (nrb, K), nvalid
@@ -282,19 +295,27 @@ def sharded_fused_attention(mesh, q, k, v, col_idx, nvalid, *, block,
     nrb the GLOBAL row-block count. `halo` is the pattern's (left, right)
     column extent in blocks (plan stats["halo"]): it unlocks the 'seq'
     sharding. `config` is the dispatch.KernelConfig of the three kernels.
-    Differentiable in q, k and v."""
+    `heads_split` says whether q, k and v are this rank's KV/|model| heads
+    on a 'model' axis (`distributed.sharding.heads_split` of the model);
+    False is the reference's head fallback, where every rank of a model
+    line holds every head: the kernels then run on the whole heads on each
+    rank of the line, keeping the data and 'seq' splits (a departure: the
+    reference's "auto" takes its gather path there, which GSPMD runs
+    replicated). Differentiable in q, k and v."""
     B_loc, KV, G, S_loc, hd = q.shape
     daxes = data_axes(mesh)
-    # on a 'model' axis q, k and v are this rank's KV/|model| heads
-    # (models/attention.qkv): the reference's decision on the global count
+    # the reference's decision on the global counts
+    m = model_size(mesh)
     baxes, kv_ax = kernel_shard_axes(mesh, B_loc * mesh.axis_size(daxes),
-                                     KV * model_size(mesh))
+                                     KV * m if heads_split else KV)
+    # replicated over the model line by design (the head fallback)
+    on_line = m > 1 and not heads_split
     seq, reason = seq_plan(mesh, S_loc, block, halo)
     kw = dict(block=block, causal=causal, sliding_window=sliding_window,
               config=config)
     n_seq = seq_size(mesh)
     if seq is None and n_seq > 1:
-        if baxes is None:
+        if baxes is None and kv_ax is None and not on_line:
             raise RuntimeError(
                 f"sharded_fused_attention: mesh {dict(mesh.shape)} has a "
                 f"'seq' axis but the kernel cannot seq-shard ({reason}) "
@@ -322,13 +343,13 @@ def sharded_fused_attention(mesh, q, k, v, col_idx, nvalid, *, block,
             nvalid_t=nvalid_t, **kw)
         return o.reshape(B_loc, KV, G, S, hd).narrow(3, idx * S_loc, S_loc)
     if seq is None:
-        if baxes is None and kv_ax is None:
+        if baxes is None and kv_ax is None and not on_line:
             raise RuntimeError(
                 f"sharded_fused_attention: no mesh axis shards the kernel on "
                 f"mesh {dict(mesh.shape)} — batch="
                 f"{B_loc * mesh.axis_size(daxes)} is indivisible by the data "
-                f"axes and kv_heads={KV * model_size(mesh)} by 'model'. "
-                f"The shard_map would run "
+                f"axes and kv_heads={KV * m if heads_split else KV} by "
+                f"'model'. The shard_map would run "
                 f"the full kernel replicated on every device; use "
                 f"kernel='jnp' (the GSPMD path) or fix the batch/head "
                 f"divisibility.")

@@ -10,22 +10,21 @@ axis run over. Each rank holds its own shard of every sharded tensor;
 Ranks fill the grid in C order (`np.arange(n).reshape(shape)`): the leading
 axis is the slowest, so `make_distributed_mesh`'s 'pod' axis is the
 process-major axis of the reference (`src/repro/launch/mesh.py:60-100`)
-and the ranks of one 'seq' line are adjacent.
+and the ranks of one line of the last axis are adjacent (a model line,
+on a mesh with 'model').
 
 A 'model' axis larger than 1 holds tensor, expert and vocabulary
 parallelism for every family (distributed/sharding.py states the
-layout). What still raises, naming ROADMAP.md item A12b (12b.2c): 'seq'
-together with 'model' (here, at the mesh), and a width the family splits
-that |model| does not divide (where a step or a trainer is built:
-`sharding.check_model_layout`).
+layout), alone or with 'seq' and the data axes: the reference's
+long-context mesh (seq, data, model). What still raises, naming ROADMAP.md
+item A12b (12b.4b), is a scan width that |model| does not divide (where a
+step or a trainer is built: `sharding.check_model_layout`).
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import numpy as np
-
-from repro_torch.distributed.sharding import SEQ_MODEL_REFUSAL
 
 
 class Mesh:
@@ -103,12 +102,15 @@ class Mesh:
 
     def _group_keys(self):
         """Every axis combination that collectives run over: each axis, the
-        data axes together, and the whole mesh."""
+        data axes together, every axis but 'model' together (the plane the
+        loss terms and gradients are summed over: launch/steps.
+        reduce_axes), and the whole mesh."""
         keys = [(a,) for a in self.axis_names]
         daxes = tuple(a for a in ("pod", "data") if a in self.shape)
-        if len(daxes) > 1:
-            keys.append(daxes)
-        keys.append(self.axis_names)
+        plane = tuple(a for a in self.axis_names if a != "model")
+        for key in (daxes, plane, self.axis_names):
+            if len(key) > 1 and key not in keys:
+                keys.append(key)
         return keys
 
     def build_groups(self):
@@ -154,19 +156,11 @@ def _with_groups(mesh: Mesh) -> Mesh:
     return mesh
 
 
-def _refuse_seq_model(seq: int, model: int):
-    if seq > 1 and model > 1:
-        raise NotImplementedError(f"seq={seq}, model={model}: "
-                                  f"{SEQ_MODEL_REFUSAL}")
-
-
 def make_mesh(shape, axes, ranks=None) -> Mesh:
     """A mesh of `shape` over `ranks` (default 0..n-1) with named axes; its
     process groups are built when a process group is up (every process of
     the job must call this together then)."""
     shape = tuple(int(s) for s in shape)
-    sizes = dict(zip(axes, shape))
-    _refuse_seq_model(sizes.get("seq", 1), sizes.get("model", 1))
     n = int(np.prod(shape))
     ranks = np.arange(n) if ranks is None else np.asarray(ranks)
     if ranks.size != n:
@@ -177,8 +171,8 @@ def make_mesh(shape, axes, ranks=None) -> Mesh:
 def make_seq_mesh(seq: int, data: int = 1, model: int = 1) -> Mesh:
     """Explicit (seq, data) mesh over ranks 0..seq*data-1, for tests and
     sequence-parallel runs; seq ranks adjacent. With `model` > 1 the
-    reference's (seq, data, model) mesh, which raises (A12b) when seq > 1
-    too."""
+    reference's (seq, data, model) mesh over seq*data*model ranks (model
+    ranks adjacent)."""
     if model > 1:
         return make_mesh((seq, data, model), ("seq", "data", "model"))
     return make_mesh((seq, data), ("seq", "data"))
@@ -200,7 +194,6 @@ def make_distributed_mesh(*, model: int = 1, seq: int = 1,
     data * model) must be whole. One process gives the same axis names at
     size 1."""
     from repro_torch.distributed import runtime
-    _refuse_seq_model(seq, model)
     nproc = runtime.process_count()
     data = 1 if data is None else int(data)
     per = seq * data * model

@@ -167,9 +167,11 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
     summed over the mesh's data (and 'seq') lines in buckets, so they are
     the global batch's on every rank. On a 'model' axis `params` holds the
     rank's shards (`distributed.sharding.shard_params`) and the gradients
-    are the shards'; the widths the port cannot split (a head count, an
-    SSM width or d_ff |model| does not divide) and 'seq' with 'model'
-    raise here, before any collective (`check_model_layout`). `halo` is the plan's (left, right)
+    are the shards'; a head count |model| does not divide takes the
+    reference's fallback (models/attention.py), and what the port cannot
+    split (a scan family's width |model| does not divide) raises here,
+    before any collective (`check_model_layout`). 'seq' composes with
+    'model': the sums run over 'seq' and the data axes, never 'model'. `halo` is the plan's (left, right)
     column extent for dict payloads (an exec carries its own): with it a
     'seq' axis shards the sparse attention's rows. Under a 'seq' axis the loss is still the
     global mean (the sums and counts all-reduced over 'seq' too) and the

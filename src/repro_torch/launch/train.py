@@ -61,10 +61,14 @@ same spec; the steps run tensor, expert and vocabulary parallelism
 the checkpoint stays mesh-agnostic: process 0's model line gathers every
 sharded leaf and its moments before process 0 writes, and a restore cuts
 the whole leaves by the current mesh, so a checkpoint moves between one
-process and a 'model' job both ways. What raises (ROADMAP.md item A12b,
-12b.2c): 'seq' together with 'model', and a width the family splits
-(heads, KV heads, SSM heads, inner, 2N, d_ff: `sharding.model_widths`)
-that |model| does not divide.
+process and a 'model' job both ways. Head counts |model| does not divide
+take the reference's fallback (every head on every rank of a model line,
+the leaves still the reference's spec shards). 'seq' composes with
+'model' (`make_distributed_mesh(seq=, model=)`: the reference's
+long-context mesh); every rank of a model line holds the same shard of
+the batch. What raises (ROADMAP.md item A12b, 12b.4b): a scan family's
+width (SSM heads, inner, 2N; the ssm family's heads and d_ff:
+`sharding.check_model_layout`) that |model| does not divide.
 """
 from __future__ import annotations
 

@@ -12,10 +12,20 @@ gathers K, reads the next shard's first rows for its last panel's filter
 (`next_shard_rows`) and gathers the pooled rows, so every rank ends with
 the whole map.
 
-Under a mesh with a 'model' axis each rank holds H/|model| query heads and
-KV/|model| KV heads (a contiguous split keeps query head h with KV head
-h // G): the projections are column-parallel, the output projection
+Under a mesh with a 'model' axis that divides both head counts
+(`distributed.sharding.heads_split`) each rank holds H/|model| query heads
+and KV/|model| KV heads (a contiguous split keeps query head h with KV
+head h // G): the projections are column-parallel, the output projection
 row-parallel, and the capture averages its heads over the model line.
+Where |model| does not divide them (the reference's fallback: whisper-
+tiny's 6 heads on 4 ranks, 2 KV heads on 4) the leaves are still the
+reference's spec shards, which may end mid-head: each rank computes its
+columns of q, k and v, `gather_columns` joins them over the model line
+into the whole merged widths (its backward sums the ranks' partial
+gradients), RoPE follows on whole heads, the attention runs on every
+head on every rank, and the output projection is row-parallel over the
+rank's rows of the context. The capture then holds every head and takes
+no line mean.
 """
 from __future__ import annotations
 
@@ -27,8 +37,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (active_mesh, copy_to_model,
-                                              gather_seq, mean_over_data,
-                                              model_mean, model_split,
+                                              gather_model, gather_seq,
+                                              heads_split, mean_over_data,
+                                              model_mean, model_offset,
+                                              model_size, model_split,
                                               seq_size, seq_start,
                                               sum_over_seq)
 from repro_torch.models.layers import he_init, rope, row_parallel
@@ -51,26 +63,84 @@ def attn_init(gen, cfg, dtype, device, layers=None):
     return p
 
 
-def qkv(cfg, p, x, positions):
-    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd), RoPE applied; on a
-    'model' axis this rank's H/|model| and KV/|model| heads."""
-    B, S, _ = x.shape
+def _merged_widths(cfg):
     hd = cfg.resolved_head_dim
-    if model_split(cfg.num_heads):
-        x = copy_to_model(x)
-    q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
-    if "bq" in p:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, -1, hd)
-    k = k.reshape(B, S, -1, hd)
-    v = v.reshape(B, S, -1, hd)
+    return {"q": cfg.num_heads * hd, "k": cfg.num_kv_heads * hd,
+            "v": cfg.num_kv_heads * hd}
+
+
+def head_fallback(cfg) -> bool:
+    """The reference's fallback for head counts: a 'model' axis that does
+    not divide both of them (`heads_split` False) but divides the merged
+    query width, so wq's columns and wo's rows are split (`sanitize_spec`)
+    while the attention needs whole heads."""
+    return (model_size() > 1 and not heads_split(cfg)
+            and model_split(_merged_widths(cfg)["q"]))
+
+
+def _project(p, x, n, whole_leaf=False):
+    """x @ w{n} (+ b{n}). `whole_leaf`: a replicated leaf in a region whose
+    work differs across the model line enters through `copy_to_model`, so
+    its gradient is summed over the line."""
+    w, b = p[f"w{n}"], p[f"b{n}"] if f"b{n}" in p else None
+    if whole_leaf:
+        w = copy_to_model(w)
+        b = None if b is None else copy_to_model(b)
+    y = x @ w.to(x.dtype)
+    return y if b is None else y + b.to(x.dtype)
+
+
+def gather_columns(parts):
+    """[this rank's columns of q, k, v, or None] -> the whole merged
+    widths: one differentiable gather over the model line
+    (`gather_model`, whose backward sums the ranks' gradients in fp32 and
+    keeps this rank's columns) of the parts' columns side by side."""
+    live = [t for t in parts if t is not None]
+    m = model_size()
+    widths = [t.shape[-1] for t in live]
+    lines = gather_model(torch.cat(live, dim=-1)[None], 0)   # (m, .., cols)
+    out, at = [], 0
+    for w in widths:
+        piece = lines[..., at:at + w]                        # (m, B, S, w)
+        out.append(piece.permute(*range(1, piece.dim() - 1), 0,
+                                 piece.dim() - 1)
+                   .reshape(*piece.shape[1:-1], m * w))
+        at += w
+    it = iter(out)
+    return [None if t is None else next(it) for t in parts]
+
+
+def rope_heads(cfg, q, k, positions):
+    """RoPE on whole heads of q and k (B, S, heads, hd)."""
     if cfg.rope_theta:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    return q, k
+
+
+def qkv(cfg, p, x, positions):
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd), RoPE applied. On a
+    'model' axis that splits the heads (`heads_split`) this rank's
+    H/|model| and KV/|model| heads; under the fallback (`head_fallback`)
+    every head, from the rank's columns gathered over the line."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    if heads_split(cfg):
+        x = copy_to_model(x)
+        q, k, v = (_project(p, x, n) for n in "qkv")
+    elif head_fallback(cfg):
+        x = copy_to_model(x)
+        split = {n: model_split(w) for n, w in _merged_widths(cfg).items()}
+        cols = gather_columns([_project(p, x, n) if split[n] else None
+                               for n in "qkv"])
+        q, k, v = (c if split[n] else _project(p, x, n, whole_leaf=True)
+                   for c, n in zip(cols, "qkv"))
+    else:
+        q, k, v = (_project(p, x, n) for n in "qkv")
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
+    q, k = rope_heads(cfg, q, k, positions)
     return q, k, v
 
 
@@ -129,11 +199,18 @@ def dense_attention(cfg, q, k, v, q_pos, k_pos):
 
 def attn_out(cfg, p, ctx):
     """ctx (B,S,H,hd) @ wo; on a 'model' axis row-parallel over the rank's
-    heads."""
+    heads (`heads_split`) or, under the fallback, over the rank's rows of
+    wo, the same columns of the whole context (mid-head where they fall
+    so)."""
     B, S = ctx.shape[:2]
-    if model_split(cfg.num_heads):
-        return row_parallel(ctx.reshape(B, S, -1), p["wo"])
-    return ctx.reshape(B, S, -1) @ p["wo"].to(ctx.dtype)
+    flat = ctx.reshape(B, S, -1)
+    if heads_split(cfg):
+        return row_parallel(flat, p["wo"])
+    if head_fallback(cfg):
+        rows = p["wo"].shape[0]
+        return row_parallel(flat.narrow(-1, model_offset(rows), rows),
+                            p["wo"])
+    return flat @ p["wo"].to(ctx.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -280,8 +357,9 @@ def capture_pooled_scores(cfg, q, k, q_pos, k_pos, filt, block: int):
     Under a data-parallel mesh each rank holds a shard of the batch: each
     panel of the averaged scores is averaged over the ranks (one all-reduce
     a panel), so every rank gets the whole batch's statistics, as the
-    reference's replicated capture does; on a 'model' axis the rank's
-    heads' average is averaged over the model line first. Under a 'seq' axis q is this
+    reference's replicated capture does; on a 'model' axis that splits the
+    heads the rank's heads' average is averaged over the model line first
+    (under the fallback every rank holds every head). Under a 'seq' axis q is this
     rank's shard of the rows (global `q_pos`) and k its shard too, with
     `k_pos` the whole sequence's positions: K is gathered, the last panel
     reads the next shard's first rows, the pooled rows are gathered and
@@ -317,10 +395,13 @@ def capture_pooled_scores(cfg, q, k, q_pos, k_pos, filt, block: int):
         s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() / math.sqrt(hd)
         s = s + _mask_bias(cfg, qpos_[r0:r0 + rows], k_pos)
         a = torch.softmax(s, dim=-1).mean(dim=(0, 1, 2))        # (rows, L)
-        # model ranks: the average over every head; data-parallel ranks:
-        # over the whole batch; both before the square of the Frobenius
-        # term
-        a = mean_over_data(model_mean(a))
+        # model ranks that split the heads: the average over every head
+        # (under the fallback every rank holds them all); data-parallel
+        # ranks: over the whole batch; both before the square of the
+        # Frobenius term
+        if heads_split(cfg):
+            a = model_mean(a)
+        a = mean_over_data(a)
         valid = (row0 + r0 + torch.arange(rows, device=q.device)) < Sq_all
         a = torch.where(valid[:, None], a, 0.0)
         frob = frob + (a[:panel] ** 2).sum()

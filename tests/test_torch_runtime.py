@@ -148,14 +148,20 @@ def test_mesh_of_ranks(monkeypatch):
     assert make_distributed_mesh().shape == {"pod": 1, "data": 1, "model": 1}
     assert make_host_mesh().shape == {"data": 1, "model": 1}
     assert make_mesh((1, 1), ("seq", "data")).size == 1
-    # a 'model' axis builds (tensor parallelism, items 12b.2 and 12b.2b);
-    # 'seq' together with 'model' still raises (A12b, 12b.2c)
+    # a 'model' axis builds (tensor parallelism, items 12b.2 and 12b.2b),
+    # and so does 'seq' together with 'model' (12b.2c): the reference's
+    # (seq, data, model) mesh, model ranks adjacent
     assert make_mesh((1, 2), ("data", "model")).shape == {"data": 1,
                                                           "model": 2}
-    with pytest.raises(NotImplementedError, match=r"A12b \(12b\.2c\)"):
-        make_seq_mesh(2, 1, model=2)
-    with pytest.raises(NotImplementedError, match=r"A12b \(12b\.2c\)"):
-        make_mesh((2, 1, 2), ("seq", "data", "model"))
+    m = make_seq_mesh(2, 1, model=2)
+    assert m.shape == {"seq": 2, "data": 1, "model": 2}
+    assert m.line("model", 2) == [2, 3] and m.line("seq", 1) == [1, 3]
+    m = make_mesh((2, 1, 2), ("seq", "data", "model"))
+    assert m.coords(3) == {"seq": 1, "data": 0, "model": 1}
+    # its groups: every axis, the plane of every axis but 'model' (the
+    # loss and gradient sums), the whole mesh
+    assert (("seq", "data") in m._group_keys()
+            and ("seq", "data", "model") in m._group_keys())
     with pytest.raises(ValueError, match="divide"):
         make_distributed_mesh(seq=2)
     # a job of 4 processes (the groups wait for a joined job)

@@ -273,9 +273,11 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     ported (test_torch_multiprocess, test_torch_seq_train): a 'seq' mesh
     builds a trainer whose masters are broadcast over the whole mesh, and a
     seq_len that does not split into whole blocks a shard raises. A 'model'
-    axis is ported for this family (item 12b.2, test_torch_model_parallel);
-    'seq' together with 'model' waits in ROADMAP.md item A12b (12b.2c):
-    asking for it raises and names the item. A mesh of one rank is the single-device trainer. Checkpointing
+    axis is ported for this family (item 12b.2, test_torch_model_parallel),
+    and so is 'seq' together with 'model' (item 12b.2c,
+    test_torch_seq_model): such a mesh passes every check and stops at the
+    trainer's first collective here, on a mesh without process groups. A
+    mesh of one rank is the single-device trainer. Checkpointing
     (item A8) is ported: ckpt_dir= gives the trainer its manager and
     heartbeat."""
     from repro_torch.distributed import runtime
@@ -290,8 +292,7 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     one = Mesh([[[0]]], ("pod", "data", "model"))
     assert Trainer(tc, seq_len=S, batch=B, mesh=one, device="cpu").mesh \
         is None
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md item A12b \(12b\.2c\)"):
+    with pytest.raises(RuntimeError, match="no process groups"):
         Trainer(tc, seq_len=S, batch=B,
                 mesh=Mesh([[[0, 1]], [[2, 3]]], ("seq", "data", "model")),
                 device="cpu")
