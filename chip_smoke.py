@@ -73,8 +73,12 @@ Phases (each one fails the run; nothing falls back to the CPU):
      of 64), bf16: ServeEngine(spion=), ServeEngine(paged=True) and
      make_serve_step(spion=True) raise NotImplementedError before any
      byte is allocated; the default (contiguous) engine serves four
-     prompts stepwise, 16 tokens each, finite, no launch; at 2 layers in
-     fp32 decode against the chunked forward within TOL_RECURRENT; the
+     prompts stepwise, 16 tokens each, finite, no launch; then
+     examples/long_context_decode_torch.py's loop on these parameters (B 1,
+     init_cache(1, max_len=1), 20 tokens at each of the positions 1,000,
+     100,000 and 524,288): the state's bytes and ms a token printed, the
+     logits at 1,000 and 524,288 from one state bitwise equal; at 2 layers
+     in fp32 decode against the chunked forward within TOL_RECURRENT; the
      parameters are freed;
   4e. whisper-tiny at full width and depth (4 encoder + 4 decoder layers,
      d_model 384, 6 heads of 64), bf16, a random causal plan per decoder
@@ -247,19 +251,21 @@ Phases (each one fails the run; nothing falls back to the CPU):
      product at qwen2-7b's w_out shard, bf16 against fp32 operands.
      12g. the hybrid, ssm and encdec families over a 'model' axis: two
      ranks (`--modelscan-worker DIR`) on a model line of 2. zamba2-1.2b at
-     full width with 12 of 38 layers (two applications of the shared
-     block, 16 q and 16 KV heads and 32 SSM heads a rank, in_proj by
-     segment and head, the vocab-parallel loss over 32,000), rwkv6-7b at
-     full width with 2 of 32 layers (32 heads and half of d_ff a rank,
-     vocab-parallel over 65,536) and whisper-tiny whole (1500 frames, 448
+     full width with 6 of 38 layers (MODELSCAN_ZAMBA_LAYERS: one
+     application of the shared block, cut from 12 for the script's time
+     limit, where 12e and 12h run two; 16 q and 16 KV heads and 32 SSM
+     heads a rank, in_proj by segment and head, the vocab-parallel loss
+     over 32,000), rwkv6-7b at full width with 2 of 32 layers (32 heads
+     and half of d_ff a rank, vocab-parallel over 65,536) and
+     whisper-tiny whole (1500 frames, 448
      decoder tokens, 3 heads a rank, the vocabulary of 51,865 replicated),
      fp32, 2 x 2048 tokens (whisper 4 x 448): a dense step and (zamba2,
      whisper) a sparse step on a random causal plan through the three
      kernels within TOL_SEQ_LOSS and TOL_SEQ_GRAD of one process on the
      card (each rank runs it in turn and keeps its shard of the
      gradients), the replicated leaves' gradients bitwise equal across the
-     line, the global norm within TOL_SEQ_LOSS of one process's, 2 + 2 +
-     2 (zamba2) and 8 + 4 + 4 (whisper) launches a sparse step a rank;
+     line, the global norm within TOL_SEQ_LOSS of one process's, 1 + 1 +
+     1 (zamba2) and 8 + 4 + 4 (whisper) launches a sparse step a rank;
      planted faults past a gate: in_proj cut contiguously, out_norm's and
      ln_x's statistic of the rank's slice alone or summed in the forward
      only, conv_w / A_log (and RWKV6's w0, u, ...) used without
@@ -308,6 +314,29 @@ Phases (each one fails the run; nothing falls back to the CPU):
      heads whole). Step ms, the model-line sums, the 'seq' gathers, the
      halo exchange and the gradient all-reduce ms, capture ms and peak
      memory per rank. rwkv6-7b is not stepped here (PERF.md).
+     12i. the explicit collectives, on 12h's four ranks after 12h's legs
+     (this process computes their references before the ranks start). (a)
+     On (pod 2, data 2) (`make_mesh`), each rank's tree of spion-lra's
+     leaves (seeded, scaled by rank + 1) in fp32 and in bf16 through
+     compressed_grad_sync over 'data' and over ('pod', 'data') and
+     hierarchical_grad_sync: q, the scales, the int32 totals, the mean
+     scales and the results bitwise this process's CPU arithmetic; 0.25
+     syncs to 0.5 and (hierarchically) 1.0, and scales summed instead of
+     averaged (planted) miss it; each sync's ms beside
+     runtime.all_reduce_sum's of the same tree. (b) On (pod 4),
+     spion-lra's 4 layers as 4 stages of pipeline_apply
+     (models/transformer._block on the stage's layer, a seeded non-causal
+     plan at the training shape through the three kernels), batch 32 x
+     2048 in 4 microbatches: fp32 output within TOL_SEQ_LOSS and dx and
+     every stage's gradients within TOL_SEQ_GRAD of the layers in sequence
+     in one process; bf16 no farther from that fp32 run than the bf16
+     sequence, times PIPE_SLACK (mean distance); 8 forward, 4 dQ and 4
+     dK/dV launches a call a stage; planted faults past a gate (the
+     output's cotangent summed over the line, stage 2 sending zeros in
+     place of its input's gradient); ms a call, of it the hops', and the
+     peak per rank. The three kernels at a stage's microbatch shape (N 32,
+     S 2048, hd 16, non-causal) on every stage's tables, against their
+     plain versions in fp32 and bf16, and timed.
 The line before the last is the kernels' JSON record (launches_serve,
 launches_serve_shared, launches_mixtral, launches_zamba2,
 launches_whisper, launches_internvl2, launches_train, launches_resume,
@@ -320,6 +349,7 @@ and the legs' sound sparse steps; not the planted faults' steps nor the
 restored step in this process) and launches_modelscan (12g's two ranks:
 the sound sparse steps and the Trainer's seven) and launches_seqmodel
 (12h's four ranks: spion-lra's steps and the legs' sound sparse steps)
+and launches_pipeline (12i's four stages: the sound fp32 and bf16 calls)
 count each
 kernel's launches in phases 4, 4a, 4b, 4c, 4e, 4f (their sparse forward
 and train step), 5, 9-11 and 12, each read from zero; `seq_parallel` holds phase
@@ -331,8 +361,9 @@ kernel's zamba2_shape, whisper_shape and internvl2_shape its check and
 timing at phases 4c, 4e and 4f, model_shard_shape at 12f's shard of
 the training shape, modelscan_zamba2_shape and modelscan_whisper_shape
 at 12g's shard shapes, and seqmodel_lra_shape, seqmodel_zamba2_shape,
-seqmodel_whisper_shape and seqmodel_whisper6_shape at 12h's; `tuned`
-holds each kernel's phase 8a winner and its time beside the default's at
+seqmodel_whisper_shape and seqmodel_whisper6_shape at 12h's, and
+pipeline_shape at 12i's stage microbatch (every stage's tables; the
+errors the worst over the stages); `tuned` holds each kernel's phase 8a winner and its time beside the default's at
 each shape); the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2456,6 +2487,7 @@ def phase_rwkv6():
     del eng
     step_ms, decode_ms = log_stepwise_serving("rwkv6-7b, dense, contiguous",
                                                run, None, None)
+    long_ms, state_bytes = long_context_decode(cfg, params)
     del params, run
     torch.cuda.empty_cache()
     cfg2 = cfg.replace(num_layers=2, dtype="float32")
@@ -2474,7 +2506,53 @@ def phase_rwkv6():
     seconds = time.perf_counter() - t_phase
     log(f"rwkv6: the phase took {seconds:.1f} s")
     return dict(step_ms=step_ms, decode_ms=decode_ms, gap32=float(gaps.max()),
-                seconds=seconds)
+                seconds=seconds, long_ms=long_ms, state_bytes=state_bytes)
+
+
+def load_example(name):
+    """examples/<name>.py of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def long_context_decode(cfg, params):
+    """Phase 4d's long-context decode: examples/long_context_decode_torch.py's
+    loop at full width on 4d's parameters (B 1, init_cache(1, max_len=1),
+    a warm-up step, then TOKENS decode steps from each virtual position),
+    its state's bytes and ms a token printed; from one state and token the
+    logits at positions 1,000 and 524,288 are bitwise equal (decode_step
+    does not read the position). Returns ({position: ms}, bytes)."""
+    import torch
+    from repro_torch.models.registry import build
+    ex = load_example("long_context_decode_torch")
+    full = ex.decode_config(full=True)
+    check(full.replace(remat=cfg.remat) == cfg,
+          "the example's full rwkv6-7b is not phase 4d's")
+    bundle = build(full)
+    cache = bundle.init_cache(1, max_len=1, device=DEVICE)
+    nbytes = ex.state_bytes(cache)
+    tok = torch.zeros((1, 1), dtype=torch.long, device=DEVICE)
+    ms, _ = ex.decode_positions(bundle, params, cache, tok)
+    logits = []
+    with torch.no_grad():
+        for pos in (ex.POSITIONS[0], ex.POSITIONS[-1]):
+            state = {k: v.clone() for k, v in cache.items()}
+            logits.append(bundle.decode_step(params, state, tok, pos)[0])
+    same = torch.equal(logits[0], logits[1])
+    log(f"rwkv6 long-context decode (examples/long_context_decode_torch.py "
+        f"at full width, B 1): recurrent state {nbytes} bytes; "
+        + ", ".join(f"context {p:,} {t:.3f} ms/token" for p, t in ms.items())
+        + f" ({ex.TOKENS} tokens each, host time to a synchronize); logits at "
+        f"{ex.POSITIONS[0]:,} and {ex.POSITIONS[-1]:,} from one state "
+        f"{'bitwise equal' if same else 'DIFFER'} ({card_line()})")
+    check(same, "rwkv6 decode logits depend on the position")
+    check(all(math.isfinite(t) for t in ms.values()),
+          "the long-context decode did not time")
+    return {str(p): t for p, t in ms.items()}, nbytes
 
 
 # -- the encoder-decoder and vision-language families: whisper-tiny, internvl2-2b
@@ -4107,8 +4185,8 @@ def seq_worker(d):
                         meshes[n_r], name, shp, dtype, full, o_ref, lse_ref,
                         refs, (colt, nvt_, rowt, nvtt, halo), d)
                 runtime.barrier(f"seq {name} {dtype} {n_r}")
-    out["transport"] = sh.transport(meshes[4].group("seq"),
-                                    torch.zeros(1, device=DEVICE))
+    out["transport"] = runtime.transport(meshes[4].group("seq"),
+                                         torch.zeros(1, device=DEVICE))
     with open(os.path.join(d, f"seq_{pid}.json"), "w") as f:
         json.dump(out, f)
     runtime.shutdown(0)   # ends the process
@@ -5220,9 +5298,10 @@ def scan_sparse_launches(cfg):
     return sparse_launches(cfg)
 
 
-def scan_config(name, dtype="float32", whisper_s=SCAN_WHISPER_S):
+def scan_config(name, dtype="float32", whisper_s=SCAN_WHISPER_S,
+                zamba_layers=SCAN_ZAMBA_LAYERS):
     """Phase 12e's configurations at full width: zamba2-1.2b at
-    SCAN_ZAMBA_LAYERS layers, rwkv6-7b at SCAN_RWKV_LAYERS, whisper-tiny
+    `zamba_layers` layers, rwkv6-7b at SCAN_RWKV_LAYERS, whisper-tiny
     whole (`whisper_s` decoder tokens); and the global batch each leg runs
     on (seeded)."""
     import numpy as np
@@ -5234,7 +5313,7 @@ def scan_config(name, dtype="float32", whisper_s=SCAN_WHISPER_S):
               cfg.ssm.expand == 2 and cfg.ssm.state_size == 64 and
               cfg.ssm.chunk == 128 and cfg.spion.block_size == 128 and
               cfg.remat, "zamba2-1.2b config changed")
-        cfg = cfg.replace(num_layers=SCAN_ZAMBA_LAYERS, dtype=dtype)
+        cfg = cfg.replace(num_layers=zamba_layers, dtype=dtype)
         B, S = SCAN_BATCH, SCAN_S
     elif name == "rwkv6":
         cfg = get_config("rwkv6-7b")
@@ -6418,6 +6497,9 @@ def phase_model_parallel(train):
 MODELSCAN_RANKS = 2         # 12g: a model line of 2, both ranks on the card
 MODELSCAN_WHISPER_S = 448   # whisper's decoder tokens: 7 blocks of 64
 MODELSCAN_RESUME_AT = 6     # zamba2's Trainer saves here, then steps on
+MODELSCAN_ZAMBA_LAYERS = 6  # zamba2-1.2b here: one application of the
+                            # shared block (12e and 12h run two), cut from
+                            # 12 for the script's time limit
 # 12g's planted step faults, each on the dense step (a restore that cuts
 # in_proj contiguously is planted on the Trainer's checkpoint)
 MODELSCAN_FAULTS = {"zamba2": ("in_proj_contiguous", "norm_local",
@@ -6503,7 +6585,8 @@ def modelscan_leg(name, mesh, rank, secs, gsecs):
     from repro_torch.models.layers import ParamTree
     from repro_torch.models.registry import build
     from repro_torch.optim import global_norm
-    cfg, gb = scan_config(name, whisper_s=MODELSCAN_WHISPER_S)
+    cfg, gb = scan_config(name, whisper_s=MODELSCAN_WHISPER_S,
+                          zamba_layers=MODELSCAN_ZAMBA_LAYERS)
     line = mesh.group("model")
     S = gb["tokens"].shape[1]
     tables = None
@@ -6591,10 +6674,11 @@ def modelscan_leg(name, mesh, rank, secs, gsecs):
 
 
 def modelscan_config():
-    """12g's Trainer configuration: zamba2-1.2b as 12e's Trainer (bf16,
-    SCAN_ZAMBA_LAYERS layers), dense for two epochs at most."""
+    """12g's Trainer configuration: zamba2-1.2b as 12e's Trainer (bf16)
+    at MODELSCAN_ZAMBA_LAYERS layers, dense for two epochs at most."""
     import dataclasses
-    cfg, _ = scan_config("zamba2", dtype="bfloat16")
+    cfg, _ = scan_config("zamba2", dtype="bfloat16",
+                         zamba_layers=MODELSCAN_ZAMBA_LAYERS)
     return cfg.replace(spion=dataclasses.replace(
         cfg.spion, min_dense_epochs=1, max_dense_epochs=2))
 
@@ -6629,7 +6713,7 @@ def shard_digests(state, mesh=None, specs=None, cfg=None, rank=None):
 
 def modelscan_trainer(mesh, d, rank, secs):
     """12g's zamba2 Trainer on one rank of the model line `mesh`: bf16,
-    SCAN_ZAMBA_LAYERS layers, SCAN_BATCH x SCAN_S through
+    MODELSCAN_ZAMBA_LAYERS layers, SCAN_BATCH x SCAN_S through
     MODELSCAN_RESUME_AT steps (dense steps, the capture at each epoch
     boundary, the flood fill on process 0 and its broadcast, sparse steps
     on the trained plan at the rank's KV-head shard), saved at the end
@@ -6784,7 +6868,7 @@ def phase_model_scan():
     """12g: the hybrid, ssm and encdec families over a 'model' axis,
     MODELSCAN_RANKS ranks of this script on the card
     (`--modelscan-worker DIR`, a model line). zamba2-1.2b
-    (SCAN_ZAMBA_LAYERS layers), rwkv6-7b (SCAN_RWKV_LAYERS layers) and
+    (MODELSCAN_ZAMBA_LAYERS layers), rwkv6-7b (SCAN_RWKV_LAYERS layers) and
     whisper-tiny (MODELSCAN_WHISPER_S decoder tokens) at full width, fp32:
     dense and (zamba2, whisper) sparse steps on a random causal plan within
     TOL_SEQ_LOSS and TOL_SEQ_GRAD of one process on the card, the
@@ -6944,7 +7028,7 @@ def phase_model_scan():
     one_resume = loss_gap([next_loss], [t0_["one_next"]])
     # beside the line's: bf16 partial products round before the line's sums
     line_vs_one = loss_gap([next_loss], [t0_["next"]])
-    log(f"model-scan zamba2 Trainer: bf16, {SCAN_ZAMBA_LAYERS} layers, "
+    log(f"model-scan zamba2 Trainer: bf16, {MODELSCAN_ZAMBA_LAYERS} layers, "
         f"{SCAN_BATCH} x {SCAN_S} on a model line of {MODELSCAN_RANKS} "
         f"(in_proj {t0_['in_proj']} a rank), {len(t0_['phases'])} steps "
         f"({t0_['phases'].count('dense')} dense, then sparse at "
@@ -7027,6 +7111,7 @@ SEQMODEL_QWEN_S = 512
 # faults as fault:kind). Under the fallback whisper-tiny's 6 heads are 1.5
 # a rank (wq's 384 columns, 96 a rank) and qwen2-7b's 2 KV heads half a
 # head a rank (wk's 256 columns, 64 a rank)
+SEQMODEL_MESHES = ("seq_model", "fallback")
 SEQMODEL_LEGS = {
     "zamba2": ("seq_model", ("dense", "sparse"), ()),
     "whisper": ("seq_model", ("dense", "sparse"),
@@ -7451,7 +7536,7 @@ def seqmodel_worker(d, stages):
     import torch
     from repro_torch.distributed import runtime
     from repro_torch.kernels.block_sparse_attn import load_library
-    from repro_torch.launch.mesh import make_distributed_mesh
+    from repro_torch.launch.mesh import make_distributed_mesh, make_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     check(runtime.initialize(), "the 12h worker did not join its job")
@@ -7464,7 +7549,8 @@ def seqmodel_worker(d, stages):
     stages["library"] = time.time()
     s, m = SEQMODEL_MESH
     meshes = {"seq_model": make_distributed_mesh(seq=s, model=m),
-              "fallback": make_distributed_mesh(model=SEQMODEL_FALLBACK)}
+              "fallback": make_distributed_mesh(model=SEQMODEL_FALLBACK),
+              "sync": make_mesh(*SYNC_MESH), "pipe": make_mesh(*PIPE_MESH)}
     check(meshes["seq_model"].shape == {"pod": 1, "seq": s, "data": 1,
                                         "model": m},
           f"12h mesh {meshes['seq_model']}")
@@ -7472,7 +7558,7 @@ def seqmodel_worker(d, stages):
            "coords": {k: v.coords() for k, v in meshes.items()},
            "lines": {k: {a: v.line(a) for a in ("seq", "model")
                          if a in v.shape}
-                     for k, v in meshes.items()}}
+                     for k, v in meshes.items() if k in SEQMODEL_MESHES}}
     secs, gsecs = model_line_timer(), labelled_gather_timer()
     out["lra"] = seqmodel_lra(meshes["seq_model"], d, rank, secs, gsecs)
     gc.collect()
@@ -7481,6 +7567,11 @@ def seqmodel_worker(d, stages):
     for name in SEQMODEL_LEGS:
         out[name] = seqmodel_leg(name, meshes, rank, d, secs, gsecs)
         stages[name] = time.time()
+    # 12i on the same ranks
+    out["sync"] = sync_leg(meshes["sync"], rank)
+    stages["sync"] = time.time()
+    out["pipe"] = pipe_leg(meshes["pipe"], rank, d)
+    stages["pipe"] = time.time()
     runtime.barrier("12h done")
     out["stages"] = stages
     with open(os.path.join(d, f"seqmodel_{rank}.json"), "w") as f:
@@ -7601,6 +7692,7 @@ def phase_seq_model(train):
     torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     ref_secs = seqmodel_references(d)
+    coll_secs = sync_references(d) + pipe_references(d)
     t_ref = time.perf_counter() - t_ref
     t0, t_spawn = time.perf_counter(), time.time()
     wait_ranks(spawn_ranks(["--seqmodel-worker", d], SEQMODEL_RANKS),
@@ -7797,6 +7889,7 @@ def phase_seq_model(train):
             f"{', replicated leaves apart' if run['apart'] else ''} -> "
             f"{'misses' if missed else 'PASSES'} the gate")
         check(missed, f"12h: the planted {what} passes the gates: {run}")
+    coll = check_collectives(recs, d, coll_secs)
     # the kernels at the new shapes
     t_kernels = time.perf_counter()
     kernels = {}
@@ -7839,22 +7932,613 @@ def phase_seq_model(train):
                                   hd=c.resolved_head_dim,
                                   block=c.spion.block_size),
         (col[0], nvalid[0]), "12g's random layer-0", SEED + 29)
+    coll["kernels"] = pipe_kernels()
     t_kernels = time.perf_counter() - t_kernels
     clock = stage_split(t_spawn, recs[0]["stages"], (
         ("lra", f"spion-lra's {SEQMODEL_LRA_STEPS} steps"),
-        *((name, f"{name} fp32 steps") for name in SEQMODEL_LEGS)),
+        *((name, f"{name} fp32 steps") for name in SEQMODEL_LEGS),
+        ("sync", "12i int8 syncs"), ("pipe", "12i pipeline")),
         start=START_STAGES[:5])
     clock["exit"] = wall - sum(clock.values())
-    log(f"seq-model wall clock, rank 0, s: {fmt_split(clock)}; phase 12h "
-        f"{wall:.1f} s, before it the one-process references in this "
-        f"process {t_ref:.1f} s, after it the kernels at the new shapes "
-        f"{t_kernels:.1f} s")
+    log(f"seq-model wall clock, rank 0, s: {fmt_split(clock)}; phases 12h "
+        f"and 12i {wall:.1f} s, before them the one-process references in "
+        f"this process {t_ref:.1f} s (12i's {coll_secs:.1f}), after them the "
+        f"kernels at the new shapes {t_kernels:.1f} s")
     return dict(seconds=t_ref + wall + t_kernels, launches=launches,
+                pipeline=coll,
                 gap=gap, cap_gap=cap_gap, gaps=gaps,
                 branch=lra[0]["branch"],
                 faults={k: (v["loss_gap"], v["grad_rel"])
                         for k, v in faults.items()},
                 peak_gb=[x["peak_gb"] for x in lra], kernels=kernels)
+
+
+# -- phase 12i: the explicit collectives (int8 and hierarchical gradient
+# sync, the GPipe pipeline), on 12h's four ranks
+
+SYNC_MESH = ((2, 2), ("pod", "data"))   # 12i (a)
+PIPE_MESH = ((4,), ("pod",))            # 12i (b): spion-lra's 4 layers
+PIPE_BATCH = 32                 # sequences of 2048 positions
+PIPE_MICRO = 4                  # microbatches of 8
+PIPE_TIMED = 3                  # bf16 calls timed after the gated ones
+PIPE_SLACK = 1.1                # bf16: the covering rule's slack
+SYNC_KINDS = ("data", "poddata", "hier")
+# planted (fp32): the output's cotangent summed over the line, stage 2
+# sending zeros in place of its input's gradient
+PIPE_FAULTS = ("cotangent_summed", "no_dx_send")
+
+
+def tensor_digest(tree):
+    """sha256 of a {name: tensor} tree's bytes, leaves in name order."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for n in sorted(tree):
+        t = tree[n].detach().reshape(-1).contiguous().cpu()
+        h.update(n.encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:32]
+
+
+def sync_shapes():
+    """{leaf: shape} of spion-lra's masters at phase 5's configuration: the
+    gradient tree 12i (a) syncs."""
+    import torch
+    from repro_torch.models.registry import build
+    cfg, _ = lra_config()
+    return {n: tuple(p.shape) for n, p in build(cfg).init(
+        torch.Generator().manual_seed(0), device="cpu").named_parameters()}
+
+
+def sync_tree(rank, shapes):
+    """Rank `rank`'s partial gradients: seeded normals in each leaf's shape,
+    scaled by 10^-(i mod 4) and by rank + 1, fp32 numpy."""
+    import numpy as np
+    out = {}
+    for i, (n, shp) in enumerate(sorted(shapes.items())):
+        rng = np.random.default_rng([SEED + 30, rank, i])
+        out[n] = (rng.standard_normal(shp) * 10.0 ** -(i % 4)
+                  * (rank + 1)).astype(np.float32)
+    return out
+
+
+def np_quantize(x):
+    """quantize_int8's arithmetic in numpy float32."""
+    import numpy as np
+    amax = np.max(np.abs(x))
+    scale = np.float32(amax / np.float32(127.0)) if amax > 0 \
+        else np.float32(1.0)
+    return np.clip(np.round(x / scale), -127, 127).astype(np.int8), scale
+
+
+def as_dtype(a, dtype):
+    """float32 numpy -> a CPU tensor of `dtype` (round to nearest even)."""
+    import torch
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def sync_reference(trees, line, dtype):
+    """The reference's compressed_psum over the ranks `line` (in the line's
+    order) of each rank's float32 tree: ({leaf: int32 total}, [mean scale
+    by leaf in name order], {leaf: result tensor of `dtype`})."""
+    import numpy as np
+    totals, means, outs = {}, [], {}
+    for n in sorted(trees[line[0]]):
+        qs, ss = zip(*(np_quantize(trees[r][n]) for r in line))
+        total = qs[0].astype(np.int32)
+        for q in qs[1:]:
+            total = total + q.astype(np.int32)
+        s = ss[0]
+        for x in ss[1:]:
+            s = np.float32(s + x)
+        s = np.float32(s / np.float32(len(line)))
+        totals[n], outs[n] = total, as_dtype(total.astype(np.float32) * s,
+                                             dtype)
+        means.append(float(s))
+    return totals, means, outs
+
+
+def sync_references(d):
+    """12i (a)'s expected bits, computed on the CPU before the ranks start:
+    per dtype and rank, the digests of its q and its scales, and per sync
+    kind the digests of the int32 totals and of the result and the mean
+    scales (DIR/ref_12i_sync.json)."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    shapes = sync_shapes()
+    (rows, cols), _ = SYNC_MESH
+    grid = np.arange(rows * cols).reshape(rows, cols)
+    ref = {"elements": sum(int(np.prod(s)) for s in shapes.values())}
+    for dtype in ("float32", "bfloat16"):
+        # the rank's tree as its dtype holds it
+        trees = {r: {n: as_dtype(a, dtype).float().numpy() for n, a in
+                     sync_tree(r, shapes).items()} for r in range(grid.size)}
+        # the hierarchical sum's pod step reads each data line's fp32 sum
+        data_sum = {int(r): {n: as_dtype(trees[grid[p, 0]][n]
+                                         + trees[grid[p, 1]][n],
+                                         dtype).float().numpy()
+                             for n in trees[0]}
+                    for p in range(rows) for r in grid[p]}
+        per = {}
+        for r in range(grid.size):
+            p, j = divmod(r, cols)
+            names = sorted(trees[r])
+            q, s = zip(*(np_quantize(trees[r][n]) for n in names))
+            rec = {"q": tensor_digest({n: torch.from_numpy(x) for n, x in
+                                       zip(names, q)}),
+                   "scales": [float(x) for x in s]}
+            for kind, line, src in (("data", grid[p], trees),
+                                    ("poddata", grid.reshape(-1), trees),
+                                    ("hier", grid[:, j], data_sum)):
+                totals, means, outs = sync_reference(
+                    src, [int(x) for x in line], dtype)
+                rec[kind] = {
+                    "totals": tensor_digest({n: torch.from_numpy(v) for n, v
+                                             in totals.items()}),
+                    "mean": means, "out": tensor_digest(outs)}
+            per[r] = rec
+        ref[dtype] = per
+    ref["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(d, "ref_12i_sync.json"), "w") as f:
+        json.dump(ref, f)
+    return ref["seconds"]
+
+
+def sync_parts(tree, group):
+    """This rank's steps of compressed_psum on `tree` over `group`, taken
+    one by one through the functions it calls (quantize_int8,
+    runtime.all_reduce_sum of the int32 payloads, line_mean of the
+    scales): (q digest, scales, totals digest, mean scales)."""
+    import torch
+    from repro_torch.distributed import runtime
+    from repro_torch.optim.grad import line_mean, quantize_int8
+    names = sorted(tree)
+    q, s = zip(*(quantize_int8(tree[n]) for n in names))
+    totals = runtime.all_reduce_sum([x.to(torch.int32) for x in q],
+                                    group=group)
+    mean = line_mean(torch.stack(s), group)
+    return (tensor_digest(dict(zip(names, q))), [float(x) for x in s],
+            tensor_digest(dict(zip(names, totals))),
+            [float(x) for x in mean.cpu()])
+
+
+def sync_leg(mesh, rank):
+    """12i (a) on one rank of (pod 2, data 2): its tree of spion-lra's
+    leaves in fp32 and in bf16 through compressed_grad_sync over 'data'
+    and over ('pod', 'data') and hierarchical_grad_sync, each step's bits
+    digested (sync_parts; the hierarchical sum's pod step on the data
+    line's fp32 sum), each sync timed beside runtime.all_reduce_sum of the
+    same tree over the same group; then the reference test's 0.25 cases
+    and the scales summed instead of averaged (planted)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.collectives import (compressed_grad_sync,
+                                                     hierarchical_grad_sync)
+    from repro_torch.optim import grad as grad_mod
+    shapes = sync_shapes()
+    groups = {"data": mesh.group("data"),
+              "poddata": mesh.group(("pod", "data")),
+              "hier": mesh.group("pod")}
+    run = {
+        "data": lambda t: compressed_grad_sync(mesh, t),
+        "poddata": lambda t: compressed_grad_sync(mesh, t,
+                                                  axes=("pod", "data")),
+        "hier": lambda t: hierarchical_grad_sync(mesh, t)}
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        tree = {n: torch.from_numpy(a).to(DEVICE).to(dt)
+                for n, a in sync_tree(rank, shapes).items()}
+        rec = {}
+        for kind in SYNC_KINDS:
+            src = tree
+            if kind == "hier":
+                sums = runtime.all_reduce_sum(
+                    [tree[n].to(torch.float32, copy=True) for n in
+                     sorted(tree)], group=groups["data"])
+                src = {n: s.to(dt) for n, s in zip(sorted(tree), sums)}
+            q, scales, totals, mean = sync_parts(src, groups[kind])
+            if kind == "data":
+                rec["q"], rec["scales"] = q, scales
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            synced = run[kind](tree)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            plain = [tree[n].to(torch.float32, copy=True) for n in
+                     sorted(tree)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runtime.all_reduce_sum(
+                plain, group=groups["poddata" if kind == "hier" else kind])
+            torch.cuda.synchronize()
+            rec[kind] = {"totals": totals, "mean": mean,
+                         "out": tensor_digest(synced), "ms": ms,
+                         "plain_ms": 1e3 * (time.perf_counter() - t0)}
+        out[dtype] = rec
+    quarter = {"w": torch.full((8, 8), 0.25, device=DEVICE)}
+    out["quarter"] = {k: float(run[k](quarter)["w"].max()) for k in
+                      ("data", "hier")}
+    sound = grad_mod.line_mean
+    grad_mod.line_mean = lambda v, group: sound(v, group) * (
+        1 if group is None else dist.get_world_size(group))
+    try:
+        out["quarter"]["planted_scales"] = float(
+            run["data"](quarter)["w"].max())
+    finally:
+        grad_mod.line_mean = sound
+    return out
+
+
+def pipe_plan(cfg, S):
+    """12i (b)'s seeded non-causal random plan over S positions: one block
+    mask a layer, (col_idx (L, nrb, K) edge-padded to the widest layer,
+    nvalid (L, nrb)) numpy."""
+    import numpy as np
+    block = cfg.spion.block_size
+    rng = np.random.default_rng(SEED + 31)
+    tabs = [random_tables(rng, S // block, S // block, causal=False, pad=0)
+            for _ in range(cfg.num_layers)]
+    K = max(c.shape[1] for c, _ in tabs)
+    col = np.stack([np.pad(c, ((0, 0), (0, K - c.shape[1])), mode="edge")
+                    for c, _ in tabs])
+    return col, np.stack([n for _, n in tabs])
+
+
+def pipe_kernels():
+    """The three kernels at a pipeline stage's microbatch shape
+    (PIPE_BATCH // PIPE_MICRO sequences x spion-lra's 4 heads, 2048
+    positions, hd 16, block 64, non-causal) on every stage's tables of
+    pipe_plan: against their plain versions in fp32 and bf16, then timed.
+    Returns stage 0's records, each error the worst over the stages."""
+    cfg, task = lra_config()
+    S = task["seq_len"]
+    col, nvalid = pipe_plan(cfg, S)
+    shape = dict(N=PIPE_BATCH // PIPE_MICRO * cfg.num_kv_heads,
+                 G=cfg.num_heads // cfg.num_kv_heads, S=S,
+                 hd=cfg.resolved_head_dim, block=cfg.spion.block_size)
+    recs = [path_kernels("pipeline", shape, (col[s], nvalid[s]),
+                         f"stage {s}'s seeded", SEED + 33 + s, causal=False)
+            for s in range(cfg.num_layers)]
+    out = recs[0]
+    for name, rec in out.items():
+        for k in ("max_abs_err", "max_abs_err_fp32"):
+            rec[k] = max(r[name][k] for r in recs)
+    return out
+
+
+def pipe_inputs(dtype):
+    """12i (b)'s inputs on the card, the same on every rank and in the
+    parent: spion-lra's fp32 masters (phase 5's configuration, seeded), a
+    seeded non-causal random plan of one block mask a layer at the
+    training shape (2048 positions, block 64), the exec of it, and x and
+    the output's cotangent (PIPE_BATCH, 2048, d_model) of `dtype`."""
+    import torch
+    from repro_torch.core.attention_exec import SparseAttentionExec
+    from repro_torch.core.sparse_attention import build_sparsity_plan
+    cfg, task = lra_config()
+    S, block = task["seq_len"], cfg.spion.block_size
+    check(S == 2048 and block == 64 and cfg.d_model == 64 and
+          cfg.num_heads == 4 and cfg.resolved_head_dim == 16,
+          "12i: spion-lra's training shape changed")
+    masters = seqmodel_masters(cfg)
+    col, nvalid = pipe_plan(cfg, S)
+    ex = SparseAttentionExec.from_plan(
+        build_sparsity_plan(col, nvalid, block),
+        dtype=getattr(torch, dtype)).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 32)
+    x = torch.randn((PIPE_BATCH, S, cfg.d_model), generator=gen,
+                    device=DEVICE)
+    cot = torch.randn((PIPE_BATCH, S, cfg.d_model), generator=gen,
+                      device=DEVICE)
+    dt = getattr(torch, dtype)
+    return cfg.replace(dtype=dtype), masters, ex, x.to(dt), cot.to(dt)
+
+
+def pipe_stage_fn(cfg, ex, layer):
+    """stage_fn of spion-lra's layer `layer`: models/transformer._block on
+    the layer's leaves cast to the run's dtype (as compute_params casts
+    the stacked masters), its sparse attention through the layer's tables
+    of `ex` (the Hopper kernels on the card)."""
+    import torch
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.transformer import _block
+    dt = getattr(torch, cfg.dtype)
+    sp = {k: t[layer] for k, t in ex.scan_tables().items()}
+
+    def stage_fn(lp, h):
+        pos = torch.arange(h.shape[1], device=h.device)
+        return _block(cfg, tree_map(lambda v: v.to(dt), lp), h, pos, pos,
+                      ex, sp)[0]
+    return stage_fn
+
+
+def layer_leaves(masters, layer):
+    """Layer `layer`'s fp32 master leaves as tensors of their own that
+    require grad ({flat name: tensor})."""
+    from repro_torch.models.layers import layer_view, tree_map
+    return tree_map(lambda v: v.detach().clone().requires_grad_(),
+                    layer_view(masters["layers"], layer))
+
+
+def flat_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def pipe_references(d):
+    """12i (b)'s one-process reference, before the ranks start: spion-lra's
+    4 layers in sequence on the whole batch (the same microbatches, kept
+    together), fp32 and bf16, from the same masters and inputs: the fp32
+    output, dx and each layer's gradients to DIR/ref_12i_pipe.pt, and the
+    bf16 run's distances from them (pipe_distance) to
+    DIR/ref_12i_pipe.json. Returns seconds."""
+    import torch
+    t0 = time.perf_counter()
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg, masters, ex, x, cot = pipe_inputs(dtype)
+        layers = [layer_leaves(masters, s) for s in range(cfg.num_layers)]
+        xt = x.clone().requires_grad_()
+        h = xt
+        for s in range(cfg.num_layers):
+            h = pipe_stage_fn(cfg, ex, s)(layers[s], h)
+        h.backward(cot)
+        runs[dtype] = {"out": h.detach().float(), "dx": xt.grad.float(),
+                       "g": [{k: v.grad for k, v in
+                              flat_leaves(layers[s]).items()}
+                             for s in range(cfg.num_layers)]}
+        del masters, ex, x, cot, layers, xt, h
+    ref = runs["float32"]
+    torch.save({k: ([{n: g.cpu() for n, g in gs.items()} for gs in v]
+                    if k == "g" else v.cpu()) for k, v in ref.items()},
+               os.path.join(d, "ref_12i_pipe.pt"))
+    dist16 = [pipe_distance(runs["bfloat16"], ref, s)
+              for s in range(len(ref["g"]))]
+    del runs
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    with open(os.path.join(d, "ref_12i_pipe.json"), "w") as f:
+        json.dump({"bf16_seq": dist16, "seconds": secs}, f)
+    return secs
+
+
+def pipe_distance(run, ref, stage):
+    """The mean |difference| of a run's output and dx from the fp32
+    reference's, and of stage `stage`'s gradients, each leaf over its fp32
+    largest |element|, taken together."""
+    import torch
+
+    def mean(a, b):
+        return float((a.float() - b.to(a.device)).abs().mean())
+    gs = [((run["g"][stage][n].float() - g.to(DEVICE)).abs()
+           / max(g.abs().max().item(), 1e-30)).reshape(-1)
+          for n, g in ref["g"][stage].items()]
+    return {"out": mean(run["out"], ref["out"]),
+            "dx": mean(run["dx"], ref["dx"]),
+            "grads": float(torch.cat(gs).mean())}
+
+
+def pipe_gaps(run, ref, stage):
+    """The fp32 gates' readings: the largest |difference| of the output, dx
+    and each of stage `stage`'s gradients over the reference's largest
+    |element| of it; (out, dx, worst leaf's gap, worst leaf)."""
+    def rel(a, b):
+        b = b.to(DEVICE)
+        return float((a.float() - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+    leaf = {n: rel(run["g"][stage][n], g) for n, g in
+            ref["g"][stage].items()}
+    worst = max(leaf, key=leaf.get)
+    return {"out": rel(run["out"], ref["out"]),
+            "dx": rel(run["dx"], ref["dx"]), "grad": leaf[worst],
+            "worst_leaf": worst}
+
+
+class _SumOverLine:
+    """12i's planted cotangent fault: identity forward, the cotangent
+    summed over the line in the backward (so the last stage takes |line|
+    times its own)."""
+
+    @staticmethod
+    def make(group):
+        import torch
+        import torch.distributed as dist
+
+        class Sum(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, y):
+                return y.clone()
+
+            @staticmethod
+            def backward(ctx, g):
+                g = g.clone()
+                dist.all_reduce(g, group=group)
+                return g
+        return Sum.apply
+
+
+def pipe_leg(mesh, rank, d):
+    """12i (b) on one rank of (pod 4): stage `rank` of spion-lra's 4
+    layers under pipeline_apply, PIPE_MICRO microbatches of PIPE_BATCH,
+    fp32 (against the parent's sequential run: gaps), the planted faults
+    (fp32), bf16 (distances from the fp32 reference), then PIPE_TIMED bf16
+    calls timed: ms a call, of it the hops', the launches of every call and
+    the peak."""
+    import gc
+    import torch
+    from repro_torch.distributed import pipeline
+    ref = torch.load(os.path.join(d, "ref_12i_pipe.pt"))
+    stage = mesh.axis_index("pod")
+    out = {"stage": stage, "runs": {}, "launches": [], "ms": [],
+           "hop_ms": []}
+    torch.cuda.reset_peak_memory_stats()
+    plan = [("float32", None)] + [("float32", f) for f in PIPE_FAULTS] + \
+        [("bfloat16", None)] * (1 + PIPE_TIMED)
+    sound_backward = pipeline.stage_backward
+    for i, (dtype, fault) in enumerate(plan):
+        cfg, masters, ex, x, cot = pipe_inputs(dtype)
+        lp = layer_leaves(masters, stage)
+        xt = x.clone().requires_grad_()
+        if fault == "no_dx_send":
+            def zero_dx(*a, **kw):
+                da, grads = sound_backward(*a, **kw)
+                return (torch.zeros_like(da) if stage == 2 else da), grads
+            pipeline.stage_backward = zero_dx
+        try:
+            reset_launch_counts()
+            h0 = pipeline.hop_seconds
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = pipeline.pipeline_apply(mesh, "pod",
+                                        pipe_stage_fn(cfg, ex, stage), lp,
+                                        xt, PIPE_MICRO)
+            if fault == "cotangent_summed":
+                y = _SumOverLine.make(mesh.group("pod"))(y)
+            y.backward(cot)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            pipeline.stage_backward = sound_backward
+        run = {"out": y.detach(), "dx": xt.grad,
+               "g": {stage: {k: v.grad for k, v in flat_leaves(lp).items()}}}
+        if fault is None:
+            out["launches"].append(launch_counts())
+            out["ms"].append(ms)
+            out["hop_ms"].append(1e3 * (pipeline.hop_seconds - h0))
+        if i < len(plan) - PIPE_TIMED:
+            key = dtype if fault is None else f"planted {fault}"
+            reading = pipe_gaps if dtype == "float32" else pipe_distance
+            out["runs"][key] = reading(run, ref, stage)
+        del cfg, masters, ex, x, cot, lp, xt, y, run
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe_launches():
+    """Kernel launches of one pipeline call on one stage: the forward wave
+    runs the forward kernel once a microbatch; the backward recomputes the
+    stage (forward again) and runs dQ and dK/dV once a microbatch."""
+    return {"block_sparse_fwd": 2 * PIPE_MICRO,
+            "block_sparse_dq": PIPE_MICRO, "block_sparse_dkv": PIPE_MICRO}
+
+
+def check_collectives(recs, d, ref_secs):
+    """12i's gates in the parent on the ranks' records; returns the
+    pipeline's launches (the sound calls of every rank) and readings."""
+    import numpy as np
+    with open(os.path.join(d, "ref_12i_sync.json")) as f:
+        sref = json.load(f)
+    with open(os.path.join(d, "ref_12i_pipe.json")) as f:
+        pref = json.load(f)
+    card = card_line()
+    # (a) bitwise against the parent's CPU arithmetic
+    for r, rec in enumerate(recs):
+        sync = rec["sync"]
+        for dtype in ("float32", "bfloat16"):
+            want, got = sref[dtype][str(r)], sync[dtype]
+            check(got["q"] == want["q"] and got["scales"] == want["scales"],
+                  f"12i: rank {r}'s {dtype} q or scales differ from the "
+                  f"CPU's")
+            for kind in SYNC_KINDS:
+                for part in ("totals", "mean", "out"):
+                    check(got[kind][part] == want[kind][part],
+                          f"12i: rank {r}'s {dtype} {kind} {part} differs "
+                          f"from the CPU's arithmetic")
+        q = sync["quarter"]
+        check(abs(q["data"] - 0.5) < 0.01 and abs(q["hier"] - 1.0) < 0.02,
+              f"12i: rank {r}'s 0.25 cases read {q}")
+        check(abs(q["planted_scales"] - 0.5) > 0.01,
+              f"12i: the summed scales pass the 0.5 gate: {q}")
+    q = recs[0]["sync"]["quarter"]
+    log(f"collectives (a) int8 gradient sync: {SYNC_MESH[0][0]} pods x "
+        f"{SYNC_MESH[0][1]} data ranks sharing the card (gloo, "
+        f"host-staged), spion-lra's gradient tree ({sref['elements']} "
+        f"elements, seeded, x (rank + 1)) in fp32 and bf16: q, scales, int32 "
+        f"totals, mean scales (summed in the line's rank order: bitwise, no "
+        f"ulp) and results bitwise the CPU's arithmetic on every rank; 0.25 "
+        f"syncs to {q['data']} over 'data', {q['hier']} hierarchically; "
+        f"scales summed (planted) {q['planted_scales']} (gate 0.5 +- 0.01); "
+        f"the CPU reference {sref['seconds']:.1f} s")
+    for r, rec in enumerate(recs):
+        log(f"collectives (a) rank {r} ms, sync / runtime.all_reduce_sum of "
+            f"the same tree in fp32 (4 bytes an element either way): "
+            + "; ".join(f"{dtype} " + ", ".join(
+                f"{k} {rec['sync'][dtype][k]['ms']:.2f} / "
+                f"{rec['sync'][dtype][k]['plain_ms']:.2f}"
+                for k in SYNC_KINDS) for dtype in ("float32", "bfloat16"))
+            + f" ({card})")
+    # (b) the pipeline
+    cfg, _ = lra_config()
+    want = pipe_launches()
+    launches = {k: 0 for k in KERNELS}
+    faults = {}
+    for r, rec in enumerate(recs):
+        pipe = rec["pipe"]
+        for ln in pipe["launches"]:
+            check(ln == want, f"12i: stage {pipe['stage']}'s call launched "
+                  f"{ln}, not {want}")
+            for k in KERNELS:
+                launches[k] += ln[k]
+        g = pipe["runs"]["float32"]
+        check(g["out"] <= TOL_SEQ_LOSS and g["dx"] <= TOL_SEQ_GRAD and
+              g["grad"] <= TOL_SEQ_GRAD,
+              f"12i: stage {pipe['stage']}'s fp32 pipeline misses one "
+              f"process's: {g}")
+        b, s = pipe["runs"]["bfloat16"], pref["bf16_seq"][pipe["stage"]]
+        for k in ("out", "dx", "grads"):
+            check(b[k] <= PIPE_SLACK * s[k],
+                  f"12i: stage {pipe['stage']}'s bf16 {k} is {b[k]} from the "
+                  f"fp32 reference, the sequential bf16 {s[k]}")
+        for f in PIPE_FAULTS:
+            x = pipe["runs"][f"planted {f}"]
+            faults[f] = max(faults.get(f, 0.0), x["dx"], x["grad"])
+    for f, gap in faults.items():
+        log(f"collectives (b) planted {f}: worst dx or gradient gap "
+            f"{gap:.3e} -> {'misses' if gap > TOL_SEQ_GRAD else 'PASSES'} "
+            f"the gate {TOL_SEQ_GRAD}")
+        check(gap > TOL_SEQ_GRAD, f"12i: the planted {f} passes the gate")
+    p0 = [rec["pipe"] for rec in recs]
+    log(f"collectives (b) GPipe: spion-lra's {cfg.num_layers} layers as "
+        f"{len(p0)} stages on pod {len(p0)} (gloo, host-staged hops), batch "
+        f"{PIPE_BATCH} x {lra_config()[1]['seq_len']} in {PIPE_MICRO} "
+        f"microbatches, a seeded "
+        f"non-causal plan through the kernels; fp32 against the layers in "
+        f"sequence in one process: "
+        + "; ".join(f"stage {p['stage']} out {p['runs']['float32']['out']:.3e}"
+                    f" dx {p['runs']['float32']['dx']:.3e} worst leaf "
+                    f"{p['runs']['float32']['worst_leaf']} "
+                    f"{p['runs']['float32']['grad']:.3e}" for p in p0)
+        + f" (gates {TOL_SEQ_LOSS}, {TOL_SEQ_GRAD}); bf16 mean distance from "
+        f"the fp32 reference, pipeline / sequential (gate x{PIPE_SLACK}): "
+        + "; ".join(f"stage {p['stage']} " + ", ".join(
+            f"{k} {p['runs']['bfloat16'][k]:.3e} / "
+            f"{pref['bf16_seq'][p['stage']][k]:.3e}"
+            for k in ("out", "dx", "grads")) for p in p0)
+        + f"; launches a call a stage {want}; the one-process reference "
+        f"{pref['seconds']:.1f} s ({card})")
+    for p in p0:
+        log(f"collectives (b) stage {p['stage']}: ms a call (fp32, bf16, "
+            f"then bf16 timed) "
+            + ", ".join(f"{ms:.1f} (hops {h:.1f})"
+                        for ms, h in zip(p["ms"], p["hop_ms"]))
+            + f"; peak {p['peak_gb']:.2f} GB ({card})")
+    bf = [np.median(p["ms"][-PIPE_TIMED:]) for p in p0]
+    hop = [np.median(p["hop_ms"][-PIPE_TIMED:]) for p in p0]
+    return dict(launches=launches, faults=faults, ms=bf, hop_ms=hop,
+                sync_ms={k: [rec["sync"]["float32"][k]["ms"] for rec in recs]
+                         for k in SYNC_KINDS},
+                ref_seconds=ref_secs)
 
 
 def sum_launches(per_step):
@@ -8042,12 +8726,14 @@ def main(argv):
     dp, fleet, seqtrain = multi["dp"], multi["fleet"], multi["seqtrain"]
     seqscan, model = multi["seqscan"], multi["model"]
     modelscan, seqmodel = multi["modelscan"], multi["seqmodel"]
+    pipeline = seqmodel["pipeline"]
 
     fwd = {"launches": serve["launches"] + shared["launches"]
            + mixtral["launches"]
            + sum(run["launches"]["block_sparse_fwd"]
                  for run in (zamba, whisper, internvl, train, dp, seqtrain,
-                             seqscan, model, modelscan, seqmodel)),
+                             seqscan, model, modelscan, seqmodel,
+                             pipeline)),
            "launches_serve": serve["launches"],
            "launches_serve_shared": shared["launches"],
            "launches_mixtral": mixtral["launches"],
@@ -8070,7 +8756,7 @@ def main(argv):
         rows[name] = {"launches": sum(run["launches"][name] for run in
                                       (train, zamba, whisper, internvl, dp,
                                        seqtrain, seqscan, model, modelscan,
-                                       seqmodel)),
+                                       seqmodel, pipeline)),
                       "launches_zamba2": zamba["launches"][name],
                       "launches_whisper": whisper["launches"][name],
                       "launches_internvl2": internvl["launches"][name],
@@ -8089,7 +8775,8 @@ def main(argv):
                           ("respawn", respawn), ("dp", dp),
                           ("fleet", fleet), ("seqtrain", seqtrain),
                           ("seqscan", seqscan), ("model", model),
-                          ("modelscan", modelscan), ("seqmodel", seqmodel)):
+                          ("modelscan", modelscan), ("seqmodel", seqmodel),
+                          ("pipeline", pipeline)):
             row[f"launches_{path}"] = run["launches"][name]
         row["model_shard_shape"] = model["kernels"][name]
         row["modelscan_zamba2_shape"] = modelscan["kernels"]["zamba2"][name]
@@ -8097,6 +8784,7 @@ def main(argv):
             modelscan["kernels"]["whisper"][name]
         for leg, rec in seqmodel["kernels"].items():
             row[f"seqmodel_{leg}_shape"] = rec[name]
+        row["pipeline_shape"] = pipeline["kernels"][name]
         row["seq_parallel"] = multi["seq"]["runs"]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -8119,7 +8807,9 @@ def main(argv):
         f"{zamba['gap32']:.3e}, phase {zamba['seconds']:.1f} s; rwkv6 "
         f"stepwise_ms_per_token {rwkv['step_ms']:.3f}, decode_ms_per_tick "
         f"median {rwkv['decode_ms']:.3f}, fp32 decode gap "
-        f"{rwkv['gap32']:.3e}, phase {rwkv['seconds']:.1f} s; "
+        f"{rwkv['gap32']:.3e}, long-context ms/token "
+        + "/".join(f"{t:.3f}" for t in rwkv["long_ms"].values())
+        + f" at {'/'.join(rwkv['long_ms'])}, phase {rwkv['seconds']:.1f} s; "
         + "; ".join(
             f"{label} sparse forward {run['fwd_ms']:.2f} ms, train step "
             f"{run['train_ms']:.2f} ms (peak {run['peak_gb']:.2f} GB), "
@@ -8204,6 +8894,17 @@ def main(argv):
         + "; planted faults " + ", ".join(
             f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in
             seqmodel["faults"].items()) + f" ({card})")
+    log(f"the explicit collectives (phase 12i, on 12h's ranks): int8 sync "
+        f"ms over 'data' / ('pod', 'data') / hierarchical, fp32, rank 0 "
+        + " / ".join(f"{pipeline['sync_ms'][k][0]:.2f}" for k in SYNC_KINDS)
+        + f" (4 bytes an element on the wire, as fp32); GPipe over pod 4, "
+        f"bf16 ms a call a stage "
+        + ", ".join(f"{x:.1f}" for x in pipeline["ms"])
+        + ", of it the hops " + ", ".join(f"{x:.1f}"
+                                          for x in pipeline["hop_ms"])
+        + "; planted " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                   pipeline["faults"].items())
+        + f" ({card})")
     log(f"recovery: supervisor {respawn['wall']:.2f} s in all; a sparse step "
         f"run twice is {'' if resume['bitwise'] else 'NOT '}bitwise "
         f"reproducible; max rel gap to the uninterrupted run's losses (gate "

@@ -436,3 +436,12 @@ def paged_sparse_decode_attention(cfg, q, kp, vp, layer, pos, page_table,
     vg = vp[layer][phys].to(q.dtype)
     return _decode_gathered(cfg, q, kg, vg, posb, colc, valid, block=page,
                             ring_len=NB * page if ring else None)
+
+
+def bcsr_attention_ops(cfg, bcsr: BCSR) -> int:
+    """Analytic op count of the sparse path (paper §4.4 formula, per head):
+    2*C*(2*hd+1) - L*(hd+1) with C = stored element count."""
+    C = int(torch.as_tensor(bcsr.nvalid).sum()) * bcsr.block * bcsr.block
+    L = bcsr.seq_len
+    hd = cfg.resolved_head_dim
+    return 2 * C * (2 * hd + 1) - L * (hd + 1)

@@ -32,6 +32,10 @@ that symmetry is broken or enforced:
     the named rendezvous of the checkpoint commit, and the per-step OR that
     turns a SIGTERM on one host into a fleet-wide, same-step save.
 
+  - **Device collectives** (`all_reduce_sum`, `broadcast_tensors`,
+    `send_recv` with its `transport`): bucketed sums and broadcasts, and
+    the point-to-point messages of the 'seq' halo and the pipeline's hops.
+
 Collectives are ordered per group, so call this module from the main
 thread only (the CheckpointManager's commit barrier runs in `wait()` for
 that reason).
@@ -360,3 +364,40 @@ def broadcast_tensors(tensors, src: int = 0, group=None):
         return tensors
     return _bucketed(lambda f: dist.broadcast(f, src=src, group=group),
                      tensors)
+
+
+def transport(group, x) -> str:
+    """How point-to-point messages of `x`'s kind cross `group` (the 'seq'
+    halo exchange, the pipeline's hops): "p2p" (NCCL, or gloo with CPU
+    tensors: dist.batch_isend_irecv) or "host-p2p" (gloo with CUDA
+    tensors, which gloo moves only for broadcast and all_reduce: the same
+    messages through pinned host buffers)."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return "host-p2p"
+    return "p2p"
+
+
+def send_recv(group, sends, recvs, staged):
+    """One exchange of point-to-point messages on `group`, posted together
+    and waited for: `sends` [(tensor, peer)], `recvs` [(tensor, peer)]
+    filled in place (peers are global ranks). `staged` (the "host-p2p"
+    transport) sends and receives through pinned host buffers."""
+    if staged:
+        hosted = []
+        for t, p in sends:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t, non_blocking=True)
+            hosted.append((buf, p))
+        torch.cuda.current_stream().synchronize()
+        sends = hosted
+        bufs = [(torch.empty(t.shape, dtype=t.dtype, pin_memory=True), p)
+                for t, p in recvs]
+    else:
+        bufs = recvs
+    ops = [dist.P2POp(dist.isend, t, p, group=group) for t, p in sends]
+    ops += [dist.P2POp(dist.irecv, b, p, group=group) for b, p in bufs]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    if staged:
+        for (t, _), (b, _) in zip(recvs, bufs):
+            t.copy_(b, non_blocking=True)

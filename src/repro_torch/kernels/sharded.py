@@ -37,12 +37,13 @@ sequence.
     rank of the line, with whatever data and 'seq' split the mesh still
     gives.
 
-Transport (`transport`): each rank sends its packed edge blocks to its
-two neighbours with `dist.batch_isend_irecv` on the 'seq' group, one
-message a neighbour (a peer that is both neighbours gets one). NCCL moves
-them card to card; gloo (the CPU, or ranks sharing one card) moves CUDA
-tensors only for broadcast and all_reduce, so there they go through
-pinned host buffers. The kernels run on the card either way.
+Transport (`runtime.transport`, `runtime.send_recv`): each rank sends its
+packed edge blocks to its two neighbours with `dist.batch_isend_irecv` on
+the 'seq' group, one message a neighbour (a peer that is both neighbours
+gets one). NCCL moves them card to card; gloo (the CPU, or ranks sharing
+one card) moves CUDA tensors only for broadcast and all_reduce, so there
+they go through pinned host buffers. The kernels run on the card either
+way.
 """
 from __future__ import annotations
 
@@ -50,7 +51,6 @@ import time
 import warnings
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.distributed import runtime
 from repro_torch.distributed.sharding import (data_axes, gather_seq,
@@ -62,17 +62,6 @@ from repro_torch.kernels.block_sparse_attn import (
 
 _warned = set()
 halo_seconds = 0.0     # host seconds in halo exchanges (forward + backward)
-
-
-def transport(group, x) -> str:
-    """How the halo blocks of `x`'s kind cross `group`: "p2p" (NCCL, or
-    gloo with CPU tensors: dist.batch_isend_irecv to the two neighbours)
-    or "host-p2p" (gloo with CUDA tensors, which gloo moves only for
-    broadcast and all_reduce: the same messages through pinned host
-    buffers)."""
-    if x.is_cuda and dist.get_backend(group) == "gloo":
-        return "host-p2p"
-    return "p2p"
 
 
 def _flat(ts):
@@ -107,29 +96,14 @@ def _swap(halo, to_right, to_left):
         inn = [(to_right, halo.left), (to_left, halo.right)]
     out = [(_flat(ts), p) for ts, p in out if ts]
     inn = [(ts, p) for ts, p in inn if ts]
-    staged = halo.transport == "host-p2p"
-    if staged:
-        sends = []
-        for t, p in out:
-            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            buf.copy_(t, non_blocking=True)
-            sends.append((buf, p))
-        torch.cuda.current_stream().synchronize()
-    else:
-        sends = out
-    like = out[0][0] if out else None
-    recvs = [(torch.empty(sum(t.numel() for t in ts), dtype=like.dtype,
-                          pin_memory=True) if staged
-              else like.new_empty(sum(t.numel() for t in ts)), p)
+    like = out[0][0]
+    recvs = [(like.new_empty(sum(t.numel() for t in ts)), p)
              for ts, p in inn]
-    ops = [dist.P2POp(dist.isend, t, p, group=halo.group) for t, p in sends]
-    ops += [dist.P2POp(dist.irecv, b, p, group=halo.group) for b, p in recvs]
-    for w in dist.batch_isend_irecv(ops):
-        w.wait()
+    runtime.send_recv(halo.group, out, recvs,
+                      halo.transport == "host-p2p")
     parts = []
     for (b, _), (ts, _) in zip(recvs, inn):
-        parts += _split(b.to(like.device, non_blocking=True) if staged
-                        else b, ts)
+        parts += _split(b, ts)
     halo_seconds += time.perf_counter() - t0
     return parts[:len(to_right)], parts[len(to_right):]
 
@@ -153,7 +127,7 @@ class Halo:
     def __init__(self, mesh, h_l_rows, h_r_rows, like):
         self.group, self.left, self.right = halo_peers(mesh)
         self.h_l, self.h_r = int(h_l_rows), int(h_r_rows)
-        self.transport = transport(self.group, like)
+        self.transport = runtime.transport(self.group, like)
 
 
 def halo_forward(halo, k, v):
