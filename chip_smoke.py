@@ -315,8 +315,8 @@ Phases (each one fails the run; nothing falls back to the CPU):
      halo exchange and the gradient all-reduce ms, capture ms and peak
      memory per rank. rwkv6-7b is not stepped here (PERF.md).
      12i. the explicit collectives, on 12h's four ranks after 12h's legs
-     (this process computes their references before the ranks start). (a)
-     On (pod 2, data 2) (`make_mesh`), each rank's tree of spion-lra's
+     (this process computes their references while the ranks run
+     spion-lra). (a) On (pod 2, data 2) (`make_mesh`), each rank's tree of spion-lra's
      leaves (seeded, scaled by rank + 1) in fp32 and in bf16 through
      compressed_grad_sync over 'data' and over ('pod', 'data') and
      hierarchical_grad_sync: q, the scales, the int32 totals, the mean
@@ -337,6 +337,25 @@ Phases (each one fails the run; nothing falls back to the CPU):
      peak per rank. The three kernels at a stage's microbatch shape (N 32,
      S 2048, hd 16, non-causal) on every stage's tables, against their
      plain versions in fp32 and bf16, and timed.
+     12j. prefill and decode steps under a mesh, on 12h's four ranks after
+     12i (its one-process references computed here beside spion-lra):
+     qwen2-7b at full width reduced to 2 of 28 layers, fp32 and bf16, its
+     parameters each rank's shards. (a) On (seq 2, model 2), B 2: a sparse
+     prefill of a 4,096-token prompt with the cache through
+     make_prefill_step(mesh=) (a causal plan banded to halo (1, 0): the
+     forward kernel on each rank's KV-head shard through the halo
+     exchange, 2 launches a rank), then 16 dense and 16 sparse decode
+     steps through make_serve_step(mesh=). (b) On (data 2, model 2), B 1
+     at 524,288 positions (the long_500k layout: the cache's positions
+     over 'data', its KV heads over 'model'), filled from the seed below
+     524,000: 8 dense and 8 sparse steps. (c) On model 4 with 2 KV heads
+     (head_dim over 'model'), B 2, filled below 2048: 16 dense and 16
+     sparse steps. fp32 prefill logits (every 64th row and the last),
+     decode logits and the cache after gather_cache ((b): each data
+     rank's last 512 positions) within TOL_SEQ_LOSS of one process's; bf16
+     within SERVE_BF16_SLACK of one process's mean distance from fp32; the
+     seeded positions bitwise. The three kernels at (a)'s shard halo shape
+     (serve_mesh_shape).
 The line before the last is the kernels' JSON record (launches_serve,
 launches_serve_shared, launches_mixtral, launches_zamba2,
 launches_whisper, launches_internvl2, launches_train, launches_resume,
@@ -350,7 +369,7 @@ restored step in this process) and launches_modelscan (12g's two ranks:
 the sound sparse steps and the Trainer's seven) and launches_seqmodel
 (12h's four ranks: spion-lra's steps and the legs' sound sparse steps)
 and launches_pipeline (12i's four stages: the sound fp32 and bf16 calls)
-count each
+and launches_serve_mesh (12j's four ranks' sparse prefills) count each
 kernel's launches in phases 4, 4a, 4b, 4c, 4e, 4f (their sparse forward
 and train step), 5, 9-11 and 12, each read from zero; `seq_parallel` holds phase
 12a's worst differences and per-rank times; the forward's mixtral_shape
@@ -363,7 +382,8 @@ the training shape, modelscan_zamba2_shape and modelscan_whisper_shape
 at 12g's shard shapes, and seqmodel_lra_shape, seqmodel_zamba2_shape,
 seqmodel_whisper_shape and seqmodel_whisper6_shape at 12h's, and
 pipeline_shape at 12i's stage microbatch (every stage's tables; the
-errors the worst over the stages); `tuned` holds each kernel's phase 8a winner and its time beside the default's at
+errors the worst over the stages), serve_mesh_shape at 12j (a)'s shard
+halo storage; `tuned` holds each kernel's phase 8a winner and its time beside the default's at
 each shape); the last line is
 {"ok": true, "device": {...}}.
 """
@@ -7286,10 +7306,13 @@ def seqmodel_masters(cfg):
     return masters_of(build(cfg).init(gen, device=DEVICE))
 
 
+REFS_READY = "refs_ready"    # written by the parent once every reference is
+
+
 def seqmodel_references(d):
-    """12h's one-process references, computed once in this process before
-    the ranks start (the card is shared: four one-process steps at once
-    would not fit): per leg and step kind the loss, the global norm and
+    """12h's one-process references, computed once in this process while
+    the ranks start and run spion-lra (the card is shared: four
+    one-process steps at once would not fit): per leg and step kind the loss, the global norm and
     each leaf's largest |gradient| in DIR/ref_<leg>.json, and each rank's
     shard of every gradient (`local_index` under the leg's mesh) in
     DIR/ref_<leg>_<kind>_<rank>.pt. Returns {leg: seconds}."""
@@ -7531,7 +7554,8 @@ def seqmodel_worker(d, stages):
     """A rank of phase 12h (`--seqmodel-worker DIR`, the SPION_* environment
     of a job of SEQMODEL_RANKS): spion-lra's Trainer, zamba2's and
     whisper's fp32 steps on (seq 2, model 2), then whisper's (6 heads) and
-    qwen2-7b's (2 KV heads) on model 4; writes DIR/seqmodel_<rank>.json."""
+    qwen2-7b's (2 KV heads) on model 4, then 12i's collectives and 12j's
+    serving legs; writes DIR/seqmodel_<rank>.json."""
     import gc
     import torch
     from repro_torch.distributed import runtime
@@ -7550,7 +7574,8 @@ def seqmodel_worker(d, stages):
     s, m = SEQMODEL_MESH
     meshes = {"seq_model": make_distributed_mesh(seq=s, model=m),
               "fallback": make_distributed_mesh(model=SEQMODEL_FALLBACK),
-              "sync": make_mesh(*SYNC_MESH), "pipe": make_mesh(*PIPE_MESH)}
+              "sync": make_mesh(*SYNC_MESH), "pipe": make_mesh(*PIPE_MESH),
+              "serve_data": make_distributed_mesh(model=2, data=2)}
     check(meshes["seq_model"].shape == {"pod": 1, "seq": s, "data": 1,
                                         "model": m},
           f"12h mesh {meshes['seq_model']}")
@@ -7564,6 +7589,13 @@ def seqmodel_worker(d, stages):
     gc.collect()
     torch.cuda.empty_cache()
     stages["lra"] = time.time()
+    # the parent writes the legs' references while spion-lra runs
+    t = time.time()
+    while not os.path.exists(os.path.join(d, REFS_READY)):
+        check(time.time() - t < 600, "12h: the parent's references did not "
+              "come within 600 s")
+        time.sleep(0.1)
+    stages["refs"] = time.time()
     for name in SEQMODEL_LEGS:
         out[name] = seqmodel_leg(name, meshes, rank, d, secs, gsecs)
         stages[name] = time.time()
@@ -7572,6 +7604,9 @@ def seqmodel_worker(d, stages):
     stages["sync"] = time.time()
     out["pipe"] = pipe_leg(meshes["pipe"], rank, d)
     stages["pipe"] = time.time()
+    # 12j on the same ranks
+    out["serve"] = serve_legs(meshes, rank, d)
+    stages["serve"] = time.time()
     runtime.barrier("12h done")
     out["stages"] = stages
     with open(os.path.join(d, f"seqmodel_{rank}.json"), "w") as f:
@@ -7658,8 +7693,10 @@ def halo_kernels(label, shape, tables, halo, seed, causal=True):
 def phase_seq_model(train):
     """12h: 'seq' together with 'model', and the reference's fallback for
     head counts |model| does not divide; SEQMODEL_RANKS ranks of this
-    script on the card (`--seqmodel-worker DIR`). First, in this process,
-    the fp32 legs' one-process references (seqmodel_references). (a) On
+    script on the card (`--seqmodel-worker DIR`). While the ranks start
+    and run spion-lra, this process computes the legs' one-process
+    references (seqmodel_references; 12i's and 12j's too), and the ranks
+    wait for them before their legs. (a) On
     (seq 2, model 2): spion-lra at phase 5's configuration, data and seed
     through SEQMODEL_LRA_STEPS steps (2 of 4 heads and half the sequence a
     rank): dense losses within TOL_DP of phase 5's, captures within
@@ -7690,13 +7727,18 @@ def phase_seq_model(train):
     os.makedirs(d)
     gc.collect()
     torch.cuda.empty_cache()
+    t0, t_spawn = time.perf_counter(), time.time()
+    procs = spawn_ranks(["--seqmodel-worker", d], SEQMODEL_RANKS)
+    # the references while the ranks start and run spion-lra, which reads
+    # none of them; the ranks wait for REFS_READY before their legs
     t_ref = time.perf_counter()
     ref_secs = seqmodel_references(d)
     coll_secs = sync_references(d) + pipe_references(d)
+    serve_secs = serve_references(d)
+    with open(os.path.join(d, REFS_READY), "w") as f:
+        f.write("ok")
     t_ref = time.perf_counter() - t_ref
-    t0, t_spawn = time.perf_counter(), time.time()
-    wait_ranks(spawn_ranks(["--seqmodel-worker", d], SEQMODEL_RANKS),
-               "the 12h ranks")
+    wait_ranks(procs, "the 12h ranks")
     wall = time.perf_counter() - t0
     recs = []
     for r in range(SEQMODEL_RANKS):
@@ -7933,24 +7975,433 @@ def phase_seq_model(train):
                                   block=c.spion.block_size),
         (col[0], nvalid[0]), "12g's random layer-0", SEED + 29)
     coll["kernels"] = pipe_kernels()
+    serve = check_serving(recs, serve_secs)
+    t_serve_kernels = time.perf_counter()
+    cfg = serve_config("a")
+    tables = serve_tables("a", cfg, prefill=True)
+    kv = cfg.num_kv_heads // SEQMODEL_MESH[1]
+    serve["kernels"] = halo_kernels(
+        "serve-mesh", dict(N=SERVE_BATCH * kv,
+                           G=cfg.num_heads // cfg.num_kv_heads,
+                           S=SERVE_S // SEQMODEL_MESH[0],
+                           hd=cfg.resolved_head_dim,
+                           block=cfg.spion.block_size),
+        (tables["col_idx"][0].cpu().numpy(),
+         tables["nvalid"][0].cpu().numpy()), tables["halo"], SEED + 45)
+    t_serve_kernels = time.perf_counter() - t_serve_kernels
     t_kernels = time.perf_counter() - t_kernels
     clock = stage_split(t_spawn, recs[0]["stages"], (
         ("lra", f"spion-lra's {SEQMODEL_LRA_STEPS} steps"),
+        ("refs", "waiting for the references"),
         *((name, f"{name} fp32 steps") for name in SEQMODEL_LEGS),
-        ("sync", "12i int8 syncs"), ("pipe", "12i pipeline")),
+        ("sync", "12i int8 syncs"), ("pipe", "12i pipeline"),
+        ("serve", SERVE_STAGE)),
         start=START_STAGES[:5])
     clock["exit"] = wall - sum(clock.values())
-    log(f"seq-model wall clock, rank 0, s: {fmt_split(clock)}; phases 12h "
-        f"and 12i {wall:.1f} s, before them the one-process references in "
-        f"this process {t_ref:.1f} s (12i's {coll_secs:.1f}), after them the "
-        f"kernels at the new shapes {t_kernels:.1f} s")
-    return dict(seconds=t_ref + wall + t_kernels, launches=launches,
-                pipeline=coll,
+    # 12j's own time: its legs on the ranks and its kernels here (its
+    # references ran beside spion-lra's steps)
+    serve["seconds"] = clock[SERVE_STAGE] + t_serve_kernels
+    log(f"seq-model wall clock, rank 0, s: {fmt_split(clock)}; phases 12h, "
+        f"12i and 12j {wall:.1f} s, of it the one-process references in "
+        f"this process {t_ref:.1f} s (12i's {coll_secs:.1f}, 12j's "
+        f"{sum(serve_secs.values()):.1f}), after them the kernels at the new "
+        f"shapes {t_kernels:.1f} s (12j's {t_serve_kernels:.1f}); phase 12j "
+        f"{serve['seconds']:.1f} s beside its references")
+    return dict(seconds=wall + t_kernels, launches=launches,
+                pipeline=coll, serve=serve,
                 gap=gap, cap_gap=cap_gap, gaps=gaps,
                 branch=lra[0]["branch"],
                 faults={k: (v["loss_gap"], v["grad_rel"])
                         for k, v in faults.items()},
                 peak_gb=[x["peak_gb"] for x in lra], kernels=kernels)
+
+
+# -- phase 12j: prefill and decode steps under a mesh, on 12h's four ranks
+
+SERVE_LAYERS = 2            # qwen2-7b at full width, 2 of its 28 layers
+SERVE_BATCH = 2             # (a), (c)
+SERVE_S = 4096              # (a): the prompt, over 'seq'
+SERVE_ROW_STRIDE = 64       # (a): prefill logits' rows held (and the last)
+SERVE_LONG_WINDOW = 512     # (b): each data rank's last positions gathered
+SERVE_BF16_SLACK = 1.1      # bf16: of one process's distance from fp32
+SERVE_DTYPES = ("float32", "bfloat16")
+SERVE_STAGE = "12j serving legs"    # its ranks' stage in 12h's wall clock
+# leg -> (mesh, batch, cache positions, positions filled before the decode
+# (a: by the prefill, b and c: from the seed), decode steps a kind, KV heads)
+SERVE_LEGS = {"a": ("seq_model", SERVE_BATCH, 4224, SERVE_S, 16, 4),
+              "b": ("serve_data", 1, 524_288, 524_000, 8, 4),
+              "c": ("fallback", SERVE_BATCH, 2176, 2048, 16, 2)}
+
+
+def serve_config(leg, dtype="float32"):
+    """12j's model: qwen2-7b at full width (d 3584, 28 heads, vocabulary
+    152,064), SERVE_LAYERS of its 28 layers; leg (c) with 2 KV heads (no
+    repo config has 2: the head_dim split of the cache), else its 4."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-7b")
+    check(cfg.d_model == 3584 and cfg.num_heads == 28 and
+          cfg.num_kv_heads == 4 and cfg.resolved_head_dim == 128 and
+          cfg.vocab_size == 152_064 and cfg.spion.block_size == 128,
+          "qwen2-7b config changed")
+    return cfg.replace(num_layers=SERVE_LAYERS,
+                       num_kv_heads=SERVE_LEGS[leg][5], dtype=dtype)
+
+
+def serve_params(leg, dtype, mesh=None):
+    """The leg's parameters on the card from its seed, fp32 drawn and cast
+    to `dtype`'s model dtypes as `init` casts them: whole, or this rank's
+    shards under `mesh` (the whole tree freed)."""
+    import torch
+    from repro_torch.distributed.sharding import param_pspecs, shard_params
+    from repro_torch.launch.train import nest
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.models.registry import build, params_specs
+    cfg = serve_config(leg, dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
+    full = build(cfg.replace(dtype="float32")).init(gen, device=DEVICE)
+    named = dict(full.named_parameters())
+    if mesh is not None:
+        named = shard_params(full, mesh, param_pspecs(full, mesh), cfg)
+    del full
+    dtypes = {n: p.dtype for n, p in params_specs(cfg).named_parameters()}
+    return ParamTree(nest({n: x.to(dtypes[n]) for n, x in named.items()}))
+
+
+def serve_tables(leg, cfg, prefill=False):
+    """(a)'s prefill: the dry-run plan banded to halo (1, 0), on the card.
+    Decode: each row-block lists the first 8 column blocks and its last 56
+    (fewer below row 64), so the zero correction counts every position
+    between them, and under (b)'s data split both ranks hold listed
+    blocks."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import spion_dryrun_tables
+    if prefill:
+        t = spion_dryrun_tables(cfg, SERVE_S, max_extent=1)
+        return {k: torch.as_tensor(v, device=DEVICE)
+                if isinstance(v, np.ndarray) else v for k, v in t.items()}
+    nrb = SERVE_LEGS[leg][2] // cfg.spion.block_size
+    r = np.arange(nrb)[:, None]
+    cols = np.concatenate([np.broadcast_to(np.arange(8), (nrb, 8)),
+                           r - 55 + np.arange(56)[None, :]], 1)
+    nvalid = np.full(nrb, 64)
+    low = r[:, 0] < 63
+    cols[low] = np.minimum(np.arange(64)[None, :], r[low])
+    nvalid[low] = r[low, 0] + 1
+    stack = lambda a: torch.as_tensor(np.broadcast_to(
+        a, (cfg.num_layers, *a.shape)).astype(np.int32).copy(), device=DEVICE)
+    return {"col_idx": stack(cols), "nvalid": stack(nvalid)}
+
+
+def serve_start_cache(leg, cfg, specs=None, mesh=None):
+    """The cache the decode starts from: zeros for (a) (the prefill fills
+    it), else K and V from the seed below the leg's filled position and
+    zeros above it; whole, or this rank's shard under `specs` (each layer
+    drawn whole, cut and freed)."""
+    import torch
+    from repro_torch.distributed.sharding import local_slices
+    _, B, S, filled, _, KV = SERVE_LEGS[leg]
+    hd, dt = cfg.resolved_head_dim, getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 44)
+    out = {}
+    for name in ("k", "v"):
+        layers = []
+        for _ in range(cfg.num_layers):
+            x = torch.zeros((B, S, KV, hd), device=DEVICE) if leg == "a" \
+                else torch.randn((B, S, KV, hd), generator=gen,
+                                 device=DEVICE)
+            x[:, filled:] = 0
+            if specs is not None:
+                x = x[local_slices(mesh, specs[name][1:], x.shape)]
+            layers.append(x.to(dt))
+            del x
+        out[name] = torch.stack(layers)
+    return out
+
+
+def serve_window(cache, leg, mesh=None):
+    """(b)'s cache check: each data rank's last SERVE_LONG_WINDOW positions
+    (on one process: the two windows side by side)."""
+    W, S = SERVE_LONG_WINDOW, SERVE_LEGS[leg][2]
+    if mesh is not None:
+        return {k: v[:, :, -W:] for k, v in cache.items()}
+    import torch
+    return {k: torch.cat([v[:, :, S // 2 - W:S // 2], v[:, :, S - W:]], 2)
+            for k, v in cache.items()}
+
+
+def serve_run(leg, dtype, mesh=None, specs=None):
+    """One leg in one dtype: (a) the sparse prefill with the cache through
+    make_prefill_step, then each leg's dense and sparse decode steps
+    through make_serve_step, on `mesh` (this rank's shards; None: one
+    process). Returns the logits it holds (the prefill's held rows, every
+    step's) and the cache to check (whole, (b) its windows; gathered on a
+    mesh), on the host in fp32, with times and launches."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import local_batch
+    from repro_torch.distributed.sharding import gather_cache
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    cfg = serve_config(leg, dtype)
+    _, B, S, filled, steps, _ = SERVE_LEGS[leg]
+    params = serve_params(leg, dtype, mesh)
+    cache = serve_start_cache(leg, cfg, specs, mesh)
+    out, launches = {}, {k: 0 for k in KERNELS}
+    if leg == "a":
+        tabs = serve_tables(leg, cfg, prefill=True)
+        rng = np.random.default_rng(SEED + 42)
+        prompt = {"tokens": rng.integers(0, cfg.vocab_size, size=(
+            B, SERVE_S)).astype(np.int64)}
+        batch = local_batch(mesh, prompt, DEVICE) if mesh is not None else \
+            {"tokens": torch.as_tensor(prompt["tokens"], device=DEVICE)}
+        step = make_prefill_step(cfg, spion=True, with_cache=True, mesh=mesh,
+                                 halo=tabs["halo"])
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, ks, vs = step(params, batch, tabs)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = 1e3 * (time.perf_counter() - t)
+        out["prefill_launches"] = launch_counts()
+        for k in KERNELS:
+            launches[k] += out["prefill_launches"][k]
+        rows = list(range(0, SERVE_S, SERVE_ROW_STRIDE)) + [SERVE_S - 1]
+        out["prefill"] = logits[:, rows].float().cpu()
+        del logits
+        cache["k"][:, :, :SERVE_S] = ks
+        cache["v"][:, :, :SERVE_S] = vs
+        del ks, vs
+    rng = np.random.default_rng(SEED + 43 + ord(leg))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
+        2 * steps, B, 1)).astype(np.int64), device=DEVICE)
+    tabs = serve_tables(leg, cfg)
+    logits, ms = [], []
+    reset_launch_counts()
+    for kind in ("dense", "sparse"):
+        serve = make_serve_step(cfg, spion=kind == "sparse", mesh=mesh,
+                                specs=specs)
+        for i in range(steps):
+            j = len(ms)
+            args = (params, cache, toks[j], filled + j)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, cache = serve(*args, tabs) if kind == "sparse" else \
+                serve(*args)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+            logits.append(lg.float().cpu())
+    out["decode_launches"] = launch_counts()
+    out["decode"] = torch.stack(logits)
+    out["decode_ms"] = ms
+    check_cache = serve_window(cache, leg, mesh) if leg == "b" else cache
+    if mesh is not None:
+        check_cache = gather_cache(check_cache, specs, mesh)
+    out["cache"] = {k: v.float().cpu() for k, v in check_cache.items()}
+    out["launches"] = launches
+    del params, cache, check_cache
+    return out
+
+
+def serve_references(d):
+    """12j's one-process references, in this process before the ranks
+    start, one leg and dtype at a time: DIR/serve_ref_<leg>_<dtype>.pt.
+    Returns {leg: seconds}."""
+    import gc
+    import torch
+    secs = {}
+    for leg in SERVE_LEGS:
+        t0 = time.perf_counter()
+        for dtype in SERVE_DTYPES:
+            torch.cuda.reset_peak_memory_stats()
+            rec = serve_run(leg, dtype)
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            torch.save(rec, os.path.join(d, f"serve_ref_{leg}_{dtype}.pt"))
+            del rec
+            gc.collect()
+            torch.cuda.empty_cache()
+        secs[leg] = time.perf_counter() - t0
+    return secs
+
+
+def serve_gap(got, want):
+    """max |got - want| over want's largest |element| (inf where `got` is
+    not finite)."""
+    import torch
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    return float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30))
+
+
+def serve_legs(meshes, rank, d):
+    """12j on one rank: each leg in fp32 and bf16 on its mesh, held against
+    the parent's references (the rank's vocabulary shard of the logits;
+    the cache gathered): fp32 gaps, bf16 distances from the fp32 reference
+    (mean |difference|) beside one process's. Returns the rank's
+    record."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import kernel_seq_axis
+    from repro_torch.launch.steps import cache_pspecs
+    from repro_torch.models.registry import cache_specs
+    rec = {}
+    for leg, (mesh_name, B, S, filled, steps, _) in SERVE_LEGS.items():
+        mesh = meshes[mesh_name]
+        cfg = serve_config(leg)
+        specs = cache_pspecs(cfg, cache_specs(cfg, B, S), mesh, B)
+        m, mi = mesh.shape.get("model", 1), mesh.axis_index("model")
+        V = cfg.vocab_size // m
+        vocab = slice(mi * V, (mi + 1) * V)
+        refs = {dt: torch.load(os.path.join(d, f"serve_ref_{leg}_{dt}.pt"))
+                for dt in SERVE_DTYPES}
+        legrec = {"specs": {k: [list(e) if isinstance(e, tuple) else e
+                                for e in v] for k, v in specs.items()}}
+        if leg == "a":
+            axis, reason = kernel_seq_axis(
+                mesh, SERVE_S // cfg.spion.block_size,
+                serve_tables(leg, cfg, prefill=True)["halo"])
+            legrec["halo_path"] = [axis, reason]
+        for dtype in SERVE_DTYPES:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run = serve_run(leg, dtype, mesh, specs)
+            secs = time.perf_counter() - t0
+            r32, rdt = refs["float32"], refs[dtype]
+            got = {"decode": run["decode"]}
+            want = {"decode": r32["decode"][..., vocab]}
+            one = {"decode": rdt["decode"][..., vocab]}
+            if "prefill" in run:
+                got["prefill"] = run["prefill"]
+                want["prefill"] = r32["prefill"][..., vocab]
+                one["prefill"] = rdt["prefill"][..., vocab]
+            for k in run["cache"]:
+                got[f"cache_{k}"] = run["cache"][k]
+                want[f"cache_{k}"] = r32["cache"][k]
+                one[f"cache_{k}"] = rdt["cache"][k]
+            x = {"seconds": secs,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "decode_ms": run["decode_ms"],
+                 "prefill_ms": run.get("prefill_ms"),
+                 "prefill_launches": run.get("prefill_launches"),
+                 "decode_launches": run["decode_launches"],
+                 "launches": run["launches"],
+                 "ref_peak_gb": rdt["peak_gb"]}
+            if dtype == "float32":
+                x["gaps"] = {k: serve_gap(got[k], want[k]) for k in got}
+            else:
+                x["dist"] = {k: float((got[k] - want[k]).abs().mean())
+                             for k in got}
+                x["dist_one"] = {k: float((one[k] - want[k]).abs().mean())
+                                 for k in got}
+            # copies only: the seeded positions the decode never wrote
+            if leg != "a":
+                for k in ("k", "v"):
+                    c, w = run["cache"][k], rdt["cache"][k]
+                    # (b): the first window whole, the second below filled
+                    W = SERVE_LONG_WINDOW
+                    keep = slice(0, filled if leg == "c"
+                                 else W + filled - (S - W))
+                    x.setdefault("bitwise", {})[k] = bool(torch.equal(
+                        c[:, :, keep], w[:, :, keep]))
+            legrec[dtype] = x
+            del run, got, want, one
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec[leg] = legrec
+        del refs
+        gc.collect()
+        dist.barrier(group=mesh.group(mesh.axis_names))
+    return rec
+
+
+def check_serving(recs, ref_secs):
+    """12j's gates on the ranks' records: the halo path for (a)'s prefill;
+    every fp32 gap within TOL_SEQ_LOSS of the reference's largest element;
+    every bf16 distance from the fp32 reference within SERVE_BF16_SLACK of
+    one process's; the seeded cache positions bitwise one process's; the
+    sparse prefill's launches SERVE_LAYERS forward kernels a rank and dtype,
+    the decode none. Returns the phase's record."""
+    import numpy as np
+    card = card_line()
+    launches = {k: 0 for k in KERNELS}
+    gaps, ratios = {}, {}
+    for leg, (mesh_name, B, S, filled, steps, KV) in SERVE_LEGS.items():
+        legs = [rec["serve"][leg] for rec in recs]
+        if leg == "a":
+            check(legs[0]["halo_path"][0] == "seq",
+                  f"12j (a): the prefill plan does not take the halo path: "
+                  f"{legs[0]['halo_path']}")
+        want_l = {k: SERVE_LAYERS if k == "block_sparse_fwd" else 0
+                  for k in KERNELS}
+        for r, lr in enumerate(legs):
+            for dtype in SERVE_DTYPES:
+                x = lr[dtype]
+                if leg == "a":
+                    check(x["prefill_launches"] == want_l,
+                          f"12j (a) rank {r} {dtype}: the prefill launched "
+                          f"{x['prefill_launches']}, not {want_l}")
+                check(not any(x["decode_launches"].values()),
+                      f"12j ({leg}) rank {r} {dtype}: the decode launched "
+                      f"{x['decode_launches']}")
+                for k in KERNELS:
+                    launches[k] += x["launches"][k]
+                check(all(x.get("bitwise", {}).values()),
+                      f"12j ({leg}) rank {r} {dtype}: the seeded cache "
+                      f"positions differ from one process's")
+            for k, g in lr["float32"]["gaps"].items():
+                gaps[f"{leg} {k}"] = max(gaps.get(f"{leg} {k}", 0.0), g)
+                check(g <= TOL_SEQ_LOSS, f"12j ({leg}) rank {r}: fp32 {k} "
+                      f"{g:.3e} of the reference's largest; gate "
+                      f"{TOL_SEQ_LOSS}")
+            x = lr["bfloat16"]
+            for k, dist_ in x["dist"].items():
+                one = x["dist_one"][k]
+                ratios[f"{leg} {k}"] = max(ratios.get(f"{leg} {k}", 0.0),
+                                           dist_ / one if one else 0.0)
+                check(dist_ <= SERVE_BF16_SLACK * one,
+                      f"12j ({leg}) rank {r}: bf16 {k} {dist_:.3e} from the "
+                      f"fp32 reference, one process {one:.3e}; slack "
+                      f"{SERVE_BF16_SLACK}")
+        x0 = legs[0]
+        what = {"a": f"seq {SEQMODEL_MESH[0]} x model {SEQMODEL_MESH[1]}, "
+                     f"B {B}, a {SERVE_S}-token prompt, a causal plan "
+                     f"banded to halo (1, 0)",
+                "b": f"data 2 x model 2, B 1, the cache's {S} positions "
+                     f"over 'data' and its KV heads over 'model', filled "
+                     f"from the seed below {filled}",
+                "c": f"model {SEQMODEL_FALLBACK}, 2 KV heads (head_dim "
+                     f"over 'model'), B {B}, filled below {filled}"}[leg]
+        log(f"serve-mesh ({leg}) qwen2-7b reduced to {SERVE_LAYERS} of 28 "
+            f"layers at full width, {what}; cache specs "
+            f"{x0['specs']['k']}; " + "; ".join(
+                f"{dtype}: " + (", ".join(
+                    f"{k} {g:.3e}" for k, g in x0[dtype]["gaps"].items())
+                    + f" of the largest (gate {TOL_SEQ_LOSS})"
+                    if dtype == "float32" else ", ".join(
+                        f"{k} {x0[dtype]['dist'][k]:.3e} vs one process "
+                        f"{x0[dtype]['dist_one'][k]:.3e}"
+                        for k in x0[dtype]["dist"])
+                    + f" mean |x - fp32| (slack {SERVE_BF16_SLACK})")
+                + (f", prefill {x0[dtype]['prefill_ms']:.1f} ms"
+                   if x0[dtype]["prefill_ms"] else "")
+                + f", decode {np.median(x0[dtype]['decode_ms']):.2f} ms a "
+                f"token (median of {len(x0[dtype]['decode_ms'])}; "
+                f"{steps} dense, {steps} sparse)"
+                f", peak {x0[dtype]['peak_gb']:.2f} GB a rank (one process "
+                f"{x0[dtype]['ref_peak_gb']:.2f})"
+                for dtype in SERVE_DTYPES)
+            + f"; one-process references {ref_secs[leg]:.1f} s ({card})")
+        for r, lr in enumerate(legs):
+            log(f"serve-mesh ({leg}) rank {r}: " + "; ".join(
+                f"{dtype} {lr[dtype]['seconds']:.1f} s, decode ms a token "
+                f"median {np.median(lr[dtype]['decode_ms'][:steps]):.2f} "
+                f"(dense) / "
+                f"{np.median(lr[dtype]['decode_ms'][steps:]):.2f} (sparse)"
+                + (f", prefill {lr[dtype]['prefill_ms']:.1f} ms"
+                   if lr[dtype]["prefill_ms"] else "")
+                for dtype in SERVE_DTYPES) + f" ({card})")
+    return dict(launches=launches, gaps=gaps, ratios=ratios)
 
 
 # -- phase 12i: the explicit collectives (int8 and hierarchical gradient
@@ -8039,8 +8490,8 @@ def sync_reference(trees, line, dtype):
 
 
 def sync_references(d):
-    """12i (a)'s expected bits, computed on the CPU before the ranks start:
-    per dtype and rank, the digests of its q and its scales, and per sync
+    """12i (a)'s expected bits, computed on the CPU while the ranks run
+    spion-lra: per dtype and rank, the digests of its q and its scales, and per sync
     kind the digests of the int32 totals and of the result and the mean
     scales (DIR/ref_12i_sync.json)."""
     import numpy as np
@@ -8274,8 +8725,8 @@ def flat_leaves(tree, prefix=""):
 
 
 def pipe_references(d):
-    """12i (b)'s one-process reference, before the ranks start: spion-lra's
-    4 layers in sequence on the whole batch (the same microbatches, kept
+    """12i (b)'s one-process reference, while the ranks run 12h's
+    spion-lra: spion-lra's 4 layers in sequence on the whole batch (the same microbatches, kept
     together), fp32 and bf16, from the same masters and inputs: the fp32
     output, dx and each layer's gradients to DIR/ref_12i_pipe.pt, and the
     bf16 run's distances from them (pipe_distance) to
@@ -8726,14 +9177,14 @@ def main(argv):
     dp, fleet, seqtrain = multi["dp"], multi["fleet"], multi["seqtrain"]
     seqscan, model = multi["seqscan"], multi["model"]
     modelscan, seqmodel = multi["modelscan"], multi["seqmodel"]
-    pipeline = seqmodel["pipeline"]
+    pipeline, serve_mesh = seqmodel["pipeline"], seqmodel["serve"]
 
     fwd = {"launches": serve["launches"] + shared["launches"]
            + mixtral["launches"]
            + sum(run["launches"]["block_sparse_fwd"]
                  for run in (zamba, whisper, internvl, train, dp, seqtrain,
                              seqscan, model, modelscan, seqmodel,
-                             pipeline)),
+                             pipeline, serve_mesh)),
            "launches_serve": serve["launches"],
            "launches_serve_shared": shared["launches"],
            "launches_mixtral": mixtral["launches"],
@@ -8756,7 +9207,7 @@ def main(argv):
         rows[name] = {"launches": sum(run["launches"][name] for run in
                                       (train, zamba, whisper, internvl, dp,
                                        seqtrain, seqscan, model, modelscan,
-                                       seqmodel, pipeline)),
+                                       seqmodel, pipeline, serve_mesh)),
                       "launches_zamba2": zamba["launches"][name],
                       "launches_whisper": whisper["launches"][name],
                       "launches_internvl2": internvl["launches"][name],
@@ -8776,7 +9227,7 @@ def main(argv):
                           ("fleet", fleet), ("seqtrain", seqtrain),
                           ("seqscan", seqscan), ("model", model),
                           ("modelscan", modelscan), ("seqmodel", seqmodel),
-                          ("pipeline", pipeline)):
+                          ("pipeline", pipeline), ("serve_mesh", serve_mesh)):
             row[f"launches_{path}"] = run["launches"][name]
         row["model_shard_shape"] = model["kernels"][name]
         row["modelscan_zamba2_shape"] = modelscan["kernels"]["zamba2"][name]
@@ -8785,6 +9236,7 @@ def main(argv):
         for leg, rec in seqmodel["kernels"].items():
             row[f"seqmodel_{leg}_shape"] = rec[name]
         row["pipeline_shape"] = pipeline["kernels"][name]
+        row["serve_mesh_shape"] = serve_mesh["kernels"][name]
         row["seq_parallel"] = multi["seq"]["runs"]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -8904,6 +9356,13 @@ def main(argv):
                                           for x in pipeline["hop_ms"])
         + "; planted " + ", ".join(f"{k} {v:.3e}" for k, v in
                                    pipeline["faults"].items())
+        + f" ({card})")
+    log(f"prefill and decode steps under a mesh (phase 12j, on 12h's ranks, "
+        f"{serve_mesh['seconds']:.1f} s): qwen2-7b reduced to {SERVE_LAYERS} "
+        f"of 28 layers at full width; fp32 worst gaps to one process "
+        + ", ".join(f"{k} {v:.3e}" for k, v in serve_mesh["gaps"].items())
+        + "; bf16 distance from fp32 over one process's, worst "
+        + ", ".join(f"{k} {v:.3f}" for k, v in serve_mesh["ratios"].items())
         + f" ({card})")
     log(f"recovery: supervisor {respawn['wall']:.2f} s in all; a sparse step "
         f"run twice is {'' if resume['bitwise'] else 'NOT '}bitwise "

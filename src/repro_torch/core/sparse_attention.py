@@ -17,6 +17,15 @@ differentiable:
   - kernels/ops.py   — the Hopper kernels (CUDA tensors), same signature.
 Sparse decode is a gather here too: the query position's row-block selects
 its listed cache blocks.
+
+Decode on a shard of a cache (a serve step under a mesh, distributed.
+sharding.decode_context) goes through `shard_decode`: with head_dim over
+'model' the rank's partial q·k products are summed over the model line in
+fp32 (`head_dim_sum`) and the context's columns gathered; with the
+cache's positions over the data axes each rank's softmax max, sum and
+p·v over its positions (fp32) are combined by log-sum-exp over the line
+(`merge_partials`), where the sparse decode's zero correction enters once,
+after the combine, since its row total is the whole row's.
 """
 from __future__ import annotations
 
@@ -25,6 +34,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import (gather_model, model_offset,
+                                              position_shard,
+                                              reduce_from_model)
 
 
 class BCSR(NamedTuple):
@@ -327,6 +341,30 @@ def _decode_pattern_cols(pos, col_idx, nvalid, batch: int, block: int):
     return posb, cols.clamp(min=0), valid
 
 
+def _gathered_mask(cfg, posb, colc, valid, *, block: int, ring_len=None):
+    """(ok (B, K, block): the gathered slots a decode at `posb` may see,
+    row_total (B,): the positions its row sees in all, which the Alg. 6
+    zero correction counts against the stored ones)."""
+    # absolute positions the gathered slots are *supposed* to hold
+    kpos = (colc * block)[:, :, None] + \
+        torch.arange(block, device=colc.device)[None, None, :]
+    ok = valid[:, :, None] & (kpos >= 0) & (kpos <= posb[:, None, None])
+    if cfg.sliding_window:
+        ok = ok & (kpos > posb[:, None, None] - cfg.sliding_window)
+    if ring_len is not None:
+        # the ring holds only the last ring_len positions; older ones were
+        # overwritten
+        ok = ok & (kpos > posb[:, None, None] - ring_len)
+    row_total = posb + 1
+    if cfg.sliding_window:
+        row_total = row_total.clamp(max=cfg.sliding_window)
+    if ring_len is not None:
+        # positions that rotated out of the ring are GONE, not pruned: the
+        # dense ring decode renormalises over what the cache holds
+        row_total = row_total.clamp(max=ring_len)
+    return ok, row_total
+
+
 def _decode_gathered(cfg, q, kg, vg, posb, colc, valid, *, block: int,
                      ring_len=None):
     """Attend q over gathered pattern blocks kg/vg (B, K, block, KV, hd)
@@ -342,16 +380,8 @@ def _decode_gathered(cfg, q, kg, vg, posb, colc, valid, *, block: int,
     Kp = colc.shape[1]
     qg = q.reshape(B, KV, G, hd)
     s = torch.einsum("bkgh,bcqkh->bkgcq", qg, kg).float() / math.sqrt(hd)
-    # absolute positions the gathered slots are *supposed* to hold
-    kpos = (colc * block)[:, :, None] + \
-        torch.arange(block, device=q.device)[None, None, :]
-    ok = valid[:, :, None] & (kpos >= 0) & (kpos <= posb[:, None, None])
-    if cfg.sliding_window:
-        ok = ok & (kpos > posb[:, None, None] - cfg.sliding_window)
-    if ring_len is not None:
-        # the ring holds only the last ring_len positions; older ones were
-        # overwritten
-        ok = ok & (kpos > posb[:, None, None] - ring_len)
+    ok, row_total = _gathered_mask(cfg, posb, colc, valid, block=block,
+                                   ring_len=ring_len)
     s = torch.where(ok[:, None, None], s, -math.inf)
     sflat = s.reshape(B, KV, G, Kp * block)
     mx = sflat.amax(dim=-1, keepdim=True).clamp(min=-1e30)
@@ -359,17 +389,76 @@ def _decode_gathered(cfg, q, kg, vg, posb, colc, valid, *, block: int,
     denom = ex.sum(dim=-1, keepdim=True)
     # Alg. 6 zero-correction: pruned visible positions count exp(-max) each
     stored = ok.sum(dim=(1, 2)).to(torch.int32)            # (B,)
-    row_total = posb + 1
-    if cfg.sliding_window:
-        row_total = row_total.clamp(max=cfg.sliding_window)
-    if ring_len is not None:
-        # positions that rotated out of the ring are GONE, not pruned: the
-        # dense ring decode renormalises over what the cache holds
-        row_total = row_total.clamp(max=ring_len)
     zeros_cnt = (row_total - stored).clamp(min=0)[:, None, None, None].float()
     denom = denom + zeros_cnt * torch.exp(-mx)
     probs = (ex / denom).to(q.dtype).reshape(B, KV, G, Kp, block)
     out = torch.einsum("bkgcq,bcqkh->bkgh", probs, vg)
+    return out.reshape(B, 1, H, hd)
+
+
+def head_dim_sum(s):
+    """Partial q·k products over this rank's head_dim columns -> the whole
+    products: summed over the model line in fp32."""
+    return reduce_from_model(s, torch.float32)
+
+
+def merge_partials(m, l, o, group, stored=None, total=None):
+    """The attention context from each rank's partial softmax over its
+    cache positions: m (B, KV, G, 1) its max, l the sum of exp(s - m), o
+    (B, KV, G, hd) the sum of exp(s - m) v, all fp32, combined by
+    log-sum-exp over `group` (the ranks holding the other positions; None
+    where this rank holds every one). `stored` / `total` (B,): the
+    positions a sparse decode gathered on this rank and the row's visible
+    positions in all: the Alg. 6 zero correction counts the pruned ones,
+    exp(-max) each, once, after the combine."""
+    if group is not None:
+        M = m.clone()
+        dist.all_reduce(M, op=dist.ReduceOp.MAX, group=group)
+        scale = torch.exp(m - M)
+        parts = [(l * scale).reshape(-1), (o * scale).reshape(-1)]
+        if stored is not None:
+            parts.append(stored.float())
+        flat = torch.cat(parts)
+        dist.all_reduce(flat, group=group)
+        l = flat[:l.numel()].reshape(l.shape)
+        o = flat[l.numel():l.numel() + o.numel()].reshape(o.shape)
+        if stored is not None:
+            stored = flat[l.numel() + o.numel():]
+        m = M
+    if stored is not None:
+        zeros = (total.float() - stored.float()).clamp(min=0)
+        l = l + zeros[:, None, None, None] * torch.exp(-m)
+    return o / l
+
+
+def shard_decode(q, kg, vg, ok, group, total=None):
+    """One-token attention over this rank's shard of a cache: q (B, 1, H,
+    hd) whole heads; kg / vg (B, N, KV, hd_loc) its N cache positions
+    (hd_loc < hd: its head_dim columns, head_dim over 'model'); ok (B, N)
+    the ones the token sees; `group` the ranks holding the other positions
+    (None: none). The partial q·k over the rank's columns summed over the
+    model line (`head_dim_sum`), the softmax's max, sum and p·v over its
+    positions in fp32, combined over `group` (`merge_partials`, with the
+    sparse decode's row `total` (B,) for its zero correction). Returns
+    (B, 1, H, hd) in q's dtype, the context's columns gathered over the
+    model line."""
+    B, _, H, hd = q.shape
+    KV, hdl = kg.shape[2], kg.shape[3]
+    qg = q.reshape(B, KV, H // KV, hd)
+    if hdl != hd:
+        qg = qg.narrow(-1, model_offset(hdl), hdl)
+    s = torch.einsum("bkgh,bnkh->bkgn", qg.float(), kg.float())
+    if hdl != hd:
+        s = head_dim_sum(s)
+    s = torch.where(ok[:, None, None, :], s / math.sqrt(hd), -math.inf)
+    m = s.amax(dim=-1, keepdim=True).clamp(min=-1e30)
+    e = torch.where(torch.isneginf(s), 0.0, torch.exp(s - m))
+    o = torch.einsum("bkgn,bnkh->bkgh", e, vg.float())
+    stored = None if total is None else ok.sum(dim=1)
+    out = merge_partials(m, e.sum(dim=-1, keepdim=True), o, group,
+                         stored, total).to(q.dtype)
+    if hdl != hd:
+        out = gather_model(out, -1)
     return out.reshape(B, 1, H, hd)
 
 
@@ -393,6 +482,11 @@ def sparse_decode_attention(cfg, q, k_cache, v_cache, pos, col_idx, nvalid,
     KV, S = k_cache.shape[2], k_cache.shape[1]
     nbc = S // block
     posb, colc, valid = _decode_pattern_cols(pos, col_idx, nvalid, B, block)
+    start, n, group = position_shard(S)
+    if n > 1 or k_cache.shape[-1] != hd:
+        return _shard_sparse_decode(cfg, q, k_cache, v_cache, posb, colc,
+                                    valid, block=block, ring=ring,
+                                    start=start, n=n, group=group)
     if ring:
         sb = (colc % nbc).long()
     else:
@@ -407,6 +501,35 @@ def sparse_decode_attention(cfg, q, k_cache, v_cache, pos, col_idx, nvalid,
     vg = vb[rows, sb].to(q.dtype)
     return _decode_gathered(cfg, q, kg, vg, posb, colc, valid, block=block,
                             ring_len=S if ring else None)
+
+
+def _shard_sparse_decode(cfg, q, k_cache, v_cache, posb, colc, valid, *,
+                         block, ring, start, n, group):
+    """`sparse_decode_attention` on this rank's shard of the cache: its S
+    positions from `start` of the n * S the data line holds (the listed
+    blocks it holds are gathered, the others masked), or its head_dim
+    columns; the partial softmaxes meet in `shard_decode`, the zero
+    correction once after their combine."""
+    B, S = k_cache.shape[0], k_cache.shape[1]
+    KV, hdl = k_cache.shape[2], k_cache.shape[3]
+    nbc, nbc_all = S // block, S * n // block
+    if ring:
+        sb = (colc % nbc_all).long()
+    else:
+        valid = valid & (colc < nbc_all)
+        sb = colc.clamp(max=nbc_all - 1).long()
+    first = start // block
+    valid = valid & (sb >= first) & (sb < first + nbc)
+    sb = (sb - first).clamp(0, nbc - 1)
+    rows = torch.arange(B, device=q.device)[:, None]
+    kg = k_cache.reshape(B, nbc, block, KV, hdl)[rows, sb]
+    vg = v_cache.reshape(B, nbc, block, KV, hdl)[rows, sb]
+    ok, total = _gathered_mask(cfg, posb, colc, valid, block=block,
+                               ring_len=S * n if ring else None)
+    Kp = colc.shape[1]
+    return shard_decode(q, kg.reshape(B, Kp * block, KV, hdl),
+                        vg.reshape(B, Kp * block, KV, hdl),
+                        ok.reshape(B, Kp * block), group, total=total)
 
 
 def paged_sparse_decode_attention(cfg, q, kp, vp, layer, pos, page_table,

@@ -98,6 +98,14 @@ compiler inserts (Megatron-style). The layout contract:
     (both head counts), which every site asks: the projections, the
     output projection, the capture's line mean and the kernels' KV count.
     `constrain` has no counterpart: the layout is explicit.
+  - **Caches.** A decode cache's leaves split as launch/steps.
+    cache_pspecs says (`shard_cache`, `gather_cache`; the hybrid's conv
+    state by segment, as in_proj). A decode step on a shard runs in
+    `decode_context`: the layers see the model line alone and the
+    active `CacheLayout` names the axes the cache's rows and positions
+    split over (`position_shard`, `gather_rows`). `reshard` moves a step's
+    output from the layout it was computed in to the dry run's
+    out-sharding.
 """
 from __future__ import annotations
 
@@ -649,15 +657,18 @@ def check_model_layout(cfg, mesh):
 
 def packed_segments(name: str, cfg):
     """The widths of the segments that leaf `name` packs in its sharded
-    dimension, in order (Mamba2's in_proj: z, x, B‖C, dt), or None for a
-    leaf that packs nothing. A packed leaf without `cfg` raises: its cut
-    depends on the widths."""
-    if not _PACKED.search(_path(name)):
+    dimension, in order (Mamba2's in_proj: z, x, B‖C, dt; the hybrid
+    cache's conv state: x, B‖C), or None for a leaf that packs nothing. A
+    packed leaf without `cfg` raises: its cut depends on the widths."""
+    conv = name == "conv"
+    if not conv and not _PACKED.search(_path(name)):
         return None
     if cfg is None:
         raise ValueError(f"{name} packs several segments in its columns; "
                          f"cutting or joining it needs the model's config")
     inner = cfg.ssm.expand * cfg.d_model
+    if conv:
+        return (inner, 2 * cfg.ssm.state_size)
     return (inner, inner, 2 * cfg.ssm.state_size, inner // cfg.ssm.head_dim)
 
 
@@ -739,6 +750,155 @@ def _all_gather(x, group, n, dim):
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
     return out.to(x.device) if staged else out
+
+
+# ---------------------------------------------------------------------------
+# caches and step outputs: shards of whole tensors under specs
+# ---------------------------------------------------------------------------
+
+def live_axes(mesh, entry) -> Optional[tuple]:
+    """A spec entry (None, an axis name or a tuple of names) as the tuple
+    of its axes of more than one rank, or None: what a tensor dimension
+    is actually split over."""
+    if entry is None:
+        return None
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    axes = tuple(a for a in axes if mesh.shape.get(a, 1) > 1)
+    return axes or None
+
+
+def _entries(spec, ndim: int) -> tuple:
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def shard_cache(cache, specs, mesh, cfg=None) -> dict:
+    """The whole decode cache {name: tensor} -> this rank's shard of every
+    leaf under `specs` (launch/steps.cache_pspecs), as contiguous copies.
+    The hybrid family's conv state packs x and B‖C in its columns: rank r
+    holds its x heads and the r-th part of B‖C (`local_index`, as Mamba2's
+    in_proj), the columns its conv computes, so it needs `cfg`."""
+    return {n: x[local_index(mesh, n, specs[n], x.shape, cfg)]
+            .clone(memory_format=torch.contiguous_format)
+            for n, x in cache.items()}
+
+
+def gather_cache(shards, specs, mesh, cfg=None) -> dict:
+    """{name: this rank's shard} -> the whole cache: every dimension that
+    `specs` splits gathered over its line (host-staged on gloo), the conv
+    state's columns put back in the reference's order (`local_index` of
+    each rank of the model line). Copies only. A collective of every
+    rank of the mesh."""
+    out = {}
+    for n, x in shards.items():
+        for dim, e in enumerate(_entries(specs[n], x.dim())):
+            axes = live_axes(mesh, e)
+            if axes is not None:
+                x = _all_gather(x, mesh.group(axes), mesh.axis_size(axes),
+                                dim)
+        dim = sharded_dim(specs[n])
+        if dim is not None and model_size(mesh) > 1 and \
+                packed_segments(n, cfg) is not None:
+            order = np.concatenate([local_index(mesh, n, specs[n], x.shape,
+                                                cfg, rank=r)[dim]
+                                    for r in mesh.line("model")])
+            x = x.index_select(
+                dim, torch.as_tensor(np.argsort(order), device=x.device))
+        out[n] = x
+    return out
+
+
+def reshard(x, src, dst, mesh):
+    """`x`, this rank's shard of a tensor under spec `src`, as its shard
+    under `dst`: every dimension whose split differs is gathered over the
+    `src` line (host-staged on gloo) and then cut to this rank's part of
+    the `dst` line. Contiguous splits only; no gradient."""
+    for dim, (s, d) in enumerate(zip(_entries(src, x.dim()),
+                                     _entries(dst, x.dim()))):
+        s, d = live_axes(mesh, s), live_axes(mesh, d)
+        if s == d:
+            continue
+        if s is not None:
+            x = _all_gather(x, mesh.group(s), mesh.axis_size(s), dim)
+        if d is not None:
+            n = mesh.axis_size(d)
+            rows = x.shape[dim] // n
+            x = x.narrow(dim, mesh.flat_index(d) * rows, rows)
+    return x.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# decode on a cache shard
+# ---------------------------------------------------------------------------
+
+class CacheLayout:
+    """Where a decode step's cache shard sits in the whole cache: `rows`
+    and `positions` are the axes (tuples, or None) of `mesh`, the whole
+    mesh, that the cache's batch rows and its positions split over (dims
+    1 and 2 of `cache_pspecs`' K/V spec; the ssm family splits its rows
+    only). The heads and head_dim splits over 'model' need no record:
+    the layer sees them in its shards' shapes."""
+
+    def __init__(self, mesh, specs):
+        spec = specs["k"] if "k" in specs else specs["S"]
+        e = _entries(spec, 3)
+        self.mesh = mesh
+        self.rows = live_axes(mesh, e[1])
+        self.positions = live_axes(mesh, e[2]) if "k" in specs else None
+
+
+_LAYOUT: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_cache_layout", default=None)
+
+
+@contextlib.contextmanager
+def decode_context(layout: CacheLayout):
+    """Decode on this rank's cache shard: the layer code sees only the
+    layout's mesh's model line (`Mesh.sub`), so a token of a 'seq' line or
+    a data line runs as it does in one process there, and the cache's row
+    and position splits are the active `layout`, which the cache writes,
+    the attention's softmax combine and the MoE's rows read."""
+    tok = _LAYOUT.set(layout)
+    try:
+        with mesh_context(layout.mesh.sub(("model",))):
+            yield
+    finally:
+        _LAYOUT.reset(tok)
+
+
+def cache_layout() -> Optional[CacheLayout]:
+    return _LAYOUT.get()
+
+
+def position_shard(rows: int):
+    """(this rank's first cache position, the ranks the positions split
+    over, their process group) for a cache shard of `rows` positions under
+    the active `CacheLayout`; (0, 1, None) where every rank holds every
+    position."""
+    lay = _LAYOUT.get()
+    if lay is None or lay.positions is None:
+        return 0, 1, None
+    m, axes = lay.mesh, lay.positions
+    return m.flat_index(axes) * rows, m.axis_size(axes), m.group(axes)
+
+
+def gather_rows(x):
+    """x (B_loc, ...), this rank's batch rows under the active
+    `CacheLayout` -> every row, over the rows' line (no gradient); `x`
+    where the rows are whole."""
+    lay = _LAYOUT.get()
+    if lay is None or lay.rows is None:
+        return x
+    m = lay.mesh
+    return _all_gather(x, m.group(lay.rows), m.axis_size(lay.rows), 0)
+
+
+def own_rows(x):
+    """The inverse of `gather_rows`: this rank's rows of x (B, ...)."""
+    lay = _LAYOUT.get()
+    if lay is None or lay.rows is None:
+        return x
+    rows = x.shape[0] // lay.mesh.axis_size(lay.rows)
+    return x.narrow(0, lay.mesh.flat_index(lay.rows) * rows, rows)
 
 
 def _sum_fp32(x, group):

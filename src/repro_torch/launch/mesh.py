@@ -98,6 +98,20 @@ class Mesh:
         order = [kept.index(a) for a in axes if a in kept]
         return [int(r) for r in np.transpose(sub, order).reshape(-1)]
 
+    def sub(self, axes, rank: Optional[int] = None) -> "Mesh":
+        """The mesh of the ranks that share `rank`'s (default: this
+        process's) coordinates on every axis but `axes`, which it keeps in
+        this mesh's order, with this mesh's process groups: a view for
+        code that must not see the other axes (a decode step replicated
+        over 'seq' and the data axes sees the model line alone)."""
+        c = self.coords(rank)
+        keep = tuple(a for a in self.axis_names if a in axes)
+        idx = tuple(slice(None) if a in keep else c[a]
+                    for a in self.axis_names)
+        view = Mesh(self.devices[idx], keep)
+        view._groups = self._groups
+        return view
+
     # -- process groups --------------------------------------------------------
 
     def _group_keys(self):

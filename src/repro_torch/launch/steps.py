@@ -11,6 +11,11 @@ lines, so every rank applies the same update to its parameters. On a
 'model' axis those are the rank's shards (distributed/sharding.py): the
 ranks of a model line hold the same batch and compute the same loss, so
 neither the loss nor the gradients are summed over it.
+
+The prefill and decode steps take a mesh too, with the reference's batch
+and cache layouts (`batch_pspecs`, `cache_pspecs`, the dry run's specs
+as tuples): each rank runs on its shards of the parameters, the batch and
+the cache, and the outputs come in the dry run's out-shardings.
 """
 from __future__ import annotations
 
@@ -25,9 +30,12 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.sparse_attention import PLAN_TABLE_KEYS
-from repro_torch.distributed.sharding import (check_model_layout,
-                                              mesh_context, model_size,
-                                              sharded_dim)
+from repro_torch.distributed.sharding import (CacheLayout, batch_spec,
+                                              check_model_layout, data_axes,
+                                              decode_context, heads_split,
+                                              live_axes, mesh_context,
+                                              model_size, reshard,
+                                              sanitize_spec, sharded_dim)
 from repro_torch.models.layers import tree_map
 from repro_torch.models.registry import build
 from repro_torch.optim import (adamw_update, clip_by_global_norm,
@@ -111,6 +119,58 @@ def causal_band_tables(layers: int, nrb: int, width: Optional[int] = None):
         col[:, r, len(cs):] = cs[-1]
         nval[:, r] = len(cs)
     return {"col_idx": col, "nvalid": nval}
+
+
+def batch_pspecs(cfg: ModelConfig, batch, mesh):
+    """{name: spec} of a batch (leaves need only .shape and .ndim: meta
+    tensors from registry.input_specs, numpy arrays): the batch dim over
+    the data axes and, on a mesh with a 'seq' axis, the token dim over
+    'seq', through `sanitize_spec`. The reference's rules, as tuples."""
+    daxes = data_axes(mesh)
+    seq_ax = "seq" if mesh.shape.get("seq", 1) > 1 else None
+
+    def one(x):
+        if x.ndim == 0:
+            return ()
+        rest = [seq_ax] + [None] * (x.ndim - 2) if x.ndim >= 2 else []
+        return sanitize_spec(mesh, (daxes, *rest), x.shape)
+    return {k: one(x) for k, x in batch.items()}
+
+
+def cache_pspecs(cfg: ModelConfig, cache, mesh, batch_size: int):
+    """{name: spec} of a decode cache keyed by the port's names (leaves
+    need only .shape), the reference's rules as tuples through
+    `sanitize_spec`: K/V caches k, v, ck, cv (L, B, S, KV, hd) split their
+    KV heads over 'model' where |model| divides them, else head_dim,
+    else neither, and B over the data axes when `batch_size` (the global
+    batch) covers them, else S (the long_500k layout, B 1). SSM states:
+    'ssm' (L, B, H, N, P) and rwkv's 'S' (L, B, H, hd, hd) their heads over
+    'model', 'conv' (L, B, W-1, conv_dim) its last dim, 'tm_prev' /
+    'cm_prev' (L, B, d) no 'model' split; their B over the data axes
+    when the batch covers them."""
+    daxes = data_axes(mesh)
+    ndata = mesh.axis_size(daxes) if daxes else 1
+    batch_big = batch_size >= ndata
+    m = mesh.shape.get("model", 1)
+    rows = daxes if batch_big else None
+
+    def one(name, x):
+        if name in ("k", "v", "ck", "cv"):           # (L, B, S, KV, hd)
+            KV, hd = x.shape[3], x.shape[4]
+            kv_ax, hd_ax = ("model", None) if KV % m == 0 else \
+                (None, "model") if hd % m == 0 else (None, None)
+            if batch_big:
+                return (None, daxes, None, kv_ax, hd_ax)
+            return (None, None, daxes, kv_ax, hd_ax)
+        if name in ("S", "ssm"):
+            return (None, rows, "model", None, None)
+        if name == "conv":
+            return (None, rows, None, "model")
+        if name in ("tm_prev", "cm_prev"):
+            return (None, rows, None)
+        return ()
+    return {n: sanitize_spec(mesh, one(n, x), x.shape)
+            for n, x in cache.items()}
 
 
 def _coerce_step_tables(tables, *, block, phase, halo=None,
@@ -287,43 +347,122 @@ def make_train_step(cfg: ModelConfig, *, spion=False, lr=3e-4,
     return functools.partial(step_fn, tables=None)
 
 
+def _mesh_of(mesh):
+    """`mesh` when it spans more than one rank, else None."""
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def _vocab_axis(cfg, mesh):
+    """'model' where it splits the vocabulary (the logits a rank holds are
+    its shard of it), else None."""
+    m = model_size(mesh)
+    return "model" if m > 1 and cfg.vocab_size % m == 0 else None
+
+
 def make_prefill_step(cfg: ModelConfig, *, spion=False, block=None,
-                      with_cache=False, kernel_config=None):
+                      halo=None, with_cache=False, kernel_config=None,
+                      mesh=None, specs=None):
     """Prefill step: logits over the full prompt. `with_cache=True` builds
     the FUSED serving prefill instead — (params, batch[, tables]) ->
     (logits, ks, vs) with ks/vs the per-layer RoPE'd K/V stacked
     (L, B, S, KV, hd), ready for direct insertion into decode-cache pages
     (launch/serve.ServeEngine). Families without a plain KV cache have
     no fused prefill (bundle.prefill_kv is None) and raise here.
-    `kernel_config` as in `make_loss_and_grads`."""
+    `halo` and `kernel_config` as in `make_loss_and_grads`.
+
+    `mesh` (of more than one rank): `params` are this rank's shards and
+    `batch` its shard in the layout of `specs` (the global batch's
+    `batch_pspecs`; default: the batch over every data axis and the
+    tokens over 'seq', as a train step's). The forward runs without
+    autograd; a data axis the batch does not split holds copies of it,
+    and the layers do not see that axis. The logits come out in the
+    reference's dry-run out-sharding, the batch over the data axes and
+    the vocabulary over 'model' where it divides (one gather over the
+    'seq' line under 'seq'); ks / vs in `cache_pspecs`' layout for the
+    global batch, as `make_serve_step` takes the cache (a gather over the
+    'seq' line and cuts over 'model' or the data axes: the port's choice,
+    the reference compiles no prefill with a cache under a mesh)."""
     bundle = build(cfg)
     if with_cache and bundle.prefill_kv is None:
         raise NotImplementedError(
             f"make_prefill_step(with_cache=True): family {cfg.family!r} has "
             f"no fused KV prefill; serve it via stepwise prefill instead")
     static_block = block or cfg.spion.block_size
+    mesh = _mesh_of(mesh)
+    if mesh is not None:
+        check_model_layout(cfg, mesh)
 
     def prefill(params, batch, tables=None):
         ex = _coerce_step_tables(tables, block=static_block, phase="prefill",
-                                 kernel_config=kernel_config,
+                                 halo=halo, kernel_config=kernel_config,
                                  dtype=cfg.dtype)
-        if with_cache:
-            return bundle.prefill_kv(params, batch, spion=ex)
-        logits, _ = bundle.forward(params, batch, spion=ex)
-        return logits
+        if mesh is None:
+            if with_cache:
+                return bundle.prefill_kv(params, batch, spion=ex)
+            return bundle.forward(params, batch, spion=ex)[0]
+        return _mesh_prefill(cfg, bundle, mesh, specs, with_cache, params,
+                             batch, ex)
 
     if spion:
         return prefill
     return functools.partial(prefill, tables=None)
 
 
-def make_serve_step(cfg: ModelConfig, *, spion=False, block=None):
+def _mesh_prefill(cfg, bundle, mesh, specs, with_cache, params, batch, ex):
+    """`make_prefill_step`'s step on this rank of `mesh`."""
+    tok = specs["tokens"] if specs is not None else batch_spec(mesh, 2)
+    tok = tuple(tok) + (None,) * (2 - len(tok))
+    rows, seq = live_axes(mesh, tok[0]), live_axes(mesh, tok[1])
+    # the layers see the axes the batch splits over and 'model'
+    seen = set(rows or ()) | set(seq or ()) | {"model"}
+    with torch.no_grad(), mesh_context(mesh.sub(seen)):
+        if with_cache:
+            logits, ks, vs = bundle.prefill_kv(params, batch, spion=ex)
+        else:
+            logits = bundle.forward(params, batch, spion=ex)[0]
+        kv_split = heads_split(cfg)
+    B = logits.shape[0] * mesh.axis_size(rows)
+    S = logits.shape[1] * mesh.axis_size(seq)
+    logits = reshard(logits, (rows, seq, _vocab_axis(cfg, mesh)),
+                     sanitize_spec(mesh, (data_axes(mesh), None, "model"),
+                                   (B, S, cfg.vocab_size)), mesh)
+    if not with_cache:
+        return logits
+    hd = cfg.resolved_head_dim
+    whole = torch.empty((ks.shape[0], B, S, cfg.num_kv_heads, hd),
+                        device="meta")
+    dst = cache_pspecs(cfg, {"k": whole}, mesh, B)["k"]
+    src = (None, rows, seq, "model" if kv_split else None)
+    return logits, reshard(ks, src, dst, mesh), reshard(vs, src, dst, mesh)
+
+
+def make_serve_step(cfg: ModelConfig, *, spion=False, block=None,
+                    halo=None, kernel_config=None, mesh=None, specs=None):
     """Decode step: (params, cache, tokens, pos[, tables]) -> (logits,
     cache). `pos` may be a scalar or per-row (B,) vector; with `spion` the
-    decode is sparse over the pattern-listed cache blocks. The cache may be
-    the family's contiguous form or its paged form (a
+    decode is sparse over the pattern-listed cache blocks (`halo` and
+    `kernel_config` as in `make_prefill_step`, for a dict payload). The
+    cache may be the family's contiguous form or its paged form (a
     core.kv_pool.PagedKVCache, alone or under a "kv" key beside the hybrid
     family's recurrent states).
+
+    `mesh` (of more than one rank): `params` are this rank's shards and
+    `cache` its shard under `specs`, the whole cache's `cache_pspecs`
+    (required: the reference's jit takes that layout as its
+    in_shardings); `tokens` are its rows of the batch (`batch_pspecs`),
+    `pos` is replicated. The step runs without autograd on the model line
+    alone, replicated over 'seq' (a (B, 1) token does not split) and over
+    the data axes the cache does not split its rows over: KV heads over
+    'model' decode on the rank's heads; head_dim over 'model' sums the
+    partial q·k over the line in fp32 and gathers the context's columns;
+    positions over the data axes combine per-rank partial softmaxes by
+    log-sum-exp in fp32, the sparse decode's zero correction once, after
+    the combine (core/sparse_attention.py). The new token is written by
+    the rank that holds its slot; the cache is updated in place. The
+    logits come out in the reference's dry-run decode out-sharding (the
+    rows over the data axes for B > 1, the vocabulary over 'model' where
+    it divides). A paged cache under a mesh raises ValueError (ROADMAP.md
+    item 12b.4c).
 
     spion=True on a family without an attention KV cache (ssm) raises
     here, at step construction (the registry's supports_sparse_decode)."""
@@ -335,11 +474,54 @@ def make_serve_step(cfg: ModelConfig, *, spion=False, block=None):
             f"cache — registry supports_sparse_decode is False for it. "
             f"Build the step with spion=False and serve densely.")
     static_block = block or cfg.spion.block_size
+    mesh = _mesh_of(mesh)
+    if mesh is not None:
+        check_model_layout(cfg, mesh)
+        if specs is None:
+            raise ValueError("make_serve_step on a mesh needs the cache's "
+                             "specs (cache_pspecs of the whole cache)")
+        layout = CacheLayout(mesh, specs)
 
     def serve_step(params, cache, tokens, pos, tables=None):
-        ex = _coerce_step_tables(tables, block=static_block, phase="decode")
-        return bundle.decode_step(params, cache, tokens, pos, spion=ex)
+        ex = _coerce_step_tables(tables, block=static_block, phase="decode",
+                                 halo=halo, kernel_config=kernel_config,
+                                 dtype=cfg.dtype)
+        if mesh is None:
+            return bundle.decode_step(params, cache, tokens, pos, spion=ex)
+        return _mesh_decode(cfg, bundle, layout, params, cache, tokens, pos,
+                            ex)
 
     if spion:
         return serve_step
     return functools.partial(serve_step, tables=None)
+
+
+def _mesh_decode(cfg, bundle, layout, params, cache, tokens, pos, ex):
+    """`make_serve_step`'s step on this rank of `layout.mesh`."""
+    from repro_torch.core.kv_pool import PagedKVCache
+    if isinstance(cache, PagedKVCache) or \
+            any(isinstance(c, PagedKVCache) for c in cache.values()):
+        raise ValueError(
+            "make_serve_step: a paged KV cache under a mesh has no layout "
+            "yet (the reference's cache_pspecs matches no pool leaf and "
+            "would replicate the pool); ROADMAP.md item 12b.4c")
+    mesh, rows = layout.mesh, layout.rows
+    daxes = data_axes(mesh)
+    B_loc = next(iter(cache.values())).shape[1]
+    B = B_loc * mesh.axis_size(rows)
+    # the tokens' and the logits' rows: the cache's, or, where the cache
+    # holds every row, the batch over the data axes as batch_pspecs cuts it
+    tok_rows = rows
+    if rows is None:
+        spec = sanitize_spec(mesh, (daxes,), (B,))
+        tok_rows = live_axes(mesh, spec[0] if spec else None)
+    tokens = reshard(tokens, (tok_rows,), (rows,), mesh)
+    pos = torch.as_tensor(pos, device=tokens.device)
+    if pos.dim() == 1 and pos.shape[0] == B and B_loc < B:
+        pos = reshard(pos, (None,), (rows,), mesh)
+    with torch.no_grad(), decode_context(layout):
+        logits, cache = bundle.decode_step(params, cache, tokens, pos,
+                                           spion=ex)
+    out = sanitize_spec(mesh, (daxes if B > 1 else None, "model"),
+                        (B, cfg.vocab_size))
+    return reshard(logits, (rows, _vocab_axis(cfg, mesh)), out, mesh), cache

@@ -36,13 +36,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.sparse_attention import shard_decode
 from repro_torch.distributed.sharding import (active_mesh, copy_to_model,
                                               gather_model, gather_seq,
                                               heads_split, mean_over_data,
                                               model_mean, model_offset,
                                               model_size, model_split,
-                                              seq_size, seq_start,
-                                              sum_over_seq)
+                                              position_shard, seq_size,
+                                              seq_start, sum_over_seq)
 from repro_torch.models.layers import he_init, rope, row_parallel
 
 
@@ -235,6 +236,19 @@ def decode_attention(cfg, q, k_cache, v_cache, pos, kpos=None):
     G = H // KV
     S = k_cache.shape[1]
     posb = decode_positions(pos, B, q.device)
+    start, n, group = position_shard(S)
+    if n > 1 or k_cache.shape[-1] != hd:
+        # a shard of the cache: its positions from `start`, or its head_dim
+        # columns (`kpos` is the whole cache's)
+        if kpos is None:
+            kpos = torch.arange(start, start + S, device=q.device)
+        elif kpos.shape[-1] != S:
+            kpos = kpos.narrow(-1, start, S)
+        kpos = kpos.expand(B, S)
+        ok = (kpos >= 0) & (kpos <= posb[:, None])
+        if cfg.sliding_window:
+            ok = ok & (kpos > posb[:, None] - cfg.sliding_window)
+        return shard_decode(q, k_cache, v_cache, ok, group)
     qg = q.reshape(B, KV, G, hd)
     k_cache = k_cache.to(q.dtype)
     v_cache = v_cache.to(q.dtype)
@@ -306,11 +320,49 @@ def ring_kpos(pos, cache_len):
     return p - torch.remainder(p - s, cache_len)
 
 
+def cache_length(k_cache):
+    """The whole cache's positions, of which k_cache (B, S, KV, hd) holds S
+    (a shard of them under a decode layout that splits the positions)."""
+    S = k_cache.shape[1]
+    return S * position_shard(S)[1]
+
+
+def owned_slot(slot, start: int, rows: int):
+    """(the local slot (B,), whether this rank holds it (B,)) of global
+    cache slots `slot` (B,) on a shard of `rows` positions from `start`."""
+    local = slot.long() - start
+    mine = (local >= 0) & (local < rows)
+    return local.clamp(0, rows - 1), mine
+
+
 def update_cache(k_cache, v_cache, k_new, v_new, slot):
     """Insert one token's k/v at index `slot`, in place. Caches (B,S,KV,hd);
     new (B,1,KV,hd). `slot` scalar writes every row at the same index; a
     (B,) vector writes each row at its own slot, so one slot's decode can
-    never touch another slot's cache row."""
+    never touch another slot's cache row.
+
+    On a cache shard: where head_dim splits over 'model' (k_new whole
+    heads, the cache the rank's columns) the rank writes its columns; where
+    the positions split over the data axes only the rank that holds a
+    row's slot writes it (`owned_slot`; the others write back what their
+    clamped slot holds)."""
+    hdl = k_cache.shape[-1]
+    if k_new.shape[-1] != hdl:
+        off = model_offset(hdl)
+        k_new, v_new = k_new.narrow(-1, off, hdl), v_new.narrow(-1, off, hdl)
+    start, n, _ = position_shard(k_cache.shape[1])
+    if n > 1:
+        B = k_cache.shape[0]
+        slot = torch.as_tensor(slot, device=k_cache.device).reshape(-1) \
+            .expand(B)
+        local, mine = owned_slot(slot, start, k_cache.shape[1])
+        rows = torch.arange(B, device=k_cache.device)
+        keep = mine[:, None, None]
+        k_cache.index_put_((rows, local), torch.where(
+            keep, k_new[:, 0].to(k_cache.dtype), k_cache[rows, local]))
+        v_cache.index_put_((rows, local), torch.where(
+            keep, v_new[:, 0].to(v_cache.dtype), v_cache[rows, local]))
+        return k_cache, v_cache
     slot = torch.as_tensor(slot, device=k_cache.device)
     if slot.dim() == 0:
         k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)

@@ -257,11 +257,11 @@ def decode_step(params, cfg, cache, tokens, pos, *, spion=None):
     dtype = _dtype(cfg)
     B = tokens.shape[0]
     posb = A.decode_positions(pos, B, tokens.device)
-    h = Lyr.embed(params["tok_embed"], tokens, dtype)
+    h = Lyr.embed(params["tok_embed"], tokens, dtype, vocab=cfg.vocab_size)
     h = h + params["pos_embed"]["w"][posb.long()].to(dtype)[:, None]
     positions = posb[:, None]
     ccfg = _enc_cfg(cfg)
-    enc_last = cache["ck"].shape[2] - 1
+    enc_last = A.cache_length(cache["ck"][0]) - 1
     if paged:
         phys_w, off_w = write_target(kvp.pt, posb, kvp.page, ring=False)
 
@@ -291,4 +291,5 @@ def decode_step(params, cfg, cache, tokens, pos, *, spion=None):
         h = h + A.attn_out(ccfg, lp["cross"], ctx)
         h = h + Lyr.mlp(cfg, lp["mlp"], _ln(lp["mlp_norm"], h))
     h = _ln(params["final_norm"], h)
-    return Lyr.unembed(params["tok_embed"], h)[:, 0], cache
+    return Lyr.unembed(params["tok_embed"], h, vocab=cfg.vocab_size)[:, 0], \
+        cache

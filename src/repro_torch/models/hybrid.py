@@ -209,7 +209,7 @@ def decode_step(params, cfg, cache, tokens, pos, *, spion=None):
     paged = isinstance(kvp, PagedKVCache)
     dtype = _dtype(cfg)
     ex = SparseAttentionExec.coerce(spion, phase="decode")
-    h = Lyr.embed(params["tok_embed"], tokens, dtype)
+    h = Lyr.embed(params["tok_embed"], tokens, dtype, vocab=cfg.vocab_size)
     shared = params["shared_attn"]
     posb = A.decode_positions(pos, tokens.shape[0], tokens.device)
     positions = posb[:, None]
@@ -247,4 +247,5 @@ def decode_step(params, cfg, cache, tokens, pos, *, spion=None):
             h = _mlp_tail(cfg, shared, h)
             app += 1
     h = _rms(params["final_norm"], h)
-    return Lyr.unembed(params["lm_head"], h)[:, 0], cache
+    return Lyr.unembed(params["lm_head"], h, vocab=cfg.vocab_size)[:, 0], \
+        cache

@@ -22,7 +22,11 @@ B‖C columns are gathered over the line (every head reads all of B and C),
 the conv runs on the rank's x channels and all of B and C, the out_norm's
 mean square is the whole inner width's (`model_line_sum`), and out_proj
 is row-parallel. The replicated leaves the rank uses in part enter through
-`model_part`. The decode form stays one-device.
+`model_part`. The decode form runs on the rank's heads too: its SSM state
+holds those heads and its conv state the columns its conv computes, its x
+channels and its part of B‖C (`distributed.sharding.packed_segments`); the
+state's B‖C rows are gathered over the line with the token's, and the
+rank keeps its part of the new ones.
 """
 from __future__ import annotations
 
@@ -143,10 +147,11 @@ def ssd_chunked(x, dt, A, B, C, D, chunk):
 def mamba_apply(cfg, p, x, state=None):
     """x (B,S,d). state None | dict(conv (B,W-1,convdim), ssm (B,H,N,P)),
     the decode form (S = 1). Returns (out, new state or None). On a
-    'model' axis (no state) this rank's heads (module docstring)."""
+    'model' axis this rank's heads, with a state the rank's shard of it
+    (module docstring)."""
     Bsz, S, d = x.shape
     inner, H, P, N, _ = _widths(cfg)
-    m = model_size() if state is None and model_split(H) else 1
+    m = model_size() if model_split(H) else 1
     r = active_mesh().axis_index("model") if m > 1 else 0
     il, Hl, nbc = inner // m, H // m, 2 * NGROUPS * N // m
     if m > 1:
@@ -161,9 +166,20 @@ def mamba_apply(cfg, p, x, state=None):
     conv_w, conv_b = p["conv_w"], p["conv_b"]
     A_log, Dp, dt_bias = p["A_log"], p["D"], p["dt_bias"]
     out_norm = p["out_norm"]
+    # decode: the cached rows
+    conv_state = None if state is None else state["conv"]
     if m > 1:
         # every head reads all of B and C
-        xBC = torch.cat([xBC[..., :il], gather_model(xBC[..., il:], -1)], -1)
+        if state is None:
+            xBC = torch.cat([xBC[..., :il], gather_model(xBC[..., il:], -1)],
+                            -1)
+        else:
+            # the state's rows of the rank's B‖C part gathered with the
+            # token's, rounded to x's dtype first as `_causal_conv` does
+            st = conv_state.to(x.dtype)
+            bc = gather_model(torch.cat([st[..., il:], xBC[..., il:]], 1), -1)
+            conv_state = torch.cat([st[..., :il], bc[:, :CONV_W - 1]], -1)
+            xBC = torch.cat([xBC[..., :il], bc[:, CONV_W - 1:]], -1)
         ch = torch.cat([torch.arange(r * il, (r + 1) * il),
                         torch.arange(inner, inner + 2 * NGROUPS * N)]) \
             .to(x.device)
@@ -175,11 +191,15 @@ def mamba_apply(cfg, p, x, state=None):
         out_norm = {"scale": model_part(out_norm["scale"],
                                         slice(r * il, (r + 1) * il))}
 
-    # decode: the cached rows; a 'seq' shard: the previous shard's last rows
-    conv_state = seq_left_rows(xBC, CONV_W - 1) if state is None \
-        else state["conv"]
+    if state is None:
+        # a 'seq' shard: the previous shard's last rows
+        conv_state = seq_left_rows(xBC, CONV_W - 1)
     xBC, new_conv = _causal_conv(xBC, conv_w.to(x.dtype),
                                  conv_b.to(x.dtype), conv_state)
+    if m > 1 and state is not None:
+        # the rank keeps its x columns and its part of B‖C
+        new_conv = torch.cat([new_conv[..., :il], new_conv[
+            ..., il + r * nbc:il + (r + 1) * nbc]], -1)
     xs = xBC[..., :il].reshape(Bsz, S, Hl, P)
     Bmat = xBC[..., il:il + NGROUPS * N].reshape(Bsz, S, NGROUPS, N)
     Cmat = xBC[..., il + NGROUPS * N:].reshape(Bsz, S, NGROUPS, N)

@@ -20,6 +20,9 @@ build(cfg) -> ModelBundle with:
         for the ssm family (recurrent state, no attention KV cache), checked
         where steps and engines are built
 `device=None` means the first CUDA card (see repro_torch.resolve_device).
+input_specs(cfg, shape), cache_specs(cfg, B, S), params_specs(cfg): the
+dry run's shapes and dtypes as meta-device tensors (no allocation), the
+reference's ShapeDtypeStruct trees.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.distributed.sharding import (active_mesh, model_max,
                                               model_offset, model_split,
                                               reduce_from_model, seq_size)
@@ -162,3 +165,79 @@ def build(cfg: ModelConfig) -> ModelBundle:
     return ModelBundle(cfg, init, forward, loss, init_cache, decode_step,
                        prefill_kv, supports_sparse_decode=has_kv,
                        supports_paged_cache=has_kv, loss_parts=loss_parts)
+
+
+# ---------------------------------------------------------------------------
+# dry-run specs: shapes and dtypes as meta tensors (no allocation)
+# ---------------------------------------------------------------------------
+
+def _sd(shape, dtype):
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return torch.empty(tuple(int(x) for x in shape), dtype=dtype,
+                       device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """{'batch': ...} for train / prefill shapes (prefill without labels),
+    {'cache': ..., 'tokens': ..., 'pos': ...} for decode: one new token
+    against a cache of length S. vlm: the text is S less the patch
+    tokens; audio / encdec: frames (B, S, d)."""
+    B, S = shape.global_batch, shape.seq_len
+    tok = torch.int32
+    if shape.kind in ("train", "prefill"):
+        if cfg.family in ("audio", "encdec"):
+            batch = {"frames": _sd((B, S, cfg.d_model), cfg.dtype),
+                     "tokens": _sd((B, S), tok),
+                     "labels": _sd((B, S), tok)}
+        elif cfg.family == "vlm":
+            S_text = S - cfg.num_patch_tokens
+            batch = {"tokens": _sd((B, S_text), tok),
+                     "patch_embeds": _sd((B, cfg.num_patch_tokens,
+                                          cfg.d_model), cfg.dtype),
+                     "labels": _sd((B, S_text), tok)}
+        else:
+            batch = {"tokens": _sd((B, S), tok), "labels": _sd((B, S), tok)}
+        if shape.kind == "prefill":
+            batch.pop("labels")
+        return {"batch": batch}
+    return {"cache": cache_specs(cfg, B, S), "tokens": _sd((B, 1), tok),
+            "pos": _sd((), tok)}
+
+
+def cache_specs(cfg: ModelConfig, B: int, S: int) -> dict:
+    """The decode cache's leaves at batch B and length S: the ssm family's
+    fp32 token-shift and WKV states; the hybrid's fp32 conv and SSM states
+    per layer and its K/V per shared-block application; audio / encdec
+    self and cross K/V at S; the others K/V at min(S, sliding_window)."""
+    hd = cfg.resolved_head_dim
+    f32 = torch.float32
+    L, KV = cfg.num_layers, cfg.num_kv_heads
+    cdt = cfg.cache_dtype or cfg.dtype
+    if cfg.family == "ssm":
+        H, d = cfg.num_heads, cfg.d_model
+        return {"tm_prev": _sd((L, B, d), f32), "cm_prev": _sd((L, B, d), f32),
+                "S": _sd((L, B, H, hd, hd), f32)}
+    if cfg.family == "hybrid":
+        from repro_torch.models.mamba import CONV_W, NGROUPS
+        ssm = cfg.ssm
+        inner = ssm.expand * cfg.d_model
+        conv_dim = inner + 2 * NGROUPS * ssm.state_size
+        napps = hybrid.n_attn_apps(cfg)
+        return {"conv": _sd((L, B, CONV_W - 1, conv_dim), f32),
+                "ssm": _sd((L, B, inner // ssm.head_dim, ssm.state_size,
+                            ssm.head_dim), f32),
+                "k": _sd((napps, B, S, KV, hd), cdt),
+                "v": _sd((napps, B, S, KV, hd), cdt)}
+    if cfg.family in ("audio", "encdec"):
+        kv = _sd((L, B, S, KV, hd), cdt)
+        return {"k": kv, "v": kv, "ck": kv, "cv": kv}
+    S_eff = min(S, cfg.sliding_window) if cfg.sliding_window else S
+    return {"k": _sd((L, B, S_eff, KV, hd), cdt),
+            "v": _sd((L, B, S_eff, KV, hd), cdt)}
+
+
+def params_specs(cfg: ModelConfig):
+    """The parameters' shapes and dtypes: `build(cfg).init` on the meta
+    device (a ParamTree of meta tensors; nothing is allocated)."""
+    return build(cfg).init(torch.Generator().manual_seed(0), device="meta")

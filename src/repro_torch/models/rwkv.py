@@ -24,7 +24,8 @@ column-parallel on whole heads, the LoRA hidden enters through
 through `model_part`, ln_x's mean and variance are the whole inner
 width's (`model_line_sum`), out_proj is row-parallel; the channel mix
 splits d_ff as the MLP does (column-parallel w_in, row-parallel w_out).
-The decode form stays one-device.
+The decode form runs on the rank's heads too: its WKV state holds them,
+and the token-shift states stay whole (the reference's cache_pspecs).
 """
 from __future__ import annotations
 
@@ -168,12 +169,12 @@ def wkv6_chunked(r, k, v, a, u, chunk):
 
 def timemix_apply(cfg, p, x, state=None):
     """x (B,S,d). state: None (train) or dict(prev (B,d), S (B,H,K,V)) for
-    decode (S=1). Returns (y, new_state). On a 'model' axis (no state)
-    this rank's heads (module docstring)."""
+    decode (S=1). Returns (y, new_state). On a 'model' axis this rank's
+    heads, with a state its heads' WKV state (module docstring)."""
     B, S, d = x.shape
     H = cfg.num_heads
     hd = cfg.resolved_head_dim
-    m = model_size() if state is None and model_split(H) else 1
+    m = model_size() if model_split(H) else 1
     Hl = H // m
     if state is None:
         xs = token_shift(x, seq_left_rows(x, 1))
@@ -226,9 +227,9 @@ def timemix_apply(cfg, p, x, state=None):
 
 
 def channelmix_apply(cfg, p, x, state=None):
-    """The channel mix; on a 'model' axis (no state) this rank's d_ff shard:
+    """The channel mix; on a 'model' axis this rank's d_ff shard:
     column-parallel w_in, row-parallel w_out, as `layers.mlp`."""
-    split = state is None and model_split(cfg.d_ff)
+    split = model_split(cfg.d_ff)
     xs = token_shift(x, seq_left_rows(x, 1)) if state is None \
         else state["prev"][:, None, :].to(x.dtype)
     xk = _mix(x, xs, p["mix"][0].to(x.dtype))
@@ -331,7 +332,7 @@ def decode_step(params, cfg, cache, tokens, pos, *, spion=None):
             "launch.serve.ServeEngine do) and serve this family densely "
             "(spion=None).")
     dtype = _dtype(cfg)
-    h = Lyr.embed(params["tok_embed"], tokens, dtype)
+    h = Lyr.embed(params["tok_embed"], tokens, dtype, vocab=cfg.vocab_size)
     h = _ln(params["in_norm"], h)
     for li in range(cfg.num_layers):
         lp = Lyr.layer_view(params["layers"], li)
@@ -349,4 +350,5 @@ def decode_step(params, cfg, cache, tokens, pos, *, spion=None):
         cache["cm_prev"][li] = xin2[:, -1].float()
         cache["S"][li] = st["S"]
     h = _ln(params["final_norm"], h)
-    return Lyr.unembed(params["lm_head"], h)[:, 0], cache
+    return Lyr.unembed(params["lm_head"], h, vocab=cfg.vocab_size)[:, 0], \
+        cache

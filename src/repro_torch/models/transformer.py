@@ -36,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.kv_pool import PagedKVCache, scatter_token, write_target
 from repro_torch.distributed.sharding import (current_mesh, gather_kv,
-                                              mesh_context, seq_positions)
+                                              gather_rows, mesh_context,
+                                              own_rows, seq_positions)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as Lyr
 from repro_torch.models.moe import moe_apply, moe_init
@@ -218,7 +219,7 @@ def _decode_layers(params, cfg, tokens, pos, attend):
     dtype = _dtype(cfg)
     B = tokens.shape[0]
     posb = A.decode_positions(pos, B, tokens.device)
-    h = Lyr.embed(params["tok_embed"], tokens, dtype)
+    h = Lyr.embed(params["tok_embed"], tokens, dtype, vocab=cfg.vocab_size)
     positions = posb[:, None]
     for li in range(cfg.num_layers):
         lp = Lyr.layer_view(params["layers"], li)
@@ -227,9 +228,19 @@ def _decode_layers(params, cfg, tokens, pos, attend):
         ctx = attend(li, q, k_new, v_new, posb)
         h = h + A.attn_out(cfg, lp["attn"], ctx)
         x = Lyr.norm(cfg, lp["mlp_norm"], h)
-        h = h + _ffn(cfg, lp, x)[0]
+        h = h + _decode_ffn(cfg, lp, x)
     h = Lyr.norm(cfg, params["final_norm"], h)
-    return Lyr.unembed(_head(params), h)[:, 0]
+    return Lyr.unembed(_head(params), h, vocab=cfg.vocab_size)[:, 0]
+
+
+def _decode_ffn(cfg, lp, x):
+    """A decode step's feed-forward. The MoE routes the batch's tokens as
+    one dispatch group, as in one process: on a cache shard whose rows
+    split over the data axes the rows are gathered for it and this rank's
+    kept (`distributed.sharding.gather_rows`)."""
+    if cfg.moe is None:
+        return Lyr.mlp(cfg, lp["mlp"], x)
+    return own_rows(moe_apply(cfg, lp["moe"], gather_rows(x))[0])
 
 
 def decode_step(params, cfg, cache, tokens, pos, *, spion=None):
@@ -252,7 +263,8 @@ def decode_step(params, cfg, cache, tokens, pos, *, spion=None):
     ex = SparseAttentionExec.coerce(spion, phase="decode")
     tabs = None if ex is None else ex.scan_tables()
     ring = bool(cfg.sliding_window)
-    cache_len = cache["k"].shape[2]
+    # the whole cache's length (a shard holds part of its positions)
+    cache_len = A.cache_length(cache["k"][0])
 
     def attend(li, q, k_new, v_new, posb):
         slot = A.cache_slot(cfg, posb, cache_len) if ring else posb
