@@ -140,6 +140,33 @@ Phases (each one fails the run; nothing falls back to the CPU):
      token embedding's, within TOL_RESUME), 8 + 4 + 4 launches each; a
      qwen2-7b prefill of 2048 tokens through the tuned exec against the
      default config (logits, K and V bitwise equal), 28 launches each;
+ 8b. the dry run (launch/dryrun.py), after 8a and before the
+     multi-process phases: (a) spion-lra's sparse train step at phase 5's
+     shape (128 x 2048) on phase 5's trained plan, as a one-rank cell
+     traced once on meta tensors (the dry run's own pass, as the CLI
+     runs it; the tables real beside them), then run for real on the card
+     (random weights and tokens from the seed, the same tables):
+     FlopCounterMode's count of the real step equals the meta pass's
+     bitwise (the three kernels through their formulas, kernels/work.py),
+     and the meta pass's MemTracker peak over its
+     inputs is within TOL_DRYRUN_PEAK (10%) of the real step's rise in
+     torch.cuda.max_memory_allocated over the memory allocated before it:
+     both count the tensors the step makes beyond its inputs (the fp32
+     masters, their AdamW moments and the batch, which exist before
+     either); 8 + 4 + 4 launches in the traced and in a second, plain run
+     (timed); the output finite; the roofline time (989 TFLOP/s, 3.35
+     TB/s) printed beside the step's ms; (b) the same for qwen2-7b's
+     sparse prefill of 1024 tokens at full width, 4 of 28 layers, on a
+     random causal plan (inputs: the bf16 parameters and the tokens; 4
+     launches a run); (c) `python -m repro_torch.launch.dryrun` on the
+     host (no card visible), one process a cell, for qwen2-7b train_4k and
+     mixtral-8x7b prefill_32k sparse on the single production mesh (data
+     16, model 16), started with the phase and waited for at its end (at
+     most DRYRUN_TIMEOUT_S), so that no other phase runs beside them (the
+     dense cells are the CPU tests' and the host sweep's): every cell
+     `ok` on 256 chips; per-rank GB, the dominant roofline term and the
+     useful fraction printed as the dry run's arithmetic with the H100
+     constants;
   9. resume: train spion-lra as in 5 with checkpoints under
      build/chip_smoke_ckpt (steps 7 and 14), resume a fresh Trainer from
      the sparse-phase checkpoint: step, data offset, phase, plan digest,
@@ -369,9 +396,10 @@ restored step in this process) and launches_modelscan (12g's two ranks:
 the sound sparse steps and the Trainer's seven) and launches_seqmodel
 (12h's four ranks: spion-lra's steps and the legs' sound sparse steps)
 and launches_pipeline (12i's four stages: the sound fp32 and bf16 calls)
-and launches_serve_mesh (12j's four ranks' sparse prefills) count each
+and launches_serve_mesh (12j's four ranks' sparse prefills) and
+launches_dryrun (8b's real steps, traced and plain) count each
 kernel's launches in phases 4, 4a, 4b, 4c, 4e, 4f (their sparse forward
-and train step), 5, 9-11 and 12, each read from zero; `seq_parallel` holds phase
+and train step), 5, 8b, 9-11 and 12, each read from zero; `seq_parallel` holds phase
 12a's worst differences and per-rank times; the forward's mixtral_shape
 holds its check
 and timing at phase 4b's shape and its qwen2_5_14b_shape,
@@ -400,8 +428,6 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SEED = 0
 DEVICE = "cuda"
-PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
-PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
 TOL_O = {"float32": 3e-5, "bfloat16": 6e-2}
 BF16_ULPS = 2     # bf16 o: each element within 2 units in its last place
 TOL_LSE = 1e-4
@@ -918,34 +944,24 @@ def log_backward_path(label, shape, dtype, res):
 
 
 def bwd_bytes_flops(x):
-    """(dq flops, dq bytes, dkv flops, dkv bytes) that these inputs need:
-    each input read once, each output written once; the (q, k) pairs of
-    the listed tiles that the mask keeps (masked_pairs), and the blocks of
-    K, V (dQ) or of Q, dO, lse, delta (dK/dV) that hold any."""
-    N, G, S, hd = x["q"].shape
-    block = x["kw"]["block"]
-    es = x["q"].element_size()
-    pairs, _, kblocks = masked_pairs(x["col"], x["nvalid"], block, x["kw"])
-    pairs_t, _, qblocks = masked_pairs(x["row"], x["nvalid_t"], block,
-                                       x["kw"], transposed=True)
-    rowvec = N * G * block * 4                    # one row block's lse, delta
-    dq_flops = 6.0 * N * G * pairs * hd
-    dq_bytes = (2 * x["q"].numel() * es           # q, dO
-                + 2 * N * G * S * 4               # lse, delta
-                + x["q"].numel() * 4              # dq (fp32)
-                + 2 * N * kblocks * block * hd * es   # needed K, V
-                + 4 * (x["col"].numel() + x["nvalid"].numel()))
-    dkv_flops = 8.0 * N * G * pairs_t * hd
-    dkv_bytes = (2 * x["k"].numel() * es          # k, v
-                 + 2 * x["k"].numel() * 4         # dk, dv (fp32)
-                 + 2 * N * G * qblocks * block * hd * es   # needed Q, dO
-                 + 2 * qblocks * rowvec           # their lse, delta
-                 + 4 * (x["row"].numel() + x["nvalid_t"].numel()))
-    return dq_flops, dq_bytes, dkv_flops, dkv_bytes
+    """(dq flops, dq bytes, dkv flops, dkv bytes) that these inputs need
+    (kernels/work.py: the count the dry run's FLOPs use too)."""
+    from repro_torch.kernels.work import dkv_work, dq_work
+    kw = {k: x["kw"].get(k) for k in ("causal", "sliding_window",
+                                      "offsets")}
+    dq_f, dq_b = dq_work(x["q"], x["k"], x["col"], x["nvalid"],
+                         block=x["kw"]["block"], **kw)
+    dkv_f, dkv_b = dkv_work(x["q"], x["k"], x["row"], x["nvalid_t"],
+                            block=x["kw"]["block"], **kw)
+    return dq_f, dq_b, dkv_f, dkv_b
 
 
 def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    """(ms, "operations" or "bytes") of the card's least time for `flops`
+    bf16 operations and `nbytes` bytes (launch/mesh.py's H100 SXM5
+    data-sheet rates)."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    t_ops, t_bytes = flops / PEAK_FLOPS_BF16, nbytes / HBM_BW
     return 1e3 * max(t_ops, t_bytes), \
         "operations" if t_ops >= t_bytes else "bytes"
 
@@ -1033,38 +1049,6 @@ def backward_timing(x, before=None):
     return out
 
 
-def masked_pairs(col, nvalid, block, kw, transposed=False):
-    """The (q, k) pairs of the listed tiles that the causal / sliding-window
-    mask keeps (the work the function needs), the listed tiles holding any,
-    and the distinct listed blocks among those (column blocks; row blocks
-    of the transposed tables, `transposed=True`: row r of `col` then lists
-    the row blocks of column block r). A tile at block distance d = row -
-    col holds block - |t| pairs at position distance d * block + t, t in
-    (-block, block)."""
-    import numpy as np
-    nv = nvalid.cpu().numpy()
-    ids = col.cpu().numpy()
-    row0, col0 = kw.get("offsets") or (0, 0)
-    sw = kw.get("sliding_window")
-    t = np.arange(1 - block, block)
-    weight = block - np.abs(t)
-    pairs, tiles, needed = 0, 0, set()
-    for r in range(len(nv)):
-        for c in ids[r, :nv[r]]:
-            d = int(c) - r if transposed else r - int(c)
-            delta = (d + row0 - col0) * block + t
-            ok = np.ones_like(delta, dtype=bool)
-            if kw["causal"]:
-                ok &= delta >= 0
-            if sw:
-                ok &= delta < sw
-            n = int(weight[ok].sum())
-            if n:
-                pairs, tiles = pairs + n, tiles + 1
-                needed.add(int(c))
-    return pairs, tiles, len(needed)
-
-
 def kernel_timing(inputs, label, before=None):
     """ms of the forward kernel, its plain version and SDPA on `inputs`,
     and the kernel's bound from these tables; with `before` (a
@@ -1073,6 +1057,7 @@ def kernel_timing(inputs, label, before=None):
     import torch.nn.functional as F
     from repro_torch.kernels.block_sparse_attn import (
         block_sparse_fwd, fused_forward_reference)
+    from repro_torch.kernels.work import fwd_work, masked_pairs
     q, k, v, col, nvalid, kw = inputs
     N, G, S, hd = q.shape
     block = kw["block"]
@@ -1103,12 +1088,11 @@ def kernel_timing(inputs, label, before=None):
     vx = v[:, None].expand(N, G, k.shape[1], hd).contiguous()
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, kx, vx, is_causal=kw["causal"]), 20)
-    pairs, listed, distinct = masked_pairs(col, nvalid, block, kw)
-    esize = q.element_size()
-    flops = 4.0 * N * G * pairs * hd
-    nbytes = (2 * q.numel() * esize + N * G * S * 4          # q, o, lse
-              + 2 * N * distinct * block * hd * esize         # listed K, V
-              + col.numel() * 4 + nvalid.numel() * 4)
+    pairs, listed, _ = masked_pairs(col, nvalid, block, kw)
+    flops, nbytes = fwd_work(q, k, col, nvalid, block=block,
+                             **{n: kw.get(n) for n in ("causal",
+                                                       "sliding_window",
+                                                       "offsets")})
     bound_ms, bound_by = bound(flops, nbytes)
     log(f"block_sparse_fwd at {label} N={N} G={G} S={S} hd={hd} "
         f"block={block} {q.dtype}: {ms:.4f} ms{was}; plain {plain_ms:.4f} ms; "
@@ -3705,6 +3689,195 @@ def tuned_record(autotuned):
     return rec
 
 
+DRYRUN_DIR = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+# phase 8b (c): sparse cells of `python -m repro_torch.launch.dryrun` on
+# the host
+DRYRUN_CELLS = (("qwen2-7b", "train_4k"), ("mixtral-8x7b", "prefill_32k"))
+DRYRUN_PREFILL_LAYERS = 4     # qwen2-7b's prefill at full width, 4 of 28
+DRYRUN_PREFILL_S = 1024
+# the meta pass's peak over its inputs against the real step's rise in
+# max_memory_allocated, relative to the real rise
+TOL_DRYRUN_PEAK = 0.10
+DRYRUN_TIMEOUT_S = 300        # (c)'s host processes, from their start
+
+
+def start_dryrun_cells():
+    """Phase 8b (c)'s host processes: one `python -m
+    repro_torch.launch.dryrun --mode sparse` per DRYRUN_CELLS entry on the
+    single production mesh, with no card visible, records in DRYRUN_DIR.
+    Returns [(arch, shape, Popen, start time)]; each is killed if this
+    process exits first."""
+    import atexit
+    import shutil
+    import signal
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    os.makedirs(DRYRUN_DIR)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        out = open(os.path.join(DRYRUN_DIR, f"log_{arch}.txt"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--mode", "sparse",
+             "--out", DRYRUN_DIR],
+            stdout=out, stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+            start_new_session=True)
+        procs.append((arch, shape, proc, time.perf_counter()))
+
+    def stop():
+        for _, _, p, _ in procs:
+            if p.poll() is None:
+                os.killpg(os.getpgid(p.pid), signal.SIGKILL)
+                p.wait()
+    atexit.register(stop)
+    return procs
+
+
+def dryrun_step(label, cfg, shape, tables, want):
+    """Phase 8b's (a) or (b): the one-rank cell's step traced on meta
+    tensors, then run for real on the same tables with random inputs from
+    the seed; the FLOPs bitwise, the peaks within TOL_DRYRUN_PEAK, the
+    launches `want`. Returns the readings."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo import roofline_terms
+    from repro_torch.launch.mesh import (HBM_BW, NVLINK_BW_PER_GPU,
+                                         PEAK_FLOPS_BF16)
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    t = time.perf_counter()
+    traced = dryrun.trace_cell(*dryrun.build_cell(cfg, shape, None, "sparse",
+                                                  tables=tables))
+    meta_s = time.perf_counter() - t
+    fmem, fcost = dryrun.analyse_memory(traced), dryrun.cost_of(traced)
+    del traced
+    step, args, tracked = dryrun.build_cell(
+        cfg, shape, None, "sparse", device=dev, tables=tables,
+        make=dryrun.random_inputs(cfg, SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = launch_counts()
+    done = dryrun.trace_cell(step, args, tracked)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    traced_launches = {k: launch_counts()[k] - before[k] for k in before}
+    rcost, rmem = dryrun.cost_of(done), dryrun.analyse_memory(done)
+    out = done["out"]
+    loss = out[2]["loss"] if isinstance(out, tuple) and len(out) == 3 \
+        else out
+    check(bool(torch.isfinite(loss.float()).all()),
+          f"dry run {label}: the real step's output is not finite")
+    del done, out, loss
+    # the step once more, out of the counting modes: its time and launches
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    step(*args)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    plain_launches = {k: launch_counts()[k] - before[k] for k in before}
+    del step, args, tracked
+    torch.cuda.empty_cache()
+    check(traced_launches == want and plain_launches == want,
+          f"dry run {label}: the real steps launched {traced_launches} and "
+          f"{plain_launches}, not {want}")
+    check(fcost["flops"] == rcost["flops"],
+          f"dry run {label}: the meta pass counts {fcost['flops']!r} FLOPs, "
+          f"the real step {rcost['flops']!r}")
+    gap = abs(fmem["step_peak_bytes"] - rise) / rise
+    check(gap <= TOL_DRYRUN_PEAK,
+          f"dry run {label}: the meta peak over the inputs "
+          f"{fmem['step_peak_bytes']} bytes against the real rise {rise} "
+          f"({gap:.3f} apart; gate {TOL_DRYRUN_PEAK})")
+    terms = roofline_terms(fcost["flops"], fcost["hbm_bytes"],
+                           fcost["coll_bytes"], 1,
+                           peak_flops=PEAK_FLOPS_BF16, hbm_bw=HBM_BW,
+                           link_bw=NVLINK_BW_PER_GPU)
+    dom = max(terms, key=terms.get)
+    log(f"dry run {label}: meta pass {meta_s:.2f} s; FLOPs {fcost['flops']:.6e}"
+        f" meta = real (the kernels {fcost['census']['custom-call']} ops); "
+        f"peak over the inputs meta {fmem['step_peak_bytes'] / 1e9:.4f} GB, "
+        f"real max_memory_allocated rise {rise / 1e9:.4f} GB ({gap:.4f} "
+        f"apart), MemTracker on the real step "
+        f"{rmem['step_peak_bytes'] / 1e9:.4f} GB; inputs "
+        f"{fmem['inputs_bytes'] / 1e9:.4f} GB; eager HBM bytes "
+        f"{fcost['hbm_bytes']:.6e}; roofline {1e3 * terms[dom]:.3f} ms "
+        f"({dom}; compute {1e3 * terms['t_compute']:.3f}, memory "
+        f"{1e3 * terms['t_memory']:.3f}) beside the step's {ms:.3f} ms; "
+        f"launches {plain_launches}")
+    return dict(meta_s=meta_s, flops=fcost["flops"], rise=rise,
+                meta_peak=fmem["step_peak_bytes"], gap=gap, ms=ms,
+                roofline_ms=1e3 * terms[dom], dominant=dom,
+                launches={k: traced_launches[k] + plain_launches[k]
+                          for k in want})
+
+
+def phase_dryrun(train):
+    """8b. The dry run (launch/dryrun.py): (a) spion-lra's trained sparse
+    step, (b) qwen2-7b's sparse prefill, each meta against real; (c) the
+    host processes' production-mesh cells, started first."""
+    import json as json_
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.attention_exec import SparseAttentionExec
+    t0 = time.perf_counter()
+    procs = start_dryrun_cells()
+    tr, cfg = train["trainer"], train["cfg"]
+    lra = ShapeSpec("lra_listops", tr.seq_len, lra_config()[1]["batch"],
+                    "train")
+    runs = {"a": dryrun_step("(a) spion-lra train", cfg, lra,
+                             tr._attention_exec(), sparse_launches(cfg))}
+    qcfg = get_config("qwen2-7b").replace(num_layers=DRYRUN_PREFILL_LAYERS)
+    block = qcfg.spion.block_size
+    _, _, plan = random_plan(np.random.default_rng(SEED), qcfg.num_layers,
+                             DRYRUN_PREFILL_S // block, block)
+    pex = SparseAttentionExec.from_plan(plan, phase="prefill",
+                                        dtype=qcfg.dtype).to(DEVICE)
+    runs["b"] = dryrun_step(
+        f"(b) qwen2-7b prefill, {DRYRUN_PREFILL_LAYERS} of 28 layers", qcfg,
+        ShapeSpec("prefill_1024", DRYRUN_PREFILL_S, 1, "prefill"), pex,
+        {"block_sparse_fwd": qcfg.num_layers, "block_sparse_dq": 0,
+         "block_sparse_dkv": 0})
+    card_s = time.perf_counter() - t0
+    # (c): the host processes started with the phase
+    cells = {}
+    for arch, shape, proc, started in procs:
+        left = DRYRUN_TIMEOUT_S - (time.perf_counter() - started)
+        try:
+            rc = proc.wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            check(False, f"dry run (c) {arch} {shape}: still running after "
+                  f"{DRYRUN_TIMEOUT_S} s")
+        tail = open(os.path.join(DRYRUN_DIR, f"log_{arch}.txt")).read()
+        check(rc == 0, f"dry run (c) {arch} {shape}: exit {rc}\n"
+              f"{tail[-2000:]}")
+        name = f"{arch}__{shape}__single__sparse"
+        rec = json_.load(open(os.path.join(DRYRUN_DIR, name + ".json")))
+        check(rec["status"] == "ok" and rec["chips"] == 256,
+              f"dry run (c) {name}: {rec.get('status')} "
+              f"{rec.get('error', '')[:500]}")
+        cells[name] = rec
+        log(f"dry run (c) {name}, the host's arithmetic with the H100 "
+            f"constants: {rec['memory']['per_device_gb']:.3f} GB a "
+            f"rank, dominant {rec['dominant']} (compute "
+            f"{1e3 * rec['roofline']['t_compute']:.1f} ms, memory "
+            f"{1e3 * rec['roofline']['t_memory']:.1f} ms, collective "
+            f"{1e3 * rec['roofline']['t_collective']:.1f} ms), useful "
+            f"fraction {rec['useful_fraction']:.4f}, n_micro "
+            f"{rec['n_micro']}, traced in {rec['t_total_s']} s")
+        log(f"dry run (c) {arch} {shape}: finished "
+            f"{time.perf_counter() - started:.1f} s after its start")
+    seconds = time.perf_counter() - t0
+    log(f"dry run (phase 8b): {seconds:.1f} s, {card_s:.1f} s of it (a) and "
+        f"(b) on the card ({card_line()})")
+    launches = {k: runs["a"]["launches"][k] + runs["b"]["launches"][k]
+                for k in KERNELS}
+    return dict(runs=runs, cells=cells, seconds=seconds, launches=launches)
+
+
 # -- self-healing training -----------------------------------------------------
 
 CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
@@ -4091,26 +4264,104 @@ DP_DIR = os.path.join(ROOT, "build", "chip_smoke_dp")
 TOL_DP = 1e-5
 
 
-def spawn_ranks(args, n, env=None, **popen):
-    """Start `n` processes of this script with `args`, as ranks of one job
-    over a fresh localhost port (the SPION_* environment)."""
+def rank_context():
+    """The multiprocessing context that starts the ranks: a fork server
+    that imported this script, numpy and torch once (without touching the
+    card), so that a rank starts without the 7-14 s that a fresh
+    interpreter took to import torch beside the other ranks (rank 0's
+    wall-clock lines, H100 80GB HBM3 machine)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["__main__", "numpy", "torch"])
+    return ctx
+
+
+RANKS = []      # every rank that spawn_ranks started, for stop_rank_server
+
+
+def stop_rank_server():
+    """Kill every rank of `spawn_ranks` that still runs, then stop the fork
+    server and the resource tracker that `rank_context` started and wait
+    for both. Left alone they outlive this process by seconds (the fork
+    server tears torch down after its last client has gone)."""
+    import signal
+    from multiprocessing import forkserver, resource_tracker
+    for p in RANKS:
+        p.kill()
+    server = forkserver._forkserver
+    if server._forkserver_pid is not None:
+        # it serves no rank now; killed, it is reaped by _stop's waitpid
+        os.kill(server._forkserver_pid, signal.SIGKILL)
+        server._stop()
+    tracker = resource_tracker._resource_tracker
+    if tracker._pid is not None:
+        # it exits once the last end of its pipe closes, and this is it
+        os.close(tracker._fd)
+        os.waitpid(tracker._pid, 0)
+        tracker._fd = tracker._pid = None
+
+
+def _rank_main(args, env):
+    """A rank, forked by the fork server: a session and an environment of
+    its own, then this script's main with `args`."""
+    os.setsid()
+    os.environ.clear()
+    os.environ.update(env)
+    sys.exit(main(args))
+
+
+class _Rank:
+    """A rank of `spawn_ranks`, with the Popen calls `wait_ranks` makes."""
+
+    def __init__(self, proc):
+        self.proc, self.pid = proc, proc.pid
+
+    def poll(self):
+        return self.proc.exitcode
+
+    returncode = property(poll)
+
+    def wait(self):
+        self.proc.join()
+        return self.proc.exitcode
+
+    def kill(self):
+        """SIGKILL the rank's session if it still runs, and reap it. A rank
+        that has not reached its setsid yet is still in this script's
+        process group: then the rank alone."""
+        import signal
+        if self.poll() is None:
+            try:
+                if os.getpgid(self.pid) == self.pid:
+                    os.killpg(self.pid, signal.SIGKILL)
+                else:
+                    os.kill(self.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            self.wait()
+
+
+def spawn_ranks(args, n, env=None):
+    """Start `n` ranks of this script with `args` (`rank_context`), as one
+    job over a fresh localhost port (the SPION_* environment)."""
     from repro_torch.distributed.supervisor import free_port
     port = free_port()
+    ctx = rank_context()
     procs = []
     for i in range(n):
         e = dict(os.environ if env is None else env,
                  SPION_COORDINATOR=f"localhost:{port}",
                  SPION_NUM_PROCESSES=str(n), SPION_PROCESS_ID=str(i))
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), *args], env=e,
-            start_new_session=True, **popen))
+        proc = ctx.Process(target=_rank_main, args=(list(args), e))
+        proc.start()
+        procs.append(_Rank(proc))
+    RANKS.extend(procs)
     return procs
 
 
 def wait_ranks(procs, what, timeout=600):
     """Wait for every rank; any rank's failure fails the phase, and the
     others are killed then (a rank left alone waits in a collective)."""
-    import signal
     t0 = time.time()
     try:
         while any(p.poll() is None for p in procs):
@@ -4124,9 +4375,7 @@ def wait_ranks(procs, what, timeout=600):
         check(rcs == [0] * len(procs), f"{what}: ranks exited with {rcs}")
     finally:
         for p in procs:
-            if p.poll() is None:
-                os.killpg(os.getpgid(p.pid), signal.SIGKILL)
-                p.wait()
+            p.kill()
 
 
 def seq_tables(shp):
@@ -9122,6 +9371,9 @@ def main(argv):
         builder.start()       # its nvcc processes run beside this tree's
     load_library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    from multiprocessing import forkserver
+    rank_context()
+    forkserver.ensure_running()    # the ranks' fork server, from now on
     if builder is not None:
         builder.join()
         before.load_library()         # raises here if that build failed
@@ -9170,6 +9422,7 @@ def main(argv):
     timing = kernel_timing(inputs, "the serving path's shape", before)
     del inputs
     autotuned = phase_autotune(train, serve, mixtral, gen)
+    dry = phase_dryrun(train)
     resume = phase_resume(train)
     rollback = phase_rollback(resume)
     respawn = phase_respawn(train, resume)
@@ -9184,7 +9437,7 @@ def main(argv):
            + sum(run["launches"]["block_sparse_fwd"]
                  for run in (zamba, whisper, internvl, train, dp, seqtrain,
                              seqscan, model, modelscan, seqmodel,
-                             pipeline, serve_mesh)),
+                             pipeline, serve_mesh, dry)),
            "launches_serve": serve["launches"],
            "launches_serve_shared": shared["launches"],
            "launches_mixtral": mixtral["launches"],
@@ -9207,7 +9460,7 @@ def main(argv):
         rows[name] = {"launches": sum(run["launches"][name] for run in
                                       (train, zamba, whisper, internvl, dp,
                                        seqtrain, seqscan, model, modelscan,
-                                       seqmodel, pipeline, serve_mesh)),
+                                       seqmodel, pipeline, serve_mesh, dry)),
                       "launches_zamba2": zamba["launches"][name],
                       "launches_whisper": whisper["launches"][name],
                       "launches_internvl2": internvl["launches"][name],
@@ -9227,7 +9480,8 @@ def main(argv):
                           ("fleet", fleet), ("seqtrain", seqtrain),
                           ("seqscan", seqscan), ("model", model),
                           ("modelscan", modelscan), ("seqmodel", seqmodel),
-                          ("pipeline", pipeline), ("serve_mesh", serve_mesh)):
+                          ("pipeline", pipeline), ("serve_mesh", serve_mesh),
+                          ("dryrun", dry)):
             row[f"launches_{path}"] = run["launches"][name]
         row["model_shard_shape"] = model["kernels"][name]
         row["modelscan_zamba2_shape"] = modelscan["kernels"]["zamba2"][name]
@@ -9379,4 +9633,8 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    try:
+        rc = main(sys.argv[1:])
+    finally:
+        stop_rank_server()
+    sys.exit(rc)

@@ -42,7 +42,9 @@ def resolve_kernel(cfg, q) -> str:
     """What the sparse forward of `q` dispatches to ("fused" / "jnp").
 
     The tensor's device picks the path. On CUDA tensors it is always the
-    Hopper kernel ("fused"), and cfg.spion.kernel="jnp" raises. On CPU
+    Hopper kernel ("fused"), and cfg.spion.kernel="jnp" raises; so on the
+    dry run's meta tensors (launch/dryrun.py), whose kernels' ops give
+    shapes only. On CPU
     tensors "auto" takes the plain gather ("jnp", the JAX package's name for
     it) and "fused" the kernel's plain version. The JAX package resolves
     meshless "auto" to its gather everywhere but on a TPU, because its GPU
@@ -58,7 +60,8 @@ def resolve_kernel(cfg, q) -> str:
                          f"{impl!r}")
     if impl == "auto" and active_mesh() is not None:
         return "fused"
-    if q.is_cuda:
+    # the card, or the dry run's meta tensors
+    if q.is_cuda or getattr(q, "is_meta", False):
         if impl == "jnp":
             raise ValueError(
                 'cfg.spion.kernel="jnp" asks for the gather, which runs on '
@@ -166,7 +169,8 @@ class SparseAttentionExec:
         heads (models/attention.qkv): the kernels run on its B_loc *
         KV/|model| rows, one launch a layer as in one process, over the
         replicated tables."""
-        tabs = {k_: t.to(q.device) for k_, t in layer_tables.items()}
+        from repro_torch.kernels.work import table_device
+        tabs = {k_: t.to(table_device(q)) for k_, t in layer_tables.items()}
         bcsr = BCSR(tabs["col_idx"], tabs["nvalid"], self.block, q.shape[1])
         if resolve_kernel(cfg, q) == "fused":
             from repro_torch.kernels.ops import spion_attention_kernel

@@ -36,6 +36,12 @@ that symmetry is broken or enforced:
     `send_recv` with its `transport`): bucketed sums and broadcasts, and
     the point-to-point messages of the 'seq' halo and the pipeline's hops.
 
+  - **A fake world** (`initialize(fake_world=n)`): the dry run
+    (launch/dryrun.py) joins torch's "fake" backend as rank 0 of n ranks,
+    the production mesh's size. Its collectives move nothing (the dry run
+    records them); the host-data collectives return this rank's value,
+    as if every rank held it. It takes a process of its own.
+
 Collectives are ordered per group, so call this module from the main
 thread only (the CheckpointManager's commit barrier runs in `wait()` for
 that reason).
@@ -58,6 +64,7 @@ ENV_PROCESS_ID = "SPION_PROCESS_ID"
 
 _initialized = False
 _host_group = None          # gloo group of every process (None: the default)
+_fake = False               # a fake world (the dry run's)
 
 
 def local_process_count(num_processes: int) -> int:
@@ -80,15 +87,27 @@ def device_backend(num_processes: int) -> str:
 
 def initialize(coordinator: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None) -> bool:
+               process_id: Optional[int] = None, *,
+               fake_world: Optional[int] = None) -> bool:
     """Join the process group (idempotent). Arguments fall back to the
     SPION_* environment; with neither this is a single-process run and the
     call returns False. `coordinator` is HOST:PORT (a tcp:// prefix is
     accepted). The backend is `device_backend`'s; under NCCL the process's
     card is set first (`local_device`). Returns True when the process is
-    part of a multi-process job."""
-    global _initialized, _host_group
+    part of a multi-process job.
+
+    `fake_world` = n joins a fake world of n ranks as rank 0 instead (the
+    dry run's; see the module docstring): no coordinator, no card, and no
+    gloo group for host data (one cannot be made under the fake backend)."""
+    global _initialized, _host_group, _fake
     if _initialized:
+        return True
+    if fake_world is not None:
+        # importing the module registers the "fake" backend
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=int(fake_world))
+        _host_group, _fake, _initialized = None, True, True
         return True
     coordinator = coordinator or os.environ.get(ENV_COORDINATOR)
     if num_processes is None and os.environ.get(ENV_NUM_PROCESSES):
@@ -118,11 +137,11 @@ def shutdown(exit_code: Optional[int] = None):
     interpreter's own teardown aborts now and then ("terminate called
     without an active exception", exit -6, in 2 to 12% of 2-rank CPU jobs
     under load), which a supervisor would take for a crash."""
-    global _initialized, _host_group
+    global _initialized, _host_group, _fake
     if _initialized and dist.is_initialized():
         barrier("shutdown")
         dist.destroy_process_group()
-    _initialized, _host_group = False, None
+    _initialized, _host_group, _fake = False, None, False
     if exit_code is not None:
         import sys
         sys.stdout.flush()
@@ -132,6 +151,11 @@ def shutdown(exit_code: Optional[int] = None):
 
 def is_initialized() -> bool:
     return _initialized
+
+
+def is_fake() -> bool:
+    """Whether this process is rank 0 of a fake world (the dry run's)."""
+    return _fake
 
 
 def process_index() -> int:
@@ -159,7 +183,11 @@ def local_rank(process_id: Optional[int] = None) -> int:
 def local_device(process_id: Optional[int] = None) -> torch.device:
     """The card of this rank, `cuda:{local_rank % device_count}`: ranks
     beyond the host's cards share them. Raises without a card (nothing
-    falls back to the CPU unasked)."""
+    falls back to the CPU unasked), and in a fake world, whose ranks have
+    no card of their own (the dry run names its device)."""
+    if _fake:
+        raise RuntimeError("local_device: a fake world's ranks have no "
+                           "card; pass the device explicitly")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the ranks on the CPU")
@@ -174,6 +202,8 @@ def local_device(process_id: Optional[int] = None) -> torch.device:
 def _broadcast0(x: np.ndarray) -> np.ndarray:
     """Process 0's copy of `x` on every process (shape and dtype must agree
     already)."""
+    if _fake:
+        return np.asarray(x)
     t = torch.from_numpy(np.ascontiguousarray(x).copy())
     dist.broadcast(t, src=0, group=_host_group)
     return t.numpy()
@@ -181,10 +211,13 @@ def _broadcast0(x: np.ndarray) -> np.ndarray:
 
 def host_allgather(x: np.ndarray) -> np.ndarray:
     """One host array per process -> (process_count, *x.shape) on every
-    process, in process order."""
+    process, in process order. In a fake world every process holds this
+    one's."""
     x = np.asarray(x)
     if process_count() == 1:
         return x[None]
+    if _fake:
+        return np.stack([x] * process_count())
     t = torch.from_numpy(np.ascontiguousarray(x).copy())
     out = [torch.empty_like(t) for _ in range(process_count())]
     dist.all_gather(out, t, group=_host_group)
@@ -259,8 +292,8 @@ def broadcast_arrays(arrays: Optional[dict], meta: Optional[dict] = None):
     broadcasts, the lengths and then one uint8 buffer of a JSON header and
     the arrays' bytes, so the others need to know nothing in advance. They
     may pass anything. Returns (arrays, meta) everywhere; a single process
-    gets its arguments back."""
-    if process_count() == 1:
+    (and rank 0 of a fake world) gets its arguments back."""
+    if process_count() == 1 or _fake:
         return arrays, meta
     if is_coordinator():
         arrays = {k: np.ascontiguousarray(np.asarray(v))

@@ -366,6 +366,18 @@ def kernel_pspecs_from_axes(baxes, kv_ax, seq_ax=None):
             (baxes, kv_ax, seq_ax, None), ())
 
 
+def kernel_pspecs(mesh, batch: int, kv_heads: int):
+    """(qspec, kvspec, table_spec) of the kernels' tensors on `mesh` for a
+    global `batch` and `kv_heads`: `kernel_pspecs_from_axes` of
+    `kernel_shard_axes`, a one-axis tuple written as that axis (as a
+    PartitionSpec normalises it)."""
+    def one(spec):
+        return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                     for e in spec)
+    return tuple(one(s) for s in kernel_pspecs_from_axes(
+        *kernel_shard_axes(mesh, batch, kv_heads)))
+
+
 def local_slices(mesh, spec, shape, rank: Optional[int] = None):
     """The slices of a global tensor of `shape` that `rank` (default: this
     process) holds under `spec` (one entry per leading dimension: None, an

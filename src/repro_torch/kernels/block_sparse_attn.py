@@ -60,6 +60,7 @@ import torch
 
 from repro_torch.core.sparse_attention import bcsr_transpose
 from repro_torch.kernels.dispatch import DEFAULT_CONFIG, KernelConfig
+from repro_torch.kernels.work import table_device
 
 NEG = -1e30
 
@@ -420,9 +421,13 @@ def _check_grads(q, do, lse, delta):
                              f"{tuple(t.shape)} {t.dtype}")
 
 
+_TABLES = frozenset(("col_idx", "nvalid", "row_idx", "nvalid_t"))
+
+
 def _same_device_contiguous(q, **tensors):
     for name, t in tensors.items():
-        if t.device != q.device:
+        want = table_device(q) if name in _TABLES else q.device
+        if t.device != want:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -474,7 +479,8 @@ def block_sparse_fwd(q, k, v, col_idx, nvalid, *, block, causal=False,
                      sliding_window=None, offsets=None, seq_len=None,
                      config=None):
     """(o, lse) of block-sparse attention; see `fused_forward_reference` for
-    the arguments. CPU tensors take the plain version; CUDA tensors launch
+    the arguments. CPU tensors take the plain version; others go through
+    the op `repro_torch::block_sparse_fwd`, which on CUDA tensors launches
     the Hopper kernel (counted in `block_sparse_fwd.launches`): in bf16 the
     tensor-core one, which needs q, k and v on 16-byte boundaries, with the
     ring depth and warpgroups of `config`. Not differentiable itself:
@@ -488,46 +494,22 @@ def block_sparse_fwd(q, k, v, col_idx, nvalid, *, block, causal=False,
         return fused_forward_reference(
             q, k, v, col_idx, nvalid, block=block, causal=causal,
             sliding_window=sliding_window, offsets=offsets, seq_len=seq_len)
-    if q.dtype == torch.bfloat16:
-        _aligned(q=q, k=k, v=v)
-    nrb, K = col_idx.shape
-    depth, nwg = _launch_config("fwd", q, config, block=block, width=K)
+    depth, nwg = _launch_config("fwd", q, config, block=block,
+                                width=col_idx.shape[1])
     row0, col0 = _offsets(offsets)
-    o = torch.empty_like(q)
-    lse = torch.empty((N, G, S), dtype=torch.float32, device=q.device)
-    _launch("fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            col_idx.data_ptr(), nvalid.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), N, G, S, k.shape[1], hd, nrb, K, block,
-            int(bool(causal)),
-            -1 if sliding_window is None else int(sliding_window),
-            S if seq_len is None else int(seq_len), row0, col0, depth, nwg,
-            1.0 / math.sqrt(hd))
-    block_sparse_fwd.launches += 1
-    return o, lse
-
-
-def _bwd_args(kind, q, k, v, do, lse, delta, idx, nidx, out0, out1, *,
-              block, causal, sliding_window, offsets, config):
-    N, G, S, hd = q.shape
-    row0, col0 = _offsets(offsets)
-    depth, nwg = _launch_config(kind, q, config, block=block,
-                                width=idx.shape[1])
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), idx.data_ptr(),
-            nidx.data_ptr(), out0.data_ptr(),
-            None if out1 is None else out1.data_ptr(), N, G, S, k.shape[1],
-            hd, S // block, k.shape[1] // block, idx.shape[1], block,
-            int(bool(causal)),
-            -1 if sliding_window is None else int(sliding_window), row0,
-            col0, depth, nwg, 1.0 / math.sqrt(hd))
+    return _OPS_NS.block_sparse_fwd(
+        q, k, v, col_idx, nvalid, block, bool(causal),
+        _window(sliding_window), S if seq_len is None else int(seq_len),
+        row0, col0, depth, nwg)
 
 
 def block_sparse_dq(q, k, v, do, lse, delta, col_idx, nvalid, *, block,
                     causal=False, sliding_window=None, offsets=None,
                     config=None):
     """dq (N, G, S, hd) fp32 of block-sparse attention; see
-    `fused_dq_reference`. CPU tensors take the plain version; CUDA tensors
-    launch the Hopper kernel (counted in `block_sparse_dq.launches`): in
+    `fused_dq_reference`. CPU tensors take the plain version; others go
+    through the op `repro_torch::block_sparse_dq`, which on CUDA tensors
+    launches the Hopper kernel (counted in `block_sparse_dq.launches`): in
     bf16 the tensor-core one, which needs q, k, v and do on 16-byte
     boundaries, with the ring depth and warpgroups of `config`."""
     config = _config(config)
@@ -541,13 +523,9 @@ def block_sparse_dq(q, k, v, do, lse, delta, col_idx, nvalid, *, block,
     if q.device.type == "cpu":
         return fused_dq_reference(q, k, v, do, lse, delta, col_idx, nvalid,
                                   **kw)
-    if q.dtype == torch.bfloat16:
-        _aligned_backward("dq", q, k, v, do, lse, delta)
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch("dq", q, *_bwd_args("dq", q, k, v, do, lse, delta, col_idx,
-                                nvalid, dq, None, config=config, **kw))
-    block_sparse_dq.launches += 1
-    return dq
+    return _OPS_NS.block_sparse_dq(
+        q, k, v, do, lse, delta, col_idx, nvalid,
+        *_bwd_scalars("dq", q, col_idx, config, **kw))
 
 
 def block_sparse_dkv(q, k, v, do, lse, delta, row_idx, nvalid_t, *, block,
@@ -555,8 +533,9 @@ def block_sparse_dkv(q, k, v, do, lse, delta, row_idx, nvalid_t, *, block,
                      config=None):
     """(dk, dv) (N, Sk, hd) fp32 of block-sparse attention over the
     transposed tables row_idx (ncb, KT) / nvalid_t (ncb,); see
-    `fused_dkv_reference`. CPU tensors take the plain version; CUDA tensors
-    launch the Hopper kernel (counted in `block_sparse_dkv.launches`): in
+    `fused_dkv_reference`. CPU tensors take the plain version; others go
+    through the op `repro_torch::block_sparse_dkv`, which on CUDA tensors
+    launches the Hopper kernel (counted in `block_sparse_dkv.launches`): in
     bf16 the tensor-core one, which needs q, k, v, do, lse and delta on
     16-byte boundaries, with the ring depth of `config`."""
     config = _config(config)
@@ -571,14 +550,171 @@ def block_sparse_dkv(q, k, v, do, lse, delta, row_idx, nvalid_t, *, block,
     if q.device.type == "cpu":
         return fused_dkv_reference(q, k, v, do, lse, delta, row_idx,
                                    nvalid_t, **kw)
+    return _OPS_NS.block_sparse_dkv(
+        q, k, v, do, lse, delta, row_idx, nvalid_t,
+        *_bwd_scalars("dkv", q, row_idx, config, **kw))
+
+
+def _window(sliding_window) -> int:
+    return -1 if sliding_window is None else int(sliding_window)
+
+
+def _bwd_scalars(kind, q, idx, config, *, block, causal, sliding_window,
+                 offsets):
+    """The scalar arguments of the dQ or dK/dV op: block, causal, window
+    (-1: none), row0, col0, depth, nwg."""
+    depth, nwg = _launch_config(kind, q, config, block=block,
+                                width=idx.shape[1])
+    row0, col0 = _offsets(offsets)
+    return (block, bool(causal), _window(sliding_window), row0, col0, depth,
+            nwg)
+
+
+# -- the kernels as PyTorch ops ---------------------------------------------
+#
+# Each kernel is an op (`torch.ops.repro_torch.block_sparse_fwd`, `_dq`,
+# `_dkv`): its CUDA implementation launches the kernel through ctypes and
+# counts the launch; its fake implementation gives the outputs' shapes and
+# dtypes, so the dry run's meta pass (launch/dryrun.py) traces the kernels
+# without building or launching anything, its tables real on the host
+# (work.table_device). Each op's FLOPs are its kernel's work
+# (kernels/work.py), registered as its torch.utils.flop_counter formula;
+# `op_work` gives the FLOPs and bytes of one call. CPU tensors never reach
+# the ops. They are defined through `torch.library.Library`, whose
+# dispatch to a Python kernel costs the host less than
+# `torch.library.custom_op`'s, which made the serving shape's forward
+# host-bound (PERF.md, the dry run). Another checkout's copy of this module
+# (chip_smoke.py --before) defines its ops under a namespace of its own.
+
+NAMESPACE = "repro_torch" if __name__ == "repro_torch.kernels." \
+    "block_sparse_attn" else __name__.replace(".", "_")
+_LIB = torch.library.Library(NAMESPACE, "DEF")
+_BWD_ARGS = ("Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
+             "Tensor delta, Tensor idx, Tensor nidx, int block, "
+             "bool causal, int sliding_window, int row0, int col0, "
+             "int depth, int nwg")
+_SCHEMAS = {
+    "block_sparse_fwd": "(Tensor q, Tensor k, Tensor v, Tensor col_idx, "
+                        "Tensor nvalid, int block, bool causal, "
+                        "int sliding_window, int seq_len, int row0, "
+                        "int col0, int depth, int nwg) -> (Tensor, Tensor)",
+    "block_sparse_dq": f"({_BWD_ARGS}) -> Tensor",
+    "block_sparse_dkv": f"({_BWD_ARGS}) -> (Tensor, Tensor)",
+}
+
+
+def _fwd_op(q, k, v, col_idx, nvalid, block, causal, sliding_window, seq_len,
+            row0, col0, depth, nwg):
     if q.dtype == torch.bfloat16:
-        _aligned_backward("dkv", q, k, v, do, lse, delta)
+        _aligned(q=q, k=k, v=v)
+    N, G, S, hd = q.shape
+    nrb, K = col_idx.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((N, G, S), dtype=torch.float32, device=q.device)
+    _launch("fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            col_idx.data_ptr(), nvalid.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), N, G, S, k.shape[1], hd, nrb, K, block,
+            int(causal), sliding_window, seq_len, row0, col0, depth, nwg,
+            1.0 / math.sqrt(hd))
+    block_sparse_fwd.launches += 1
+    return o, lse
+
+
+def _fwd_fake(q, k, v, col_idx, nvalid, *args):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _bwd_launch(kind, q, k, v, do, lse, delta, idx, nidx, out0, out1, block,
+                causal, sliding_window, row0, col0, depth, nwg):
+    if q.dtype == torch.bfloat16:
+        _aligned_backward(kind, q, k, v, do, lse, delta)
+    N, G, S, hd = q.shape
+    _launch(kind, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), idx.data_ptr(),
+            nidx.data_ptr(), out0.data_ptr(),
+            None if out1 is None else out1.data_ptr(), N, G, S, k.shape[1],
+            hd, S // block, k.shape[1] // block, idx.shape[1], block,
+            int(causal), sliding_window, row0, col0, depth, nwg,
+            1.0 / math.sqrt(hd))
+
+
+def _dq_op(q, k, v, do, lse, delta, col_idx, nvalid, *scalars):
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _bwd_launch("dq", q, k, v, do, lse, delta, col_idx, nvalid, dq, None,
+                *scalars)
+    block_sparse_dq.launches += 1
+    return dq
+
+
+def _dq_fake(q, *args):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+def _dkv_op(q, k, v, do, lse, delta, row_idx, nvalid_t, *scalars):
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    _launch("dkv", q, *_bwd_args("dkv", q, k, v, do, lse, delta, row_idx,
-                                 nvalid_t, dk, dv, config=config, **kw))
+    _bwd_launch("dkv", q, k, v, do, lse, delta, row_idx, nvalid_t, dk, dv,
+                *scalars)
     block_sparse_dkv.launches += 1
     return dk, dv
+
+
+def _dkv_fake(q, k, *args):
+    return (k.new_empty(k.shape, dtype=torch.float32),
+            k.new_empty(k.shape, dtype=torch.float32))
+
+
+for _name, (_impl, _fake) in {"block_sparse_fwd": (_fwd_op, _fwd_fake),
+                              "block_sparse_dq": (_dq_op, _dq_fake),
+                              "block_sparse_dkv": (_dkv_op, _dkv_fake)
+                              }.items():
+    _LIB.define(_name + _SCHEMAS[_name])
+    _LIB.impl(_name, _impl, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{_name}", _fake, lib=_LIB)
+_OPS_NS = getattr(torch.ops, NAMESPACE)
+
+
+def _work_kw(block, causal, sliding_window, row0, col0):
+    return dict(block=int(block), causal=bool(causal),
+                sliding_window=None if sliding_window < 0
+                else int(sliding_window), offsets=(int(row0), int(col0)))
+
+
+def _op_work(name, args):
+    """(flops, bytes) of one call of the op `name` with positional `args`
+    (kernels/work.py, from the call's tables)."""
+    from repro_torch.kernels import work
+    if name == "block_sparse_fwd":
+        q, k, _, col, nv, block, causal, sw, _, row0, col0 = args[:11]
+        return work.fwd_work(q, k, col, nv,
+                             **_work_kw(block, causal, sw, row0, col0))
+    q, k, _, _, _, _, idx, nidx, block, causal, sw, row0, col0 = args[:13]
+    fn = work.dq_work if name == "block_sparse_dq" else work.dkv_work
+    return fn(q, k, idx, nidx, **_work_kw(block, causal, sw, row0, col0))
+
+
+OPS = {name: getattr(_OPS_NS, name).default for name in _SCHEMAS}
+
+
+_OP_NAMES = {op: name for name, op in OPS.items()}
+
+
+def op_work(func, args):
+    """(flops, bytes) of a call of `func` (an OpOverload) with positional
+    `args` when `func` is one of the three kernels' ops, else None."""
+    name = _OP_NAMES.get(func)
+    return None if name is None else _op_work(name, args)
+
+
+def _register_flop_formulas():
+    from torch.utils.flop_counter import register_flop_formula
+    for name, op in OPS.items():
+        def formula(*args, out_val=None, _name=name, **kwargs):
+            return _op_work(_name, args)[0]
+        register_flop_formula(op.overloadpacket, get_raw=True)(formula)
+
+
+_register_flop_formulas()
 
 
 block_sparse_fwd.launches = 0

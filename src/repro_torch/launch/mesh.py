@@ -19,6 +19,14 @@ layout), alone or with 'seq' and the data axes: the reference's
 long-context mesh (seq, data, model). What still raises, naming ROADMAP.md
 item A12b (12b.4b), is a scan width that |model| does not divide (where a
 step or a trainer is built: `sharding.check_model_layout`).
+
+`make_production_mesh` gives the reference's production meshes, (data 16,
+model 16) = 256 ranks and (pod 2, data 16, model 16) = 512, which the dry
+run (launch/dryrun.py) traces one rank of in a fake world of that size.
+The card's constants below replace the reference's TPU ones in the dry
+run's roofline. A (16, 16) mesh of H100s spans 32 NVLink domains of 8
+cards: each model line of 16 adjacent ranks crosses InfiniBand between two
+of them, so the NVLink figure makes the collective term a lower bound.
 """
 from __future__ import annotations
 
@@ -182,6 +190,24 @@ def make_mesh(shape, axes, ranks=None) -> Mesh:
     return _with_groups(Mesh(ranks.reshape(shape), axes))
 
 
+def make_production_mesh(*, multi_pod: bool = False, seq: int = 1) -> Mesh:
+    """The reference's production meshes: (data 16, model 16), with
+    `multi_pod` (pod 2, data 16, model 16); `seq` > 1 carves a 'seq' axis
+    out of the data axis ((seq, 16 / seq, 16), the rank count unchanged)
+    and must divide 16 (ValueError). Process groups are built when a
+    process group is up (the dry run's fake world)."""
+    if seq > 1:
+        if 16 % seq:
+            raise ValueError(f"seq={seq} must divide the data axis (16)")
+        shape = (2, seq, 16 // seq, 16) if multi_pod else (seq, 16 // seq, 16)
+        axes = (("pod", "seq", "data", "model") if multi_pod
+                else ("seq", "data", "model"))
+        return make_mesh(shape, axes)
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
+
+
 def make_seq_mesh(seq: int, data: int = 1, model: int = 1) -> Mesh:
     """Explicit (seq, data) mesh over ranks 0..seq*data-1, for tests and
     sequence-parallel runs; seq ranks adjacent. With `model` > 1 the
@@ -218,3 +244,10 @@ def make_distributed_mesh(*, model: int = 1, seq: int = 1,
         return make_mesh((nproc // per, seq, data, model),
                          ("pod", "seq", "data", "model"))
     return make_mesh((nproc // per, data, model), ("pod", "data", "model"))
+
+
+# The card's constants for the dry run's roofline: NVIDIA H100 SXM5 80GB
+# data-sheet figures, at its 700 W power limit
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s, dense bf16 tensor cores
+HBM_BW = 3.35e12              # B/s, HBM3
+NVLINK_BW_PER_GPU = 450e9     # B/s, NVLink 4, one direction, per GPU

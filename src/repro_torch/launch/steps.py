@@ -34,8 +34,9 @@ from repro_torch.distributed.sharding import (CacheLayout, batch_spec,
                                               check_model_layout, data_axes,
                                               decode_context, heads_split,
                                               live_axes, mesh_context,
-                                              model_size, reshard,
-                                              sanitize_spec, sharded_dim)
+                                              model_size, param_pspecs,
+                                              reshard, sanitize_spec,
+                                              sharded_dim, zero1_pspecs)
 from repro_torch.models.layers import tree_map
 from repro_torch.models.registry import build
 from repro_torch.optim import (adamw_update, clip_by_global_norm,
@@ -171,6 +172,33 @@ def cache_pspecs(cfg: ModelConfig, cache, mesh, batch_size: int):
         return ()
     return {n: sanitize_spec(mesh, one(n, x), x.shape)
             for n, x in cache.items()}
+
+
+def spion_table_pspecs(tables):
+    """Replicated specs (the empty tuple) for every array of a sparse
+    tables payload (a dict, or a SparseAttentionExec's tables), None for
+    its static ints (block, kt_star) and pairs (halo): the plan tables are
+    kilobytes and every rank reads the whole of them (the kernels index
+    the unsharded sequence). The reference's specs, as tuples."""
+    if isinstance(tables, SparseAttentionExec):
+        return {k: () for k in tables.tables}
+    return {k: (() if hasattr(v, "shape") else None)
+            for k, v in tables.items()}
+
+
+def train_shardings(cfg, mesh, params_tree, opt_tree, batch_tree, *,
+                    zero1=True):
+    """(param specs, optimizer-state specs, batch specs) of the reference's
+    train-step signature, as spec tuples: the parameters' unsanitised
+    `param_pspecs`, the moments' `zero1_pspecs` (or the parameter specs
+    with zero1=False), the batch's `batch_pspecs`. The port's Trainer keeps
+    the moments under the parameter spec (zero1=False's layout); no path
+    of the port runs ZeRO-1's."""
+    psp = param_pspecs(params_tree)
+    osp = {"mu": zero1_pspecs(params_tree, mesh) if zero1 else psp,
+           "nu": zero1_pspecs(params_tree, mesh) if zero1 else psp,
+           "count": ()}
+    return psp, osp, batch_pspecs(cfg, batch_tree, mesh)
 
 
 def _coerce_step_tables(tables, *, block, phase, halo=None,
