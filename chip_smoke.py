@@ -161,8 +161,9 @@ Phases (each one fails the run; nothing falls back to the CPU):
      launches a run); (c) `python -m repro_torch.launch.dryrun` on the
      host (no card visible), one process a cell, for qwen2-7b train_4k and
      mixtral-8x7b prefill_32k sparse on the single production mesh (data
-     16, model 16), started with the phase and waited for at its end (at
-     most DRYRUN_TIMEOUT_S), so that no other phase runs beside them (the
+     16, model 16), started with the phase and read after 12c (at most
+     DRYRUN_TIMEOUT_S from their start), so that they run beside phases
+     9-12c, which time no kernel, and beside no phase that does (the
      dense cells are the CPU tests' and the host sweep's): every cell
      `ok` on 256 chips; per-rank GB, the dominant roofline term and the
      useful fraction printed as the dry run's arithmetic with the H100
@@ -184,10 +185,14 @@ Phases (each one fails the run; nothing falls back to the CPU):
      sparse phase to bitwise the state generation 0 saved at step 14 and
      finishes, the stitched losses equal phase 5's within TOL_RESUME, the
      heartbeat payload reads back. Save, restore, respawn and rollback
-     seconds are printed beside the card's name and power limit;
+     seconds are printed beside the card's name and power limit. The
+     phase runs beside 12b and 12c (a thread of the parent waits for its
+     worker), so its seconds are those of a card that three other
+     processes share;
  12. multi-process, ranks of this script sharing the one card over gloo
      (the parent frees its cached memory first; a failure of any rank
-     fails the run):
+     fails the run), in the order 12b, 12c (beside phase 11), 12a, 12d,
+     ..., 12h:
      12a. four ranks (`--seq-worker DIR`) run kernels/sharded.py's
      sequence-parallel op on 2 and on 4 of them, in fp32 and bf16, at
      spion-lra's attention (128 x 4 rows, hd 16, block 64, S 2048,
@@ -328,19 +333,29 @@ Phases (each one fails the run; nothing falls back to the CPU):
      heads; 4 x 448 tokens) dense and sparse (its kernels on every head on
      every rank: 8 + 4 + 4 a rank, as one process), and qwen2-7b with 2 KV
      heads at 1 of 28 layers (wk's 64 columns a rank, half a head; RoPE
-     after the gather; 1 x 512) dense. Every fp32 step within TOL_SEQ_LOSS
-     (loss and global norm) and TOL_SEQ_GRAD (each leaf) of one process,
-     the replicated leaves' gradients bitwise equal across each model
-     line and every leaf's across each 'seq' line; planted faults past a
-     gate: the gradient all-reduce over the data axes only, the halo
-     neighbours from the global rank order, RoPE before the fallback's
-     gather, its backward without the sum or summed twice, the global
-     norm summed over 'seq' as well. The three kernels against their
-     plain versions and timed at the new shapes (spion-lra's as its
+     after the gather; 1 x 512) dense; and the scan fallback, reduced
+     (no repo config reaches it on <= 4 ranks: every full scan width is
+     a power of two): rwkv6-7b at full d_model, d_ff and vocabulary with
+     6 WKV heads of 64 (w_r's 96 columns a rank, 1.5 heads) at 2 of 32
+     layers (1 x 1024) dense, zamba2-1.2b at full width with state_size
+     65 (2N = 130: in_proj whole, out_proj's rows split) at 6 of 38
+     layers (1 x 2048) dense and sparse (its shared block on 8 of 32
+     heads a rank through the kernels: 1 + 1 + 1 a rank), and zamba2's 8
+     decode tokens (B 2, its SSM state over heads, each layer gathering
+     it) within TOL_SEQ_LOSS of one process. Every fp32 step within
+     TOL_SEQ_LOSS (loss and global norm) and TOL_SEQ_GRAD (each leaf) of
+     one process, the replicated leaves' gradients bitwise equal across
+     each model line and every leaf's across each 'seq' line; planted
+     faults past a gate: the gradient all-reduce over the data axes
+     only, the halo neighbours from the global rank order, RoPE before
+     the fallback's gather, its backward without the sum or summed twice,
+     the global norm summed over 'seq' as well. The three kernels against
+     their plain versions and timed at the new shapes (spion-lra's as its
      trained plan runs, zamba2's and whisper's halo storage, whisper's 6
-     heads whole). Step ms, the model-line sums, the 'seq' gathers, the
-     halo exchange and the gradient all-reduce ms, capture ms and peak
-     memory per rank. rwkv6-7b is not stepped here (PERF.md).
+     heads whole, the fallback zamba2's 8 heads a rank). Step ms, the
+     model-line sums, the 'seq' gathers, the halo exchange and the
+     gradient all-reduce ms, capture ms and peak memory per rank.
+     rwkv6-7b at its own 64 heads is not stepped here (PERF.md).
      12i. the explicit collectives, on 12h's four ranks after 12h's legs
      (this process computes their references while the ranks run
      spion-lra). (a) On (pod 2, data 2) (`make_mesh`), each rank's tree of spion-lra's
@@ -381,7 +396,13 @@ Phases (each one fails the run; nothing falls back to the CPU):
      decode logits and the cache after gather_cache ((b): each data
      rank's last 512 positions) within TOL_SEQ_LOSS of one process's; bf16
      within SERVE_BF16_SLACK of one process's mean distance from fp32; the
-     seeded positions bitwise. The three kernels at (a)'s shard halo shape
+     seeded positions bitwise. (d) On (data 2, model 2), B 2, filled
+     below 2048: 8 dense and 8 sparse steps through a paged pool
+     replicated on every rank (the reference's cache_pspecs: every pool
+     leaf P()), against one process's paged decode with the same gates,
+     every rank's pool bitwise equal (a digest), its mapped pages within
+     TOL_SEQ_LOSS (fp32) of the contiguous cache decoded from the same
+     start on the same mesh. The three kernels at (a)'s shard halo shape
      (serve_mesh_shape).
 The line before the last is the kernels' JSON record (launches_serve,
 launches_serve_shared, launches_mixtral, launches_zamba2,
@@ -421,6 +442,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3816,10 +3838,10 @@ def dryrun_step(label, cfg, shape, tables, want):
 def phase_dryrun(train):
     """8b. The dry run (launch/dryrun.py): (a) spion-lra's trained sparse
     step, (b) qwen2-7b's sparse prefill, each meta against real; (c) the
-    host processes' production-mesh cells, started first."""
-    import json as json_
+    host processes' production-mesh cells, started first and read by
+    `finish_dryrun` (they run beside phases 9-12c, which time no
+    kernel)."""
     import numpy as np
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.core.attention_exec import SparseAttentionExec
@@ -3842,9 +3864,19 @@ def phase_dryrun(train):
         {"block_sparse_fwd": qcfg.num_layers, "block_sparse_dq": 0,
          "block_sparse_dkv": 0})
     card_s = time.perf_counter() - t0
-    # (c): the host processes started with the phase
+    log(f"dry run (phase 8b): (a) and (b) on the card in {card_s:.1f} s "
+        f"({card_line()}); (c) runs on the host beside phases 9-12c")
+    return dict(runs=runs, procs=procs, t0=t0, card_s=card_s)
+
+
+def finish_dryrun(dry):
+    """8b (c): wait for the host processes that `phase_dryrun` started and
+    check their records."""
+    import json as json_
+    runs, t0 = dry["runs"], dry["t0"]
+    t_wait = time.perf_counter()
     cells = {}
-    for arch, shape, proc, started in procs:
+    for arch, shape, proc, started in dry["procs"]:
         left = DRYRUN_TIMEOUT_S - (time.perf_counter() - started)
         try:
             rc = proc.wait(timeout=max(left, 1))
@@ -3868,14 +3900,15 @@ def phase_dryrun(train):
             f"{1e3 * rec['roofline']['t_collective']:.1f} ms), useful "
             f"fraction {rec['useful_fraction']:.4f}, n_micro "
             f"{rec['n_micro']}, traced in {rec['t_total_s']} s")
-        log(f"dry run (c) {arch} {shape}: finished "
+        log(f"dry run (c) {arch} {shape}: its record read "
             f"{time.perf_counter() - started:.1f} s after its start")
     seconds = time.perf_counter() - t0
-    log(f"dry run (phase 8b): {seconds:.1f} s, {card_s:.1f} s of it (a) and "
-        f"(b) on the card ({card_line()})")
+    log(f"dry run (phase 8b): (c) read {seconds:.1f} s after 8b's start, "
+        f"{time.perf_counter() - t_wait:.1f} s of it waited for after 12c")
     launches = {k: runs["a"]["launches"][k] + runs["b"]["launches"][k]
                 for k in KERNELS}
-    return dict(runs=runs, cells=cells, seconds=seconds, launches=launches)
+    return dict(runs=runs, cells=cells, seconds=seconds,
+                card_s=dry["card_s"], launches=launches)
 
 
 # -- self-healing training -----------------------------------------------------
@@ -4176,7 +4209,7 @@ def phase_respawn(train, resume):
         [sys.executable, os.path.abspath(__file__), "--train-worker", d], 1,
         d, dead_timeout=180.0, hang_timeout=180.0, poll_interval=0.2,
         max_respawns=2, backoff_base=0.1, backoff_max=1.0, env=env,
-        log=lambda m: log(f"  {m}"))
+        sleep_fn=stoppable_sleep, log=lambda m: log(f"  respawn: {m}"))
     t0 = time.perf_counter()
     rc = sup.run()
     wall = time.perf_counter() - t0
@@ -4299,6 +4332,123 @@ def stop_rank_server():
         os.close(tracker._fd)
         os.waitpid(tracker._pid, 0)
         tracker._fd = tracker._pid = None
+
+
+BACKGROUND = []     # every Background job, for the end of the run
+STOPPING = threading.Event()    # set at the end of the run
+
+
+def stoppable_sleep(seconds):
+    """A FleetSupervisor's sleep that raises once the run is ending, so
+    that a supervisor in a Background job kills its fleet and returns
+    instead of spawning a new generation."""
+    if STOPPING.wait(seconds):
+        raise RuntimeError("chip_smoke: the run is ending")
+
+
+class Background:
+    """`fn(*args)` in a thread of this process; `result()` waits for it and
+    returns its value or raises its exception."""
+
+    def __init__(self, fn, *args):
+        self.value, self.error = None, None
+        self.thread = threading.Thread(target=self._run, args=(fn, args),
+                                       daemon=True)
+        BACKGROUND.append(self)
+        self.thread.start()
+
+    def _run(self, fn, args):
+        try:
+            self.value = fn(*args)
+        except BaseException as e:      # re-raised by result()
+            self.error = e
+
+    def result(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.value
+
+
+def stop_background(timeout=60.0):
+    """End the run's Background jobs: set STOPPING, then wait for each."""
+    STOPPING.set()
+    for job in BACKGROUND:
+        job.thread.join(timeout)
+
+
+def become_subreaper():
+    """Make this process the reaper of its orphaned descendants (Linux's
+    PR_SET_CHILD_SUBREAPER on this process alone): a process that a rank, a
+    worker or the fork server leaves behind is then still below this one
+    for `end_descendants`, instead of being handed to the machine's init."""
+    import ctypes
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def descendants():
+    """The pids of every process below this one, from /proc's parent
+    links, with each one's command line."""
+    kids = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # after the ")" that ends the command: state, then the parent's pid
+        ppid = int(stat[stat.rindex(")") + 2:].split()[1])
+        kids.setdefault(ppid, []).append(int(name))
+    out, todo = {}, [os.getpid()]
+    while todo:
+        for pid in kids.get(todo.pop(), []):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            except OSError:
+                cmd = "?"
+            out[pid] = cmd.strip() or "(exited)"
+            todo.append(pid)
+    return out
+
+
+def end_descendants(timeout=60.0):
+    """SIGKILL every process below this one and reap it (the orphans among
+    them are this process's children, `become_subreaper`), until none is
+    left or `timeout` seconds have passed; those found are named on
+    stderr. Returns the number left."""
+    import signal
+    left = descendants()
+    if left:
+        print(f"chip_smoke: ending {len(left)} processes left below this "
+              "one: " + "; ".join(f"{p} {c[:120]}" for p, c in left.items()),
+              file=sys.stderr)
+    deadline = time.time() + timeout
+    while left:
+        for pid in left:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        while True:
+            try:
+                pid, _ = os.waitpid(-1, os.WNOHANG)
+            except ChildProcessError:
+                break
+            if pid == 0:
+                break
+        left = descendants()
+        if left and time.time() > deadline:
+            print(f"chip_smoke: {len(left)} processes still below this one "
+                  f"after {timeout} s: {sorted(left)}", file=sys.stderr)
+            break
+        time.sleep(0.05)
+    return len(left)
 
 
 def _rank_main(args, env):
@@ -7376,6 +7526,22 @@ SEQMODEL_WHISPER_S = 448    # (b): whisper's decoder tokens, as 12g's
 SEQMODEL_QWEN_LAYERS = 1    # (b): qwen2-7b with 2 KV heads, 1 of 28 layers
 SEQMODEL_QWEN_BATCH = 1
 SEQMODEL_QWEN_S = 512
+# (b) the scan fallback, reduced: no repo config reaches it on <= 4 ranks
+# (every full scan width is a power of two), so two widths of each family
+# are changed and the depth cut. rwkv6-7b at full d_model, d_ff and
+# vocabulary with 6 WKV heads of 64 (w_r's 384 columns, 96 a rank: 1.5
+# heads) and 2 of its 32 layers; zamba2-1.2b at full width with state_size
+# 65 (2N = 130: in_proj's 8386 columns whole, out_proj's 4096 rows split)
+# and 6 of its 38 layers (one application of the shared block, 8 of its
+# 32 heads a rank through the kernels)
+SEQMODEL_RWKV_LAYERS = 2
+SEQMODEL_RWKV_HEADS = 6
+SEQMODEL_RWKV_S = 1024
+SEQMODEL_ZAMBA_LAYERS = 6
+SEQMODEL_ZAMBA_STATE = 65
+SEQMODEL_ZAMBA_S = 2048
+SEQMODEL_SCAN_BATCH = 1
+SEQMODEL_DECODE = ("zamba2f", 2, 8, 64)   # leg, batch, tokens, cache length
 # 12h's fp32 legs: leg -> (the mesh it runs on, its step kinds, its planted
 # faults as fault:kind). Under the fallback whisper-tiny's 6 heads are 1.5
 # a rank (wq's 384 columns, 96 a rank) and qwen2-7b's 2 KV heads half a
@@ -7388,6 +7554,8 @@ SEQMODEL_LEGS = {
     "whisper6": ("fallback", ("dense", "sparse"),
                  ("gather_no_sum:dense", "gather_sum_twice:dense")),
     "qwen2kv2": ("fallback", ("dense",), ("rope_before_gather:dense",)),
+    "rwkv6f": ("fallback", ("dense",), ()),
+    "zamba2f": ("fallback", ("dense", "sparse"), ()),
 }
 
 
@@ -7498,6 +7666,36 @@ def seqmodel_config(name):
         cfg, gb = scan_config("whisper", whisper_s=SEQMODEL_WHISPER_S)
         check(cfg.num_heads == cfg.num_kv_heads == 6, "whisper-tiny's heads")
         return cfg, gb
+    if name in ("rwkv6f", "zamba2f"):
+        import dataclasses
+        from repro_torch.distributed.sharding import scan_split
+        if name == "rwkv6f":
+            cfg = get_config("rwkv6-7b")
+            check(cfg.d_model == 4096 and cfg.d_ff == 14336 and
+                  cfg.vocab_size == 65536 and cfg.resolved_head_dim == 64,
+                  "rwkv6-7b config changed")
+            cfg = cfg.replace(num_layers=SEQMODEL_RWKV_LAYERS,
+                              num_heads=SEQMODEL_RWKV_HEADS,
+                              num_kv_heads=SEQMODEL_RWKV_HEADS, head_dim=64,
+                              dtype="float32")
+            S = SEQMODEL_RWKV_S
+        else:
+            cfg = get_config("zamba2-1.2b")
+            check(cfg.d_model == 2048 and cfg.ssm.state_size == 64 and
+                  cfg.num_heads == 32 and cfg.spion.block_size == 128,
+                  "zamba2-1.2b config changed")
+            cfg = cfg.replace(num_layers=SEQMODEL_ZAMBA_LAYERS,
+                              ssm=dataclasses.replace(
+                                  cfg.ssm, state_size=SEQMODEL_ZAMBA_STATE),
+                              dtype="float32")
+            S = SEQMODEL_ZAMBA_S
+        mesh = seqmodel_meshes()["fallback"]
+        check(not scan_split(cfg, mesh), f"12h {name}: the scan splits by "
+              f"heads on model {SEQMODEL_FALLBACK}")
+        rng = np.random.default_rng(SEED + 46)
+        toks = rng.integers(0, cfg.vocab_size, size=(
+            SEQMODEL_SCAN_BATCH, S + 1)).astype(np.int64)
+        return cfg, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     cfg = get_config("qwen2-7b")
     check(cfg.d_model == 3584 and cfg.num_heads == 28 and
           cfg.num_kv_heads == 4 and cfg.resolved_head_dim == 128 and
@@ -7526,10 +7724,11 @@ def seqmodel_meshes():
 def seqmodel_tables(name, cfg, S):
     """A leg's sparse tables on the card: on (seq 2, model 2) the dry-run
     plan banded to halo (1, 0) (the halo exchange on the rank's KV-head
-    shard), on model 4 12g's random causal plan; None for qwen2kv2."""
+    shard), on model 4 12g's random causal plan; None for qwen2kv2 and
+    rwkv6f (dense only)."""
     import torch
     from repro_torch.launch.steps import spion_dryrun_tables
-    if name == "qwen2kv2":
+    if name in ("qwen2kv2", "rwkv6f"):
         return None
     if SEQMODEL_LEGS[name][0] == "fallback":
         col, nvalid = modelscan_plan(cfg, S)
@@ -7553,6 +7752,54 @@ def seqmodel_masters(cfg):
     from repro_torch.models.registry import build
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 25)
     return masters_of(build(cfg).init(gen, device=DEVICE))
+
+
+def seqmodel_decode(cfg, full, mesh=None):
+    """SEQMODEL_DECODE's tokens decoded from a zero cache, one process or
+    this rank of `mesh` (its shards of `full` and of the cache under
+    cache_pspecs; the Mamba2 layers gather the state leaves the specs
+    split and keep their shards): {"logits": (tokens, B, V) whole, "cache":
+    the final cache whole (gather_cache)} on the host in fp32, with the
+    step times."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.sharding import (data_axes, gather_cache,
+                                                  param_pspecs, reshard,
+                                                  sanitize_spec, shard_cache,
+                                                  shard_params)
+    from repro_torch.launch.steps import cache_pspecs, make_serve_step
+    from repro_torch.launch.train import nest
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.models.registry import build
+    _, B, n, S = SEQMODEL_DECODE
+    cache = build(cfg).init_cache(B, S, device=DEVICE)
+    params, specs = full, None
+    if mesh is not None:
+        params = ParamTree(nest(shard_params(full, mesh, param_pspecs(
+            full, mesh), cfg)))
+        specs = cache_pspecs(cfg, cache, mesh, B)
+        cache = shard_cache(cache, specs, mesh, cfg)
+        ospec = sanitize_spec(mesh, (data_axes(mesh), "model"),
+                              (B, cfg.vocab_size))
+    serve = make_serve_step(cfg, mesh=mesh, specs=specs)
+    rng = np.random.default_rng(SEED + 47)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(n, B, 1)),
+                           device=DEVICE)
+    logits, ms = [], []
+    with torch.no_grad():
+        for p in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, cache = serve(params, cache, toks[p], p)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+            if mesh is not None:
+                lg = reshard(lg, ospec, (), mesh)
+            logits.append(lg.float().cpu())
+    if mesh is not None:
+        cache = gather_cache(cache, specs, mesh, cfg)
+    return {"logits": torch.stack(logits), "ms": ms,
+            "cache": {k: v.float().cpu() for k, v in cache.items()}}
 
 
 REFS_READY = "refs_ready"    # written by the parent once every reference is
@@ -7598,6 +7845,11 @@ def seqmodel_references(d):
                             for n, g in grads.items()},
                            os.path.join(d, f"ref_{name}_{kind}_m{i}.pt"))
             del loss, grads
+        if name == SEQMODEL_DECODE[0]:
+            t_dec = time.perf_counter()
+            torch.save(seqmodel_decode(cfg, full),
+                       os.path.join(d, f"ref_{name}_decode.pt"))
+            rec["decode_s"] = time.perf_counter() - t_dec
         rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         with open(os.path.join(d, f"ref_{name}.json"), "w") as f:
             json.dump(rec, f)
@@ -7785,11 +8037,33 @@ def seqmodel_leg(name, meshes, rank, d, secs, gsecs):
                         else "layers"]["attn"]
             attn = {k: [int(x) for x in lp[k].shape[1:]]
                     for k in ("wq", "wk", "wo")}
+        if fault is None and name in ("rwkv6f", "zamba2f"):
+            # the scan's leaves a rank holds: the reference's spec shards
+            scan = {n: list(p.shape[1:]) for n, p in params.named_parameters()
+                    if n.startswith("layers.") and n.endswith((
+                        "in_proj", "out_proj", "w_r", "w_in", "conv_w"))}
         del params, loss, grads, f
     out = {"runs": runs, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "ref_peak_gb": refs["peak_gb"],
            "launches_want": scan_sparse_launches(cfg) if tables else None,
            "halo": None if tables is None else tables["halo"]}
+    if name == SEQMODEL_DECODE[0]:
+        t = time.perf_counter()
+        s0, g0 = secs[0], sum(gsecs.values())
+        dec = seqmodel_decode(cfg, full, mesh)
+        ref = torch.load(os.path.join(d, f"ref_{name}_decode.pt"))
+        out["decode"] = {
+            "logits_gap": serve_gap(dec["logits"], ref["logits"]),
+            "cache_gap": {k: serve_gap(v, ref["cache"][k])
+                          for k, v in dec["cache"].items()},
+            "ms": dec["ms"], "ref_ms": ref["ms"],
+            "seconds": time.perf_counter() - t,
+            "sum_ms": 1e3 * (secs[0] - s0),
+            "gather_ms": 1e3 * (sum(gsecs.values()) - g0),
+            "tokens": SEQMODEL_DECODE[2]}
+        del dec, ref
+    if name in ("rwkv6f", "zamba2f"):
+        out["scan_shards"] = scan
     if name in ("whisper6", "qwen2kv2"):
         out["attn_shards"] = attn
     del full
@@ -8160,6 +8434,30 @@ def phase_seq_model(train):
             + (", every leaf's across each 'seq' line" if seq_lines else "")
             + f"; one-process reference peak {legs[0]['ref_peak_gb']:.2f} GB"
             f" in {ref_secs[name]:.1f} s")
+        if "scan_shards" in legs[0]:
+            log(f"seq-model {name}: the scan fallback (2N / heads that "
+                f"model {SEQMODEL_FALLBACK} does not divide), the scan's "
+                f"leaves a rank (layer axis dropped) {legs[0]['scan_shards']}")
+        if "decode" in legs[0]:
+            for r, leg in enumerate(legs):
+                dec = leg["decode"]
+                worst = max([dec["logits_gap"], *dec["cache_gap"].values()])
+                gaps[f"{name} decode"] = max(gaps.get(f"{name} decode",
+                                                  (0.0, 0.0))[0], worst), 0.0
+                check(worst <= TOL_SEQ_LOSS, f"12h {name}: rank {r}'s "
+                      f"decode misses one process's: {dec}")
+                log(f"seq-model {name} decode rank {r}: {dec['tokens']} "
+                    f"tokens from a zero cache (B {SEQMODEL_DECODE[1]}), "
+                    f"logits {dec['logits_gap']:.3e} of one process's "
+                    f"largest, final cache "
+                    + ", ".join(f"{k} {v:.3e}" for k, v in
+                                dec["cache_gap"].items())
+                    + f" (gate {TOL_SEQ_LOSS}); a token median "
+                    f"{np.median(dec['ms']):.2f} ms (one process "
+                    f"{np.median(dec['ref_ms']):.2f} ms), of the "
+                    f"{dec['seconds']:.1f} s model-line sums "
+                    f"{dec['sum_ms']:.1f} ms and gathers "
+                    f"{dec['gather_ms']:.1f} ms ({card})")
         for r, leg in enumerate(legs):
             log(f"seq-model {name} rank {r}: " + "; ".join(
                 f"{kind} {run['ms']:.1f} ms (model-line sums "
@@ -8223,6 +8521,14 @@ def phase_seq_model(train):
                                   hd=c.resolved_head_dim,
                                   block=c.spion.block_size),
         (col[0], nvalid[0]), "12g's random layer-0", SEED + 29)
+    zcfg = seqmodel_config("zamba2f")[0]
+    col, nvalid = modelscan_plan(zcfg, SEQMODEL_ZAMBA_S)
+    kernels["zamba2f"] = path_kernels(
+        "seqmodel-zamba2f", dict(
+            N=SEQMODEL_SCAN_BATCH * zcfg.num_kv_heads // SEQMODEL_FALLBACK,
+            G=zcfg.num_heads // zcfg.num_kv_heads, S=SEQMODEL_ZAMBA_S,
+            hd=zcfg.resolved_head_dim, block=zcfg.spion.block_size),
+        (col[0], nvalid[0]), "12g's random application-0", SEED + 48)
     coll["kernels"] = pipe_kernels()
     serve = check_serving(recs, serve_secs)
     t_serve_kernels = time.perf_counter()
@@ -8279,7 +8585,12 @@ SERVE_STAGE = "12j serving legs"    # its ranks' stage in 12h's wall clock
 # (a: by the prefill, b and c: from the seed), decode steps a kind, KV heads)
 SERVE_LEGS = {"a": ("seq_model", SERVE_BATCH, 4224, SERVE_S, 16, 4),
               "b": ("serve_data", 1, 524_288, 524_000, 8, 4),
-              "c": ("fallback", SERVE_BATCH, 2176, 2048, 16, 2)}
+              "c": ("fallback", SERVE_BATCH, 2176, 2048, 16, 2),
+              "d": ("serve_data", SERVE_BATCH, 2176, 2048, 8, 4)}
+# (d) decodes through a paged pool, replicated on every rank as the
+# reference's cache_pspecs leave it (and, on the mesh, through the
+# contiguous cache from the same start, which its mapped pages must equal)
+SERVE_PAGED = ("d",)
 
 
 def serve_config(leg, dtype="float32"):
@@ -8379,6 +8690,37 @@ def serve_window(cache, leg, mesh=None):
             for k, v in cache.items()}
 
 
+def serve_pool(cfg, cache):
+    """A whole contiguous cache {k, v} (L, B, S, KV, hd) as a paged pool of
+    block-sized pages under a seeded shuffled page table (page 0 the
+    scratch page)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.kv_pool import PagedKVCache
+    k, v = cache["k"], cache["v"]
+    L, B, S = k.shape[:3]
+    page = cfg.spion.block_size
+    NB = S // page
+    perm = np.random.default_rng(SEED + 49).permutation(B * NB) + 1
+    pt = torch.as_tensor(perm.reshape(B, NB).astype(np.int32), device=DEVICE)
+    pools = []
+    for x in (k, v):
+        p = torch.zeros((L, 1 + B * NB, page, *x.shape[3:]), dtype=x.dtype,
+                        device=DEVICE)
+        p[:, pt.reshape(-1).long()] = x.reshape(L, B * NB, page,
+                                                 *x.shape[3:])
+        pools.append(p)
+    return PagedKVCache(pools[0], pools[1], pt, page=page)
+
+
+def pool_pages(pool):
+    """The pool's mapped pages in the contiguous layout (L, B, S, KV, hd)."""
+    B, NB = pool.pt.shape
+    return {n: t[:, pool.pt.long()].reshape(t.shape[0], B, NB * pool.page,
+                                            *t.shape[3:])
+            for n, t in (("k", pool.kp), ("v", pool.vp))}
+
+
 def serve_run(leg, dtype, mesh=None, specs=None):
     """One leg in one dtype: (a) the sparse prefill with the cache through
     make_prefill_step, then each leg's dense and sparse decode steps
@@ -8424,24 +8766,62 @@ def serve_run(leg, dtype, mesh=None, specs=None):
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
         2 * steps, B, 1)).astype(np.int64), device=DEVICE)
     tabs = serve_tables(leg, cfg)
-    logits, ms = [], []
-    reset_launch_counts()
-    for kind in ("dense", "sparse"):
-        serve = make_serve_step(cfg, spion=kind == "sparse", mesh=mesh,
-                                specs=specs)
-        for i in range(steps):
-            j = len(ms)
-            args = (params, cache, toks[j], filled + j)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            lg, cache = serve(*args, tabs) if kind == "sparse" else \
-                serve(*args)
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t))
-            logits.append(lg.float().cpu())
-    out["decode_launches"] = launch_counts()
-    out["decode"] = torch.stack(logits)
-    out["decode_ms"] = ms
+    if mesh is not None:
+        # the tokens' rows a rank holds (batch_pspecs: over 'data' at B 2)
+        from repro_torch.distributed.sharding import local_slices
+        from repro_torch.launch.steps import batch_pspecs
+        tspec = batch_pspecs(cfg, {"t": toks[0]}, mesh)["t"]
+        toks = torch.stack([t[local_slices(mesh, tspec, t.shape)]
+                            for t in toks])
+
+    def decode(cache, specs):
+        logits, ms = [], []
+        reset_launch_counts()
+        for kind in ("dense", "sparse"):
+            serve = make_serve_step(cfg, spion=kind == "sparse", mesh=mesh,
+                                    specs=specs)
+            for i in range(steps):
+                j = len(ms)
+                args = (params, cache, toks[j], filled + j)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                lg, cache = serve(*args, tabs) if kind == "sparse" else \
+                    serve(*args)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t))
+                logits.append(lg.float().cpu())
+        return cache, torch.stack(logits), ms, launch_counts()
+
+    if leg in SERVE_PAGED:
+        from repro_torch.launch.steps import cache_pspecs
+        if mesh is not None:
+            # the contiguous cache from the same start, on the same mesh
+            c, out["contiguous_decode"], _, _ = decode(cache, specs)
+            contiguous = {k: v.float().cpu() for k, v in
+                          gather_cache(c, specs, mesh).items()}
+            del c, cache
+            cache = serve_start_cache(leg, cfg)
+        pool = serve_pool(cfg, cache)
+        del cache
+        pspecs = None if mesh is None else cache_pspecs(cfg, pool, mesh, B)
+        pool, out["decode"], out["decode_ms"], out["decode_launches"] = \
+            decode(pool, pspecs)
+        out["pool_digest"] = grads_hash({"kp": pool.kp, "vp": pool.vp})
+        out["pool_specs"] = pspecs
+        out["cache"] = {k: v.float().cpu()
+                        for k, v in pool_pages(pool).items()}
+        if mesh is not None:
+            out["pool_vs_contiguous"] = {
+                k: serve_gap(out["cache"][k], contiguous[k])
+                for k in contiguous}
+            out["pool_equals_contiguous"] = all(
+                torch.equal(out["cache"][k], contiguous[k])
+                for k in contiguous)
+        out["launches"] = launches
+        del params, pool
+        return out
+    cache, out["decode"], out["decode_ms"], out["decode_launches"] = \
+        decode(cache, specs)
     check_cache = serve_window(cache, leg, mesh) if leg == "b" else cache
     if mesh is not None:
         check_cache = gather_cache(check_cache, specs, mesh)
@@ -8491,8 +8871,8 @@ def serve_legs(meshes, rank, d):
     import gc
     import torch
     import torch.distributed as dist
-    from repro_torch.distributed.sharding import kernel_seq_axis
-    from repro_torch.launch.steps import cache_pspecs
+    from repro_torch.distributed.sharding import kernel_seq_axis, local_slices
+    from repro_torch.launch.steps import batch_pspecs, cache_pspecs
     from repro_torch.models.registry import cache_specs
     rec = {}
     for leg, (mesh_name, B, S, filled, steps, _) in SERVE_LEGS.items():
@@ -8502,6 +8882,10 @@ def serve_legs(meshes, rank, d):
         m, mi = mesh.shape.get("model", 1), mesh.axis_index("model")
         V = cfg.vocab_size // m
         vocab = slice(mi * V, (mi + 1) * V)
+        # the logits' rows a rank holds: the batch over 'data' at B 2 (d)
+        rows = local_slices(mesh, batch_pspecs(
+            cfg, {"t": torch.empty((B, 1), device="meta")}, mesh)["t"],
+            (B, 1))[0]
         refs = {dt: torch.load(os.path.join(d, f"serve_ref_{leg}_{dt}.pt"))
                 for dt in SERVE_DTYPES}
         legrec = {"specs": {k: [list(e) if isinstance(e, tuple) else e
@@ -8518,8 +8902,8 @@ def serve_legs(meshes, rank, d):
             secs = time.perf_counter() - t0
             r32, rdt = refs["float32"], refs[dtype]
             got = {"decode": run["decode"]}
-            want = {"decode": r32["decode"][..., vocab]}
-            one = {"decode": rdt["decode"][..., vocab]}
+            want = {"decode": r32["decode"][:, rows, vocab]}
+            one = {"decode": rdt["decode"][:, rows, vocab]}
             if "prefill" in run:
                 got["prefill"] = run["prefill"]
                 want["prefill"] = r32["prefill"][..., vocab]
@@ -8531,6 +8915,9 @@ def serve_legs(meshes, rank, d):
             x = {"seconds": secs,
                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                  "decode_ms": run["decode_ms"],
+                 "paged": {k: run[k] for k in (
+                     "pool_digest", "pool_vs_contiguous",
+                     "pool_equals_contiguous", "pool_specs") if k in run},
                  "prefill_ms": run.get("prefill_ms"),
                  "prefill_launches": run.get("prefill_launches"),
                  "decode_launches": run["decode_launches"],
@@ -8549,8 +8936,8 @@ def serve_legs(meshes, rank, d):
                     c, w = run["cache"][k], rdt["cache"][k]
                     # (b): the first window whole, the second below filled
                     W = SERVE_LONG_WINDOW
-                    keep = slice(0, filled if leg == "c"
-                                 else W + filled - (S - W))
+                    keep = slice(0, W + filled - (S - W) if leg == "b"
+                                 else filled)
                     x.setdefault("bitwise", {})[k] = bool(torch.equal(
                         c[:, :, keep], w[:, :, keep]))
             legrec[dtype] = x
@@ -8562,6 +8949,30 @@ def serve_legs(meshes, rank, d):
         gc.collect()
         dist.barrier(group=mesh.group(mesh.axis_names))
     return rec
+
+
+def serve_paged_what(legs, B, filled):
+    """The log's description of a paged leg: its layout, whether its pools
+    are bitwise equal across the ranks, and its mapped pages against the
+    contiguous cache decoded from the same start on the same mesh."""
+    x0 = legs[0]
+    same = all(lr[dt]["paged"]["pool_digest"] ==
+               x0[dt]["paged"]["pool_digest"]
+               for lr in legs for dt in SERVE_DTYPES)
+    return (f"data 2 x model 2, B {B}, a paged pool replicated on every "
+            f"rank (pages of {serve_config('d').spion.block_size} under a "
+            f"shuffled page table; every row's and KV head's new K/V "
+            f"gathered before each rank writes it), filled below {filled}; "
+            f"its pools "
+            f"{'bitwise equal across the ranks' if same else 'APART'}"
+            f", its mapped pages vs the contiguous cache from the same start "
+            f"on the same mesh: " + "; ".join(
+                f"{dt} " + ", ".join(
+                    f"{k} {g:.3e}" for k, g in
+                    x0[dt]["paged"]["pool_vs_contiguous"].items())
+                + (" (bitwise)" if x0[dt]["paged"]["pool_equals_contiguous"]
+                   else "")
+                for dt in SERVE_DTYPES))
 
 
 def check_serving(recs, ref_secs):
@@ -8590,6 +9001,19 @@ def check_serving(recs, ref_secs):
                     check(x["prefill_launches"] == want_l,
                           f"12j (a) rank {r} {dtype}: the prefill launched "
                           f"{x['prefill_launches']}, not {want_l}")
+                if leg in SERVE_PAGED:
+                    pg = x["paged"]
+                    check(all(e == [] for e in pg["pool_specs"].values()),
+                          f"12j ({leg}): the pool's specs {pg['pool_specs']}")
+                    check(pg["pool_digest"] ==
+                          legs[0][dtype]["paged"]["pool_digest"],
+                          f"12j ({leg}) rank {r} {dtype}: its pool differs "
+                          f"from rank 0's")
+                    worst = max(pg["pool_vs_contiguous"].values())
+                    check(dtype != "float32" or worst <= TOL_SEQ_LOSS,
+                          f"12j ({leg}) rank {r}: the pool's mapped pages "
+                          f"{worst:.3e} from the contiguous leg's cache; "
+                          f"gate {TOL_SEQ_LOSS}")
                 check(not any(x["decode_launches"].values()),
                       f"12j ({leg}) rank {r} {dtype}: the decode launched "
                       f"{x['decode_launches']}")
@@ -8613,14 +9037,15 @@ def check_serving(recs, ref_secs):
                       f"fp32 reference, one process {one:.3e}; slack "
                       f"{SERVE_BF16_SLACK}")
         x0 = legs[0]
-        what = {"a": f"seq {SEQMODEL_MESH[0]} x model {SEQMODEL_MESH[1]}, "
-                     f"B {B}, a {SERVE_S}-token prompt, a causal plan "
-                     f"banded to halo (1, 0)",
-                "b": f"data 2 x model 2, B 1, the cache's {S} positions "
-                     f"over 'data' and its KV heads over 'model', filled "
-                     f"from the seed below {filled}",
-                "c": f"model {SEQMODEL_FALLBACK}, 2 KV heads (head_dim "
-                     f"over 'model'), B {B}, filled below {filled}"}[leg]
+        what = serve_paged_what(legs, B, filled) if leg in SERVE_PAGED \
+            else {"a": f"seq {SEQMODEL_MESH[0]} x model {SEQMODEL_MESH[1]}, "
+                       f"B {B}, a {SERVE_S}-token prompt, a causal plan "
+                       f"banded to halo (1, 0)",
+                  "b": f"data 2 x model 2, B 1, the cache's {S} positions "
+                       f"over 'data' and its KV heads over 'model', filled "
+                       f"from the seed below {filled}",
+                  "c": f"model {SEQMODEL_FALLBACK}, 2 KV heads (head_dim "
+                       f"over 'model'), B {B}, filled below {filled}"}[leg]
         log(f"serve-mesh ({leg}) qwen2-7b reduced to {SERVE_LAYERS} of 28 "
             f"layers at full width, {what}; cache specs "
             f"{x0['specs']['k']}; " + "; ".join(
@@ -9246,9 +9671,11 @@ def sum_launches(per_step):
     return {k: sum(ln[k] for ln in per_step) for k in KERNELS}
 
 
-def phase_multiprocess(train):
-    """Phase 12: 12a, 12b, 12c, 12d, 12e, 12f, 12g and 12h, after the
-    parent frees its cached memory for the ranks."""
+def phase_multiprocess(train, resume, dry):
+    """Phase 12 after the parent frees its cached memory for the ranks:
+    12b and 12c with phase 11 beside them (a thread of this process waits
+    for its worker), then 8b (c)'s records, then 12a (which times the
+    kernels, beside nothing), 12d, 12e, 12f, 12g and 12h."""
     import gc
     import shutil
     import torch
@@ -9257,9 +9684,12 @@ def phase_multiprocess(train):
     log(f"multi-process: the parent holds "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of the card")
     shutil.rmtree(DP_DIR, ignore_errors=True)
-    seq = phase_seq_parallel()
+    respawn = Background(phase_respawn, train, resume)
     dp = phase_data_parallel(train)
     fleet = phase_fleet(dp)
+    respawn = respawn.result()
+    dry = finish_dryrun(dry)
+    seq = phase_seq_parallel()
     seqtrain = phase_seq_train(train)
     seqscan = phase_seq_scan()
     gc.collect()
@@ -9273,7 +9703,7 @@ def phase_multiprocess(train):
     seqmodel = phase_seq_model(train)
     return dict(seq=seq, dp=dp, fleet=fleet, seqtrain=seqtrain,
                 seqscan=seqscan, model=model, modelscan=modelscan,
-                seqmodel=seqmodel)
+                seqmodel=seqmodel, respawn=respawn, dry=dry)
 
 
 def main(argv):
@@ -9425,8 +9855,8 @@ def main(argv):
     dry = phase_dryrun(train)
     resume = phase_resume(train)
     rollback = phase_rollback(resume)
-    respawn = phase_respawn(train, resume)
-    multi = phase_multiprocess(train)
+    multi = phase_multiprocess(train, resume, dry)
+    dry, respawn = multi["dry"], multi["respawn"]
     dp, fleet, seqtrain = multi["dp"], multi["fleet"], multi["seqtrain"]
     seqscan, model = multi["seqscan"], multi["model"]
     modelscan, seqmodel = multi["modelscan"], multi["seqmodel"]
@@ -9633,8 +10063,13 @@ def main(argv):
 
 
 if __name__ == "__main__":
+    become_subreaper()
     try:
         rc = main(sys.argv[1:])
     finally:
-        stop_rank_server()
+        try:
+            stop_background()
+            stop_rank_server()
+        finally:
+            end_descendants()
     sys.exit(rc)

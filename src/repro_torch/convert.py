@@ -7,8 +7,9 @@ bfloat16 of its own; JAX's bf16 leaves come out as `ml_dtypes.bfloat16`,
 which `torch.from_numpy` refuses, so they cross as their uint16 bit pattern.
 With `mesh=` (a mesh with a 'model' axis) each leaf is cut to this rank's
 shard first (distributed/sharding.param_pspecs and local_index: Mamba2's
-packed in_proj by segment and head), so no rank holds more than its shard
-on its device.
+packed in_proj by segment and head where the scan splits by heads, the
+reference's contiguous cut under its fallback), so no rank holds more
+than its shard on its device.
 """
 from __future__ import annotations
 
@@ -16,8 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.distributed.sharding import (best_spec, check_model_layout,
-                                              local_index, model_size)
+from repro_torch.distributed.sharding import (best_spec, local_index,
+                                              model_size)
 from repro_torch.models.layers import ParamTree
 
 
@@ -36,8 +37,6 @@ def params_from_numpy(tree, cfg, device=None, mesh=None) -> ParamTree:
     `mesh`, this rank's shard of it."""
     dev = resolve_device(device)
     split = mesh is not None and model_size(mesh) > 1
-    if split:
-        check_model_layout(cfg, mesh)
 
     def conv(node, path=()):
         if isinstance(node, dict):

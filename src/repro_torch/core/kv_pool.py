@@ -34,6 +34,13 @@ slot (p // page) % NB (`write_target(ring=True)`, `PagePool.insert_ring`).
 
 Where the JAX package donates the pool to a jitted update, the port writes
 the pool tensors in place (`index_put_`, `index_copy_`).
+
+Under a mesh (launch/steps.make_serve_step) the pool and the page table
+are replicated, as the reference's cache_pspecs leave them: a rank
+decodes its batch rows (`rows_and_targets`) and attends with its KV heads
+or head_dim columns of the pool (`distributed.sharding.pool_shard`), and
+the new token's K/V is gathered for every row and KV head before every
+rank writes it (`write_token`), so the pools stay bitwise equal.
 """
 from __future__ import annotations
 
@@ -43,6 +50,8 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import gather_rows, own_rows, whole_token
 
 SCRATCH_PAGE = 0
 _ROOT = b"spion-kv-pool-root"
@@ -99,6 +108,29 @@ def scatter_token(kp, vp, layer, k_new, v_new, phys, off):
     kp[layer].index_put_((phys, off), k_new[:, 0].to(kp.dtype))
     vp[layer].index_put_((phys, off), v_new[:, 0].to(vp.dtype))
     return kp, vp
+
+
+def rows_and_targets(cache: PagedKVCache, posb, *, ring: bool):
+    """(this rank's rows of the page table, the physical page and in-page
+    offset every row of the table writes its new token to) for a decode
+    at `posb`, this rank's rows' positions: under a decode layout that
+    splits the rows (distributed.sharding.CacheLayout) the positions are
+    gathered over the rows' line for the targets; in one process the
+    whole table and `write_target`."""
+    phys, off = write_target(cache.pt, gather_rows(posb), cache.page,
+                             ring=ring)
+    return own_rows(cache.pt), phys, off
+
+
+def write_token(kp, vp, layer, k_new, v_new, phys, off):
+    """`scatter_token` of one decode token's K/V, k_new / v_new this rank's
+    rows and KV heads (B_loc, 1, KV_loc, hd), for every row and KV head
+    (`whole_token`: gathered over the model line and the rows' line), so
+    that every rank's replicated pool takes the same write; phys / off
+    (B,) from `rows_and_targets`. `scatter_token` in one process."""
+    KV = kp.shape[3]
+    return scatter_token(kp, vp, layer, whole_token(k_new, KV),
+                         whole_token(v_new, KV), phys, off)
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.sharding import (gather_model, model_offset,
-                                              position_shard,
+                                              pool_shard, position_shard,
                                               reduce_from_model)
 
 
@@ -543,8 +543,13 @@ def paged_sparse_decode_attention(cfg, q, kp, vp, layer, pos, page_table,
     ids, -1 = unmapped (masked — reads clamp to the scratch page). Where
     every pattern-listed block is mapped the result is bitwise-identical to
     the contiguous path. ring=True recycles table slots mod NB exactly like
-    the contiguous ring recycles storage blocks."""
-    B = q.shape[0]
+    the contiguous ring recycles storage blocks.
+
+    Under a mesh the pool is replicated and `page_table` is this rank's
+    rows of it: the rank gathers its KV heads, or its head_dim columns
+    (`pool_shard`), and the head_dim columns' partial q·k products meet in
+    `shard_decode`, the zero correction once, as the contiguous path's."""
+    B, _, _, hd = q.shape
     NB = page_table.shape[1]
     posb, colc, valid = _decode_pattern_cols(pos, col_idx, nvalid, B, page)
     if ring:
@@ -555,10 +560,18 @@ def paged_sparse_decode_attention(cfg, q, kp, vp, layer, pos, page_table,
     praw = torch.gather(page_table, 1, sb)                 # (B, K)
     valid = valid & (praw >= 0)
     phys = praw.clamp(min=0).long()
-    kg = kp[layer][phys].to(q.dtype)                       # (B,K,page,KV,hd)
-    vg = vp[layer][phys].to(q.dtype)
-    return _decode_gathered(cfg, q, kg, vg, posb, colc, valid, block=page,
-                            ring_len=NB * page if ring else None)
+    kg = pool_shard(kp[layer])[phys]                       # (B,K,page,KV,hd)
+    vg = pool_shard(vp[layer])[phys]
+    ring_len = NB * page if ring else None
+    if kg.shape[-1] != hd:
+        KV, hdl, Kp = kg.shape[3], kg.shape[4], colc.shape[1]
+        ok, total = _gathered_mask(cfg, posb, colc, valid, block=page,
+                                   ring_len=ring_len)
+        return shard_decode(q, kg.reshape(B, Kp * page, KV, hdl),
+                            vg.reshape(B, Kp * page, KV, hdl),
+                            ok.reshape(B, Kp * page), None, total=total)
+    return _decode_gathered(cfg, q, kg.to(q.dtype), vg.to(q.dtype), posb,
+                            colc, valid, block=page, ring_len=ring_len)
 
 
 def bcsr_attention_ops(cfg, bcsr: BCSR) -> int:

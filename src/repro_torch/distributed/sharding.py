@@ -48,11 +48,19 @@ compiler inserts (Megatron-style). The layout contract:
     merged widths, RoPE follows, the attention runs on every head on every
     rank of the line, and the output projection takes the rank's rows of
     the context (models/attention.py). A merged width |model| does not
-    divide keeps its leaf whole, as `sanitize_spec` does. What still
-    raises is a width of a scan family that |model| does not divide
-    (`check_model_layout`: the hybrid's SSM heads, inner width and B and C
-    columns, the ssm family's heads and d_ff; ValueError naming ROADMAP.md
-    item A12b, 12b.4b). Where `sanitize_spec` drops a rule because the
+    divide keeps its leaf whole, as `sanitize_spec` does.
+  - **Scan widths.** Where |model| divides every width a scan splits by
+    (`scan_split`: the hybrid's SSM heads and B‖C columns, the ssm
+    family's heads) each rank runs its heads of the scan. Where it does
+    not (zamba2 with `state_size` 5 on 4 ranks, rwkv6 with 6 heads on 4)
+    the leaves are the reference's spec shards all the same, contiguous
+    and mid-head where they fall so, and the layer takes the reference's
+    fallback (models/mamba.py, models/rwkv.py): each rank computes its
+    columns of the input projections, `gather_model` joins them over the
+    line, the conv, the scan and the whole-width norm run on every head,
+    and the output projection is row-parallel over the rank's rows where
+    its leaf is split, whole where it is not (then the layer runs wholly
+    replicated). Where `sanitize_spec` drops a rule because the
     dimension does not divide, the leaf is replicated, as in the reference
     (internvl2-2b's vocabulary of 92,553 keeps `tok_embed` and `lm_head`
     whole, whisper's 51,865 its tied `tok_embed`). 'seq' and 'model'
@@ -63,9 +71,11 @@ compiler inserts (Megatron-style). The layout contract:
     and C (N each) and dt (H) in its columns. The rule splits the columns
     over 'model' as the reference's does, with the reference's shard
     shape, but a contiguous cut would not fall on heads (zamba2 on
-    |model| 2: rank 0 would hold all of z), so rank r holds the r-th
-    |model|-th of each segment, in order: [z heads r | x heads r | the
-    r-th part of B‖C | dt heads r] (`packed_segments`). That is a fixed
+    |model| 2: rank 0 would hold all of z), so where the scan splits by
+    heads (`scan_split`) rank r holds the r-th |model|-th of each
+    segment, in order: [z heads r | x heads r | the r-th part of B‖C |
+    dt heads r] (`packed_segments`); under the scan fallback it holds the
+    reference's contiguous shard. The cut by segment is a fixed
     permutation of the reference's shard (a departure of layout, not of
     arithmetic): still a partition, so the moments, the global norm and
     the specs need no special case. `local_index` gives a leaf's shard
@@ -81,7 +91,11 @@ compiler inserts (Megatron-style). The layout contract:
     rank. A norm over the whole inner width (Mamba2's `out_norm`, RWKV6's
     `ln_x`) sums the rank's statistic over the line in fp32 forward and
     backward (`model_line_sum`); the B‖C stream that every head reads is
-    gathered over the line (`gather_model`), its backward summed.
+    gathered over the line (`gather_model`), its backward summed. Under
+    the scan fallback every rank reads every replicated leaf whole; where
+    the output projection is row-parallel each rank's backward carries
+    only its rows' share of the output gradient, so those leaves enter
+    through `copy_to_model` too, and where it is whole no sum is taken.
   - **The collectives are explicit.** `copy_to_model` (identity forward,
     all-reduce backward) enters every region whose work differs across
     the model line, `reduce_from_model` (all-reduce forward, identity
@@ -100,7 +114,10 @@ compiler inserts (Megatron-style). The layout contract:
     `constrain` has no counterpart: the layout is explicit.
   - **Caches.** A decode cache's leaves split as launch/steps.
     cache_pspecs says (`shard_cache`, `gather_cache`; the hybrid's conv
-    state by segment, as in_proj). A decode step on a shard runs in
+    state by segment where the scan splits by heads, as in_proj). A paged
+    KV pool (core/kv_pool.py) is replicated, as the reference's specs
+    leave it: `shard_cache` and `gather_cache` pass it through whole. A
+    decode step on a shard runs in
     `decode_context`: the layers see the model line alone and the
     active `CacheLayout` names the axes the cache's rows and positions
     split over (`position_shard`, `gather_rows`). `reshard` moves a step's
@@ -177,12 +194,14 @@ class GatherSeq(torch.autograd.Function):
     shards of a line (the 'seq' line's, or the model line's B‖C columns:
     `gather_model`) in order. The backward sums the gradient over the line in
     fp32 (a bf16 sum would round each partial sum) and keeps this shard's
-    rows (gloo has no reduce-scatter). CUDA tensors on a gloo group cross
-    through the host, since gloo gathers only CPU tensors."""
+    rows (gloo has no reduce-scatter); with `summed` False it keeps them
+    without the sum (every rank's gradient is already the whole one).
+    CUDA tensors on a gloo group cross through the host, since gloo
+    gathers only CPU tensors."""
 
     @staticmethod
-    def forward(ctx, x, group, n, idx, dim):
-        ctx.group, ctx.idx, ctx.dim = group, idx, dim
+    def forward(ctx, x, group, n, idx, dim, summed=True):
+        ctx.group, ctx.idx, ctx.dim, ctx.summed = group, idx, dim, summed
         ctx.rows = x.shape[dim]
         staged = x.is_cuda and dist.get_backend(group) == "gloo"
         src = (x.detach().to("cpu") if staged else x.detach()).contiguous()
@@ -193,12 +212,15 @@ class GatherSeq(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if not ctx.summed:
+            return (g.narrow(ctx.dim, ctx.idx * ctx.rows, ctx.rows),
+                    None, None, None, None, None)
         total = g.float().contiguous()
         if total is g:
             total = g.clone()
         dist.all_reduce(total, group=ctx.group)
         return (total.narrow(ctx.dim, ctx.idx * ctx.rows, ctx.rows)
-                .to(g.dtype), None, None, None, None)
+                .to(g.dtype), None, None, None, None, None)
 
 
 def gather_seq(x, dim: int, mesh=None):
@@ -639,32 +661,28 @@ def heads_split(cfg) -> bool:
     return m > 1 and cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
 
 
-# the widths of `model_widths` that only a scan family's layers split
-# (no fallback ported for them)
+# the widths of `model_widths` that a scan family's layers split by heads
+# (the inner width follows from the heads; the ssm family's d_ff is its
+# channel mix's, an MLP that asks `model_split` itself)
 _SCAN_WIDTHS = {"hybrid": ("ssm heads", "inner", "2N (B and C)"),
-                "ssm": ("num_heads", "d_ff")}
+                "ssm": ("num_heads",)}
 
 
-def check_model_layout(cfg, mesh):
-    """Refuse what the port cannot split on `mesh`'s 'model' axis: a width
-    of a scan family that |model| does not divide (the hybrid family's SSM
-    heads, inner width and B and C columns, the ssm family's heads and
-    d_ff; ValueError naming ROADMAP.md item A12b, 12b.4b). The attention
-    heads need not divide (the reference's fallback, `heads_split`), and
-    'seq' composes with 'model'. A no-op without a 'model' axis larger
-    than 1."""
+def scan_split(cfg, mesh=None) -> bool:
+    """Whether `mesh`'s 'model' axis (default: the active mesh's) splits
+    `cfg`'s scans by heads: |model| > 1 divides every width the family's
+    scan splits (the hybrid's SSM heads, inner width and B and C columns;
+    the ssm family's heads), so each rank runs whole heads. False under
+    the reference's fallback (the scan runs on every head on every rank,
+    from the rank's columns gathered over the line), for the families
+    without a scan and without a 'model' axis. Every Mamba2 and WKV6
+    layer asks it, as the attention asks `heads_split`."""
     m = model_size(mesh)
-    if m <= 1:
-        return
+    names = _SCAN_WIDTHS.get(cfg.family)
+    if m <= 1 or not names:
+        return False
     widths = model_widths(cfg)
-    bad = [f"{k} {widths[k]}" for k in _SCAN_WIDTHS.get(cfg.family, ())
-           if widths[k] % m]
-    if bad:
-        raise ValueError(
-            f"{cfg.name} (family {cfg.family!r}): {', '.join(bad)} must "
-            f"divide over |model| = {m} (the scan runs on shards of whole "
-            f"heads); a fallback for scan widths |model| does not divide "
-            f"waits in ROADMAP.md item A12b (12b.4b)")
+    return all(widths[k] % m == 0 for k in names)
 
 
 def packed_segments(name: str, cfg):
@@ -684,17 +702,26 @@ def packed_segments(name: str, cfg):
     return (inner, inner, 2 * cfg.ssm.state_size, inner // cfg.ssm.head_dim)
 
 
+def _segments(mesh, name: str, cfg):
+    """`packed_segments` where `mesh`'s scans split by heads
+    (`scan_split`), else None: under the scan fallback a packed leaf is
+    cut as the reference cuts it, contiguously."""
+    seg = packed_segments(name, cfg)
+    return seg if seg is not None and scan_split(cfg, mesh) else None
+
+
 def local_index(mesh, name: str, spec, shape, cfg=None,
                 rank: Optional[int] = None):
     """The index of `rank`'s shard (default: this process's) of the whole
     leaf `name` of `shape` under `spec`: `local_slices`, except for a
-    packed leaf (`packed_segments`), whose sharded dimension takes the
-    rank-th |model|-th of each segment (an int64 numpy array of columns,
+    packed leaf (`packed_segments`) on a mesh whose scans split by heads
+    (`scan_split`), whose sharded dimension takes the rank-th |model|-th
+    of each segment (an int64 numpy array of columns,
     which indexes numpy arrays and tensors on any device alike). Every
     site that cuts a leaf, or joins its shards, uses this."""
     sl = local_slices(mesh, spec, shape, rank)
     dim = sharded_dim(spec)
-    seg = None if dim is None else packed_segments(name, cfg)
+    seg = None if dim is None else _segments(mesh, name, cfg)
     if seg is None:
         return sl
     if sum(seg) != shape[dim]:
@@ -745,7 +772,7 @@ def gather_params(local, specs, mesh, cfg=None) -> dict:
             continue
         whole = _all_gather(x.detach(), mesh.group("model"), m, dim)
         shape = whole.shape
-        if packed_segments(n, cfg) is not None:
+        if _segments(mesh, n, cfg) is not None:
             order = np.concatenate([local_index(mesh, n, specs[n], shape,
                                                 cfg, rank=r)[dim]
                                     for r in mesh.line("model")])
@@ -783,25 +810,37 @@ def _entries(spec, ndim: int) -> tuple:
     return tuple(spec) + (None,) * (ndim - len(spec))
 
 
-def shard_cache(cache, specs, mesh, cfg=None) -> dict:
+def shard_cache(cache, specs, mesh, cfg=None):
     """The whole decode cache {name: tensor} -> this rank's shard of every
     leaf under `specs` (launch/steps.cache_pspecs), as contiguous copies.
-    The hybrid family's conv state packs x and B‖C in its columns: rank r
-    holds its x heads and the r-th part of B‖C (`local_index`, as Mamba2's
-    in_proj), the columns its conv computes, so it needs `cfg`."""
+    The hybrid family's conv state packs x and B‖C in its columns: where
+    the scan splits by heads rank r holds its x heads and the r-th part of
+    B‖C (`local_index`, as Mamba2's in_proj), the columns its conv
+    computes, so it needs `cfg`. A paged KV pool (core.kv_pool.
+    PagedKVCache, the cache itself or under "kv") is replicated, as the
+    reference's specs leave it: it passes through whole, not copied."""
+    if not isinstance(cache, dict):
+        return cache
     return {n: x[local_index(mesh, n, specs[n], x.shape, cfg)]
             .clone(memory_format=torch.contiguous_format)
+            if isinstance(x, torch.Tensor) else x
             for n, x in cache.items()}
 
 
-def gather_cache(shards, specs, mesh, cfg=None) -> dict:
+def gather_cache(shards, specs, mesh, cfg=None):
     """{name: this rank's shard} -> the whole cache: every dimension that
     `specs` splits gathered over its line (host-staged on gloo), the conv
-    state's columns put back in the reference's order (`local_index` of
-    each rank of the model line). Copies only. A collective of every
-    rank of the mesh."""
+    state's columns put back in the reference's order where they were cut
+    by segment (`local_index` of each rank of the model line). Copies
+    only; a paged pool passes through whole (`shard_cache`). A collective
+    of every rank of the mesh."""
+    if not isinstance(shards, dict):
+        return shards
     out = {}
     for n, x in shards.items():
+        if not isinstance(x, torch.Tensor):
+            out[n] = x
+            continue
         for dim, e in enumerate(_entries(specs[n], x.dim())):
             axes = live_axes(mesh, e)
             if axes is not None:
@@ -809,7 +848,7 @@ def gather_cache(shards, specs, mesh, cfg=None) -> dict:
                                 dim)
         dim = sharded_dim(specs[n])
         if dim is not None and model_size(mesh) > 1 and \
-                packed_segments(n, cfg) is not None:
+                _segments(mesh, n, cfg) is not None:
             order = np.concatenate([local_index(mesh, n, specs[n], x.shape,
                                                 cfg, rank=r)[dim]
                                     for r in mesh.line("model")])
@@ -846,16 +885,21 @@ class CacheLayout:
     """Where a decode step's cache shard sits in the whole cache: `rows`
     and `positions` are the axes (tuples, or None) of `mesh`, the whole
     mesh, that the cache's batch rows and its positions split over (dims
-    1 and 2 of `cache_pspecs`' K/V spec; the ssm family splits its rows
-    only). The heads and head_dim splits over 'model' need no record:
-    the layer sees them in its shards' shapes."""
+    1 and 2 of `cache_pspecs`' K/V spec, or of the cross K/V's beside a
+    pool; the ssm family's and the hybrid's states split their rows
+    only). A replicated paged pool has no rows of its own: `rows` (given)
+    are the rows the step decodes, the tokens' (`batch_pspecs`). The
+    heads and head_dim splits over 'model' need no record: the layer sees
+    them in its shards' shapes."""
 
-    def __init__(self, mesh, specs):
-        spec = specs["k"] if "k" in specs else specs["S"]
-        e = _entries(spec, 3)
+    def __init__(self, mesh, specs, rows=None):
+        key = next((k for k in ("k", "ck", "S", "ssm") if k in specs),
+                   None)
+        e = _entries(specs[key], 3) if key is not None else (None,) * 3
         self.mesh = mesh
-        self.rows = live_axes(mesh, e[1])
-        self.positions = live_axes(mesh, e[2]) if "k" in specs else None
+        self.rows = live_axes(mesh, e[1]) if key is not None else rows
+        self.positions = live_axes(mesh, e[2]) if key in ("k", "ck") \
+            else None
 
 
 _LAYOUT: contextvars.ContextVar = contextvars.ContextVar(
@@ -902,6 +946,37 @@ def gather_rows(x):
         return x
     m = lay.mesh
     return _all_gather(x, m.group(lay.rows), m.axis_size(lay.rows), 0)
+
+
+def whole_token(x, kv_heads: int):
+    """x (B_loc, 1, KV_loc, hd), one decode token's K or V on this rank,
+    -> (B, 1, KV, hd) for every row and every KV head: gathered over the
+    model line where it splits the `kv_heads` (`heads_split`) and over the
+    rows' line of the active `CacheLayout`; no gradient. What every rank
+    writes into a replicated paged pool, so that the pools stay equal;
+    `x` without a mesh."""
+    mesh = active_mesh()
+    m = model_size(mesh)
+    if m > 1 and x.shape[2] != kv_heads:
+        x = _all_gather(x, mesh.group("model"), m, 2)
+    return gather_rows(x)
+
+
+def pool_shard(x):
+    """The part of a replicated pool tensor x (..., KV, hd) that this rank
+    of the active mesh's model line attends with: its KV heads where
+    |model| divides them, else its head_dim columns where |model| divides
+    those, else all of it: the shard `cache_pspecs` gives a contiguous
+    cache (a view)."""
+    m = model_size()
+    if m == 1:
+        return x
+    KV, hd = x.shape[-2], x.shape[-1]
+    if KV % m == 0:
+        return x.narrow(-2, model_offset(KV // m), KV // m)
+    if hd % m == 0:
+        return x.narrow(-1, model_offset(hd // m), hd // m)
+    return x
 
 
 def own_rows(x):
@@ -989,18 +1064,19 @@ def model_mean(x):
     return x.div_(m)
 
 
-def gather_model(x, dim: int):
+def gather_model(x, dim: int, summed: bool = True):
     """The whole of a dimension split over the active mesh's model line,
     from every rank's part of `x` along `dim` (the rank-th part is this
     rank's; differentiable: `GatherSeq`, whose backward sums the gradient
-    over the line in fp32 and keeps this rank's part); `x` without a
-    'model' axis."""
+    over the line in fp32 and keeps this rank's part, or, with `summed`
+    False, where each rank's gradient of the whole is already the whole
+    one, keeps this rank's part alone); `x` without a 'model' axis."""
     mesh = active_mesh()
     m = model_size(mesh)
     if m == 1:
         return x
     return GatherSeq.apply(x, mesh.group("model"), m,
-                           mesh.axis_index("model"), dim)
+                           mesh.axis_index("model"), dim, summed)
 
 
 def model_line_sum(x):
@@ -1010,6 +1086,16 @@ def model_line_sum(x):
     rank's use adds to its gradient, the gradient summed backward too
     (`copy_to_model`). `x` without a 'model' axis."""
     return copy_to_model(reduce_from_model(x))
+
+
+def model_whole(leaf, partial: bool):
+    """A leaf the rules keep whole that every rank of the model line reads
+    whole (the scan fallback's conv, decay and norm leaves): where each
+    rank's output gradient is its share (`partial`: a row-parallel output
+    projection follows), through `copy_to_model`, so its gradient is
+    summed over the line; where the layer runs wholly replicated, as it
+    is (a sum would count the gradient |model| times)."""
+    return copy_to_model(leaf) if partial else leaf
 
 
 def model_part(leaf, index):

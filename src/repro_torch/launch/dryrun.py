@@ -55,9 +55,10 @@ Records keep the reference's keys ("status" ok / skipped / error with its
 skip reasons, "sparse_kernel", "seq_sharded", "n_micro", "params",
 "active_params", "chips", "memory", "per_device", "roofline", "dominant",
 "model_flops_per_device", "useful_fraction") and add "rank" (0, the
-traced rank) and "layout". A cell the port refuses (a scan width |model|
-does not divide: ROADMAP.md 12b.4b) is an "error" with the refusal's
-message; `main` exits 1 on any error, as the reference's does.
+traced rank) and "layout". A cell whose step raises is an "error" with
+its message; `main` exits 1 on any error, as the reference's does. A
+scan width |model| does not divide traces the reference's fallback
+(its column gathers count among the model line's collectives).
 """
 from __future__ import annotations
 

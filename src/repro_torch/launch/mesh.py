@@ -16,9 +16,9 @@ on a mesh with 'model').
 A 'model' axis larger than 1 holds tensor, expert and vocabulary
 parallelism for every family (distributed/sharding.py states the
 layout), alone or with 'seq' and the data axes: the reference's
-long-context mesh (seq, data, model). What still raises, naming ROADMAP.md
-item A12b (12b.4b), is a scan width that |model| does not divide (where a
-step or a trainer is built: `sharding.check_model_layout`).
+long-context mesh (seq, data, model). Head counts and scan widths that
+|model| does not divide take the reference's fallback (every head on every
+rank of a model line, from the rank's columns gathered over it).
 
 `make_production_mesh` gives the reference's production meshes, (data 16,
 model 16) = 256 ranks and (pod 2, data 16, model 16) = 512, which the dry

@@ -31,8 +31,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention_exec import SparseAttentionExec
 from repro_torch.core.sparse_attention import PLAN_TABLE_KEYS
 from repro_torch.distributed.sharding import (CacheLayout, batch_spec,
-                                              check_model_layout, data_axes,
-                                              decode_context, heads_split,
+                                              data_axes, decode_context,
+                                              heads_split,
                                               live_axes, mesh_context,
                                               model_size, param_pspecs,
                                               reshard, sanitize_spec,
@@ -148,7 +148,16 @@ def cache_pspecs(cfg: ModelConfig, cache, mesh, batch_size: int):
     'ssm' (L, B, H, N, P) and rwkv's 'S' (L, B, H, hd, hd) their heads over
     'model', 'conv' (L, B, W-1, conv_dim) its last dim, 'tm_prev' /
     'cm_prev' (L, B, d) no 'model' split; their B over the data axes
-    when the batch covers them."""
+    when the batch covers them.
+
+    A paged pool (core.kv_pool.PagedKVCache, the cache itself or under
+    "kv" beside the hybrid's states) is replicated: its leaves, named
+    "pool.kp", "pool.vp", "pool.pt" (or "kv.kp", ... under "kv"), get
+    (). The reference's rules match no pool leaf (a pytree of kp, vp, pt
+    under flattened-index keys), so its spec is P() for each."""
+    from repro_torch.core.kv_pool import PagedKVCache
+    if isinstance(cache, PagedKVCache):
+        cache = {"pool": cache}
     daxes = data_axes(mesh)
     ndata = mesh.axis_size(daxes) if daxes else 1
     batch_big = batch_size >= ndata
@@ -170,8 +179,13 @@ def cache_pspecs(cfg: ModelConfig, cache, mesh, batch_size: int):
         if name in ("tm_prev", "cm_prev"):
             return (None, rows, None)
         return ()
-    return {n: sanitize_spec(mesh, one(n, x), x.shape)
-            for n, x in cache.items()}
+    out = {}
+    for n, x in cache.items():
+        if isinstance(x, PagedKVCache):
+            out.update({f"{n}.{leaf}": () for leaf in ("kp", "vp", "pt")})
+        else:
+            out[n] = sanitize_spec(mesh, one(n, x), x.shape)
+    return out
 
 
 def spion_table_pspecs(tables):
@@ -255,11 +269,11 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
     summed over the mesh's data (and 'seq') lines in buckets, so they are
     the global batch's on every rank. On a 'model' axis `params` holds the
     rank's shards (`distributed.sharding.shard_params`) and the gradients
-    are the shards'; a head count |model| does not divide takes the
-    reference's fallback (models/attention.py), and what the port cannot
-    split (a scan family's width |model| does not divide) raises here,
-    before any collective (`check_model_layout`). 'seq' composes with
-    'model': the sums run over 'seq' and the data axes, never 'model'. `halo` is the plan's (left, right)
+    are the shards'; a head count or a scan width |model| does not
+    divide takes the reference's fallback (models/attention.py,
+    models/mamba.py, models/rwkv.py). 'seq' composes with 'model': the
+    sums run over 'seq' and the data axes, never 'model'. `halo` is the
+    plan's (left, right)
     column extent for dict payloads (an exec carries its own): with it a
     'seq' axis shards the sparse attention's rows. Under a 'seq' axis the loss is still the
     global mean (the sums and counts all-reduced over 'seq' too) and the
@@ -277,7 +291,6 @@ def make_loss_and_grads(cfg: ModelConfig, *, n_micro=1, block=None,
     nred = 1
     if nranks > 1:
         from repro_torch.distributed import runtime
-        check_model_layout(cfg, mesh)
         all_reduce_sum = runtime.all_reduce_sum      # bound when made
         axes = reduce_axes(mesh)
         nred = mesh.axis_size(axes)
@@ -417,8 +430,6 @@ def make_prefill_step(cfg: ModelConfig, *, spion=False, block=None,
             f"no fused KV prefill; serve it via stepwise prefill instead")
     static_block = block or cfg.spion.block_size
     mesh = _mesh_of(mesh)
-    if mesh is not None:
-        check_model_layout(cfg, mesh)
 
     def prefill(params, batch, tables=None):
         ex = _coerce_step_tables(tables, block=static_block, phase="prefill",
@@ -489,8 +500,13 @@ def make_serve_step(cfg: ModelConfig, *, spion=False, block=None,
     the rank that holds its slot; the cache is updated in place. The
     logits come out in the reference's dry-run decode out-sharding (the
     rows over the data axes for B > 1, the vocabulary over 'model' where
-    it divides). A paged cache under a mesh raises ValueError (ROADMAP.md
-    item 12b.4c).
+    it divides). A paged cache's pool and page table are replicated, as
+    the reference's cache_pspecs leave them (`specs` "pool.kp", ... or
+    "kv.kp", ...: ()): the rank decodes its rows of the batch
+    (`batch_pspecs`'s, or the hybrid states' rows) with its KV heads or
+    head_dim columns of the pool, and every rank writes the new token's
+    K/V for every row and KV head, gathered over the model line and the
+    rows' line (core/kv_pool.py), so that the pools stay equal.
 
     spion=True on a family without an attention KV cache (ssm) raises
     here, at step construction (the registry's supports_sparse_decode)."""
@@ -504,7 +520,6 @@ def make_serve_step(cfg: ModelConfig, *, spion=False, block=None,
     static_block = block or cfg.spion.block_size
     mesh = _mesh_of(mesh)
     if mesh is not None:
-        check_model_layout(cfg, mesh)
         if specs is None:
             raise ValueError("make_serve_step on a mesh needs the cache's "
                              "specs (cache_pspecs of the whole cache)")
@@ -527,22 +542,23 @@ def make_serve_step(cfg: ModelConfig, *, spion=False, block=None,
 def _mesh_decode(cfg, bundle, layout, params, cache, tokens, pos, ex):
     """`make_serve_step`'s step on this rank of `layout.mesh`."""
     from repro_torch.core.kv_pool import PagedKVCache
-    if isinstance(cache, PagedKVCache) or \
-            any(isinstance(c, PagedKVCache) for c in cache.values()):
-        raise ValueError(
-            "make_serve_step: a paged KV cache under a mesh has no layout "
-            "yet (the reference's cache_pspecs matches no pool leaf and "
-            "would replicate the pool); ROADMAP.md item 12b.4c")
-    mesh, rows = layout.mesh, layout.rows
+    mesh = layout.mesh
     daxes = data_axes(mesh)
-    B_loc = next(iter(cache.values())).shape[1]
-    B = B_loc * mesh.axis_size(rows)
-    # the tokens' and the logits' rows: the cache's, or, where the cache
-    # holds every row, the batch over the data axes as batch_pspecs cuts it
-    tok_rows = rows
-    if rows is None:
-        spec = sanitize_spec(mesh, (daxes,), (B,))
-        tok_rows = live_axes(mesh, spec[0] if spec else None)
+    pool = cache if isinstance(cache, PagedKVCache) else None
+    states = [x for x in ([] if pool is not None else cache.values())
+              if not isinstance(x, PagedKVCache)]
+    pool = pool or next((x for x in cache.values()
+                         if isinstance(x, PagedKVCache)), None)
+    # the tokens' rows as batch_pspecs cuts them
+    B = pool.pt.shape[0] if pool is not None else \
+        states[0].shape[1] * mesh.axis_size(layout.rows)
+    spec = sanitize_spec(mesh, (daxes,), (B,))
+    tok_rows = live_axes(mesh, spec[0] if spec else None)
+    if not states:
+        # a replicated pool alone: the step decodes the tokens' rows
+        layout = CacheLayout(mesh, {}, rows=tok_rows)
+    rows = layout.rows
+    B_loc = B // mesh.axis_size(rows)
     tokens = reshard(tokens, (tok_rows,), (rows,), mesh)
     pos = torch.as_tensor(pos, device=tokens.device)
     if pos.dim() == 1 and pos.shape[0] == B and B_loc < B:

@@ -55,8 +55,8 @@ A 'model' job passes `mesh=make_distributed_mesh(model=, data=)` (or
 `--model N` on the command line), for every family: every rank starts
 from the same masters (process 0's, broadcast) and keeps its shard of each
 leaf (distributed/sharding.param_pspecs; Mamba2's packed in_proj by
-segment and head, `sharding.local_index`), its AdamW moments under the
-same spec; the steps run tensor, expert and vocabulary parallelism
+segment and head where the scan splits by heads, `sharding.local_index`),
+its AdamW moments under the same spec; the steps run tensor, expert and vocabulary parallelism
 (launch/steps.py), the capture averages its heads over the model line, and
 the checkpoint stays mesh-agnostic: process 0's model line gathers every
 sharded leaf and its moments before process 0 writes, and a restore cuts
@@ -66,9 +66,10 @@ take the reference's fallback (every head on every rank of a model line,
 the leaves still the reference's spec shards). 'seq' composes with
 'model' (`make_distributed_mesh(seq=, model=)`: the reference's
 long-context mesh); every rank of a model line holds the same shard of
-the batch. What raises (ROADMAP.md item A12b, 12b.4b): a scan family's
-width (SSM heads, inner, 2N; the ssm family's heads and d_ff:
-`sharding.check_model_layout`) that |model| does not divide.
+the batch. A scan width |model| does not divide (the hybrid's SSM heads
+or 2N, the ssm family's heads) takes the reference's fallback too (every
+head of the scan on every rank, in_proj cut contiguously: models/mamba.py,
+models/rwkv.py).
 """
 from __future__ import annotations
 
@@ -92,11 +93,10 @@ from repro_torch.distributed import runtime
 from repro_torch.distributed.chaos import ChaosMonkey
 from repro_torch.distributed.fault import (DivergenceSentinel, Heartbeat,
                                            StepSupervisor, StragglerMonitor)
-from repro_torch.distributed.sharding import (check_model_layout, data_axes,
-                                              gather_params, local_index,
-                                              mesh_context, model_size,
-                                              param_pspecs, seq_size,
-                                              shard_params)
+from repro_torch.distributed.sharding import (data_axes, gather_params,
+                                              local_index, mesh_context,
+                                              model_size, param_pspecs,
+                                              seq_size, shard_params)
 from repro_torch.launch.mesh import make_distributed_mesh
 from repro_torch.launch.steps import compute_params, make_train_step
 from repro_torch.models.layers import ParamTree, tree_map
@@ -140,7 +140,6 @@ class Trainer:
         if mesh is None and runtime.process_count() > 1:
             mesh = make_distributed_mesh()
         if mesh is not None:
-            check_model_layout(cfg, mesh)
             ndata = mesh.axis_size(data_axes(mesh))
             if batch % ndata:
                 raise ValueError(f"global batch {batch} does not split over "

@@ -42,8 +42,9 @@ from repro_torch.distributed.sharding import (active_mesh, copy_to_model,
                                               heads_split, mean_over_data,
                                               model_mean, model_offset,
                                               model_size, model_split,
-                                              position_shard, seq_size,
-                                              seq_start, sum_over_seq)
+                                              pool_shard, position_shard,
+                                              seq_size, seq_start,
+                                              sum_over_seq)
 from repro_torch.models.layers import he_init, rope, row_parallel
 
 
@@ -231,9 +232,7 @@ def decode_attention(cfg, q, k_cache, v_cache, pos, kpos=None):
     or (B,) per-row current token indices. `kpos` gives the absolute
     position stored in each cache slot, (S,) or (B,S) (defaults to arange —
     plain append cache)."""
-    B, _, H, hd = q.shape
-    KV = k_cache.shape[2]
-    G = H // KV
+    B, _, _, hd = q.shape
     S = k_cache.shape[1]
     posb = decode_positions(pos, B, q.device)
     start, n, group = position_shard(S)
@@ -244,22 +243,32 @@ def decode_attention(cfg, q, k_cache, v_cache, pos, kpos=None):
             kpos = torch.arange(start, start + S, device=q.device)
         elif kpos.shape[-1] != S:
             kpos = kpos.narrow(-1, start, S)
-        kpos = kpos.expand(B, S)
-        ok = (kpos >= 0) & (kpos <= posb[:, None])
-        if cfg.sliding_window:
-            ok = ok & (kpos > posb[:, None] - cfg.sliding_window)
-        return shard_decode(q, k_cache, v_cache, ok, group)
-    qg = q.reshape(B, KV, G, hd)
+        return shard_decode(q, k_cache, v_cache,
+                            _visible(cfg, kpos.expand(B, S), posb), group)
+    if kpos is None:
+        kpos = torch.arange(S, device=q.device)
+    return _whole_decode(cfg, q, k_cache, v_cache, posb, kpos)
+
+
+def _visible(cfg, kpos, posb):
+    """(B, S): the cache positions `kpos` (B, S) a token at `posb` sees."""
+    ok = (kpos >= 0) & (kpos <= posb[:, None])
+    if cfg.sliding_window:
+        ok = ok & (kpos > posb[:, None] - cfg.sliding_window)
+    return ok
+
+
+def _whole_decode(cfg, q, k_cache, v_cache, posb, kpos):
+    """`decode_attention` on a cache of every position the token sees,
+    k/v (B, S, KV, hd) with the heads of q, at `kpos` (S,) or (B, S)."""
+    B, _, H, hd = q.shape
+    KV, S = k_cache.shape[2], k_cache.shape[1]
+    qg = q.reshape(B, KV, H // KV, hd)
     k_cache = k_cache.to(q.dtype)
     v_cache = v_cache.to(q.dtype)
     scores = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).float() / \
         math.sqrt(hd)
-    if kpos is None:
-        kpos = torch.arange(S, device=q.device)
-    kpos = kpos.expand(B, S)
-    ok = (kpos >= 0) & (kpos <= posb[:, None])
-    if cfg.sliding_window:
-        ok = ok & (kpos > posb[:, None] - cfg.sliding_window)
+    ok = _visible(cfg, kpos.expand(B, S), posb)
     scores = torch.where(ok[:, None, None, :], scores, -math.inf)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgs,bskh->bkgh", probs, v_cache)
@@ -279,22 +288,33 @@ def paged_decode_attention(cfg, q, kp, vp, layer, pos, page_table, *,
     kpos must be per-position ring arithmetic (`ring_kpos`), not
     block-granular — within the active page, offsets past pos % page still
     hold the PREVIOUS rotation's tokens. Where every block is mapped this
-    is bitwise-identical to the contiguous dense decode."""
-    B = q.shape[0]
+    is bitwise-identical to the contiguous dense decode.
+
+    Under a mesh the pool is replicated and `page_table` is this rank's
+    rows of it: the rank reads its KV heads, or its head_dim columns, of
+    the pool (`pool_shard`, the contiguous cache's shard under
+    launch/steps.cache_pspecs); head_dim columns' partial q·k products
+    are summed over the model line (`shard_decode`), as the contiguous
+    path does. Every position of a row is on every rank."""
+    B, _, _, hd = q.shape
     NB = page_table.shape[1]
-    KV, hd = kp.shape[3], kp.shape[4]
+    kl, vl = pool_shard(kp[layer]), pool_shard(vp[layer])
+    KV, hdl = kl.shape[2], kl.shape[3]
     S = NB * page
     posb = decode_positions(pos, B, q.device)
     phys = page_table.clamp(min=0).long()
-    kflat = kp[layer][phys].reshape(B, S, KV, hd)
-    vflat = vp[layer][phys].reshape(B, S, KV, hd)
+    kflat = kl[phys].reshape(B, S, KV, hdl)
+    vflat = vl[phys].reshape(B, S, KV, hdl)
     if cfg.sliding_window:
         base = ring_kpos(posb, S)
     else:
         base = torch.arange(S, device=q.device).expand(B, S)
     mapped = (page_table >= 0).repeat_interleave(page, dim=1)
     kpos = torch.where(mapped, base, -1)
-    out = decode_attention(cfg, q, kflat, vflat, posb, kpos=kpos)
+    if hdl != hd:
+        out = shard_decode(q, kflat, vflat, _visible(cfg, kpos, posb), None)
+    else:
+        out = _whole_decode(cfg, q, kflat, vflat, posb, kpos)
     # a fully-unmapped row (reclaimed serving slot parked on the scratch
     # page) softmaxes over all -inf -> NaN; that NaN would be scattered into
     # the SHARED scratch page next layer and 0*NaN-poison every other row's

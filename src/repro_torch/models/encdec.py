@@ -36,7 +36,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.attention_exec import SparseAttentionExec
-from repro_torch.core.kv_pool import PagedKVCache, scatter_token, write_target
+from repro_torch.core.kv_pool import (PagedKVCache, rows_and_targets,
+                                      write_token)
 from repro_torch.distributed.sharding import (current_mesh, gather_kv,
                                               gather_seq, mesh_context,
                                               seq_positions)
@@ -263,16 +264,16 @@ def decode_step(params, cfg, cache, tokens, pos, *, spion=None):
     ccfg = _enc_cfg(cfg)
     enc_last = A.cache_length(cache["ck"][0]) - 1
     if paged:
-        phys_w, off_w = write_target(kvp.pt, posb, kvp.page, ring=False)
+        pt, phys_w, off_w = rows_and_targets(kvp, posb, ring=False)
 
     def attend(li, q, k_new, v_new):
         if paged:
-            scatter_token(kvp.kp, kvp.vp, li, k_new, v_new, phys_w, off_w)
+            write_token(kvp.kp, kvp.vp, li, k_new, v_new, phys_w, off_w)
             if ex is not None:
                 return ex.decode_paged(cfg, q, kvp.kp, kvp.vp, li, posb,
-                                       kvp.pt, ex.layer(li))
+                                       pt, ex.layer(li))
             return A.paged_decode_attention(cfg, q, kvp.kp, kvp.vp, li, posb,
-                                            kvp.pt, page=kvp.page)
+                                            pt, page=kvp.page)
         kc, vc = A.update_cache(cache["k"][li], cache["v"][li], k_new, v_new,
                                 posb)
         if ex is not None:

@@ -22,7 +22,11 @@ the Mamba2 layers on their SSM heads (models/mamba.py), the shared block's
 attention on its q and KV heads and its MLP on its d_ff shard
 (models/attention.py, layers.mlp), the embedding and head on its
 vocabulary shard (the vocab-parallel loss); the capture averages the
-heads over the line.
+heads over the line. Where |model| does not divide the SSM heads or B‖C
+columns the Mamba2 layers take the reference's fallback (every head on
+every rank, models/mamba.py) while the shared block keeps its own
+`heads_split` decision, so the kernels still run on the rank's heads.
+A paged pool under a mesh is replicated (core/kv_pool.py).
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.attention_exec import SparseAttentionExec
-from repro_torch.core.kv_pool import PagedKVCache, scatter_token, write_target
+from repro_torch.core.kv_pool import (PagedKVCache, rows_and_targets,
+                                      write_token)
 from repro_torch.distributed.sharding import (current_mesh, gather_kv,
                                               mesh_context, seq_positions)
 from repro_torch.models import attention as A
@@ -204,7 +209,8 @@ def decode_step(params, cfg, cache, tokens, pos, *, spion=None):
     Paged form: cache {"conv", "ssm", "kv": core.kv_pool.PagedKVCache} —
     the shared block's per-application K/V live in a page pool whose layer
     axis is the application index, while the recurrent conv/ssm states stay
-    contiguous (fixed-size, no paging win)."""
+    contiguous (fixed-size, no paging win). Under a mesh the pool is
+    replicated and the states are the rank's shards (core/kv_pool.py)."""
     kvp = cache.get("kv")
     paged = isinstance(kvp, PagedKVCache)
     dtype = _dtype(cfg)
@@ -214,16 +220,16 @@ def decode_step(params, cfg, cache, tokens, pos, *, spion=None):
     posb = A.decode_positions(pos, tokens.shape[0], tokens.device)
     positions = posb[:, None]
     if paged:
-        phys_w, off_w = write_target(kvp.pt, posb, kvp.page, ring=False)
+        pt, phys_w, off_w = rows_and_targets(kvp, posb, ring=False)
 
     def attend(app, q, k_new, v_new):
         if paged:
-            scatter_token(kvp.kp, kvp.vp, app, k_new, v_new, phys_w, off_w)
+            write_token(kvp.kp, kvp.vp, app, k_new, v_new, phys_w, off_w)
             if ex is not None:
                 return ex.decode_paged_app(cfg, q, kvp.kp, kvp.vp, app, posb,
-                                           kvp.pt)
+                                           pt)
             return A.paged_decode_attention(cfg, q, kvp.kp, kvp.vp, app,
-                                            posb, kvp.pt, page=kvp.page)
+                                            posb, pt, page=kvp.page)
         kc, vc = A.update_cache(cache["k"][app], cache["v"][app], k_new,
                                 v_new, posb)
         if ex is not None:

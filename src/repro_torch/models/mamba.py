@@ -27,6 +27,22 @@ holds those heads and its conv state the columns its conv computes, its x
 channels and its part of B‖C (`distributed.sharding.packed_segments`); the
 state's B‖C rows are gathered over the line with the token's, and the
 rank keeps its part of the new ones.
+
+Where |model| does not divide the SSM heads or the B‖C columns
+(`distributed.sharding.scan_split` False) the layer takes the reference's
+fallback, where GSPMD splits the scan mid-head: in_proj's leaf is the
+reference's contiguous column shard (where |model| divides its width)
+and the rank's columns of its product are gathered over the line
+(`gather_model`), the conv, the SSD and the out_norm run on every head,
+and out_proj is row-parallel over the rank's rows where |model| divides
+the inner width, whole otherwise. Row-parallel, each rank's backward
+carries its rows' share of the output gradient alone, so every leaf the
+whole scan reads enters through `copy_to_model` (its gradient summed over
+the line); whole, the layer is replicated and no sum is taken. The
+decode form gathers each state leaf that launch/steps.cache_pspecs splits
+(the SSM state over its heads, the conv state over its columns, each
+where |model| divides it), runs the whole step and keeps the rank's
+shard of the new state.
 """
 from __future__ import annotations
 
@@ -35,8 +51,10 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (active_mesh, carried_combine,
                                               copy_to_model, gather_model,
-                                              model_part, model_size,
-                                              model_split, seq_left_rows,
+                                              model_offset, model_part,
+                                              model_size, model_split,
+                                              model_whole,
+                                              scan_split, seq_left_rows,
                                               seq_size)
 from repro_torch.models import layers as Lyr
 from repro_torch.models.layers import he_init, normal_init, row_parallel
@@ -147,11 +165,13 @@ def ssd_chunked(x, dt, A, B, C, D, chunk):
 def mamba_apply(cfg, p, x, state=None):
     """x (B,S,d). state None | dict(conv (B,W-1,convdim), ssm (B,H,N,P)),
     the decode form (S = 1). Returns (out, new state or None). On a
-    'model' axis this rank's heads, with a state the rank's shard of it
-    (module docstring)."""
-    Bsz, S, d = x.shape
-    inner, H, P, N, _ = _widths(cfg)
-    m = model_size() if model_split(H) else 1
+    'model' axis this rank's heads, with a state the rank's shard of it,
+    or, where |model| does not divide the scan's widths, the reference's
+    fallback (module docstring)."""
+    inner, H, _, N, _ = _widths(cfg)
+    if model_size() > 1 and not scan_split(cfg):
+        return _fallback_apply(cfg, p, x, state)
+    m = model_size() if scan_split(cfg) else 1
     r = active_mesh().axis_index("model") if m > 1 else 0
     il, Hl, nbc = inner // m, H // m, 2 * NGROUPS * N // m
     if m > 1:
@@ -163,8 +183,8 @@ def mamba_apply(cfg, p, x, state=None):
     z = zxbcdt[..., :il]
     xBC = zxbcdt[..., il:2 * il + nbc]
     dt_raw = zxbcdt[..., 2 * il + nbc:]
-    conv_w, conv_b = p["conv_w"], p["conv_b"]
-    A_log, Dp, dt_bias = p["A_log"], p["D"], p["dt_bias"]
+    leaves = {k: p[k] for k in ("conv_w", "conv_b", "A_log", "D",
+                                "dt_bias")}
     out_norm = p["out_norm"]
     # decode: the cached rows
     conv_state = None if state is None else state["conv"]
@@ -184,45 +204,19 @@ def mamba_apply(cfg, p, x, state=None):
                         torch.arange(inner, inner + 2 * NGROUPS * N)]) \
             .to(x.device)
         heads = slice(r * Hl, (r + 1) * Hl)
-        conv_w = model_part(conv_w, (Ellipsis, ch))
-        conv_b = model_part(conv_b, ch)
-        A_log, Dp, dt_bias = (model_part(t, heads)
-                              for t in (A_log, Dp, dt_bias))
+        leaves["conv_w"] = model_part(leaves["conv_w"], (Ellipsis, ch))
+        leaves["conv_b"] = model_part(leaves["conv_b"], ch)
+        for k in ("A_log", "D", "dt_bias"):
+            leaves[k] = model_part(leaves[k], heads)
         out_norm = {"scale": model_part(out_norm["scale"],
                                         slice(r * il, (r + 1) * il))}
 
-    if state is None:
-        # a 'seq' shard: the previous shard's last rows
-        conv_state = seq_left_rows(xBC, CONV_W - 1)
-    xBC, new_conv = _causal_conv(xBC, conv_w.to(x.dtype),
-                                 conv_b.to(x.dtype), conv_state)
+    y, new_conv, new_ssm = _scan(cfg, leaves, xBC, dt_raw, conv_state,
+                                 None if state is None else state["ssm"], il)
     if m > 1 and state is not None:
         # the rank keeps its x columns and its part of B‖C
         new_conv = torch.cat([new_conv[..., :il], new_conv[
             ..., il + r * nbc:il + (r + 1) * nbc]], -1)
-    xs = xBC[..., :il].reshape(Bsz, S, Hl, P)
-    Bmat = xBC[..., il:il + NGROUPS * N].reshape(Bsz, S, NGROUPS, N)
-    Cmat = xBC[..., il + NGROUPS * N:].reshape(Bsz, S, NGROUPS, N)
-    dt = F.softplus(dt_raw.float() + dt_bias)
-    A = -torch.exp(A_log)
-
-    if state is None:
-        y = ssd_chunked(xs, dt, A, Bmat, Cmat, Dp, cfg.ssm.chunk)
-        new_ssm = None
-    else:
-        S_in = state["ssm"]                          # (B,H,N,P)
-        a = dt[:, 0] * A                             # (B,H)
-        x1 = xs[:, 0].float()
-        B1 = Bmat[:, 0, 0].float()                   # (B,N) with G=1
-        C1 = Cmat[:, 0, 0].float()
-        S_new = S_in * torch.exp(a)[..., None, None] + \
-            torch.einsum("bn,bhp,bh->bhnp", B1, x1, dt[:, 0])
-        y = torch.einsum("bn,bhnp->bhp", C1, S_new) + \
-            x1 * Dp[None, :, None]
-        y = y[:, None].to(x.dtype)
-        new_ssm = S_new
-
-    y = y.reshape(Bsz, S, il)
     # the gated norm's mean square is the whole inner width's
     y = Lyr.rmsnorm(out_norm, y.float(), width=inner).to(x.dtype)
     y = y * F.silu(z)
@@ -230,6 +224,98 @@ def mamba_apply(cfg, p, x, state=None):
         y @ p["out_proj"].to(x.dtype)
     new_state = None if state is None else {"conv": new_conv, "ssm": new_ssm}
     return out, new_state
+
+
+def _scan(cfg, leaves, xBC, dt_raw, conv_state, ssm_state, il):
+    """The conv and the SSD of `il` // P heads: xBC (B,S,il + 2GN) the
+    heads' x channels and all of B and C, dt_raw (B,S,il // P), `leaves`
+    the conv's and the heads' parts of conv_w, conv_b, A_log, D and
+    dt_bias. Train (`ssm_state` None): on a 'seq' shard the conv reads the
+    previous shard's last rows. Decode (S = 1): one step from the states.
+    Returns (y (B,S,il), the new conv state (B,W-1,il + 2GN) or None, the
+    new SSM state or None)."""
+    Bsz, S = xBC.shape[:2]
+    P, N = cfg.ssm.head_dim, cfg.ssm.state_size
+    if ssm_state is None:
+        # a 'seq' shard: the previous shard's last rows
+        conv_state = seq_left_rows(xBC, CONV_W - 1)
+    xBC, new_conv = _causal_conv(xBC, leaves["conv_w"].to(xBC.dtype),
+                                 leaves["conv_b"].to(xBC.dtype), conv_state)
+    xs = xBC[..., :il].reshape(Bsz, S, il // P, P)
+    Bmat = xBC[..., il:il + NGROUPS * N].reshape(Bsz, S, NGROUPS, N)
+    Cmat = xBC[..., il + NGROUPS * N:].reshape(Bsz, S, NGROUPS, N)
+    dt = F.softplus(dt_raw.float() + leaves["dt_bias"])
+    A = -torch.exp(leaves["A_log"])
+    Dp = leaves["D"]
+
+    if ssm_state is None:
+        y = ssd_chunked(xs, dt, A, Bmat, Cmat, Dp, cfg.ssm.chunk)
+        new_ssm = None
+    else:
+        a = dt[:, 0] * A                             # (B,H)
+        x1 = xs[:, 0].float()
+        B1 = Bmat[:, 0, 0].float()                   # (B,N) with G=1
+        C1 = Cmat[:, 0, 0].float()
+        new_ssm = ssm_state * torch.exp(a)[..., None, None] + \
+            torch.einsum("bn,bhp,bh->bhnp", B1, x1, dt[:, 0])
+        y = torch.einsum("bn,bhnp->bhp", C1, new_ssm) + \
+            x1 * Dp[None, :, None]
+        y = y[:, None].to(xBC.dtype)
+    return y.reshape(Bsz, S, il), new_conv, new_ssm
+
+
+def _fallback_apply(cfg, p, x, state):
+    """`mamba_apply` under the reference's fallback: a 'model' axis that
+    does not divide the scan's widths (module docstring). Every rank runs
+    the whole scan; in_proj's product comes from the rank's columns
+    gathered over the line where its leaf is split, out_proj is
+    row-parallel where its leaf is split."""
+    inner, H, _, N, conv_dim = _widths(cfg)
+    split_in = model_split(2 * inner + 2 * NGROUPS * N + H)
+    split_out = model_split(inner)
+    # row-parallel out_proj: each rank's output gradient is its rows' share,
+    # so what the whole scan reads has its gradient summed over the line
+    def whole(leaf):
+        return model_whole(leaf, split_out)
+    if split_in or split_out:
+        x = copy_to_model(x)
+    if split_in:
+        zxbcdt = gather_model(x @ p["in_proj"].to(x.dtype), -1,
+                              summed=split_out)
+    else:
+        zxbcdt = x @ whole(p["in_proj"]).to(x.dtype)
+    z = zxbcdt[..., :inner]
+    xBC = zxbcdt[..., inner:2 * inner + 2 * NGROUPS * N]
+    dt_raw = zxbcdt[..., 2 * inner + 2 * NGROUPS * N:]
+    leaves = {k: whole(p[k]) for k in ("conv_w", "conv_b", "A_log", "D",
+                                       "dt_bias")}
+    conv_state = ssm_state = None
+    if state is not None:
+        # the state leaves cache_pspecs splits, whole
+        conv_state, ssm_state = state["conv"], state["ssm"]
+        if conv_state.shape[-1] != conv_dim:
+            conv_state = gather_model(conv_state, -1)
+        if ssm_state.shape[1] != H:
+            ssm_state = gather_model(ssm_state, 1)
+    y, new_conv, new_ssm = _scan(cfg, leaves, xBC, dt_raw, conv_state,
+                                 ssm_state, inner)
+    y = Lyr.rmsnorm({"scale": whole(p["out_norm"]["scale"])},
+                    y.float()).to(x.dtype)
+    y = y * F.silu(z)
+    if split_out:
+        rows = p["out_proj"].shape[0]
+        out = row_parallel(y.narrow(-1, model_offset(rows), rows),
+                           p["out_proj"])
+    else:
+        out = y @ p["out_proj"].to(x.dtype)
+    if state is None:
+        return out, None
+    # the rank keeps its shard of each split state leaf
+    cw, hl = state["conv"].shape[-1], state["ssm"].shape[1]
+    return out, {"conv": new_conv.narrow(-1, model_offset(cw), cw)
+                 if cw != conv_dim else new_conv,
+                 "ssm": new_ssm.narrow(1, model_offset(hl), hl)
+                 if hl != H else new_ssm}
 
 
 def init_state(cfg, batch_size, device="cpu"):

@@ -26,6 +26,21 @@ width's (`model_line_sum`), out_proj is row-parallel; the channel mix
 splits d_ff as the MLP does (column-parallel w_in, row-parallel w_out).
 The decode form runs on the rank's heads too: its WKV state holds them,
 and the token-shift states stay whole (the reference's cache_pspecs).
+
+Where |model| does not divide the WKV heads (`distributed.sharding.
+scan_split` False) the time mix takes the reference's fallback, where
+GSPMD splits the WKV mid-head: where |model| divides the inner width,
+w_r, w_k, w_v and w_g are the reference's column shards (mid-head), the
+rank's columns of r, k and v are gathered over the line
+(`models.attention.gather_columns`), the LoRA decay, the WKV and ln_x run
+on every head, and out_proj is row-parallel over the rank's rows of the
+normed output times its own columns of the gate. Each rank's backward
+then carries its rows' share of the output gradient, so w0, w_lora_b, u
+and ln_x enter whole through `copy_to_model`. Where |model| does not
+divide the inner width the leaves are whole and the time mix runs
+replicated, with no collective. The channel mix runs whole where |model|
+does not divide d_ff (its leaves are then replicated). A decode state
+split over heads is gathered and the rank keeps its shard of the new one.
 """
 from __future__ import annotations
 
@@ -37,10 +52,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (active_mesh, carried_combine,
                                               copy_to_model, current_mesh,
-                                              mesh_context, model_part,
+                                              gather_model, mesh_context,
+                                              model_offset, model_part,
                                               model_size, model_split,
-                                              seq_left_rows, seq_size)
+                                              model_whole,
+                                              scan_split, seq_left_rows,
+                                              seq_size)
 from repro_torch.models import layers as Lyr
+from repro_torch.models.attention import gather_columns
 from repro_torch.models.layers import (ParamTree, he_init, normal_init,
                                        row_parallel)
 
@@ -170,11 +189,16 @@ def wkv6_chunked(r, k, v, a, u, chunk):
 def timemix_apply(cfg, p, x, state=None):
     """x (B,S,d). state: None (train) or dict(prev (B,d), S (B,H,K,V)) for
     decode (S=1). Returns (y, new_state). On a 'model' axis this rank's
-    heads, with a state its heads' WKV state (module docstring)."""
+    heads, with a state its heads' WKV state, or, where |model| does not
+    divide the heads, the reference's fallback (module docstring)."""
     B, S, d = x.shape
     H = cfg.num_heads
     hd = cfg.resolved_head_dim
-    m = model_size() if model_split(H) else 1
+    m = model_size() if scan_split(cfg) else 1
+    # the fallback; with the projections split mid-head (row-parallel
+    # out_proj: each rank's output gradient is its rows' share), or whole
+    fallback = model_size() > 1 and m == 1
+    part = fallback and model_split(H * hd)
     Hl = H // m
     if state is None:
         xs = token_shift(x, seq_left_rows(x, 1))
@@ -183,8 +207,10 @@ def timemix_apply(cfg, p, x, state=None):
     mix = p["mix"].to(x.dtype)
     xr, xk, xv, xw = (_mix(x, xs, mix[i]) for i in range(4))
     w0, lora_b, u, ln_x = p["w0"], p["w_lora_b"], p["u"], p["ln_x"]
-    if m > 1:
+    if m > 1 or part:
+        # column-parallel projections: the mixes' gradients are partial
         xr, xk, xv = (copy_to_model(t) for t in (xr, xk, xv))
+    if m > 1:
         r0 = active_mesh().axis_index("model")
         heads, cols = slice(r0 * Hl, (r0 + 1) * Hl), \
             slice(r0 * Hl * hd, (r0 + 1) * Hl * hd)
@@ -192,35 +218,55 @@ def timemix_apply(cfg, p, x, state=None):
         lora_b = model_part(lora_b, (Ellipsis, cols))
         u = model_part(u, heads)
         ln_x = {k: model_part(v, cols) for k, v in ln_x.items()}
-    r = (xr @ p["w_r"].to(x.dtype)).reshape(B, S, Hl, hd)
-    k = (xk @ p["w_k"].to(x.dtype)).reshape(B, S, Hl, hd)
-    v = (xv @ p["w_v"].to(x.dtype)).reshape(B, S, Hl, hd)
-    # the gate's mix is r's (the reference mixes with mix[0] again)
+    if part:
+        r, k, v = (t.reshape(B, S, H, hd) for t in gather_columns(
+            [t @ p[f"w_{n}"].to(x.dtype)
+             for t, n in ((xr, "r"), (xk, "k"), (xv, "v"))]))
+    else:
+        r = (xr @ p["w_r"].to(x.dtype)).reshape(B, S, Hl, hd)
+        k = (xk @ p["w_k"].to(x.dtype)).reshape(B, S, Hl, hd)
+        v = (xv @ p["w_v"].to(x.dtype)).reshape(B, S, Hl, hd)
+    if fallback:
+        w0, lora_b, u = (model_whole(t, part) for t in (w0, lora_b, u))
+        ln_x = {k_: model_whole(t, part) for k_, t in ln_x.items()}
+    # the gate's mix is r's (the reference mixes with mix[0] again); under
+    # the fallback the rank's columns of it
     g = F.silu(xr @ p["w_g"].to(x.dtype))
     # data-dependent decay (lora), a = -exp(.) clamped to [-8, -1e-6], in
     # fp32: the train step's cast leaves w_lora_* in cfg.dtype, which the
     # reference's fp32 @ bf16 promotes
     hidden = torch.tanh(xw.float() @ p["w_lora_a"].float())
-    if m > 1:
+    if m > 1 or part:
         hidden = copy_to_model(hidden)
     wlog = w0 + hidden @ lora_b.float()
     a = -torch.exp(wlog).reshape(B, S, Hl, hd)
     a = a.clamp(-8.0, -1e-6)
+    S_in = None if state is None else state["S"]
+    if S_in is not None and S_in.shape[1] != Hl:
+        # a fallback decode: the state cache_pspecs split over heads, whole
+        S_in = gather_model(S_in, 1)
     if state is None:
         y = wkv6_chunked(r, k, v, a, u, cfg.ssm.chunk)
         new_state = None
     else:
-        S_in = state["S"]  # (B,H,K,V)
         r1, k1, v1, a1 = (t[:, 0].float() for t in (r, k, v, a))
         y = torch.einsum("bhk,bhkv->bhv", r1, S_in) + \
             torch.einsum("bhk,hk,bhk,bhv->bhv", r1, u, k1, v1)
         y = y[:, None].to(x.dtype)
         S_new = S_in * torch.exp(a1)[..., None] + \
             torch.einsum("bhk,bhv->bhkv", k1, v1)
+        hl = state["S"].shape[1]
+        if hl != Hl:
+            S_new = S_new.narrow(1, model_offset(hl), hl)
         new_state = {"prev": x[:, -1].float(), "S": S_new}
     y = y.reshape(B, S, Hl * hd)
     # ln_x's mean and variance are the whole inner width's
-    y = Lyr.layernorm(ln_x, y.float(), width=H * hd).to(x.dtype) * g
+    y = Lyr.layernorm(ln_x, y.float(), width=H * hd).to(x.dtype)
+    if part:
+        rows = p["out_proj"].shape[0]
+        return row_parallel(y.narrow(-1, model_offset(rows), rows) * g,
+                            p["out_proj"]), new_state
+    y = y * g
     if m > 1:
         return row_parallel(y, p["out_proj"]), new_state
     return y @ p["out_proj"].to(x.dtype), new_state

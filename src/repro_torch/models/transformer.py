@@ -34,7 +34,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.attention_exec import SparseAttentionExec
-from repro_torch.core.kv_pool import PagedKVCache, scatter_token, write_target
+from repro_torch.core.kv_pool import (PagedKVCache, rows_and_targets,
+                                      write_token)
 from repro_torch.distributed.sharding import (current_mesh, gather_kv,
                                               gather_rows, mesh_context,
                                               own_rows, seq_positions)
@@ -283,16 +284,17 @@ def _paged_decode_step(params, cfg, cache, tokens, pos, *, spion=None):
     """`decode_step` over a PagedKVCache: each layer scatter-writes the new
     token into the row's active physical page, and attention gathers
     through the page table — sparse (exec.decode_paged) or dense
-    (attention.paged_decode_attention)."""
+    (attention.paged_decode_attention). Under a mesh the pool is
+    replicated: the rank decodes its rows with its KV heads or head_dim
+    columns, and writes every row's and head's K/V (core/kv_pool.py)."""
     ex = SparseAttentionExec.coerce(spion, phase="decode")
     tabs = None if ex is None else ex.scan_tables()
-    pt = cache.pt
     posb = A.decode_positions(pos, tokens.shape[0], tokens.device)
     ring = bool(cfg.sliding_window)
-    phys_w, off_w = write_target(pt, posb, cache.page, ring=ring)
+    pt, phys_w, off_w = rows_and_targets(cache, posb, ring=ring)
 
     def attend(li, q, k_new, v_new, posb):
-        scatter_token(cache.kp, cache.vp, li, k_new, v_new, phys_w, off_w)
+        write_token(cache.kp, cache.vp, li, k_new, v_new, phys_w, off_w)
         if tabs is not None:
             return ex.decode_paged(cfg, q, cache.kp, cache.vp, li, posb, pt,
                                    {k: t[li] for k, t in tabs.items()},

@@ -24,11 +24,10 @@ for the encoder, dense, moe and vlm families.
     `params_from_numpy(mesh=)`): qwen2-7b dense and sparse (the
     reference's jnp gather path), mixtral's experts over 'model' and its
     d_ff fallback, internvl2-2b's replicated vocabulary.
-  - What still raises names ROADMAP.md item A12b (12b.4b): an SSM width
-    |model| does not divide. KV heads or whisper's heads |model| does not
-    divide (the reference's fallback) and 'seq' with 'model' build; they
-    step in test_torch_seq_model.py. The hybrid, ssm and encdec families
-    step on a 'model' axis in test_torch_model_scan.py.
+  - The layouts that once raised build and convert: KV heads, whisper's
+    heads and SSM widths |model| does not divide (the reference's
+    fallbacks) and 'seq' with 'model'; they step in
+    test_torch_seq_model.py and test_torch_model_scan.py.
 """
 import dataclasses
 import json
@@ -657,46 +656,45 @@ def test_param_specs_match_reference(arch, mesh_name):
 # ---------------------------------------------------------------------------
 
 REFUSALS = {
-    # the reference's fallbacks (test_torch_seq_model steps them): KV heads
-    # |model| does not divide, 'seq' with 'model', whisper's 6 heads on 4
-    "kv_heads": (None, "qwen2-7b", {"num_kv_heads": 2},
+    # the reference's fallbacks (test_torch_seq_model and
+    # test_torch_model_scan step them): KV heads |model| does not divide,
+    # 'seq' with 'model', whisper's 6 heads on 4, zamba2's B and C columns
+    # (2N = 10 on 4 ranks) and rwkv6's heads (6 on 4)
+    "kv_heads": ("qwen2-7b", {"num_kv_heads": 2},
                  ((1, 4), ("data", "model"))),
-    "seq_with_model": (None, "spion-lra", {},
+    "seq_with_model": ("spion-lra", {},
                        ((2, 1, 2), ("seq", "data", "model"))),
-    # what still raises is a scan width |model| does not divide: zamba2's
-    # B and C columns (2N = 10 on 4 ranks), rwkv6's heads (6 on 4)
-    "hybrid": (ValueError, "zamba2-1.2b", {"ssm_state": 5},
+    "hybrid": ("zamba2-1.2b", {"ssm_state": 5},
                ((1, 4), ("data", "model"))),
-    "ssm": (ValueError, "rwkv6-7b", {"num_heads": 6, "num_kv_heads": 6},
+    "ssm": ("rwkv6-7b", {"num_heads": 6, "num_kv_heads": 6},
             ((1, 4), ("data", "model"))),
-    "encdec": (None, "whisper-tiny", {"num_heads": 6, "num_kv_heads": 6},
+    "encdec": ("whisper-tiny", {"num_heads": 6, "num_kv_heads": 6},
                ((1, 4), ("data", "model"))),
 }
-# the width each refusal names
-REFUSAL_WIDTH = {"hybrid": r"2N \(B and C\) 10", "ssm": "num_heads 6"}
 
 
 @pytest.mark.parametrize("what", list(REFUSALS))
 def test_refusals_name_the_item(what):
-    """What the port cannot split on a 'model' axis raises at the step's
-    and the trainer's construction, before any collective, and names
-    ROADMAP.md item A12b (12b.4b): an SSM width (zamba2's 2N, rwkv6's
-    heads) |model| does not divide (ValueError, naming the width). The
-    same family with widths that divide builds on the same mesh. KV heads
-    and whisper's heads |model| does not divide (the reference's
-    fallback) and 'seq' with 'model' build: the step, the conversion of
-    parameters and the Trainer's checks (the Trainer stops at its first
-    collective, the masters' broadcast, on a mesh without process groups);
-    test_torch_seq_model steps them on 4 ranks. make_seq_mesh builds 'seq'
-    with 'model'."""
+    """What once raised on a 'model' axis builds: the step, the conversion
+    of parameters (each leaf the rank's shard) and the Trainer's checks
+    (the Trainer stops at its first collective, the masters' broadcast, on
+    a mesh without process groups). KV heads and whisper's heads |model|
+    does not divide and 'seq' with 'model' take the reference's fallbacks
+    (test_torch_seq_model steps them on 4 ranks); so do an SSM width
+    |model| does not divide (zamba2's 2N of 10, rwkv6's 6 heads on 4:
+    test_torch_model_scan steps them), whose packed in_proj is then the
+    reference's contiguous shard (zamba2's 274 columns do not divide 4, so
+    it is whole; rwkv6's w_r holds 24 of 96 columns, mid-head).
+    make_seq_mesh builds 'seq' with 'model'."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import SSMConfig
     from repro_torch.convert import params_from_numpy
+    from repro_torch.distributed.sharding import scan_split
     from repro_torch.launch.mesh import Mesh, make_seq_mesh
     from repro_torch.launch.steps import make_loss_and_grads
     from repro_torch.launch.train import Trainer, nest
     from repro_torch.models.registry import build
-    err, arch, kw, (shape, axes) = REFUSALS[what]
+    arch, kw, (shape, axes) = REFUSALS[what]
     sound = get_config(arch).reduced()
     sound = sound.replace(spion=dataclasses.replace(sound.spion,
                                                     block_size=16))
@@ -707,23 +705,27 @@ def test_refusals_name_the_item(what):
         assert isinstance(kw["ssm"], SSMConfig)
     cfg = sound.replace(**kw)
     mesh = Mesh(np.arange(int(np.prod(shape))).reshape(shape), axes)
-    if err is None:
-        assert callable(make_loss_and_grads(cfg, mesh=mesh))
-        with pytest.raises(RuntimeError, match="no process groups"):
-            Trainer(cfg, seq_len=64, batch=2, mesh=mesh, device="cpu")
-        full = build(cfg).init(torch.Generator().manual_seed(0),
-                               device="cpu")
-        tree = {n: p.float().numpy() for n, p in full.named_parameters()}
-        local = params_from_numpy(nest(tree), cfg, "cpu", mesh=mesh)
-        assert len(list(local.parameters())) == len(tree)
-        if what == "seq_with_model":
-            assert make_seq_mesh(2, 1, model=2).shape == {
-                "seq": 2, "data": 1, "model": 2}
-        return
-    with pytest.raises(err, match="A12b"):
-        make_loss_and_grads(cfg, mesh=mesh)
-    with pytest.raises(err, match=r"A12b \(12b\.4b\)"):
+    assert callable(make_loss_and_grads(cfg, mesh=mesh))
+    with pytest.raises(RuntimeError, match="no process groups"):
         Trainer(cfg, seq_len=64, batch=2, mesh=mesh, device="cpu")
-    with pytest.raises(err, match=REFUSAL_WIDTH[what]):
-        make_loss_and_grads(cfg, mesh=mesh)
+    full = build(cfg).init(torch.Generator().manual_seed(0),
+                           device="cpu")
+    tree = {n: p.float().numpy() for n, p in full.named_parameters()}
+    local = params_from_numpy(nest(tree), cfg, "cpu", mesh=mesh)
+    assert len(list(local.parameters())) == len(tree)
+    if what == "seq_with_model":
+        assert make_seq_mesh(2, 1, model=2).shape == {
+            "seq": 2, "data": 1, "model": 2}
+    if what == "hybrid":
+        assert not scan_split(cfg, mesh) and scan_split(sound, mesh)
+        np.testing.assert_array_equal(
+            local["layers"]["mamba"]["in_proj"].numpy(),
+            tree["layers.mamba.in_proj"])
+        assert list(local["layers"]["mamba"]["out_proj"].shape) == \
+            [2, 32, 64]
+    if what == "ssm":
+        assert not scan_split(cfg, mesh) and scan_split(sound, mesh)
+        np.testing.assert_array_equal(
+            local["layers"]["tm"]["w_r"].numpy(),
+            tree["layers.tm.w_r"][..., :24])
     assert callable(make_loss_and_grads(sound, mesh=mesh))

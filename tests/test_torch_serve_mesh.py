@@ -26,9 +26,16 @@
     of the data line, head_dim's partial q·k products not summed over the
     model line, the hybrid's conv state cut in the reference's contiguous
     column order.
-  - In the test process: a paged cache under a mesh raises ValueError
-    before any collective, and a serve step on a mesh needs the cache's
-    specs.
+  - The paged pool under a mesh, replicated as the reference's
+    cache_pspecs leave it: qwen2 on (data 2, model 2) and model 4 with 2
+    KV heads, zamba2 and whisper (6 heads) with "kv" on (data 2, model 2)
+    beside their states or cross K/V, dense and sparse from
+    the same start cache as the contiguous legs: logits within 3e-5 of one
+    process's paged decode, every rank's pool bitwise equal, the mapped
+    pages equal to the contiguous leg's cache; a planted write without
+    the gather leaves the pools apart. In the test process: the pool's
+    specs against the JAX package's cache_pspecs, and a serve step on a
+    mesh needs the cache's specs.
 """
 import dataclasses
 import json
@@ -182,6 +189,70 @@ def decode_pos(name, i):
     if mesh_of(name) == "data2_model2":
         return torch.full((batch_size(name),), p, dtype=torch.int64)
     return p
+
+
+# the paged pool under a mesh, replicated as the reference's cache_pspecs
+# leave it: these cases decode dense and sparse from the same start as
+# their contiguous legs, through a pool of PAGE-position pages
+PAGED = ("qwen2@data2_model2", "qwen2@model4", "zamba2@data2_model2",
+         "whisper6@data2_model2")
+PAGE = 16
+
+
+def to_pool(name, cache):
+    \"\"\"One process's contiguous cache as a paged pool under a shuffled
+    page table (page 0 the scratch page); the hybrid's conv and ssm
+    states, or the encdec's cross K/V, beside it under "kv".\"\"\"
+    from repro_torch.core.kv_pool import PagedKVCache
+    B, NB = batch_size(name), S_MAX // PAGE
+    pt = torch.as_tensor((np.random.default_rng(5).permutation(B * NB) + 1)
+                         .reshape(B, NB).astype(np.int32))
+    k, v = cache["k"], cache["v"]
+    kp = torch.zeros((k.shape[0], 1 + B * NB, PAGE, *k.shape[3:]),
+                     dtype=k.dtype)
+    vp = torch.zeros_like(kp)
+    for b in range(B):
+        for j in range(NB):
+            kp[:, pt[b, j]] = k[:, b, j * PAGE:(j + 1) * PAGE]
+            vp[:, pt[b, j]] = v[:, b, j * PAGE:(j + 1) * PAGE]
+    pool = PagedKVCache(kp, vp, pt, page=PAGE)
+    rest = {n: t for n, t in cache.items() if n not in ("k", "v")}
+    return dict(rest, kv=pool) if rest else pool
+
+
+def pool_records(cache):
+    \"\"\"{record: array} of a paged cache: the pool's mapped pages in the
+    contiguous layout (L, B, S, KV, hd) as cache/k and cache/v, the pool
+    itself as kp and vp, the states beside it as cache/<name>.\"\"\"
+    pool = cache if not isinstance(cache, dict) else cache["kv"]
+    B, NB = pool.pt.shape
+    idx = pool.pt.long()
+    out = {"kp": pool.kp.float().numpy(), "vp": pool.vp.float().numpy()}
+    for n, t in (("k", pool.kp), ("v", pool.vp)):
+        out[f"cache/{n}"] = t[:, idx].reshape(
+            t.shape[0], B, NB * PAGE, *t.shape[3:]).float().numpy()
+    if isinstance(cache, dict):
+        out.update({f"cache/{n}": t.float().numpy()
+                    for n, t in cache.items() if n != "kv"})
+    return out
+
+
+def local_write(kp, vp, layer, k_new, v_new, phys, off):
+    \"\"\"A planted fault: each rank writes its own rows and KV heads (or
+    head_dim columns) of the new token into its pool, without the gather.\"\"\"
+    from repro_torch.distributed import sharding
+    rows = (sharding.own_rows(phys), sharding.own_rows(off))
+    for pool, x in ((kp, k_new), (vp, v_new)):
+        dst = sharding.pool_shard(pool[layer])
+        x = x[:, 0]
+        if x.shape[-1] != dst.shape[-1]:
+            hdl = dst.shape[-1]
+            x = x.narrow(-1, sharding.model_offset(hdl), hdl)
+        if x.shape[-2] != dst.shape[-2]:
+            kvl = dst.shape[-2]
+            x = x.narrow(-2, sharding.model_offset(kvl), kvl)
+        dst.index_put_(rows, x.to(dst.dtype))
+    return kp, vp
 """
 exec(SRC)
 
@@ -255,13 +326,19 @@ def prefill(name, key, full, local, tables=True):
             out[f"{key}/prefill/{k}"] = v.float().numpy()
 
 
-def decode(name, key, full, local, kind):
+def decode(name, key, full, local, kind, paged=False):
     cfg, mesh = case_cfg(name), MESH[mesh_of(name)]
     cache = start_cache(name, full)
+    if paged:
+        cache = to_pool(name, cache)
     specs = cache_pspecs(cfg, cache, mesh, batch_size(name))
     shard = shard_cache(cache, specs, mesh, cfg)
-    info.setdefault("cache_shape", {})[key] = {
-        k: list(v.shape) for k, v in shard.items()}
+    if not paged:
+        info.setdefault("cache_shape", {})[key] = {
+            k: list(v.shape) for k, v in shard.items()}
+    else:
+        info.setdefault("pool_specs", {})[key] = {
+            k: list(v) for k, v in specs.items()}
     sparse = kind == "sparse"
     serve = make_serve_step(cfg, spion=sparse, mesh=mesh, specs=specs)
     toks = decode_tokens(name)
@@ -276,8 +353,15 @@ def decode(name, key, full, local, kind):
         args = (local, shard, t, decode_pos(name, i))
         lg, shard = serve(*args, tabs) if sparse else serve(*args)
         logits.append(whole(lg, ospec, mesh))
+    if paged:
+        kind = f"paged_{kind}"
     out[f"{key}/{kind}/logits"] = np.stack(logits)
-    for k, v in gather_cache(shard, specs, mesh, cfg).items():
+    back = gather_cache(shard, specs, mesh, cfg)
+    if paged:
+        for k, v in pool_records(back).items():
+            out[f"{key}/{kind}/{k}"] = v
+        return
+    for k, v in back.items():
         out[f"{key}/{kind}/cache/{k}"] = v.float().numpy()
 
 
@@ -293,6 +377,8 @@ for name in CASES:
     prefill(name, name, full, local)
     for kind in kinds(name):
         decode(name, name, full, local, kind)
+        if name in PAGED:
+            decode(name, name, full, local, kind, paged=True)
 
 
 def zero_per_rank(m, l, o, group, stored=None, total=None):
@@ -323,6 +409,18 @@ for fault, (name, kind) in FAULTS.items():
         decode(name, f"planted_{fault}", full, shards(name, full), kind)
     finally:
         setattr(mod, attr, saved)
+
+# the paged pool written without the gather of the new token
+from repro_torch.models import transformer
+saved = transformer.write_token
+transformer.write_token = local_write
+try:
+    name = "qwen2@data2_model2"
+    full = whole_params(name)
+    decode(name, "planted_local_write", full, shards(name, full), "dense",
+           paged=True)
+finally:
+    transformer.write_token = saved
 
 # the JAX package's parameters, each rank's shard through params_from_numpy
 for name in JAX_CASES:
@@ -467,6 +565,39 @@ def one_process(name):
     return res
 
 
+_PAGED = {}
+
+
+def one_process_paged(name):
+    """{record: array} of case `name`'s paged decode in one process
+    (cached): each kind's logits, the pool's mapped pages in the
+    contiguous layout and the states beside it."""
+    from repro_torch.launch.steps import make_serve_step
+    if name in _PAGED:
+        return _PAGED[name]
+    cfg, params = case_cfg(name), whole_params(name)
+    toks = torch.as_tensor(decode_tokens(name))
+    res = {}
+    for kind in kinds(name):
+        sparse = kind == "sparse"
+        cache = to_pool(name, start_cache(name, params))
+        serve = make_serve_step(cfg, spion=sparse)
+        logits = []
+        with torch.no_grad():
+            for i in range(STEPS):
+                args = (params, cache, toks[decode_start(name) + i],
+                        decode_pos(name, i))
+                lg, cache = serve(*args, decode_tables(name)) if sparse \
+                    else serve(*args)
+                logits.append(lg.float().numpy())
+        res[f"paged_{kind}/logits"] = np.stack(logits)
+        res.update({f"paged_{kind}/{k}": v
+                    for k, v in pool_records(cache).items()
+                    if k.startswith("cache/")})
+    _PAGED[name] = res
+    return res
+
+
 def gap(got, want):
     """max |got - want| over want's largest |element| (inf where `got` is
     not finite)."""
@@ -555,12 +686,98 @@ def test_planted_faults_miss_the_gate(mp_job, fault):
                for rec in mp_job["ranks"]) > 10 * TOL
 
 
-def test_paged_cache_and_specs_refused():
-    """A paged KV cache under a mesh raises ValueError before any
-    collective (the reference's cache_pspecs matches no pool leaf;
-    ROADMAP.md item 12b.4c); a serve step on a mesh needs the cache's
-    specs; spion=True on the ssm family still raises at construction."""
+@pytest.mark.parametrize("name", PAGED)
+def test_paged_pool_on_a_mesh(mp_job, name):
+    """A paged cache under a mesh, its pool and page table replicated: each
+    kind's 8 decode steps' logits and the pool's mapped pages (in the
+    contiguous layout; the states beside the pool after gather_cache)
+    within 3e-5 of one process's paged decode; every rank's kp and vp
+    bitwise equal to every other rank's (each writes the new token's K/V
+    for every row and KV head, gathered over the model line and the data
+    line); the mapped pages equal to the contiguous mesh leg's cache after
+    gather_cache, bitwise. The specs are the reference's: every pool leaf
+    replicated."""
+    want = one_process_paged(name)
+    ranks = mp_job["ranks"]
+    for r, rec in enumerate(ranks):
+        for k, v in want.items():
+            g = gap(rec[f"{name}/{k}"], v)
+            assert g <= TOL, (name, r, k, g)
+        for kind in kinds(name):
+            for leaf in ("kp", "vp"):
+                np.testing.assert_array_equal(
+                    rec[f"{name}/paged_{kind}/{leaf}"],
+                    ranks[0][f"{name}/paged_{kind}/{leaf}"])
+            for leaf in ("k", "v"):
+                np.testing.assert_array_equal(
+                    rec[f"{name}/paged_{kind}/cache/{leaf}"],
+                    rec[f"{name}/{kind}/cache/{leaf}"])
+    specs = mp_job["info"][0]["pool_specs"][name]
+    pool = [k for k in specs if k.endswith((".kp", ".vp", ".pt"))]
+    assert len(pool) == 3 and all(specs[k] == [] for k in pool)
+
+
+def test_paged_write_without_the_gather_leaves_pools_apart(mp_job):
+    """A planted fault: each rank writes only its own rows and KV heads of
+    the new token into its pool (no gather). The pools then differ across
+    ranks, which no rank alone would see."""
+    ranks = mp_job["ranks"]
+    key = "planted_local_write/paged_dense/kp"
+    assert any(not np.array_equal(rec[key], ranks[0][key])
+               for rec in ranks[1:])
+
+
+def test_pool_cache_pspecs_match_the_reference():
+    """cache_pspecs on a paged pool, alone and under "kv" beside the
+    hybrid's states, against the JAX package's cache_pspecs on the same
+    PagedKVCache (its rules match no pool leaf: P() each): every pool leaf
+    replicated, the states keep their rules; on three meshes."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+    from repro.core.kv_pool import PagedKVCache as JPool
+    from repro.launch import steps as ref
     from repro_torch.core.kv_pool import PagedKVCache
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import cache_pspecs
+    for shape, axes in (((1, 2, 2), ("pod", "data", "model")),
+                        ((4,), ("model",)), ((2, 1, 2),
+                                             ("seq", "data", "model"))):
+        mesh = Mesh(np.arange(int(np.prod(shape))).reshape(shape), axes)
+        for name in ("qwen2@data2_model2", "zamba2@data2_model2"):
+            cfg = case_cfg(name)
+            kp = np.zeros((2, 9, PAGE, 2, 16), np.float32)
+            pt = np.zeros((2, 4), np.int32)
+            mine = PagedKVCache(torch.as_tensor(kp), torch.as_tensor(kp),
+                                torch.as_tensor(pt), page=PAGE)
+            theirs = JPool(kp, kp, pt, page=PAGE)
+            if cfg.family == "hybrid":
+                st = {"conv": np.zeros((2, 2, 3, 144), np.float32),
+                      "ssm": np.zeros((2, 2, 8, 8, 16), np.float32)}
+                mine = dict({k: torch.as_tensor(v) for k, v in st.items()},
+                            kv=mine)
+                theirs = dict(st, kv=theirs)
+            got = cache_pspecs(cfg, mine, mesh, 2)
+            flat = jax.tree_util.tree_flatten_with_path(
+                ref.cache_pspecs(_jax_cfg(name), theirs, mesh, 2),
+                is_leaf=lambda x: isinstance(x, P))[0]
+            want = {}
+            for path, spec in flat:
+                keys = [k.key for k in path]
+                if isinstance(keys[-1], int):      # a pool leaf's index
+                    keys[-1] = ("kp", "vp", "pt")[keys[-1]]
+                    if len(keys) == 1:
+                        keys.insert(0, "pool")
+                want[".".join(keys)] = tuple(spec)
+            assert got == want, (shape, name, got, want)
+            assert all(got[f"{p}.{leaf}"] == ()
+                       for p in ("pool", "kv") for leaf in ("kp", "vp", "pt")
+                       if f"{p}.{leaf}" in got)
+
+
+def test_serve_step_needs_specs_and_ssm_refuses_sparse():
+    """A serve step on a mesh needs the cache's specs; spion=True on the
+    ssm family still raises at construction. (A paged cache under a mesh
+    decodes: test_paged_pool_on_a_mesh.)"""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.steps import cache_pspecs, make_serve_step
     from repro_torch.models.registry import cache_specs
@@ -569,18 +786,6 @@ def test_paged_cache_and_specs_refused():
     specs = cache_pspecs(cfg, cache_specs(cfg, 2, S_MAX), mesh, 2)
     with pytest.raises(ValueError, match="needs the cache's specs"):
         make_serve_step(cfg, mesh=mesh)
-    serve = make_serve_step(cfg, mesh=mesh, specs=specs)
-    kp = torch.zeros((cfg.num_layers, 8, 16, cfg.num_kv_heads,
-                      cfg.resolved_head_dim))
-    pool = PagedKVCache(kp, kp.clone(), torch.zeros((2, 4), dtype=torch.int32),
-                        page=16)
-    with pytest.raises(ValueError, match="12b.4c"):
-        serve(whole_params("qwen2@data2_model2"), pool,
-              torch.zeros((1, 1), dtype=torch.int64), 0)
-    hybrid = case_cfg("zamba2@data2_model2")
-    with pytest.raises(ValueError, match="12b.4c"):
-        make_serve_step(hybrid, mesh=mesh, specs=cache_pspecs(
-            hybrid, cache_specs(hybrid, 2, S_MAX), mesh, 2))(
-            None, {"kv": pool}, torch.zeros((1, 1), dtype=torch.int64), 0)
+    assert callable(make_serve_step(cfg, mesh=mesh, specs=specs))
     with pytest.raises(NotImplementedError):
         make_serve_step(case_cfg("rwkv6@data4"), spion=True)
